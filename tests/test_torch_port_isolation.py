@@ -1,0 +1,95 @@
+"""The PyTorch port stands alone: no JAX, no Flax, nothing of mapanything_tpu.
+
+The import check runs in a subprocess, because this test session has JAX
+loaded already (conftest.py). A second check reads the sources of the port
+and of chip_smoke.py for such imports. Also: the port's entry points run on
+CUDA unless the caller asks for the CPU, and raise when there is no CUDA.
+"""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from mapanything_tpu_torch.models import mapanything as port_ma
+from mapanything_tpu_torch.ops.flash_attention import flash_attention
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "mapanything_tpu_torch"
+FORBIDDEN = ("jax", "flax", "mapanything_tpu")
+# `\b` after the name: the port's own name, mapanything_tpu_torch, does not match.
+IMPORT_RE = re.compile(r"^\s*(?:import|from)\s+(jax|flax|mapanything_tpu)\b", re.M)
+
+IMPORT_ALL = """
+import importlib, pkgutil, sys
+import mapanything_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r})
+print(len(names), bad)
+"""
+
+
+def test_port_imports_no_jax_in_a_fresh_process():
+    proc = subprocess.run(
+        [sys.executable, "-c", IMPORT_ALL.format(forbidden=set(FORBIDDEN))],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    n_modules, bad = proc.stdout.strip().split(" ", 1)
+    assert int(n_modules) >= 15, proc.stdout  # every module of the slice was imported
+    assert bad == "[]", f"the port pulled in {bad}"
+
+
+def test_port_sources_and_chip_smoke_name_no_jax():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    offenders = {
+        str(f.relative_to(ROOT)): IMPORT_RE.findall(f.read_text()) for f in files
+    }
+    assert not {k: v for k, v in offenders.items() if v}
+    # the pattern does catch what it is for, and spares the port's own name
+    assert IMPORT_RE.findall("import jax.numpy as jnp\n    from mapanything_tpu.ops import x\n")
+    assert not IMPORT_RE.findall("from mapanything_tpu_torch.ops import attention\n")
+
+
+def test_entry_point_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_ma.MapAnything(port_ma.MapAnythingConfig.small())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_ma.resolve_device("cuda")
+    assert port_ma.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_unported_options_raise():
+    with pytest.raises(NotImplementedError, match="dense_head_type"):
+        port_ma.MapAnything(port_ma.MapAnythingConfig.small(dense_head_type="moge"), device="cpu")
+    with pytest.raises(NotImplementedError, match="scene_rep_type"):
+        port_ma.MapAnything(port_ma.MapAnythingConfig.small(scene_rep_type="pointmap"), device="cpu")
+    model = port_ma.MapAnything(port_ma.MapAnythingConfig.small(), device="cpu")
+    img = torch.zeros(1, 1, 28, 28, 3)
+    with pytest.raises(NotImplementedError, match="multimodal"):
+        model(port_ma.Views(img=img, ray_directions=torch.zeros(1, 1, 28, 28, 3)))
+
+
+def test_attention_on_a_device_it_does_not_serve_raises():
+    q = torch.zeros(1, 4, 1, 64, device="meta")
+    with pytest.raises(RuntimeError, match="cuda or cpu"):
+        flash_attention(q, q, q)
+
+
+def test_seeded_initialisation_is_reproducible():
+    cfg = port_ma.MapAnythingConfig.small(info_sharing_depth=2)
+    a = port_ma.MapAnything(cfg, device="cpu", seed=3).state_dict()
+    b = port_ma.MapAnything(cfg, device="cpu", seed=3).state_dict()
+    c = port_ma.MapAnything(cfg, device="cpu", seed=4).state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert not torch.equal(a["scale_token"], c["scale_token"])
+    gamma = a["encoder.model.blocks.0.ls1.gamma"]
+    assert torch.all(gamma == 1e-5)  # LayerScale starts at its init value, as in Flax
+    assert torch.all(a["info_sharing.self_attention_blocks.0.attn.qkv.bias"] == 0)
