@@ -1,26 +1,46 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (mapanything_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                      # every phase
+    python3 chip_smoke.py --train-step-only    # phases 1, 2 and 7 alone
 
 Phases, each printing one JSON line:
   1. the card's name and power limit, as nvidia-smi reports them;
-  2. build: nvcc compiles every kernel of the main path from csrc/ into build/;
-  3. kernel checks: the attention kernel against its plain PyTorch version at
-     the main path's shapes (encoder, frame and global layers in bf16) and at
-     one fp32 shape, with kernel, plain and torch-SDPA times and the bound;
+  2. build: nvcc compiles every kernel source from csrc/ into build/, one
+     process per source, side by side;
+  3. inference kernel checks: the lse-free attention forward against its
+     plain PyTorch version at the inference shapes (encoder, frame and
+     global layers in bf16) and one fp32 shape, with kernel, plain and
+     torch-SDPA times and the bound;
+  3b. training kernel checks: the forward with lse, the dq and the dk/dv
+     kernels against their plain versions at the 1 x 4 x 518 training
+     shapes in bf16 and one fp32 long shape, with kernel, plain and library
+     times (torch SDPA forward with autograd on; its backward alone) and
+     bounds;
   4. slice check: MapAnythingConfig.small(), 2 views at 56 px in fp32, the same
      seeded weights on cuda and on cpu, every prediction compared;
-  5. the main path: the flagship MapAnythingConfig(compute_dtype="bfloat16")
-     on 1 x 8 views at 518 px with seeded random weights, launch counts,
-     output checks, views/s, ms per forward and peak memory.
+  5. inference: the flagship MapAnythingConfig(compute_dtype="bfloat16")
+     forward on 1 x 8 views at 518 px with seeded random weights, launch
+     counts, output checks, views/s, ms per forward and peak memory;
+  6. train slice check: the small fp32 train step with every geometric
+     input, fixed masks with depth sparsification, cuda against cpu: loss,
+     loss details and every gradient, then the parameters after two steps;
+  7. the main path of this slice: the flagship bf16 train step on 1 x 4 views
+     at 518 px (bench.py's LossBatch, GeometricInputConfig() masks), 2 warm-up
+     and 5 timed steps, launch counts per step, finite loss and grad norm,
+     finite gradients, a gradient and an update for every parameter, ms per
+     step, views/s and peak memory.
 Then the kernels' summary line and, last, {"ok": true, "device": {...}}.
+With --train-step-only, phase 7 runs in a fresh process after the build and
+the script stops after its line, printing neither the summary nor the ok line.
 Any failed check raises and the script exits non-zero. Without a CUDA device,
 or without the port beside it, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -31,6 +51,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 KERNEL_SOURCE = "mapanything_tpu_torch/csrc/flash_attention_fwd.cu"
+BWD_KERNEL_SOURCE = "mapanything_tpu_torch/csrc/flash_attention_bwd.cu"
 
 # Dense peak rates and memory bandwidth from NVIDIA's data sheets (no sparsity):
 # (bf16 tensor-core flop/s, fp32 non-tensor flop/s, bytes/s).
@@ -144,6 +165,145 @@ def kernel_checks(card):
     return rows
 
 
+# (name, shape B x T x H x D, dtype, launches per flagship train step) at the shapes
+# of the flagship 1 x 4 x 518 training step; fp32_global is K7's regime.
+TRAIN_SHAPES = [
+    ("encoder", (4, 1370, 16, 64), "bfloat16", 24),
+    ("frame", (4, 1369, 12, 64), "bfloat16", 12),
+    ("global", (1, 5477, 12, 64), "bfloat16", 12),
+    ("fp32_global", (1, 5477, 12, 64), "float32", 0),
+]
+# The TPU kernels each port replaces, by the JAX package's regime at that shape.
+FA = "mapanything_tpu/ops/flash_attention.py"
+TRAIN_REPLACES = {
+    "flash_attention_fwd_lse": {"encoder": f"{FA}:118", "frame": f"{FA}:118",
+                                "global": f"{FA}:600", "fp32_global": f"{FA}:168"},
+    "flash_attention_bwd_dq": {"encoder": f"{FA}:227", "frame": f"{FA}:227",
+                               "global": f"{FA}:715", "fp32_global": f"{FA}:227"},
+    "flash_attention_bwd_dkv": {"encoder": f"{FA}:262", "frame": f"{FA}:262",
+                                "global": f"{FA}:753", "fp32_global": f"{FA}:262"},
+}
+
+
+def tolerance(err_plain: float, ref) -> float:
+    """Phase 3's rule: twice the plain version's own error, or 1e-2 of the reference's magnitude."""
+    return max(2.0 * err_plain, 1e-2 * ref.abs().max().item())
+
+
+def max_err(x, ref) -> float:
+    return (x.double() - ref.double()).abs().max().item()
+
+
+def train_kernel_checks(card):
+    """Phase 3b: the lse forward, dq and dk/dv kernels against their plain versions."""
+    import torch
+    import torch.nn.functional as F
+
+    from mapanything_tpu_torch.ops import flash_attention as fa
+
+    bf16_peak, f32_peak, mem_bw = peaks_for(card["name"])
+    rows = []
+    for name, (b, t, h, d), dtype_name, per_step in TRAIN_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        exact_dtype = torch.float32 if dtype == torch.bfloat16 else torch.float64
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        qkv = torch.randn(b, t, 3, h, d, device="cuda", generator=gen).to(dtype)
+        q, k, v = qkv.unbind(2)
+        do = torch.randn(b, t, h, d, device="cuda", generator=gen).to(dtype)
+        scale = d**-0.5
+        o, lse = fa.flash_attention_lse(q, k, v, scale)
+        delta = fa.attention_bwd_delta(o, do).contiguous()
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)
+        torch.cuda.synchronize()
+        outs = {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+
+        # Exact: the plain versions on the same inputs in fp32 (fp64 for the fp32 shape);
+        # plain: the plain versions in the kernels' own dtype.
+        xe = [x.to(exact_dtype) for x in (q, k, v, do)]
+        o_e, lse_e = fa.attention_lse_reference(xe[0], xe[1], xe[2], scale)
+        exact = dict(zip(("dq", "dk", "dv"), fa.attention_bwd_reference(*xe[:3], o_e, lse_e, xe[3], scale)))
+        exact.update(o=o_e, lse=lse_e)
+        o_p, lse_p = fa.attention_lse_reference(q, k, v, scale)
+        plain = dict(zip(("dq", "dk", "dv"), fa.attention_bwd_reference(q, k, v, o_p, lse_p, do, scale)))
+        plain.update(o=o_p, lse=lse_p)
+        errs = {key: max_err(outs[key], exact[key]) for key in outs}
+        plain_errs = {key: max_err(plain[key], exact[key]) for key in outs}
+        tols = {key: tolerance(plain_errs[key], exact[key]) for key in outs}
+        finite = all(bool(torch.isfinite(x).all()) for x in outs.values())
+        del exact, plain, xe, o_e, lse_e, o_p, lse_p
+        torch.cuda.empty_cache()
+
+        plain_delta = fa.attention_bwd_delta(o, do)
+        times = {
+            "flash_attention_fwd_lse": (
+                cuda_time_ms(lambda: fa.flash_attention_lse(q, k, v, scale), iters=20),
+                cuda_time_ms(lambda: fa.attention_lse_reference(q, k, v, scale), iters=3, warmup=1),
+            ),
+            "flash_attention_bwd_dq": (
+                cuda_time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale), iters=20),
+                cuda_time_ms(lambda: fa.attention_bwd_dq_reference(q, k, v, do, lse, plain_delta, scale),
+                             iters=3, warmup=1),
+            ),
+            "flash_attention_bwd_dkv": (
+                cuda_time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale), iters=20),
+                cuda_time_ms(lambda: fa.attention_bwd_dkv_reference(q, k, v, do, lse, plain_delta, scale),
+                             iters=3, warmup=1),
+            ),
+        }
+        # The library yardstick: torch SDPA forward with autograd on, and its backward alone.
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+        dot = do.transpose(1, 2)
+        library_fwd_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), iters=20)
+        library_bwd_ms = cuda_time_ms(
+            lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot, retain_graph=True), iters=20
+        )
+        del sdpa_out, qt, kt, vt
+        peak = bf16_peak if dtype == torch.bfloat16 else f32_peak
+        item = q.element_size()
+        io_fwd = fa.attention_bytes(b, t, t, h, d, item) + 4 * b * h * t
+        io_stats = 2 * 4 * b * h * t  # lse and delta, fp32
+        # The backward's necessary work is five T²·D products, 10·B·H·T²·D flop,
+        # whatever the kernels recompute: dq is given dS·K and half of S and dP (4),
+        # dk/dv is given Pᵀ·dO, dSᵀ·Q and the other half (6), so that the two
+        # bounds sum to the backward's.
+        work = {  # (flop, bytes) each kernel's function needs
+            "flash_attention_fwd_lse": (fa.attention_flops(b, t, t, h, d), io_fwd),
+            "flash_attention_bwd_dq": (4 * b * h * t * t * d, 5 * b * t * h * d * item + io_stats),
+            "flash_attention_bwd_dkv": (6 * b * h * t * t * d, 6 * b * t * h * d * item + io_stats),
+        }
+        bwd_bound_ms = max(fa.attention_bwd_flops(b, t, t, h, d) / peak,
+                           fa.attention_bwd_bytes(b, t, t, h, d, item) / mem_bw) * 1e3
+        kernels = {}
+        for kname, (ms, plain_ms) in times.items():
+            flop, nbytes = work[kname]
+            t_ops, t_bytes = flop / peak * 1e3, nbytes / mem_bw * 1e3
+            kernels[kname] = {
+                "replaces": TRAIN_REPLACES[kname][name],
+                "ms": ms, "plain_ms": plain_ms,
+                "library_ms": library_fwd_ms if kname.endswith("lse") else library_bwd_ms,
+                "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "tflops": flop / ms / 1e9,
+            }
+        row = {
+            "phase": "train_kernel_check", "shape": name, "b_t_h_d": [b, t, h, d], "dtype": dtype_name,
+            "max_abs_err": errs, "plain_err": plain_errs, "tol": tols, "kernels": kernels,
+            "backward_ms": times["flash_attention_bwd_dq"][0] + times["flash_attention_bwd_dkv"][0],
+            "backward_bound_ms": bwd_bound_ms, "library_bwd_ms": library_bwd_ms,
+            "per_step": per_step, "card": card["name"], "power_limit": card["power_limit"],
+        }
+        emit(row)
+        bad = {key: (errs[key], tols[key]) for key in outs if not errs[key] <= tols[key]}
+        if not finite or bad:
+            raise AssertionError(f"training kernels disagree with their plain versions at {name}: {bad}")
+        rows.append(row)
+        del qkv, q, k, v, do, o, lse, delta, dq, dk, dv, outs
+        torch.cuda.empty_cache()
+    return rows
+
+
 def slice_check():
     """Phase 4: the small model in fp32, the same seeded weights on cuda and cpu."""
     import torch
@@ -157,10 +317,12 @@ def slice_check():
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
-        on_gpu = MapAnything(cfg, device="cuda", seed=0)(Views(img=img.cuda()))
+        with torch.inference_mode():
+            on_gpu = MapAnything(cfg, device="cuda", seed=0)(Views(img=img.cuda()))
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
-    on_cpu = MapAnything(cfg, device="cpu", seed=0)(Views(img=img))
+    with torch.inference_mode():
+        on_cpu = MapAnything(cfg, device="cpu", seed=0)(Views(img=img))
     # fp32 on both; sums are taken in other orders on the card, so the
     # tolerance is relative to each field's magnitude.
     rtol = 1e-3
@@ -186,7 +348,7 @@ def flagship(card):
     import torch
 
     from mapanything_tpu_torch.models.mapanything import MapAnything, MapAnythingConfig, Views
-    from mapanything_tpu_torch.ops.flash_attention import flash_attention
+    from mapanything_tpu_torch.ops.flash_attention import flash_attention, launch_counts, reset_launch_counts
 
     B, V, H, W = 1, 8, 518, 518
     warmup, iters = 3, 5
@@ -196,23 +358,27 @@ def flagship(card):
     img = torch.from_numpy(np.random.RandomState(0).randn(B, V, H, W, 3).astype(np.float32)).cuda()
     views = Views(img=img)
 
-    flash_attention.launches = 0
-    preds = model(views)
-    torch.cuda.synchronize()
-    launches = flash_attention.launches
-    if launches != 48:
-        raise AssertionError(f"one flagship forward launched the attention kernel {launches} times, not 48")
-    for _ in range(warmup - 1):
-        model(views)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    before = flash_attention.launches
-    times = []
-    for _ in range(iters):
-        t = time.perf_counter()
+    reset_launch_counts()
+    with torch.inference_mode():
         preds = model(views)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    launches = counts["flash_attention_fwd"]
+    if counts != {**counts, "flash_attention_fwd": 48, "flash_attention_fwd_lse": 0,
+                  "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}:
+        raise AssertionError(f"one flagship forward launched {counts}, not the lse-free forward 48 times")
+    with torch.inference_mode():
+        for _ in range(warmup - 1):
+            model(views)
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
+        torch.cuda.reset_peak_memory_stats()
+        before = flash_attention.launches
+        times = []
+        for _ in range(iters):
+            t = time.perf_counter()
+            preds = model(views)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
     if flash_attention.launches - before != 48 * iters:
         raise AssertionError("the attention kernel did not run 48 times per forward")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -251,7 +417,218 @@ def flagship(card):
     return launches
 
 
+def rel_err(a, b, floor: float = 1e-12) -> float:
+    """max |a - b| over b's magnitude max(|b|), floored at ``floor``."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return (a - b).abs().max().item() / max(b.abs().max().item(), floor)
+
+
+def train_slice_check():
+    """Phase 6: the small fp32 train step, the same seeded weights and masks on cuda and cpu."""
+    import torch
+
+    from mapanything_tpu_torch.models.mapanything import (
+        GeometricInputConfig, MapAnything, MapAnythingConfig, sample_modality_masks,
+    )
+    from mapanything_tpu_torch.ops.flash_attention import launch_counts, reset_launch_counts
+    from mapanything_tpu_torch.train.losses import synthetic_loss_batch
+    from mapanything_tpu_torch.train.optim import OptimConfig, build_optimizer
+    from mapanything_tpu_torch.train.step import init_train_state, make_loss_fn, make_train_step
+
+    cfg = MapAnythingConfig.small()
+    B, V, HW = 1, 2, 56
+    img = torch.from_numpy(np.random.RandomState(0).randn(B, V, HW, HW, 3).astype(np.float32))
+    batch = synthetic_loss_batch(B, V, HW, HW, seed=1)
+    geo = GeometricInputConfig(ray_dirs_prob=1.0, depth_prob=1.0, cam_prob=1.0, sparse_depth_prob=1.0)
+    masks = sample_modality_masks(torch.Generator().manual_seed(0), B, V, (HW, HW), geo)
+    if masks.depth_sparsification_keep is None or bool(masks.depth_sparsification_keep.all()):
+        raise AssertionError("phase 6 must run with a depth sparsification mask")
+    opt_cfg = OptimConfig(lr=1e-4, min_lr=1e-6)
+    rtol = 1e-3
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        runs = {}
+        for device in ("cuda", "cpu"):
+            model = MapAnything(cfg, device=device, seed=0, geometric_inputs=True)
+            reset_launch_counts()
+            loss, details = make_loss_fn(model)(batch.to(device), img.to(device), masks)
+            loss.backward()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            counts = launch_counts()
+            grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+            opt = build_optimizer(opt_cfg, model)
+            state = init_train_state(model, opt)
+            step = make_train_step(model, opt, geo_cfg=geo)
+            gen = torch.Generator().manual_seed(3)
+            for _ in range(2):
+                state, _ = step(state, img.to(device), batch.to(device), gen)
+            runs[device] = dict(loss=loss.detach(), details={k: v.detach() for k, v in details.items()},
+                                grads=grads, counts=counts,
+                                params={n: p.detach().clone() for n, p in model.named_parameters()})
+            del model, opt, state
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    errs = {"loss": rel_err(gpu["loss"], cpu["loss"])}
+    errs.update({f"details.{k}": rel_err(gpu["details"][k], v) for k, v in cpu["details"].items()})
+    grad_errs = {n: rel_err(gpu["grads"][n], g) for n, g in cpu["grads"].items()}
+    # Parameters against max(1, magnitude), as phase 4 holds the predictions: Adam's
+    # steps are ~lr·sign(g), so zero-initialised biases hold nothing but steps, and
+    # a gradient element at rounding level may take either sign on either device.
+    param_errs = {n: rel_err(gpu["params"][n], p, floor=1.0) for n, p in cpu["params"].items()}
+    worst = lambda d: max(d.items(), key=lambda kv: kv[1])  # noqa: E731
+    emit({"phase": "train_slice_check", "config": "small fp32 1x2x56x56, all geometric inputs",
+          "rtol": rtol, "errors": errs, "worst_grad": worst(grad_errs), "worst_param_after_2_steps": worst(param_errs),
+          "cuda_launches": gpu["counts"]})
+    if gpu["counts"]["flash_attention_fwd_lse"] == 0 or gpu["counts"]["flash_attention_bwd_dq"] == 0 \
+            or gpu["counts"]["flash_attention_bwd_dkv"] == 0 or gpu["counts"]["flash_attention_fwd"] != 0:
+        raise AssertionError(f"the cuda step did not run the training kernels: {gpu['counts']}")
+    bad = {k: v for d in (errs, grad_errs, param_errs) for k, v in d.items() if not v <= rtol}
+    if bad:
+        raise AssertionError(f"cuda and cpu disagree beyond {rtol} of the magnitude: {bad}")
+
+
+def flagship_train(card):
+    """Phase 7: the main path of this slice, the flagship bf16 train step on 1 x 4 x 518."""
+    import torch
+
+    from mapanything_tpu_torch.models.mapanything import GeometricInputConfig, MapAnything, MapAnythingConfig
+    from mapanything_tpu_torch.ops.flash_attention import launch_counts, reset_launch_counts
+    from mapanything_tpu_torch.train.losses import LossConfig, synthetic_loss_batch
+    from mapanything_tpu_torch.train.optim import OptimConfig, build_optimizer
+    from mapanything_tpu_torch.train.step import init_train_state, make_train_step
+
+    B, V, H, W = 1, 4, 518, 518
+    warmup, iters = 2, 5
+    t0 = time.perf_counter()
+    model = MapAnything(MapAnythingConfig(compute_dtype="bfloat16"), device="cuda", seed=0, geometric_inputs=True)
+    # bench.py:229-231: a random init diverges at the production lr.
+    opt = build_optimizer(OptimConfig(lr=1e-7, min_lr=1e-8, epoch_len=100, total_epochs=1.0), model)
+    state = init_train_state(model, opt)
+    step = make_train_step(model, opt, LossConfig(), GeometricInputConfig())
+    batch = synthetic_loss_batch(B, V, H, W, seed=0).to("cuda")  # bench.py:128-153
+    img = torch.from_numpy(np.random.RandomState(0).randn(B, V, H, W, 3).astype(np.float32)).cuda()
+    gen = torch.Generator().manual_seed(0)
+    before = {n: p.detach().clone() for n, p in state.params.items()}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    want = {"flash_attention_fwd": 0, "flash_attention_fwd_lse": 48,
+            "flash_attention_bwd_dq": 48, "flash_attention_bwd_dkv": 48}
+    totals = dict.fromkeys(want, 0)
+    names = list(state.params)
+    ever_nonzero = torch.zeros(len(names), dtype=torch.bool, device="cuda")
+    times, metrics = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(warmup + iters):
+        reset_launch_counts()
+        t = time.perf_counter()
+        state, m = step(state, img, batch, gen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        counts = launch_counts()
+        if counts != want:
+            raise AssertionError(f"train step {i} launched {counts}, not {want}")
+        for k in totals:
+            totals[k] += counts[k]
+        m = {k: v.item() for k, v in m.items()}
+        if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])):
+            raise AssertionError(f"train step {i}: loss {m['loss']}, grad_norm {m['grad_norm']}")
+        # Every gradient leaf is finite; a leaf may be zero in a step whose
+        # modality masks leave its encoder out, but not in every step.
+        if any(state.params[n].grad is None for n in names):
+            raise AssertionError(f"train step {i} left parameters without a gradient")
+        norms = torch.stack(torch._foreach_norm([state.params[n].grad for n in names]))
+        if not bool(torch.isfinite(norms).all()):
+            raise AssertionError(f"train step {i}: non-finite gradients in "
+                                 f"{[n for n, x in zip(names, norms.tolist()) if not np.isfinite(x)]}")
+        ever_nonzero |= norms > 0
+        metrics.append(m)
+        if i >= warmup:
+            times.append(dt)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    never = [n for n, x in zip(names, ever_nonzero.tolist()) if not x]
+    if never:
+        raise AssertionError(f"no gradient reached {never} in {warmup + iters} steps")
+    # Each update before the add is lr · mu_hat / (sqrt(nu_hat) + eps): nonzero
+    # wherever Adam's first moment is. (Whether the add then changes a value is
+    # fp32 rounding: an update below 3e-8 rounds away on a value of 1.)
+    no_update = [n for n in names if not bool(state.opt_state.mu[n].any())]
+    if no_update:
+        raise AssertionError(f"parameters with a gradient but a zero update: {no_update}")
+    unchanged = [n for n in names if torch.equal(before[n], state.params[n])]
+    ms = 1e3 * sum(times) / iters
+    emit({
+        "phase": "flagship_train",
+        "config": "MapAnythingConfig(compute_dtype='bfloat16'), 1x4x518x518 train step, seeded random weights, "
+                  "bench.py LossBatch, GeometricInputConfig() masks, lr 1e-7",
+        "setup_s": setup_s, "warmup": warmup, "iters": iters,
+        "ms_per_step": ms, "ms_each": [1e3 * t for t in times],
+        "views_per_s": B * V / (ms / 1e3), "peak_mem_gib": peak_gib,
+        "launches_per_step": want, "launches_total": totals,
+        "loss": [m["loss"] for m in metrics], "grad_norm": [m["grad_norm"] for m in metrics],
+        "param_tensors_changed": [len(names) - len(unchanged), len(names)],
+        "unchanged": {n: {"min": before[n].min().item(), "max": before[n].max().item(),
+                          "max_abs_mu": state.opt_state.mu[n].abs().max().item()} for n in unchanged},
+        "card": card["name"], "power_limit": card["power_limit"],
+    })
+    return totals, warmup + iters
+
+
+def summary_line(rows, train_rows, inference_launches, train_launches, train_steps):
+    """The kernels line: each kernel, what it replaces, its launches on its path
+    (one forward; all train steps, and per step), its max error and its times
+    per forward (inference) or per train step."""
+    main_rows = [r for r in rows if r["per_forward"]]
+    per_forward = lambda key: sum(r[key] * r["per_forward"] for r in main_rows)  # noqa: E731
+    kernels = [{
+        "name": "flash_attention_fwd",
+        "route": "cuda",
+        "source": KERNEL_SOURCE,
+        "replaces": "mapanything_tpu/ops/flash_attention.py:395",
+        "launches": inference_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in main_rows),
+        "ms": per_forward("ms"),
+        "plain_ms": per_forward("plain_ms"),
+        "bound_ms": per_forward("bound_ms"),
+        "bound_by": "operations" if all(r["bound_by"] == "operations" for r in main_rows) else "bytes",
+        "library_ms": per_forward("library_ms"),
+        "per_shape": [{k: r[k] for k in ("shape", "dtype", "replaces", "per_forward", "max_abs_err",
+                                         "ms", "plain_ms", "bound_ms", "library_ms")} for r in rows],
+    }]
+    main_train = [r for r in train_rows if r["per_step"]]
+    outputs = {"flash_attention_fwd_lse": ("o", "lse"), "flash_attention_bwd_dq": ("dq",),
+               "flash_attention_bwd_dkv": ("dk", "dv")}
+    for name, outs in outputs.items():
+        per_step = lambda key: sum(r["kernels"][name][key] * r["per_step"] for r in main_train)  # noqa: E731
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": KERNEL_SOURCE if name.endswith("lse") else BWD_KERNEL_SOURCE,
+            "replaces": TRAIN_REPLACES[name]["encoder"],
+            "launches": train_launches[name],
+            "launches_per_step": train_launches[name] // train_steps,
+            "max_abs_err": max(r["max_abs_err"][o] for r in main_train for o in outs),
+            "ms": per_step("ms"),
+            "plain_ms": per_step("plain_ms"),
+            "bound_ms": per_step("bound_ms"),
+            "bound_by": "operations" if all(r["kernels"][name]["bound_by"] == "operations"
+                                             for r in main_train) else "bytes",
+            "library_ms": per_step("library_ms"),
+            "per_shape": [dict(shape=r["shape"], dtype=r["dtype"], per_step=r["per_step"],
+                               max_abs_err={o: r["max_abs_err"][o] for o in outs}, **r["kernels"][name])
+                          for r in train_rows],
+        })
+    emit({"kernels": kernels})
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description="Smoke test of the PyTorch port on one NVIDIA GPU.")
+    parser.add_argument("--train-step-only", action="store_true",
+                        help="build the kernels, then run phase 7 alone and stop after its line")
+    args = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -270,38 +647,33 @@ def main() -> int:
     print(smi, flush=True)
     card = {"name": torch.cuda.get_device_name(0), "power_limit": smi.split(",")[-1].strip()}
 
-    # 2. Build every kernel of the main path.
+    # 2. Build every kernel of the main path, one nvcc per source, side by side.
     from mapanything_tpu_torch.ops import _build
-    from mapanything_tpu_torch.ops.flash_attention import KERNEL_STEM
+    from mapanything_tpu_torch.ops.flash_attention import KERNEL_STEMS
 
     t0 = time.perf_counter()
-    lib = _build.build(KERNEL_STEM)
+    libs = _build.build(*KERNEL_STEMS)
     build_s = time.perf_counter() - t0
-    log = lib.with_suffix(".log").read_text() if lib.with_suffix(".log").exists() else ""
-    emit({"phase": "build", "kernel": KERNEL_STEM, "seconds": build_s,
-          "ptxas": [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]})
+    ptxas = []
+    for lib in libs:
+        log = lib.with_suffix(".log").read_text() if lib.with_suffix(".log").exists() else ""
+        ptxas += [ln.strip() for ln in log.splitlines()
+                  if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
+    emit({"phase": "build", "kernels": list(KERNEL_STEMS), "seconds": build_s, "ptxas": ptxas})
 
+    if args.train_step_only:
+        flagship_train(card)
+        return 0
     rows = kernel_checks(card)
+    train_rows = train_kernel_checks(card)
     slice_check()
-    launches = flagship(card)
-
-    main_rows = [r for r in rows if r["per_forward"]]
-    per_forward = lambda key: sum(r[key] * r["per_forward"] for r in main_rows)  # noqa: E731
-    emit({"kernels": [{
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": "mapanything_tpu/ops/flash_attention.py:395",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in main_rows),
-        "ms": per_forward("ms"),
-        "plain_ms": per_forward("plain_ms"),
-        "bound_ms": per_forward("bound_ms"),
-        "bound_by": "operations" if all(r["bound_by"] == "operations" for r in main_rows) else "bytes",
-        "library_ms": per_forward("library_ms"),
-        "per_shape": [{k: r[k] for k in ("shape", "dtype", "replaces", "per_forward", "max_abs_err",
-                                         "ms", "plain_ms", "bound_ms", "library_ms")} for r in rows],
-    }]})
+    inference_launches = flagship(card)
+    torch.cuda.empty_cache()
+    train_slice_check()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launches, train_steps = flagship_train(card)
+    summary_line(rows, train_rows, inference_launches, train_launches, train_steps)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -29,6 +29,15 @@
 //     4 warps of 16 query rows each. This is the main-path instance.
 //   fa_fwd_f32<64>: fp32 inputs, SIMT fp32 FMA, one thread per query row. It serves
 //     the fp32 model (compute_dtype="float32"), which K3/K4 served on the TPU.
+// Each comes in two forms, chosen by the template flag kLse. Without it (inference) the
+// kernel writes o alone, the same code as before the lse output was added. With it (training) the kernel also
+// writes the softmax normaliser lse = log(sum_j exp(s_ij)) of the scaled logits
+// s = q.k * scale, fp32 (B, H, Tq), natural log: the residual the backward kernels
+// (csrc/flash_attention_bwd.cu) recompute P from. That form replaces the TPU's
+// lse-writing kernels K4 _fwd_kernel_single_lse (:118, launched :942), K6's forward
+// _pair_stream_kernel_lse (:600, launched :674) and K7 _fwd_stream_aug_lse (:168,
+// launched :967). The running max is kept in base-2 units; it is turned into a
+// natural log once, at the store.
 //
 // Bound on this card. At the main-path shapes (encoder 8x1370x16x64, frame
 // 8x1369x12x64, global 1x10953x12x64) the work is about 4*T^2*D*H flop per call
@@ -36,97 +45,17 @@
 // bound by tensor-core throughput (989 dense bf16 TFLOP/s on an H100 SXM). mma.sync
 // reaches only part of that rate; wgmma, TMA and warp specialisation are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <cmath>
+#include "flash_attention_common.cuh"
 
 namespace {
 
-constexpr int kBlockM = 64;  // query rows per block
-constexpr int kBlockN = 64;  // keys per K/V tile
-constexpr int kWarps = 4;    // bf16 instance: 16 query rows per warp
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// 16-byte async copy global -> shared; src_bytes = 0 zero-fills the destination.
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// d += a * b for one 16x8x16 tile, bf16 inputs, fp32 accumulation.
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Element offset of (row, col) in a [rows][D] bf16 tile whose 16-byte chunks are
-// XOR-swizzled by the row's low three bits.
-template <int D>
-__device__ __forceinline__ int swz(int row, int col) {
-  return row * D + ((((col >> 3) ^ (row & 7))) << 3) + (col & 7);
-}
-
-template <int D>
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* tile, int row, int col) {
-  return *reinterpret_cast<const uint32_t*>(tile + swz<D>(row, col));
-}
-
-// Stage rows [row0, row0 + ROWS) of one (batch, head) slice into a swizzled tile;
-// rows at or past `rows_total` are zero-filled.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* base,
-                                          long long stride_t, int row0, int rows_total,
-                                          int tid) {
-  constexpr int kChunks = D / 8;
-#pragma unroll
-  for (int i = tid; i < ROWS * kChunks; i += kWarps * 32) {
-    const int r = i / kChunks, c = i % kChunks;
-    const int gr = row0 + r;
-    const bool valid = gr < rows_total;
-    const __nv_bfloat16* src = base + static_cast<long long>(valid ? gr : 0) * stride_t + c * 8;
-    cp_async_16(dst + swz<D>(r, c * 8), src, valid);
-  }
-}
-
-template <int D>
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kWarps * 32)
     fa_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int Tq,
-                int Tk, int H, long long sqb, long long sqt, long long sqh, long long skb,
-                long long skt, long long skh, long long svb, long long svt, long long svh,
-                float scale_log2) {
+                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                float* __restrict__ lse, int Tq, int Tk, int H, long long sqb, long long sqt,
+                long long sqh, long long skb, long long skt, long long skh, long long svb,
+                long long svt, long long svh, float scale_log2) {
   static_assert(D % 64 == 0 && D <= 128, "swizzle and register plan assume D in {64, 128}");
   __shared__ __align__(128) __nv_bfloat16 sQ[kBlockM * D];
   __shared__ __align__(128) __nv_bfloat16 sK[2][kBlockN * D];
@@ -252,15 +181,20 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 
   float inv[2];
+  const int row0 = m0 + warp * 16 + g;
+  const int row1 = row0 + 8;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float l = l_run[r];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[r] = 1.f / l;
+    if constexpr (kLse) {
+      const int row = r ? row1 : row0;
+      if (t == 0 && row < Tq)
+        lse[(static_cast<long long>(b) * H + h) * Tq + row] = (m_run[r] + log2f(l)) * kLn2;
+    }
   }
-  const int row0 = m0 + warp * 16 + g;
-  const int row1 = row0 + 8;
   __nv_bfloat16* o0 = o + ((static_cast<long long>(b) * Tq + row0) * H + h) * D;
   __nv_bfloat16* o1 = o + ((static_cast<long long>(b) * Tq + row1) * H + h) * D;
 #pragma unroll
@@ -275,10 +209,11 @@ __global__ void __launch_bounds__(kWarps * 32)
 
 constexpr int kF32SubTile = 16;  // keys per online-softmax step in the fp32 instance
 
-template <int D>
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kBlockM)
     fa_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, float* __restrict__ o, int Tq, int Tk, int H,
+               const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+               int Tq, int Tk, int H,
                long long sqb, long long sqt, long long sqh, long long skb, long long skt,
                long long skh, long long svb, long long svt, long long svh, float scale_log2) {
   __shared__ __align__(16) float sK[kBlockN][D];
@@ -346,6 +281,7 @@ __global__ void __launch_bounds__(kBlockM)
   }
 
   if (live) {
+    if constexpr (kLse) lse[(static_cast<long long>(b) * H + h) * Tq + row] = (m + log2f(l)) * kLn2;
     const float inv = 1.f / l;
     float* op = o + ((static_cast<long long>(b) * Tq + row) * H + h) * D;
 #pragma unroll
@@ -357,10 +293,11 @@ __global__ void __launch_bounds__(kBlockM)
 
 }  // namespace
 
-// dtype: 0 = bf16, 1 = fp32. Strides are in elements. Returns cudaGetLastError() after
-// the launch (0 on success).
+// dtype: 0 = bf16, 1 = fp32. Strides are in elements. lse is null for the inference
+// form, else a contiguous fp32 (B, H, Tq) buffer. Returns cudaGetLastError() after the
+// launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int dtype, int B, int Tq, int Tk, int H, int D,
+                                   float* lse, int dtype, int B, int Tq, int Tk, int H, int D,
                                    long long sqb, long long sqt, long long sqh, long long skb,
                                    long long skt, long long skh, long long svb, long long svt,
                                    long long svh, float scale, void* stream) {
@@ -369,15 +306,27 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   const float scale_log2 = scale * kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    fa_fwd_bf16<64><<<grid, kWarps * 32, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Tq, Tk, H, sqb,
-        sqt, sqh, skb, skt, skh, svb, svt, svh, scale_log2);
+    const auto* qp = static_cast<const __nv_bfloat16*>(q);
+    const auto* kp = static_cast<const __nv_bfloat16*>(k);
+    const auto* vp = static_cast<const __nv_bfloat16*>(v);
+    auto* op = static_cast<__nv_bfloat16*>(o);
+    if (lse == nullptr)
+      fa_fwd_bf16<64, false><<<grid, kWarps * 32, 0, st>>>(qp, kp, vp, op, lse, Tq, Tk, H, sqb, sqt,
+                                                           sqh, skb, skt, skh, svb, svt, svh, scale_log2);
+    else
+      fa_fwd_bf16<64, true><<<grid, kWarps * 32, 0, st>>>(qp, kp, vp, op, lse, Tq, Tk, H, sqb, sqt,
+                                                          sqh, skb, skt, skh, svb, svt, svh, scale_log2);
   } else if (dtype == 1) {
-    fa_fwd_f32<64><<<grid, kBlockM, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(o), Tq, Tk, H, sqb, sqt, sqh, skb, skt, skh, svb, svt, svh,
-        scale_log2);
+    const auto* qp = static_cast<const float*>(q);
+    const auto* kp = static_cast<const float*>(k);
+    const auto* vp = static_cast<const float*>(v);
+    auto* op = static_cast<float*>(o);
+    if (lse == nullptr)
+      fa_fwd_f32<64, false><<<grid, kBlockM, 0, st>>>(qp, kp, vp, op, lse, Tq, Tk, H, sqb, sqt, sqh,
+                                                       skb, skt, skh, svb, svt, svh, scale_log2);
+    else
+      fa_fwd_f32<64, true><<<grid, kBlockM, 0, st>>>(qp, kp, vp, op, lse, Tq, Tk, H, sqb, sqt, sqh,
+                                                      skb, skt, skh, svb, svt, svh, scale_log2);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,13 +1,26 @@
-"""Sinusoid positional-encoding table, the port's copy.
+"""Encoders of the geometric inputs, and the sinusoid table, for the port.
 
-Counterpart of ``sinusoid_encoding_table`` in
-``mapanything_tpu/models/encoders/dense_rep.py`` (:22). The dense- and
-global-representation encoders of that module wait for the multimodal slice.
+Counterparts of ``mapanything_tpu/models/encoders/dense_rep.py``:
+``sinusoid_encoding_table`` (:22), ``pixel_unshuffle`` (:32),
+``ResidualBlock`` (:44), ``DenseRepresentationEncoder`` (:64, ray directions
+and log-depth) and ``GlobalRepresentationEncoder`` (:106, pose and scale
+vectors). Parameter names are the reference's torch names, which
+``mapanything_tpu.utils.torch_convert`` reads (``convert_dense_rep_encoder``
+:274, ``convert_global_rep_encoder`` :317). The dense encoder's positional
+encoding (``apply_pe``) is not ported: the model runs it with
+``apply_pe=False`` (configs/model/task/default.yaml).
 """
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from mapanything_tpu_torch.models.blocks import Conv2d, LayerNorm, Linear
 
 
 def sinusoid_encoding_table(n_position: int, d_hid: int, base: float) -> np.ndarray:
@@ -18,3 +31,85 @@ def sinusoid_encoding_table(n_position: int, d_hid: int, base: float) -> np.ndar
     table[:, 0::2] = np.sin(table[:, 0::2])
     table[:, 1::2] = np.cos(table[:, 1::2])
     return table.astype(np.float32)
+
+
+def pixel_unshuffle(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B, H/f, W/f, C·f·f), channels ordered as torch's
+    ``pixel_unshuffle`` orders them on NCHW (channel, then row, then column)."""
+    return F.pixel_unshuffle(x.permute(0, 3, 1, 2), factor).permute(0, 2, 3, 1)
+
+
+class ResidualBlock(nn.Module):
+    """Two 3x3 convolutions with exact GELU and a (1x1 when widths differ) shortcut; NCHW."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1)
+        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1)
+        if in_channels != out_channels:
+            self.shortcut = Conv2d(in_channels, out_channels, 1)
+
+    def forward(self, x):
+        identity = self.shortcut(x) if hasattr(self, "shortcut") else x
+        out = self.conv2(F.gelu(self.conv1(x)))
+        return F.gelu(out + identity)
+
+
+class DenseRepresentationEncoder(nn.Module):
+    """Patchify a dense (B, H, W, Cin) map into (B, H/P, W/P, embed) tokens, in fp32.
+
+    pixel-unshuffle, ``conv_in``, residual blocks and a 1x1 projection
+    (``encoder``), then ``norm_layer``.
+    """
+
+    def __init__(
+        self,
+        in_chans: int = 3,
+        enc_embed_dim: int = 1024,
+        patch_size: int = 14,
+        intermediate_dims: Sequence[int] = (588, 768, 1024),
+    ):
+        super().__init__()
+        self.in_chans = in_chans
+        self.patch_size = patch_size
+        dims = tuple(intermediate_dims)
+        self.conv_in = Conv2d(in_chans * patch_size * patch_size, dims[0], 3, padding=1)
+        layers = [ResidualBlock(dims[i], dims[i + 1]) for i in range(len(dims) - 1)]
+        layers.append(Conv2d(dims[-1], enc_embed_dim, 1))
+        self.encoder = nn.Sequential(*layers)
+        self.norm_layer = LayerNorm(enc_embed_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[-1] != self.in_chans:
+            raise ValueError(f"expected {self.in_chans} channels, got {x.shape[-1]}")
+        x = F.pixel_unshuffle(x.float().permute(0, 3, 1, 2), self.patch_size)
+        x = self.encoder(self.conv_in(x))
+        return self.norm_layer(x.permute(0, 2, 3, 1))
+
+
+class GlobalRepresentationEncoder(nn.Module):
+    """MLP-encode a global vector (B, Cin) to (B, embed), in fp32.
+
+    The linears sit in the reference's nested ``Sequential`` layout
+    (``encoder.0.0.0.0`` … ``encoder.1``), then ``norm_layer``.
+    """
+
+    def __init__(
+        self,
+        in_chans: int = 3,
+        enc_embed_dim: int = 1024,
+        intermediate_dims: Sequence[int] = (128, 256, 512),
+    ):
+        super().__init__()
+        self.in_chans = in_chans
+        dims = tuple(intermediate_dims)
+        enc = nn.Sequential(Linear(in_chans, dims[0]), nn.GELU())
+        for i in range(1, len(dims)):
+            enc = nn.Sequential(enc, Linear(dims[i - 1], dims[i]), nn.GELU())
+        self.encoder = nn.Sequential(enc, Linear(dims[-1], enc_embed_dim))
+        self.norm_layer = LayerNorm(enc_embed_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[-1] != self.in_chans:
+            raise ValueError(f"expected {self.in_chans} channels, got {x.shape[-1]}")
+        return self.norm_layer(self.encoder(x.float()))

@@ -1,8 +1,11 @@
-"""MapAnything of the port: images-only N-view metric reconstruction.
+"""MapAnything of the port: multimodal N-view metric reconstruction.
 
 Counterpart of ``mapanything_tpu/models/mapanything.py``: ``Views`` (:70),
-``Predictions`` (:218), ``MapAnythingConfig`` with ``.small()`` (:244-358),
-the images-only path of ``MapAnything.__call__`` (:372-685) and
+``ModalityMasks``, ``full_modality_masks``, ``GeometricInputConfig`` and
+``sample_modality_masks`` (:100-214), ``Predictions`` (:218),
+``MapAnythingConfig`` with ``.small()`` (:244-358), ``MapAnything.__call__``
+(:372-685) with its geometric branches (pose canonicalisation, ray and depth
+encoders, depth sparsification, metric-scale tokens; :416-533), and
 ``assemble_scene_representation`` (:688), for the DPT head and the
 ``raydirs+depth+pose`` scene representation.
 
@@ -20,14 +23,24 @@ Top-level parameter names are the reference's (``encoder.model.*``,
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields
 from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from mapanything_tpu_torch.geometry.camera import pointmap_from_rays_depth_pose
+from mapanything_tpu_torch.geometry.normalization import (
+    apply_log_to_norm,
+    normalize_depth_using_non_zero_pixels,
+    normalize_pose_translations,
+)
+from mapanything_tpu_torch.geometry.quaternion import relative_pose_quats_trans
 from mapanything_tpu_torch.models.blocks import LayerNorm, init_params
+from mapanything_tpu_torch.models.encoders.dense_rep import (
+    DenseRepresentationEncoder,
+    GlobalRepresentationEncoder,
+)
 from mapanything_tpu_torch.models.encoders.vit import ViTEncoder
 from mapanything_tpu_torch.models.heads.adaptors import (
     DenseAdaptorConfig,
@@ -45,19 +58,130 @@ from mapanything_tpu_torch.models.info_sharing.alternating import (
 )
 
 
+GEOMETRIC_INPUTS = ("ray_directions", "depth_along_ray", "camera_pose_quats", "camera_pose_trans")
+
+
 @dataclass
 class Views:
-    """Batched multi-view input, (B, V, ...) tensors.
+    """Batched multi-view input, (B, V, ...) tensors; geometric inputs are optional.
 
-    This slice takes images only; the geometric inputs exist so that a
-    caller learns at once that they are not supported yet.
+    Poses are OpenCV-RDF cam2world with XYZW quaternions, in any world frame
+    (the model re-expresses them in view 0's frame).
     """
 
     img: torch.Tensor  # (B, V, H, W, 3) normalised images
-    ray_directions: Optional[torch.Tensor] = None  # (B, V, H, W, 3)
+    ray_directions: Optional[torch.Tensor] = None  # (B, V, H, W, 3) unit, camera frame
     depth_along_ray: Optional[torch.Tensor] = None  # (B, V, H, W, 1)
     camera_pose_quats: Optional[torch.Tensor] = None  # (B, V, 4) XYZW
     camera_pose_trans: Optional[torch.Tensor] = None  # (B, V, 3)
+    is_metric_scale: Optional[torch.Tensor] = None  # (B, V) bool
+
+
+@dataclass
+class ModalityMasks:
+    """Per-(batch, view) input-modality decisions, each (B, V) bool.
+
+    ``depth_scale_norm_all`` and ``pose_scale_norm_all`` hide the metric
+    scale (True = hide); ``depth_sparsification_keep`` is an optional
+    per-pixel keep mask (B, V, H, W, 1).
+    """
+
+    rgb: torch.Tensor
+    ray_dirs: torch.Tensor
+    depth: torch.Tensor
+    cam: torch.Tensor
+    depth_scale_norm_all: torch.Tensor
+    pose_scale_norm_all: torch.Tensor
+    depth_sparsification_keep: Optional[torch.Tensor] = None
+
+    def to(self, device) -> "ModalityMasks":
+        return ModalityMasks(**{
+            f.name: None if getattr(self, f.name) is None else getattr(self, f.name).to(device)
+            for f in fields(self)
+        })
+
+
+def full_modality_masks(
+    batch: int,
+    num_views: int,
+    use_ray_dirs: bool = False,
+    use_depth: bool = False,
+    use_cam: bool = False,
+    device: Union[str, torch.device, None] = "cpu",
+) -> ModalityMasks:
+    """Deterministic all-or-nothing masks, as inference sets them."""
+    ones = torch.ones((batch, num_views), dtype=torch.bool, device=device)
+    zeros = torch.zeros((batch, num_views), dtype=torch.bool, device=device)
+    return ModalityMasks(
+        rgb=ones,
+        ray_dirs=ones if use_ray_dirs else zeros,
+        depth=ones if use_depth else zeros,
+        cam=ones if use_cam else zeros,
+        depth_scale_norm_all=zeros,
+        pose_scale_norm_all=zeros,
+    )
+
+
+@dataclass(frozen=True)
+class GeometricInputConfig:
+    """Modality-dropout probabilities (configs/model/task/*.yaml)."""
+
+    overall_prob: float = 0.9
+    dropout_prob: float = 0.05
+    ray_dirs_prob: float = 0.5
+    depth_prob: float = 0.5
+    cam_prob: float = 0.5
+    sparse_depth_prob: float = 0.5
+    sparsification_removal_percent: float = 0.9
+    depth_scale_norm_all_prob: float = 0.05
+    pose_scale_norm_all_prob: float = 0.05
+    rgb_dropout_prob: float = 0.0
+
+
+def sample_modality_masks(
+    generator: torch.Generator,
+    batch: int,
+    num_views: int,
+    image_hw: Tuple[int, int],
+    cfg: GeometricInputConfig,
+    device: Union[str, torch.device, None] = "cpu",
+) -> ModalityMasks:
+    """Sample the train-time Bernoulli modality masks.
+
+    Overall, ray, depth and camera probabilities are drawn per batch element
+    and shared across views; dropout per (batch, view); views without RGB get
+    rays and camera. Sparse depth is an iid keep mask, applied to the whole
+    batch with probability ``sparse_depth_prob``. As in the JAX package, the
+    depth- and pose-scale kill switches are drawn from one and the same
+    uniform sample. The draws run on the CPU from ``generator`` and the masks
+    then move to ``device``, so every device samples the same masks.
+    """
+    u = lambda *shape: torch.rand(shape, generator=generator)  # noqa: E731
+    geo = (u(batch, 1) < cfg.overall_prob) & (u(batch, num_views) < 1.0 - cfg.dropout_prob)
+    ray = (u(batch, 1) < cfg.ray_dirs_prob) & geo
+    depth = (u(batch, 1) < cfg.depth_prob) & geo
+    cam = (u(batch, 1) < cfg.cam_prob) & geo
+    if cfg.rgb_dropout_prob > 0:
+        rgb = u(batch, num_views) > cfg.rgb_dropout_prob
+        rgb[:, 0] = True  # the reference view always has RGB
+    else:
+        rgb = torch.ones((batch, num_views), dtype=torch.bool)
+    ray, cam = ray | ~rgb, cam | ~rgb
+    scale_u = u(batch, num_views)
+    keep = None
+    if cfg.sparse_depth_prob > 0:
+        use_sparse = bool(u() < cfg.sparse_depth_prob)
+        keep_pix = u(batch, num_views, *image_hw, 1) > cfg.sparsification_removal_percent
+        keep = keep_pix if use_sparse else torch.ones_like(keep_pix)
+    return ModalityMasks(
+        rgb=rgb,
+        ray_dirs=ray,
+        depth=depth,
+        cam=cam,
+        depth_scale_norm_all=scale_u < cfg.depth_scale_norm_all_prob,
+        pose_scale_norm_all=scale_u < cfg.pose_scale_norm_all_prob,
+        depth_sparsification_keep=keep,
+    ).to(device)
 
 
 @dataclass
@@ -94,6 +218,7 @@ class MapAnythingConfig:
     distinguish_ref_and_non_ref_views: bool = True
     use_pe_for_non_reference_views: bool = False
     max_num_views_for_pe: int = 1000
+    use_rand_idx_pe_for_non_reference_views: bool = True
     use_scalable_softmax: bool = False
     use_entropy_scaling: bool = False
     # heads
@@ -153,13 +278,17 @@ class _ImageEncoder(nn.Module):
 
 
 class MapAnything(nn.Module):
-    """Images -> encoder -> fusion norm + scale token -> trunk -> heads -> scene rep.
+    """Images (+ rays, depth, poses) -> encoders -> fusion norm + scale token
+    -> trunk -> heads -> scene rep.
 
-    ``MapAnything(config, device=None, seed=0)`` builds the model with seeded
-    random weights (``init_params`` with a ``torch.Generator``) on ``device``:
-    CUDA unless ``device`` says otherwise. ``load_jax_params`` in
-    ``mapanything_tpu_torch.utils.jax_params`` replaces those weights with a
-    JAX parameter tree.
+    ``MapAnything(config, device=None, seed=0, geometric_inputs=False)``
+    builds the model with seeded random weights (``init_params`` with a
+    ``torch.Generator``) on ``device``: CUDA unless ``device`` says otherwise.
+    ``geometric_inputs=True`` adds the six geometric encoders, as the JAX
+    package creates them when it is initialised with geometric views; they
+    are registered last, so the other weights do not depend on the flag.
+    ``load_jax_params`` in ``mapanything_tpu_torch.utils.jax_params``
+    replaces the weights with a JAX parameter tree.
     """
 
     def __init__(
@@ -167,6 +296,7 @@ class MapAnything(nn.Module):
         config: MapAnythingConfig,
         device: Union[str, torch.device, None] = None,
         seed: int = 0,
+        geometric_inputs: bool = False,
     ):
         super().__init__()
         device = resolve_device(device)
@@ -216,9 +346,17 @@ class MapAnything(nn.Module):
             cfg.info_sharing_dim, cfg.patch_size, cfg.pose_head_num_resconv, dtype=hdt
         )
         self.scale_head = MLPHead(cfg.info_sharing_dim, output_dim=1, dtype=hdt)
+        self.geometric_inputs = geometric_inputs
+        if geometric_inputs:
+            P = cfg.patch_size
+            self.ray_dirs_encoder = DenseRepresentationEncoder(3, embed_dim, P)
+            self.depth_encoder = DenseRepresentationEncoder(1, embed_dim, P)
+            self.depth_scale_encoder = GlobalRepresentationEncoder(1, embed_dim)
+            self.cam_rot_encoder = GlobalRepresentationEncoder(4, embed_dim)
+            self.cam_trans_encoder = GlobalRepresentationEncoder(3, embed_dim)
+            self.cam_trans_scale_encoder = GlobalRepresentationEncoder(1, embed_dim)
         init_params(self, torch.Generator().manual_seed(seed))
         self.to(device)
-        self.eval()
 
     def init_tokens(self, generator: torch.Generator) -> None:
         nn.init.trunc_normal_(self.scale_token, 0.0, 0.02, -0.04, 0.04, generator=generator)
@@ -227,31 +365,112 @@ class MapAnything(nn.Module):
     def device(self) -> torch.device:
         return self.scale_token.device
 
-    @torch.no_grad()
     def forward(
-        self, views: Views, non_ref_view_pe_indices: Optional[torch.Tensor] = None
+        self,
+        views: Views,
+        masks: Optional[ModalityMasks] = None,
+        deterministic: bool = True,
+        non_ref_view_pe_indices: Optional[torch.Tensor] = None,
     ) -> Predictions:
+        """The differentiable forward. ``masks`` None means every given
+        modality is used (``full_modality_masks``). The model has no
+        stochastic layer (drop-path rate 0), so ``deterministic`` changes
+        nothing; it is kept for the JAX signature. Inference callers run it
+        under ``torch.inference_mode()``."""
+        del deterministic
         cfg = self.config
-        for name in ("ray_directions", "depth_along_ray", "camera_pose_quats", "camera_pose_trans"):
-            if getattr(views, name) is not None:
-                raise NotImplementedError(f"Views.{name}: geometric inputs wait for the multimodal slice")
-        img = views.img.to(self.device, torch.float32)
+        dev = self.device
+        given = [name for name in GEOMETRIC_INPUTS if getattr(views, name) is not None]
+        if given and not self.geometric_inputs:
+            raise ValueError(f"Views.{given[0]} given to a model built without geometric_inputs=True")
+        img = views.img.to(dev, torch.float32)
         B, V, H, W, _ = img.shape
         h, w = H // cfg.patch_size, W // cfg.patch_size
         vit = self.encoder.model
         dtype = vit.dtype
+        E = vit.embed_dim
+        if masks is None:
+            masks = full_modality_masks(
+                B, V,
+                use_ray_dirs=views.ray_directions is not None,
+                use_depth=views.depth_along_ray is not None,
+                use_cam=views.camera_pose_quats is not None,
+                device=dev,
+            )
+        else:
+            masks = masks.to(dev)
+        per_view = lambda m: m[..., None, None, None]  # noqa: E731  (B, V) -> (B, V, 1, 1, 1)
+        f32 = lambda x: x.to(dev, torch.float32)  # noqa: E731
 
-        # 1. Image encoding; the fusion runs in fp32.
-        enc_feats = vit(img.reshape(B * V, H, W, 3)).reshape(B, V, h, w, vit.embed_dim)
-        feats = self.fusion_norm_layer(enc_feats.float())
-        scale_tokens = self.scale_token.expand(B, 1, vit.embed_dim)
+        # 1. Image encoding; geometric encoding and the fusion run in fp32.
+        rgb = masks.rgb
+        enc_feats = vit((img * per_view(rgb)).reshape(B * V, H, W, 3)).reshape(B, V, h, w, E)
+        feats = (enc_feats * per_view(rgb)).float()
 
-        # 2. Info sharing.
+        # 2. Poses re-expressed in view 0's frame.
+        cam_mask = masks.cam
+        pose_quats = f32(torch.tensor([0.0, 0.0, 0.0, 1.0])).expand(B, V, 4)
+        pose_trans = torch.zeros((B, V, 3), device=dev)
+        if views.camera_pose_quats is not None:
+            q_all, t_all = f32(views.camera_pose_quats), f32(views.camera_pose_trans)
+            q_rel, t_rel = relative_pose_quats_trans(
+                q_all[:, :1].expand_as(q_all), t_all[:, :1].expand_as(t_all), q_all, t_all
+            )
+            pose_quats = torch.where(cam_mask[..., None], q_rel, pose_quats)
+            pose_trans = torch.where(cam_mask[..., None], t_rel, pose_trans)
+        is_metric = (
+            views.is_metric_scale.to(dev)
+            if views.is_metric_scale is not None
+            else torch.zeros((B, V), dtype=torch.bool, device=dev)
+        )
+
+        # 3. Ray directions.
+        ray_mask = masks.ray_dirs
+        if views.ray_directions is not None:
+            rays = f32(views.ray_directions) * per_view(ray_mask)
+            ray_feats = self.ray_dirs_encoder(rays.reshape(B * V, H, W, 3)).reshape(B, V, h, w, E)
+            feats = feats + ray_feats * per_view(ray_mask)
+
+        # 4. Depth: sparsified, normalised per view, log-compressed; plus the
+        #    metric depth-scale token of metric samples.
+        depth_mask = masks.depth
+        if views.depth_along_ray is not None:
+            depth = f32(views.depth_along_ray) * per_view(depth_mask)
+            if masks.depth_sparsification_keep is not None:
+                depth = depth * masks.depth_sparsification_keep
+            depth_norm, depth_factor = normalize_depth_using_non_zero_pixels(
+                depth.reshape(B * V, H, W, 1), return_norm_factor=True
+            )
+            depth_feats = self.depth_encoder(apply_log_to_norm(depth_norm)).reshape(B, V, h, w, E)
+            feats = feats + depth_feats * per_view(depth_mask)
+            metric_depth = is_metric & ~masks.depth_scale_norm_all & depth_mask
+            log_factor = torch.log(depth_factor + 1e-8).reshape(B * V, 1)
+            scale_feats = self.depth_scale_encoder(log_factor).reshape(B, V, E)
+            scale_feats = scale_feats * depth_mask[..., None] * metric_depth[..., None]
+            feats = feats + scale_feats[:, :, None, None, :]
+
+        # 5. Camera rotation, translation and (metric samples) translation-scale tokens.
+        if views.camera_pose_quats is not None:
+            quat_feats = self.cam_rot_encoder(pose_quats.reshape(B * V, 4)).reshape(B, V, E)
+            quat_feats = quat_feats * cam_mask[..., None]
+            trans_scaled, trans_factor = normalize_pose_translations(pose_trans, return_norm_factor=True)
+            trans_feats = self.cam_trans_encoder(trans_scaled.reshape(B * V, 3)).reshape(B, V, E)
+            trans_feats = trans_feats * cam_mask[..., None]
+            metric_pose = is_metric & ~masks.pose_scale_norm_all
+            log_tf = torch.log(trans_factor + 1e-8)[:, None, None].expand(B, V, 1).reshape(B * V, 1)
+            ts_feats = self.cam_trans_scale_encoder(log_tf).reshape(B, V, E)
+            ts_feats = ts_feats * cam_mask[..., None] * metric_pose[..., None]
+            feats = feats + (quat_feats + trans_feats + ts_feats)[:, :, None, None, :]
+
+        feats = self.fusion_norm_layer(feats)
+        scale_tokens = self.scale_token.expand(B, 1, E)
+
+        # 6. Info sharing.
         final_feats, intermediates, token_feats = self.info_sharing(
             feats.to(dtype), scale_tokens, non_ref_view_pe_indices
         )
 
-        # 3. Heads. Hook 0 takes the fused post-norm features (the trunk input).
+        # 7. Heads. Hook 0 takes the fused post-norm features (the trunk input).
         fdt = self.dpt_feature_head.dtype
         dense_inputs = [
             x.to(fdt).reshape(B * V, h, w, x.shape[-1])
@@ -261,7 +480,7 @@ class MapAnything(nn.Module):
         pose_raw = self.pose_head(dense_inputs[3])
         scale_raw = self.scale_head(token_feats)
 
-        # 4. Adaptors and scene-representation assembly, in fp32.
+        # 8. Adaptors and scene-representation assembly, in fp32.
         dense_out = apply_dense_adaptor(dense_raw.float(), cfg.dense_adaptor)
         pose_out = apply_pose_adaptor(pose_raw.float(), cfg.pose_adaptor)
         scale = apply_scale_adaptor(scale_raw.float(), cfg.scale_adaptor).reshape(B)

@@ -41,35 +41,46 @@ def _nvcc() -> str:
 
 
 def library_path(stem: str) -> Path:
-    src = CSRC_DIR / f"{stem}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{stem}_{digest}.so"
+    """The library's path; its name hashes the source, the shared headers and the flags."""
+    h = hashlib.sha1((CSRC_DIR / f"{stem}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{stem}_{h.hexdigest()[:12]}.so"
 
 
-def build(stem: str) -> Path:
-    """Compile ``csrc/<stem>.cu`` unless the library for this source exists.
+def build(*stems: str) -> list:
+    """Compile ``csrc/<stem>.cu`` for each stem whose library does not exist yet.
 
-    The compiler's output (with ``-Xptxas -v``: registers, shared memory and
-    spills of each kernel) is kept beside the library as ``<name>.log``.
+    The nvcc processes run side by side, one per source. The compiler's output
+    (with ``-Xptxas -v``: registers, shared memory and spills of each kernel)
+    is kept beside each library as ``<name>.log``. Returns the libraries' paths.
     """
-    out = library_path(stem)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{stem}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed for {stem}.cu (exit {proc.returncode}):\n{proc.stderr[-4000:]}"
-        )
-    os.replace(tmp, out)
-    return out
+    outs = [library_path(stem) for stem in stems]
+    jobs = []
+    for stem, out in zip(stems, outs):
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{stem}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        jobs.append((stem, out, tmp, proc))
+    failures = []
+    for stem, out, tmp, proc in jobs:
+        stdout, stderr = proc.communicate()
+        out.with_suffix(".log").write_text(stdout + stderr)
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed for {stem}.cu (exit {proc.returncode}):\n{stderr[-4000:]}")
+        else:
+            os.replace(tmp, out)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return outs
 
 
 def load(stem: str) -> ctypes.CDLL:
     """Build (if needed) and load the library of ``csrc/<stem>.cu``, once per process."""
     if stem not in _libs:
-        _libs[stem] = ctypes.CDLL(str(build(stem)))
+        _libs[stem] = ctypes.CDLL(str(build(stem)[0]))
     return _libs[stem]

@@ -1,30 +1,43 @@
-"""Non-causal flash-attention forward over (B, T, H, D) tensors.
+"""Non-causal flash attention over (B, T, H, D) tensors, forward and backward.
 
-The port's counterpart of ``mapanything_tpu/ops/flash_attention.py``
-(``flash_attention`` :1304, primal ``_flash`` :1255-1265). On the TPU that
-primal reaches three Pallas kernels by sequence length (K1
-``_packed_single_kernel``, K2 ``_pair_stream_kernel``, K3
-``_fwd_stream_aug``); here one hand-written Hopper kernel,
-``csrc/flash_attention_fwd.cu``, serves all of them.
+The port's counterpart of ``mapanything_tpu/ops/flash_attention.py``:
+``flash_attention`` (:1304) with its custom vjp (``_flash`` :1255,
+``_flash_fwd_rule`` :1268, ``_flash_bwd_rule`` :1285), ``flash_attention_lse``
+(:1323) and ``flash_attention_bwd_lse`` (:1357). On the TPU these reach ten
+Pallas kernels (K1-K7 of PERF.md); here two hand-written Hopper sources serve
+them: ``csrc/flash_attention_fwd.cu`` (the forward, with or without the lse
+residual) and ``csrc/flash_attention_bwd.cu`` (the dq kernel and the dk/dv
+kernel).
 
-Dispatch is by the device of the inputs, and by nothing else: a CPU tensor
-goes to ``attention_reference``, the plain PyTorch version; a CUDA tensor
-launches the kernel or raises. ``flash_attention.launches`` counts kernel
-launches, so a run can show that its attention went through the kernel.
+Routing. ``flash_attention`` runs the lse-free forward when no input needs a
+gradient (inference is unchanged); otherwise an autograd Function runs the
+forward with lse, saves q, k, v, o and lse, and its backward launches the dq
+and dk/dv kernels. Dispatch is by the device of the inputs and by nothing
+else: a CPU tensor goes to the plain PyTorch version beside each kernel; a
+CUDA tensor launches the kernel or raises. Each kernel has its own launch
+count (``flash_attention.launches``, ``flash_attention_lse.launches``,
+``flash_attention_bwd_dq.launches`` and ``flash_attention_bwd_dkv.launches``), so a run can
+show which kernels it went through.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from mapanything_tpu_torch.ops import _build
 
 KERNEL_STEM = "flash_attention_fwd"
-HEAD_DIMS = (64,)  # head dims the kernel is instantiated for
+BWD_KERNEL_STEM = "flash_attention_bwd"
+KERNEL_STEMS = (KERNEL_STEM, BWD_KERNEL_STEM)
+HEAD_DIMS = (64,)  # head dims the kernels are instantiated for
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+
+
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.promote_types(dtype, torch.float32)
 
 
 def attention_reference(
@@ -34,7 +47,7 @@ def attention_reference(
     to the input dtype."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    acc = torch.promote_types(q.dtype, torch.float32)
+    acc = _acc_dtype(q.dtype)
     qf, kf, vf = q.to(acc), k.to(acc), v.to(acc)
     logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
     logits = logits - logits.amax(dim=-1, keepdim=True)
@@ -43,17 +56,80 @@ def attention_reference(
     return torch.einsum("bhqk,bkhd->bqhd", w, vf).to(q.dtype)
 
 
-def _bind() -> ctypes.CDLL:
-    lib = _build.load(KERNEL_STEM)
-    fn = lib.flash_attention_fwd
+def attention_lse_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain (o, lse): o as ``attention_reference``, lse (B, H, Tq) the natural
+    log of the softmax normaliser of the scaled logits, fp32 (fp64 for fp64)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    acc = _acc_dtype(q.dtype)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) * scale
+    lse = torch.logsumexp(logits, dim=-1)
+    w = torch.exp(logits - lse[..., None])
+    return torch.einsum("bhqk,bkhd->bqhd", w, v.to(acc)).to(q.dtype), lse
+
+
+def attention_bwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The FlashAttention-2 backward formulas written out in fp32 (fp64 for fp64).
+
+    P = exp(q kᵀ scale − lse), delta = rowsum(dO·O), dV = Pᵀ dO,
+    dS = P ∘ (dO Vᵀ − delta), dQ = dS K scale, dK = dSᵀ Q scale.
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    delta = attention_bwd_delta(o, do)
+    return (
+        attention_bwd_dq_reference(q, k, v, do, lse, delta, scale),
+        *attention_bwd_dkv_reference(q, k, v, do, lse, delta, scale),
+    )
+
+
+def attention_bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO·O), (B, H, Tq), in fp32 (fp64 for fp64)."""
+    acc = _acc_dtype(o.dtype)
+    return (do.to(acc) * o.to(acc)).sum(-1).transpose(1, 2)
+
+
+def _plain_p_ds(q, k, v, do, lse, delta, scale):
+    acc = _acc_dtype(q.dtype)
+    qf, kf, vf, dof = (x.to(acc) for x in (q, k, v, do))
+    p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale - lse.to(acc)[..., None])
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, vf) - delta.to(acc)[..., None])
+    return qf, kf, dof, p, ds
+
+
+def attention_bwd_dq_reference(q, k, v, do, lse, delta, scale):
+    """Plain version of the dq kernel: dQ = dS K scale."""
+    _, kf, _, _, ds = _plain_p_ds(q, k, v, do, lse, delta, scale)
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale).to(q.dtype)
+
+
+def attention_bwd_dkv_reference(q, k, v, do, lse, delta, scale):
+    """Plain version of the dk/dv kernel: dK = dSᵀ Q scale, dV = Pᵀ dO."""
+    qf, _, dof, p, ds = _plain_p_ds(q, k, v, do, lse, delta, scale)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+_PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def _bind(stem: str, name: str, n_ptrs: int, n_strides: int):
+    fn = getattr(_build.load(stem), name)
     if fn.argtypes is None:
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32] + [i64] * 9 + [
-            ctypes.c_float,
-            ptr,
-        ]
+        fn.argtypes = [_PTR] * n_ptrs + [_I32] * 6 + [_I64] * n_strides + [ctypes.c_float, _PTR]
         fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -76,26 +152,155 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise ValueError(f"{name}: base and strides must be 16-byte aligned, got {x.stride()}")
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+def _strides(*xs: torch.Tensor) -> list:
+    return [st for x in xs for st in x.stride()[:3]]
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` if the kernels can read it in place, else a contiguous copy."""
+    align = 16 // x.element_size()
+    if x.stride(3) == 1 and x.data_ptr() % 16 == 0 and not any(s % align for s in x.stride()[:3]):
+        return x
+    return x.contiguous()
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def _launch_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, with_lse: bool
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     _check(q, k, v)
     b, tq, h, d = q.shape
-    tk = k.shape[1]
-    fn = _bind().flash_attention_fwd
+    fn = _bind(KERNEL_STEM, "flash_attention_fwd", 5, 9)
     o = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device) if with_lse else None
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            _DTYPE_CODES[q.dtype], b, tq, tk, h, d,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            float(scale), stream,
+            None if lse is None else lse.data_ptr(),
+            _DTYPE_CODES[q.dtype], b, tq, k.shape[1], h, d,
+            *_strides(q, k, v), float(scale), torch.cuda.current_stream().cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error {err}")
-    flash_attention.launches += 1
-    return o
+    _raise_on(err, "flash_attention_fwd")
+    return o, lse
+
+
+def _check_bwd(q, k, v, do, lse, delta) -> torch.Tensor:
+    _check(q, k, v)
+    b, tq, h, _ = q.shape
+    if do.shape != q.shape or lse.shape != (b, h, tq) or delta.shape != (b, h, tq):
+        raise ValueError(f"do {tuple(do.shape)}, lse {tuple(lse.shape)} and delta "
+                         f"{tuple(delta.shape)} do not fit q {tuple(q.shape)}")
+    for name, x in (("lse", lse), ("delta", delta)):
+        if x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous fp32 (B, H, Tq) tensor")
+    return _aligned(do.to(q.dtype))
+
+
+def _launch_bwd(name, n_out, q, k, v, do, lse, delta, scale, outs):
+    b, tq, h, d = q.shape
+    fn = _bind(BWD_KERNEL_STEM, name, 6 + n_out, 12)
+    ptrs = [x.data_ptr() for x in (q, k, v, do, lse, delta, *outs)]
+    with torch.cuda.device(q.device):
+        err = fn(*ptrs, _DTYPE_CODES[q.dtype], b, tq, k.shape[1], h, d,
+                 *_strides(q, k, v, do), float(scale), torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, name)
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale):
+    """dq of the backward from lse and delta (each (B, H, Tq) fp32): the dq kernel
+    on CUDA tensors, its plain version on CPU tensors."""
+    if _device_of(q) == "cpu":
+        return attention_bwd_dq_reference(q, k, v, do, lse, delta, scale)
+    do = _check_bwd(q, k, v, do, lse, delta)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_bwd("flash_attention_bwd_dq", 1, q, k, v, do, lse, delta, scale, (dq,))
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale):
+    """(dk, dv) of the backward from lse and delta: the dk/dv kernel on CUDA
+    tensors, its plain version on CPU tensors."""
+    if _device_of(q) == "cpu":
+        return attention_bwd_dkv_reference(q, k, v, do, lse, delta, scale)
+    do = _check_bwd(q, k, v, do, lse, delta)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    _launch_bwd("flash_attention_bwd_dkv", 2, q, k, v, do, lse, delta, scale, (dk, dv))
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def _device_of(q: torch.Tensor) -> str:
+    if q.device.type not in ("cuda", "cpu"):
+        raise RuntimeError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    return q.device.type
+
+
+def flash_attention_lse(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse): o as ``flash_attention``; lse (B, H, Tq) fp32, the natural log
+    of sum_j exp(s_ij) of the scaled logits s = q·k·scale. Not differentiable:
+    callers own the backward (``flash_attention_bwd_lse``)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if _device_of(q) == "cpu":
+        return attention_lse_reference(q, k, v, scale)
+    out = _launch_fwd(q, k, v, scale, with_lse=True)
+    flash_attention_lse.launches += 1
+    return out
+
+
+def flash_attention_bwd_lse(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """FlashAttention-2 backward of the KV set (k, v) against a given softmax.
+
+    ``o`` (B, Tq, H, D) and ``lse`` (B, H, Tq, natural log) describe the
+    softmax over the whole KV set, of which (k, v) may be one block, as in
+    ring attention; ``do`` is the output cotangent. Returns (dq, dk, dv):
+    this block's part of dq (the sum over blocks is the whole) and dk, dv
+    of this block, each in the inputs' dtype.
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if _device_of(q) == "cpu":
+        return attention_bwd_reference(q, k, v, o, lse, do, scale)
+    if o.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} does not fit q {tuple(q.shape)}")
+    # delta = rowsum(dO·O) in fp32, outside the kernels as in the JAX package (:1048).
+    delta = attention_bwd_delta(o, do).contiguous()
+    lse = lse.float().contiguous()
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
+    return (dq, *flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The custom vjp: forward with lse, backward through the dq and dk/dv kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        o, lse = flash_attention_lse(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_lse(q, k, v, o, lse, do, ctx.scale)
+        return dq, dk, dv, None
 
 
 def flash_attention(
@@ -103,19 +308,42 @@ def flash_attention(
 ) -> torch.Tensor:
     """softmax(q kᵀ scale) v over q (B, Tq, H, D) and k, v (B, Tk, H, D).
 
-    CUDA tensors run the Hopper kernel (bf16 or fp32, D = 64) and come back
-    as a contiguous (B, Tq, H, D) tensor; CPU tensors run the plain version.
+    CUDA tensors run the Hopper kernels (bf16 or fp32, D = 64) and come back
+    as a contiguous (B, Tq, H, D) tensor; CPU tensors run the plain versions.
+    The result is differentiable when an input requires grad.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q.is_cuda:
-        return _launch(q, k, v, scale)
-    if q.device.type != "cpu":
-        raise RuntimeError(f"flash_attention runs on cuda or cpu, not {q.device}")
-    return attention_reference(q, k, v, scale)
+    device = _device_of(q)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, float(scale))
+    if device == "cpu":
+        return attention_reference(q, k, v, scale)
+    o, _ = _launch_fwd(q, k, v, scale, with_lse=False)
+    flash_attention.launches += 1
+    return o
 
 
 flash_attention.launches = 0
+flash_attention_lse.launches = 0
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    for fn in (flash_attention, flash_attention_lse, flash_attention_bwd_dq, flash_attention_bwd_dkv):
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    """Launches of each kernel since the last reset, by kernel."""
+    return {
+        "flash_attention_fwd": flash_attention.launches,
+        "flash_attention_fwd_lse": flash_attention_lse.launches,
+        "flash_attention_bwd_dq": flash_attention_bwd_dq.launches,
+        "flash_attention_bwd_dkv": flash_attention_bwd_dkv.launches,
+    }
 
 
 def attention_flops(b: int, tq: int, tk: int, h: int, d: int) -> int:
@@ -127,3 +355,12 @@ def attention_bytes(b: int, tq: int, tk: int, h: int, d: int, itemsize: int) -> 
     """Bytes that must move: q, k, v read once and o written once."""
     return (2 * b * tq * h * d + 2 * b * tk * h * d) * itemsize
 
+
+def attention_bwd_flops(b: int, tq: int, tk: int, h: int, d: int) -> int:
+    """The backward's necessary work, five Tq·Tk·D products: 10·B·H·Tq·Tk·D."""
+    return 10 * b * h * tq * tk * d
+
+
+def attention_bwd_bytes(b: int, tq: int, tk: int, h: int, d: int, itemsize: int) -> int:
+    """Bytes that must move: q, k, v, o, dO and the fp32 lse read; dq, dk, dv written."""
+    return 4 * b * h * d * (tq + tk) * itemsize + 4 * b * h * tq

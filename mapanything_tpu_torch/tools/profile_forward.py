@@ -1,15 +1,23 @@
-"""Where the time of the flagship forward goes on the card, by kernel family.
+"""Where the time of the flagship forward, or train step, goes on the card, by kernel family.
 
-    python3 -m mapanything_tpu_torch.tools.profile_forward [--out DIR]
+    python3 -m mapanything_tpu_torch.tools.profile_forward [--train] [--out DIR]
 
 Builds MapAnythingConfig(compute_dtype="bfloat16") with seeded random
-weights on 1 x 8 views at 518 px, warms up, then traces three forwards with torch.profiler (CPU and
-CUDA activities). The Chrome trace is parsed directly: every "kernel" event
-is summed by name and by family (the port's attention kernel, GEMMs,
-convolutions, casts and copies, normalisation, resizes, other elementwise).
-Prints one JSON summary line: device busy time per forward, the host wall
-time per forward, the device's idle share over the traced window, and the
-families in order. The per-kernel table goes to ``<out>/profile_forward.json``.
+weights. Without ``--train``: the images-only forward on 1 x 8 views at
+518 px, under ``torch.inference_mode()``. With ``--train``: the train step
+(forward, backward and optimizer) on 1 x 4 views at 518 px, with the
+bench.py LossBatch and GeometricInputConfig() masks, as ``chip_smoke.py``
+phase 7 runs it. Warms up, then traces three iterations with torch.profiler
+(CPU and CUDA activities). The Chrome trace is parsed directly: every
+"kernel" event is summed by name and by family (the port's attention
+kernels, GEMMs, convolutions, casts and copies, normalisation, resizes,
+other elementwise, the optimizer's multi-tensor kernels). Prints one JSON
+summary line: device busy time per iteration, the host wall time per
+iteration traced and, timed just before the trace in the same process,
+untraced, the device's idle share over the traced window, an estimate of
+the idle share without the profiler (one minus busy time over untraced
+wall time), and the families in order. The per-kernel table goes to ``<out>/profile_forward.json``
+(``profile_train.json`` with ``--train``).
 """
 
 from __future__ import annotations
@@ -24,15 +32,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from mapanything_tpu_torch.models.mapanything import MapAnything, MapAnythingConfig, Views
-
-VIEWS, PX, ITERS = 8, 518, 3  # the main path's shape; forwards traced
+PX, ITERS = 518, 3  # image size; iterations traced
 
 # Ordered: the first family whose pattern occurs in a kernel's name takes it.
 # cuDNN runs convolutions as implicit GEMMs, so "fprop"/"dgrad" come before "gemm";
 # "gpu_kernel_impl_nocast" names plain arithmetic, so casts match on "copy" only.
 FAMILIES = (
-    ("attention (fa_fwd_bf16)", ("fa_fwd",)),
+    ("attention (port kernels)", ("fa_fwd", "fa_bwd")),
+    ("optimizer (multi-tensor)", ("multi_tensor_apply",)),
     ("convolution", ("fprop", "dgrad", "cudnn", "nhwcAddPadding", "conv2d")),
     ("gemm", ("gemm", "nvjet", "cutlass", "cublas")),
     ("layer_norm", ("layer_norm",)),
@@ -42,6 +49,7 @@ FAMILIES = (
     ("relu/clamp", ("clamp",)),
     ("add/mul", ("CUDAFunctor_add", "MulFunctor", "BinaryFunctor")),
     ("reduce", ("reduce",)),
+    ("sort", ("sort", "Sort", "radix")),
 )
 
 
@@ -67,9 +75,47 @@ def busy_us(intervals) -> float:
     return total
 
 
+def forward_runner():
+    """The images-only forward on 1 x 8 x 518, under inference mode."""
+    from mapanything_tpu_torch.models.mapanything import MapAnything, MapAnythingConfig, Views
+
+    model = MapAnything(MapAnythingConfig(compute_dtype="bfloat16"), device="cuda", seed=0)
+    img = np.random.RandomState(0).randn(1, 8, PX, PX, 3).astype(np.float32)
+    views = Views(img=torch.from_numpy(img).cuda())
+
+    def run():
+        with torch.inference_mode():
+            model(views)
+
+    return run, "MapAnythingConfig(compute_dtype='bfloat16'), 1x8x518x518 forward"
+
+
+def train_runner():
+    """The train step on 1 x 4 x 518, as chip_smoke.py phase 7 runs it."""
+    from mapanything_tpu_torch.models.mapanything import GeometricInputConfig, MapAnything, MapAnythingConfig
+    from mapanything_tpu_torch.train.losses import LossConfig, synthetic_loss_batch
+    from mapanything_tpu_torch.train.optim import OptimConfig, build_optimizer
+    from mapanything_tpu_torch.train.step import init_train_state, make_train_step
+
+    B, V = 1, 4
+    model = MapAnything(MapAnythingConfig(compute_dtype="bfloat16"), device="cuda", seed=0, geometric_inputs=True)
+    opt = build_optimizer(OptimConfig(lr=1e-7, min_lr=1e-8, epoch_len=100, total_epochs=1.0), model)
+    step = make_train_step(model, opt, LossConfig(), GeometricInputConfig())
+    batch = synthetic_loss_batch(B, V, PX, PX, seed=0).to("cuda")  # bench.py:128-153
+    img = torch.from_numpy(np.random.RandomState(0).randn(B, V, PX, PX, 3).astype(np.float32)).cuda()
+    gen = torch.Generator().manual_seed(0)
+    box = [init_train_state(model, opt)]
+
+    def run():
+        box[0], _ = step(box[0], img, batch, gen)
+
+    return run, "MapAnythingConfig(compute_dtype='bfloat16'), 1x4x518x518 train step (forward, backward, AdamW)"
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/profile")
+    ap.add_argument("--train", action="store_true", help="profile the train step instead of the forward")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward: no CUDA device")
@@ -80,18 +126,21 @@ def main() -> None:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
 
-    model = MapAnything(MapAnythingConfig(compute_dtype="bfloat16"), device="cuda", seed=0)
-    img = np.random.RandomState(0).randn(1, VIEWS, PX, PX, 3).astype(np.float32)
-    views = Views(img=torch.from_numpy(img).cuda())
+    run, config = train_runner() if args.train else forward_runner()
     for _ in range(3):
-        model(views)
+        run()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ITERS):
+        run()
+    torch.cuda.synchronize()
+    untraced_s = time.perf_counter() - t0
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(ITERS):
-            model(views)
+            run()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     trace = out_dir / "profile_forward_trace.json"
@@ -111,22 +160,25 @@ def main() -> None:
     span_us = max(e["ts"] + e["dur"] for e in kernels) - min(e["ts"] for e in kernels)
     busy = busy_us([(e["ts"], e["ts"] + e["dur"]) for e in kernels])
     table = sorted(
-        ({"name": k, "family": family(k), "ms_per_forward": v[0] / n / 1e3, "calls_per_forward": v[1] / n}
+        ({"name": k, "family": family(k), "ms_per_iteration": v[0] / n / 1e3, "calls_per_iteration": v[1] / n}
          for k, v in by_name.items()),
-        key=lambda r: -r["ms_per_forward"],
+        key=lambda r: -r["ms_per_iteration"],
     )
-    (out_dir / "profile_forward.json").write_text(json.dumps({"card": smi, "kernels": table}, indent=1))
+    name = "profile_train" if args.train else "profile_forward"
+    (out_dir / f"{name}.json").write_text(json.dumps({"card": smi, "config": config, "kernels": table}, indent=1))
     trace.unlink()  # large; the per-kernel table above keeps what it says
     print(json.dumps({
-        "tool": "profile_forward",
-        "config": f"MapAnythingConfig(compute_dtype='bfloat16'), 1x{VIEWS}x{PX}x{PX}",
+        "tool": name,
+        "config": config,
         "card": smi,
-        "forwards": n,
-        "wall_ms_per_forward": 1e3 * wall_s / n,
-        "device_busy_ms_per_forward": busy / n / 1e3,
+        "iterations": n,
+        "wall_ms_per_iteration": 1e3 * wall_s / n,
+        "untraced_wall_ms_per_iteration": 1e3 * untraced_s / n,
+        "device_busy_ms_per_iteration": busy / n / 1e3,
         "idle_share_of_kernel_span": 1.0 - busy / span_us,
-        "kernel_launches_per_forward": len(kernels) / n,
-        "families_ms_per_forward": dict(sorted(
+        "idle_share_untraced_estimate": 1.0 - busy / 1e6 / untraced_s,
+        "kernel_launches_per_iteration": len(kernels) / n,
+        "families_ms_per_iteration": dict(sorted(
             ((k, v / n / 1e3) for k, v in by_family.items()), key=lambda kv: -kv[1])),
         "top_kernels": table[:12],
     }), flush=True)

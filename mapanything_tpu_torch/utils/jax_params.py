@@ -1,27 +1,34 @@
-"""Load a JAX MapAnything parameter tree into the port's modules.
+"""Map a JAX MapAnything parameter tree onto the port's modules, and back.
 
-The inverse of ``mapanything_tpu/utils/torch_convert.py`` for the modules of
-the images-only slice. ``params`` is the ``["params"]`` tree of the JAX
-package's ``init`` as nested mappings of arrays (numpy arrays, or anything
-``np.asarray`` takes); nothing of JAX is imported here.
+The inverse of ``mapanything_tpu/utils/torch_convert.py``. ``param_map``
+walks a port module and names, for each of its parameters, the JAX leaf
+that holds it ("a/b/kernel") and how the layout differs; it needs no JAX
+tree, so the optimizer reads the JAX rules (weight-decay mask, lr scales by
+path) from it. ``jax_params_to_state_dict`` applies the map to a tree of
+arrays: the ``["params"]`` tree of the JAX package's ``init``, or a gradient
+tree of the same structure. Nothing of JAX is imported here.
 
 Rules: Dense kernels (in, out) are transposed to ``Linear`` weights
 (out, in); conv kernels go from HWIO to OIHW; the ``StridedConvTranspose``
 kernel (k, k, out, in) goes to ``ConvTranspose2d``'s (in, out, k, k) — the
-same axis permutation; LayerNorm ``scale`` becomes ``weight``. Loading is
-strict: a JAX leaf that no port parameter takes, or a port parameter that
-no JAX leaf fills, raises.
+same axis permutation; LayerNorm ``scale`` becomes ``weight``; every other
+leaf keeps its shape. Loading is strict: a JAX leaf that no port parameter
+takes, or a port parameter that no JAX leaf fills, raises.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping
+from typing import Callable, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from mapanything_tpu_torch.models.blocks import SelfAttentionBlock
+from mapanything_tpu_torch.models.encoders.dense_rep import (
+    DenseRepresentationEncoder,
+    GlobalRepresentationEncoder,
+)
 from mapanything_tpu_torch.models.encoders.vit import ViTEncoder
 from mapanything_tpu_torch.models.heads.dpt import (
     DPTFeature,
@@ -34,149 +41,178 @@ from mapanything_tpu_torch.models.info_sharing.alternating import (
 )
 from mapanything_tpu_torch.models.mapanything import MapAnything
 
+# How a JAX leaf becomes the port's tensor, and the JAX leaf's rank where it
+# differs from the port's ("copy" keeps the shape).
+_LAYOUTS: Dict[str, Callable[[np.ndarray], np.ndarray]] = {
+    "dense": lambda x: x.T,
+    "conv": lambda x: x.transpose(3, 2, 0, 1),
+    "copy": lambda x: x,
+}
+_JAX_RANK = {"dense": 2, "conv": 4}
 
-class _Leaves:
-    """The JAX tree flattened to {"a/b/c": array}; ``take`` consumes a leaf."""
 
-    def __init__(self, tree: Mapping):
-        self.flat: Dict[str, np.ndarray] = {}
-        self._flatten(tree, "")
+class _Map:
+    """The walk's state: the module's parameter names and the map built so far."""
 
-    def _flatten(self, node, prefix):
-        for key, value in node.items():
-            path = f"{prefix}{key}"
-            if isinstance(value, Mapping):
-                self._flatten(value, path + "/")
-            else:
-                self.flat[path] = np.asarray(value, dtype=np.float32)
+    def __init__(self, module: nn.Module):
+        self.order = [name for name, _ in module.named_parameters()]
+        self.names = set(self.order)
+        self.entries: Dict[str, Tuple[str, str]] = {}
 
-    def has(self, path: str) -> bool:
-        return path in self.flat
+    def has(self, torch_name: str) -> bool:
+        return torch_name in self.names
 
-    def take(self, path: str) -> np.ndarray:
-        if path not in self.flat:
-            raise KeyError(f"JAX parameter {path!r} is missing")
-        return self.flat.pop(path)
+    def add(self, torch_name: str, jax_path: str, layout: str = "copy") -> None:
+        self.entries[torch_name] = (jax_path, layout)
 
 
 def _join(prefix: str, name: str) -> str:
     return f"{prefix}/{name}" if prefix else name
 
 
-def _dense(P: _Leaves, out: dict, jp: str, tp: str) -> None:
-    out[tp + "weight"] = P.take(_join(jp, "kernel")).T
-    if P.has(_join(jp, "bias")):
-        out[tp + "bias"] = P.take(_join(jp, "bias"))
+def _dense(M: _Map, jp: str, tp: str, layout: str = "dense") -> None:
+    M.add(tp + "weight", _join(jp, "kernel"), layout)
+    if M.has(tp + "bias"):
+        M.add(tp + "bias", _join(jp, "bias"))
 
 
-def _conv(P: _Leaves, out: dict, jp: str, tp: str) -> None:
+def _conv(M: _Map, jp: str, tp: str) -> None:
     # HWIO -> OIHW; for the transposed conv (k, k, out, in) -> (in, out, k, k).
-    out[tp + "weight"] = P.take(_join(jp, "kernel")).transpose(3, 2, 0, 1)
-    if P.has(_join(jp, "bias")):
-        out[tp + "bias"] = P.take(_join(jp, "bias"))
+    _dense(M, jp, tp, "conv")
 
 
-def _norm(P: _Leaves, out: dict, jp: str, tp: str) -> None:
-    out[tp + "weight"] = P.take(_join(jp, "scale"))
-    out[tp + "bias"] = P.take(_join(jp, "bias"))
+def _norm(M: _Map, jp: str, tp: str) -> None:
+    M.add(tp + "weight", _join(jp, "scale"))
+    M.add(tp + "bias", _join(jp, "bias"))
 
 
-def _block(P, out, jp, tp):
+def _block(M, jp, tp):
     j = lambda n: _join(jp, n)  # noqa: E731
-    _norm(P, out, j("norm1"), tp + "norm1.")
-    _dense(P, out, j("attn/qkv"), tp + "attn.qkv.")
-    _dense(P, out, j("attn/proj"), tp + "attn.proj.")
-    _norm(P, out, j("norm2"), tp + "norm2.")
-    _dense(P, out, j("mlp/fc1"), tp + "mlp.fc1.")
-    _dense(P, out, j("mlp/fc2"), tp + "mlp.fc2.")
+    _norm(M, j("norm1"), tp + "norm1.")
+    _dense(M, j("attn/qkv"), tp + "attn.qkv.")
+    _dense(M, j("attn/proj"), tp + "attn.proj.")
+    _norm(M, j("norm2"), tp + "norm2.")
+    _dense(M, j("mlp/fc1"), tp + "mlp.fc1.")
+    _dense(M, j("mlp/fc2"), tp + "mlp.fc2.")
     for ls in ("ls1", "ls2"):
-        if P.has(j(f"{ls}/gamma")):
-            out[tp + f"{ls}.gamma"] = P.take(j(f"{ls}/gamma"))
+        if M.has(tp + f"{ls}.gamma"):
+            M.add(tp + f"{ls}.gamma", j(f"{ls}/gamma"))
 
 
-def _vit(P, out, jp, tp):
+def _vit(M, jp, tp):
     j = lambda n: _join(jp, n)  # noqa: E731
-    _conv(P, out, j("patch_embed"), tp + "patch_embed.proj.")
-    out[tp + "cls_token"] = P.take(j("cls_token"))
-    out[tp + "pos_embed"] = P.take(j("pos_embed"))
+    _conv(M, j("patch_embed"), tp + "patch_embed.proj.")
+    M.add(tp + "cls_token", j("cls_token"))
+    M.add(tp + "pos_embed", j("pos_embed"))
     i = 0
-    while P.has(j(f"block_{i}/norm1/scale")):
-        _block(P, out, j(f"block_{i}"), tp + f"blocks.{i}.")
+    while M.has(tp + f"blocks.{i}.norm1.weight"):
+        _block(M, j(f"block_{i}"), tp + f"blocks.{i}.")
         i += 1
-    _norm(P, out, j("norm"), tp + "norm.")
+    _norm(M, j("norm"), tp + "norm.")
 
 
-def _trunk(P, out, jp, tp):
+def _trunk(M, jp, tp):
     j = lambda n: _join(jp, n)  # noqa: E731
-    if P.has(j("proj_embed/kernel")):
-        _dense(P, out, j("proj_embed"), tp + "proj_embed.")
+    if M.has(tp + "proj_embed.weight"):
+        _dense(M, j("proj_embed"), tp + "proj_embed.")
     i = 0
-    while P.has(j(f"block_{i}/norm1/scale")):
-        _block(P, out, j(f"block_{i}"), tp + f"self_attention_blocks.{i}.")
+    while M.has(tp + f"self_attention_blocks.{i}.norm1.weight"):
+        _block(M, j(f"block_{i}"), tp + f"self_attention_blocks.{i}.")
         i += 1
-    _norm(P, out, j("norm"), tp + "norm.")
+    _norm(M, j("norm"), tp + "norm.")
 
 
 _DPT_RESAMPLE = {0: "act_0_up4", 1: "act_1_up2", 3: "act_3_down2"}
 
 
-def _dpt_feature(P, out, jp, tp):
+def _dpt_feature(M, jp, tp):
     j = lambda n: _join(jp, n)  # noqa: E731
     for i in range(4):
-        _conv(P, out, j(f"act_{i}_proj"), tp + f"input_process.{i}.0.0.")
+        _conv(M, j(f"act_{i}_proj"), tp + f"input_process.{i}.0.0.")
         if i in _DPT_RESAMPLE:
-            _conv(P, out, j(_DPT_RESAMPLE[i]), tp + f"input_process.{i}.0.1.")
-        _conv(P, out, j(f"layer_{i}_rn"), tp + f"input_process.{i}.1.")
+            _conv(M, j(_DPT_RESAMPLE[i]), tp + f"input_process.{i}.0.1.")
+        _conv(M, j(f"layer_{i}_rn"), tp + f"input_process.{i}.1.")
     for k in range(1, 5):
         rp = tp + f"scratch.refinenet{k}."
-        _conv(P, out, j(f"refinenet{k}/out_conv"), rp + "out_conv.")
+        _conv(M, j(f"refinenet{k}/out_conv"), rp + "out_conv.")
         for jax_unit, torch_unit in (("res_conf_unit1", "resConfUnit1"), ("res_conf_unit2", "resConfUnit2")):
-            if P.has(j(f"refinenet{k}/{jax_unit}/conv1/kernel")):
+            if M.has(rp + f"{torch_unit}.conv1.weight"):
                 for conv in ("conv1", "conv2"):
-                    _conv(P, out, j(f"refinenet{k}/{jax_unit}/{conv}"), rp + f"{torch_unit}.{conv}.")
+                    _conv(M, j(f"refinenet{k}/{jax_unit}/{conv}"), rp + f"{torch_unit}.{conv}.")
 
 
-def _dpt_regressor(P, out, jp, tp):
+def _dpt_regressor(M, jp, tp):
     j = lambda n: _join(jp, n)  # noqa: E731
-    _conv(P, out, j("conv1"), tp + "conv1.")
-    _conv(P, out, j("conv2_0"), tp + "conv2.0.")
-    _conv(P, out, j("conv2_1"), tp + "conv2.2.")
+    _conv(M, j("conv1"), tp + "conv1.")
+    _conv(M, j("conv2_0"), tp + "conv2.0.")
+    _conv(M, j("conv2_1"), tp + "conv2.2.")
 
 
-def _pose_head(P, out, jp, tp):
+def _pose_head(M, jp, tp):
     j = lambda n: _join(jp, n)  # noqa: E731
-    _conv(P, out, j("proj"), tp + "proj.")
+    _conv(M, j("proj"), tp + "proj.")
     i = 0
-    while P.has(j(f"res_conv_{i}/res_conv1/kernel")):
+    while M.has(tp + f"res_conv.{i}.res_conv1.weight"):
         for name in ("head_skip", "res_conv1", "res_conv2", "res_conv3"):
-            if P.has(j(f"res_conv_{i}/{name}/kernel")):
-                _conv(P, out, j(f"res_conv_{i}/{name}"), tp + f"res_conv.{i}.{name}.")
+            if M.has(tp + f"res_conv.{i}.{name}.weight"):
+                _conv(M, j(f"res_conv_{i}/{name}"), tp + f"res_conv.{i}.{name}.")
         i += 1
-    _dense(P, out, j("mlp_0"), tp + "more_mlps.0.")
-    _dense(P, out, j("mlp_1"), tp + "more_mlps.2.")
-    _dense(P, out, j("fc_t"), tp + "fc_t.")
-    _dense(P, out, j("fc_rot"), tp + "fc_rot.")
+    _dense(M, j("mlp_0"), tp + "more_mlps.0.")
+    _dense(M, j("mlp_1"), tp + "more_mlps.2.")
+    _dense(M, j("fc_t"), tp + "fc_t.")
+    _dense(M, j("fc_rot"), tp + "fc_rot.")
 
 
-def _mlp_head(P, out, jp, tp):
+def _mlp_head(M, jp, tp):
     j = lambda n: _join(jp, n)  # noqa: E731
-    _dense(P, out, j("proj"), tp + "proj.")
+    _dense(M, j("proj"), tp + "proj.")
     i = 0
-    while P.has(j(f"mlp_{i}/kernel")):
-        _dense(P, out, j(f"mlp_{i}"), tp + f"mlp.{i}.0.")
+    while M.has(tp + f"mlp.{i}.0.weight"):
+        _dense(M, j(f"mlp_{i}"), tp + f"mlp.{i}.0.")
         i += 1
-    _dense(P, out, j("output_proj"), tp + "output_proj.")
+    _dense(M, j("output_proj"), tp + "output_proj.")
 
 
-def _mapanything(P, out, jp, tp):
-    out["scale_token"] = P.take("scale_token")
-    _norm(P, out, "fusion_norm", "fusion_norm_layer.")
-    _vit(P, out, "encoder", "encoder.model.")
-    _trunk(P, out, "info_sharing", "info_sharing.")
-    _dpt_feature(P, out, "dpt_feature_head", "dpt_feature_head.")
-    _dpt_regressor(P, out, "dpt_regressor_head", "dpt_regressor_head.")
-    _pose_head(P, out, "pose_head", "pose_head.")
-    _mlp_head(P, out, "scale_head", "scale_head.")
+def _dense_rep(M, jp, tp):
+    j = lambda n: _join(jp, n)  # noqa: E731
+    _conv(M, j("conv_in"), tp + "conv_in.")
+    i = 0
+    while M.has(tp + f"encoder.{i}.conv1.weight"):
+        for conv in ("conv1", "conv2", "shortcut"):
+            if M.has(tp + f"encoder.{i}.{conv}.weight"):
+                _conv(M, j(f"res_{i}/{conv}"), tp + f"encoder.{i}.{conv}.")
+        i += 1
+    _conv(M, j("proj"), tp + f"encoder.{i}.")
+    _norm(M, j("norm"), tp + "norm_layer.")
+
+
+def _global_rep(M, jp, tp):
+    # The linears in registration order are fc_0 .. fc_{n-2}, then fc_out.
+    linears = [n[: -len("weight")] for n in M.order if n.startswith(tp + "encoder.") and n.endswith(".weight")]
+    for i, name in enumerate(linears):
+        _dense(M, _join(jp, "fc_out" if i == len(linears) - 1 else f"fc_{i}"), name)
+    _norm(M, _join(jp, "norm"), tp + "norm_layer.")
+
+
+_DENSE_REP_ENCODERS = ("ray_dirs_encoder", "depth_encoder")
+_GLOBAL_REP_ENCODERS = ("depth_scale_encoder", "cam_rot_encoder", "cam_trans_encoder", "cam_trans_scale_encoder")
+
+
+def _mapanything(M, jp, tp):
+    M.add("scale_token", "scale_token")
+    _norm(M, "fusion_norm", "fusion_norm_layer.")
+    _vit(M, "encoder", "encoder.model.")
+    _trunk(M, "info_sharing", "info_sharing.")
+    _dpt_feature(M, "dpt_feature_head", "dpt_feature_head.")
+    _dpt_regressor(M, "dpt_regressor_head", "dpt_regressor_head.")
+    _pose_head(M, "pose_head", "pose_head.")
+    _mlp_head(M, "scale_head", "scale_head.")
+    for name in _DENSE_REP_ENCODERS:
+        if M.has(f"{name}.conv_in.weight"):
+            _dense_rep(M, name, f"{name}.")
+    for name in _GLOBAL_REP_ENCODERS:
+        if M.has(f"{name}.norm_layer.weight"):
+            _global_rep(M, name, f"{name}.")
 
 
 _CONVERTERS: Dict[type, Callable] = {
@@ -189,20 +225,53 @@ _CONVERTERS: Dict[type, Callable] = {
     StridedConvTranspose: _conv,
     PoseHead: _pose_head,
     MLPHead: _mlp_head,
+    DenseRepresentationEncoder: _dense_rep,
+    GlobalRepresentationEncoder: _global_rep,
 }
 
 
-def jax_params_to_state_dict(module: nn.Module, params: Mapping) -> Dict[str, torch.Tensor]:
-    """The port state dict (fp32 CPU tensors) that a JAX tree maps to."""
+def param_map(module: nn.Module) -> Dict[str, Tuple[str, str]]:
+    """{port parameter name: (JAX leaf path "a/b/c", layout)} for every
+    parameter of ``module``; layout is "dense", "conv" or "copy"."""
     convert = _CONVERTERS.get(type(module))
     if convert is None:
         raise TypeError(f"no JAX parameter mapping for {type(module).__name__}")
-    leaves = _Leaves(params)
-    out: Dict[str, np.ndarray] = {}
-    convert(leaves, out, "", "")
-    if leaves.flat:
-        raise KeyError(f"JAX parameters not used by {type(module).__name__}: {sorted(leaves.flat)}")
-    return {k: torch.tensor(v) for k, v in out.items()}
+    M = _Map(module)
+    convert(M, "", "")
+    unmapped = M.names - set(M.entries)
+    if unmapped:
+        raise KeyError(f"port parameters without a JAX leaf: {sorted(unmapped)}")
+    return {name: M.entries[name] for name in M.order}
+
+
+def jax_leaf_rank(layout: str, port_param: torch.Tensor) -> int:
+    """The rank of the JAX leaf behind a port parameter of this layout."""
+    return _JAX_RANK.get(layout, port_param.dim())
+
+
+def _flatten(tree: Mapping, prefix: str = "", out=None) -> Dict[str, np.ndarray]:
+    out = {} if out is None else out
+    for key, value in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(value, Mapping):
+            _flatten(value, path + "/", out)
+        else:
+            out[path] = np.asarray(value, dtype=np.float32)
+    return out
+
+
+def jax_params_to_state_dict(module: nn.Module, params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port state dict (fp32 CPU tensors) that a JAX tree maps to. The
+    tree may be a parameter tree or a gradient tree of the same structure."""
+    leaves = _flatten(params)
+    out = {}
+    for name, (path, layout) in param_map(module).items():
+        if path not in leaves:
+            raise KeyError(f"JAX parameter {path!r} is missing")
+        out[name] = torch.tensor(np.ascontiguousarray(_LAYOUTS[layout](leaves.pop(path))))
+    if leaves:
+        raise KeyError(f"JAX parameters not used by {type(module).__name__}: {sorted(leaves)}")
+    return out
 
 
 def load_jax_params(module: nn.Module, params: Mapping) -> nn.Module:

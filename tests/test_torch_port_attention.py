@@ -1,8 +1,9 @@
 """The port's attention against the JAX package's, on the CPU.
 
-On the CPU the port's ``flash_attention`` runs its plain version; the JAX
+On the CPU the port's ``flash_attention`` runs its plain versions; the JAX
 side runs its Pallas kernels in interpret mode, in each regime that the
-main path reaches on the TPU (K1 packed, K2 head-pair streaming, K3/K4 3D).
+main path reaches on the TPU (K1 packed, K2 head-pair streaming, K3/K4 3D;
+under differentiation K4 with K5, and K6).
 All inputs are made with numpy from fixed seeds; fp32 throughout. Logits
 stay inside the (-83, +110)-nat range where the TPU kernels' constant-shift
 softmax equals the max-stabilised one.
@@ -10,6 +11,7 @@ softmax equals the max-stabilised one.
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,16 +20,28 @@ import torch
 from mapanything_tpu.ops import attention as jax_attention
 from mapanything_tpu.ops.flash_attention import _use_packed, _use_pair
 from mapanything_tpu.ops.flash_attention import flash_attention as jax_flash
+from mapanything_tpu.ops.flash_attention import flash_attention_bwd_lse as jax_bwd_lse
+from mapanything_tpu.ops.flash_attention import flash_attention_lse as jax_flash_lse
 from mapanything_tpu_torch.ops import attention as port_attention
 from mapanything_tpu_torch.ops.flash_attention import (
     _check,
+    _check_bwd,
+    attention_bwd_bytes,
+    attention_bwd_flops,
     attention_bytes,
     attention_flops,
     attention_reference,
     flash_attention,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_lse,
+    flash_attention_lse,
+    launch_counts,
+    reset_launch_counts,
 )
 
 ATOL = 2e-5  # as tests/test_flash_attention.py holds the Pallas kernels to XLA
+GRAD_ATOL = 2e-4  # its tolerance for gradients
 
 
 def make_qkv(b, tq, tk, h, d, seed):
@@ -148,3 +162,119 @@ def test_query_scalings_match_jax(num_tokens):
         math.log(num_tokens),
         rel_tol=1e-6,
     )
+
+
+# ---------------------------------------------------------------- under differentiation
+
+
+def max_abs(a, b):
+    return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
+
+
+def test_lse_forward_matches_jax_k4_one_pass(record_property):
+    q, k, v = make_qkv(1, 100, 100, 2, 64, seed=21)
+    o_ref, lse_ref = jax_flash_lse(*(jnp.asarray(x) for x in (q, k, v)), 0.17, interpret=True)
+    o, lse = flash_attention_lse(*(torch.from_numpy(x) for x in (q, k, v)), 0.17)
+    assert lse.shape == (1, 2, 100) and lse.dtype == torch.float32
+    record_property("max_abs_err", {"o": max_abs(o, o_ref), "lse": max_abs(lse, lse_ref)})
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), atol=ATOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref), atol=ATOL)
+
+
+@pytest.mark.parametrize("regime,t", [("K4 forward + K5 backward", 300), ("K6 head-pair", 2100)])
+def test_gradients_match_jax(regime, t, record_property):
+    q, k, v = make_qkv(1, t, t, 2, 64, seed=t + 1)
+    do = np.random.RandomState(t + 2).randn(1, t, 2, 64).astype(np.float32)
+    scale = 0.125
+    jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
+    assert _use_pair(jq, jk, interpret=True) == regime.startswith("K6")
+
+    def loss(q, k, v):
+        return jnp.sum(jax_flash(q, k, v, scale, interpret=True) * jdo)
+
+    ref = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = flash_attention(tq, tk, tv, scale)
+    assert out.grad_fn is not None
+    grads = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(do))
+    record_property("max_abs_err", {f"d{n}": max_abs(g, r) for n, g, r in zip("qkv", grads, ref)})
+    for name, g, r in zip("qkv", grads, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=GRAD_ATOL, err_msg=f"d{name}")
+
+
+def test_bwd_lse_on_kv_blocks_matches_jax(record_property):
+    # One global softmax, its backward taken block by block over the keys
+    # (ring attention's building block), as tests/test_flash_attention.py does.
+    b, tq, tk, h, d = 1, 160, 384, 2, 64
+    scale = d**-0.5
+    q, k, v = make_qkv(b, tq, tk, h, d, seed=5)
+    do = np.random.RandomState(6).randn(b, tq, h, d).astype(np.float32)
+    jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
+    o, lse = jax_flash_lse(jq, jk, jv, scale, 128, 128, interpret=True)
+    to, tlse, tdo = torch.from_numpy(np.array(o)), torch.from_numpy(np.array(lse)), torch.from_numpy(do)
+    dq_total = np.zeros_like(q)
+    errs = {}
+    for j in range(3):
+        sl = slice(j * 128, (j + 1) * 128)
+        ref = jax_bwd_lse(jq, jk[:, sl], jv[:, sl], o, lse, jdo, scale=scale, block_q=128, block_k=128,
+                          interpret=True)
+        got = flash_attention_bwd_lse(
+            torch.from_numpy(q), torch.from_numpy(k[:, sl].copy()), torch.from_numpy(v[:, sl].copy()),
+            to, tlse, tdo, scale,
+        )
+        for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+            errs[name] = max(errs.get(name, 0.0), max_abs(g, r))
+            np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=GRAD_ATOL, err_msg=f"{name}, block {j}")
+        dq_total += got[0].numpy()
+    # the blocks' dq parts sum to the dense gradient
+    tq_, tk_, tv_ = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    want = torch.autograd.grad(attention_reference(tq_, tk_, tv_, scale), tq_, tdo)[0]
+    np.testing.assert_allclose(dq_total, want.numpy(), atol=GRAD_ATOL)
+    record_property("max_abs_err", errs)
+
+
+def test_plain_backward_passes_gradcheck_in_fp64():
+    rng = np.random.RandomState(8)
+    q, k, v = (torch.from_numpy(rng.randn(2, 5, 2, 64)).requires_grad_() for _ in range(3))
+    assert torch.autograd.gradcheck(lambda a, b, c: flash_attention(a, b, c, 0.3), (q, k, v))
+
+
+def test_split_backward_wrappers_agree_with_the_whole():
+    q, k, v = (torch.from_numpy(x) for x in make_qkv(1, 40, 56, 2, 64, seed=9))
+    do = torch.from_numpy(np.random.RandomState(10).randn(1, 40, 2, 64).astype(np.float32))
+    o, lse = flash_attention_lse(q, k, v, 0.2)
+    dq, dk, dv = flash_attention_bwd_lse(q, k, v, o, lse, do, 0.2)
+    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    torch.testing.assert_close(flash_attention_bwd_dq(q, k, v, do, lse, delta, 0.2), dq, rtol=0, atol=0)
+    for got, want in zip(flash_attention_bwd_dkv(q, k, v, do, lse, delta, 0.2), (dk, dv)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_routing_inference_and_training_and_counts():
+    q, k, v = (torch.from_numpy(x) for x in make_qkv(1, 24, 24, 2, 64, seed=12))
+    reset_launch_counts()
+    with torch.no_grad():
+        assert flash_attention(q.requires_grad_(), k, v).grad_fn is None  # lse-free forward
+    assert flash_attention(q, k, v).grad_fn is not None  # the autograd Function
+    with torch.inference_mode():
+        assert flash_attention(q.detach(), k, v).grad_fn is None
+    # CPU tensors run the plain versions and launch no kernel
+    assert launch_counts() == {
+        "flash_attention_fwd": 0, "flash_attention_fwd_lse": 0,
+        "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+    }
+
+
+def test_backward_wrapper_rejects_bad_statistics():
+    q = torch.zeros(1, 8, 2, 64)
+    ok = torch.zeros(1, 2, 8)
+    with pytest.raises(ValueError, match="do not fit"):
+        _check_bwd(q, q, q, q, torch.zeros(1, 2, 9), ok)
+    with pytest.raises(ValueError, match="contiguous fp32"):
+        _check_bwd(q, q, q, q, ok.double(), ok)
+
+
+def test_backward_flop_and_byte_counts():
+    # Flagship training global layer: 1 x 5477 tokens x 12 heads x 64.
+    assert attention_bwd_flops(1, 5477, 5477, 12, 64) == 10 * 12 * 5477**2 * 64
+    assert attention_bwd_bytes(1, 5477, 5477, 12, 64, 2) == 8 * 5477 * 12 * 64 * 2 + 4 * 12 * 5477

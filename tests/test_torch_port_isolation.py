@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no JAX, no Flax, nothing of mapanything_tpu.
 
 The import check runs in a subprocess, because this test session has JAX
-loaded already (conftest.py). A second check reads the sources of the port
+loaded already (conftest.py); it reaches every module, the training slice's
+(``train/``, ``geometry/``, ``dense_rep.py``) included. A second check reads the sources of the port
 and of chip_smoke.py for such imports. Also: the port's entry points run on
 CUDA unless the caller asks for the CPU, and raise when there is no CUDA.
 """
@@ -30,8 +31,18 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r})
-print(len(names), bad)
+print(len(names), bad, " ".join(names))
 """
+
+# Modules of the training slice that the fresh-process import must reach.
+TRAINING_SLICE_MODULES = (
+    "mapanything_tpu_torch.train.losses",
+    "mapanything_tpu_torch.train.optim",
+    "mapanything_tpu_torch.train.step",
+    "mapanything_tpu_torch.geometry.quaternion",
+    "mapanything_tpu_torch.geometry.normalization",
+    "mapanything_tpu_torch.models.encoders.dense_rep",
+)
 
 
 def test_port_imports_no_jax_in_a_fresh_process():
@@ -40,8 +51,9 @@ def test_port_imports_no_jax_in_a_fresh_process():
         cwd=ROOT, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    n_modules, bad = proc.stdout.strip().split(" ", 1)
-    assert int(n_modules) >= 15, proc.stdout  # every module of the slice was imported
+    n_modules, bad, names = proc.stdout.strip().split(" ", 2)
+    assert int(n_modules) >= 19, proc.stdout  # every module of the port was imported
+    assert set(TRAINING_SLICE_MODULES) <= set(names.split()), names
     assert bad == "[]", f"the port pulled in {bad}"
 
 
@@ -71,10 +83,10 @@ def test_unported_options_raise():
         port_ma.MapAnything(port_ma.MapAnythingConfig.small(dense_head_type="moge"), device="cpu")
     with pytest.raises(NotImplementedError, match="scene_rep_type"):
         port_ma.MapAnything(port_ma.MapAnythingConfig.small(scene_rep_type="pointmap"), device="cpu")
-    model = port_ma.MapAnything(port_ma.MapAnythingConfig.small(), device="cpu")
-    img = torch.zeros(1, 1, 28, 28, 3)
-    with pytest.raises(NotImplementedError, match="multimodal"):
-        model(port_ma.Views(img=img, ray_directions=torch.zeros(1, 1, 28, 28, 3)))
+    from mapanything_tpu_torch.train import losses as port_losses
+
+    with pytest.raises(NotImplementedError, match="disentangled"):
+        port_losses.factored_geometry_scale_loss(None, None, port_losses.LossConfig(disentangled=True))
 
 
 def test_attention_on_a_device_it_does_not_serve_raises():

@@ -297,7 +297,8 @@ def test_small_model_forward_matches_jax(small_slice):
     from mapanything_tpu_torch.ops.flash_attention import flash_attention
 
     before = flash_attention.launches
-    out = port(port_ma.Views(img=torch.from_numpy(img)))
+    with torch.inference_mode():  # the forward is differentiable; inference runs it so
+        out = port(port_ma.Views(img=torch.from_numpy(img)))
     assert flash_attention.launches == before  # CPU: the plain version, no kernel
     for name in PRED_FIELDS:
         r, o = np.asarray(getattr(ref, name)), getattr(out, name).numpy()
