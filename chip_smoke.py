@@ -25,11 +25,36 @@ Phases, each printing one JSON line:
   6. train slice check: the small fp32 train step with every geometric
      input, fixed masks with depth sparsification, cuda against cpu: loss,
      loss details and every gradient, then the parameters after two steps;
-  7. the main path of this slice: the flagship bf16 train step on 1 x 4 views
-     at 518 px (bench.py's LossBatch, GeometricInputConfig() masks), 2 warm-up
-     and 5 timed steps, launch counts per step, finite loss and grad norm,
-     finite gradients, a gradient and an update for every parameter, ms per
-     step, views/s and peak memory.
+  7. the flagship bf16 train step on 1 x 4 views at 518 px (bench.py's
+     LossBatch, GeometricInputConfig() masks), 2 warm-up and 5 timed steps,
+     launch counts per step, finite loss and grad norm, finite gradients, a
+     gradient and an update for every parameter, ms per step, views/s and
+     peak memory;
+  3c. the long kernels at the view-parallel paths' lengths: the lse-free
+     forward at 1 x 21905 x 12 x 64 (K3's regime: the 16-view global layer),
+     the lse forward at 1 x 21904 and 1 x 5476 (K7: ring steps at 16 and 4
+     views), and dq and dk/dv at 1 x 5476 fed a merged lse (the kernel's own,
+     merged with a 1-token extra block through _merge_lse, as the ring's
+     backward feeds them); each against its plain version on a slice of
+     query rows (the whole shape for the backward), with kernel, plain (over
+     every row, in chunks), torch SDPA and bound times;
+  8. view-parallel slice check on a process group of this process alone
+     (NCCL, world size 1): MapAnythingConfig.small(), fp32, 1 x 4 x 112 (256
+     grid tokens, so the ring's blocks reach the kernels), ring and
+     allgather forwards and the ring train step against the unsharded ones
+     on cuda;
+  9. view-parallel inference, the main path of this slice: the flagship bf16
+     forward on 1 x 16 views at 518 px, unsharded, ring and allgather, with
+     launch counts, ring steps and collectives per forward, ms per forward,
+     views/s, peak memory, the output invariants, and the largest and the
+     mean difference of each output field between the three, the mean held
+     to MEAN_DIFF_LIMITS;
+  10. the view-parallel train step: phase 7 under the ring schedule, with
+     ring steps per step and the loss of every step within LOSS_GAP_LIMIT of
+     phase 7's.
+On a machine with more than one card, phases 9 and 10 then run again over
+NCCL with one rank a card (2 or 4 cards); rank 0 checks the gathered
+outputs against the unsharded forward. A machine with one card skips this.
 Then the kernels' summary line and, last, {"ok": true, "device": {...}}.
 With --train-step-only, phase 7 runs in a fresh process after the build and
 the script stops after its line, printing neither the summary nor the ok line.
@@ -42,8 +67,10 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -65,8 +92,23 @@ ATTENTION_SHAPES = [
     ("encoder", (8, 1370, 16, 64), "bfloat16", 24, "mapanything_tpu/ops/flash_attention.py:395"),
     ("frame", (8, 1369, 12, 64), "bfloat16", 12, "mapanything_tpu/ops/flash_attention.py:395"),
     ("global", (1, 10953, 12, 64), "bfloat16", 12, "mapanything_tpu/ops/flash_attention.py:516"),
-    ("fp32_frame", (8, 1369, 12, 64), "float32", 0, "mapanything_tpu/ops/flash_attention.py:164"),
+    ("fp32_frame", (8, 1369, 12, 64), "float32", 0, "mapanything_tpu/ops/flash_attention.py:114"),
 ]
+
+# Phase 9: the largest mean |difference| of each output field allowed between
+# the unsharded, ring and allgather forwards (bf16 through 24 layers). About
+# 3.5x the largest reading of sound runs on an H100, at one rank and at four
+# (recorded in PERF.md): 0.0059, 0.0050, 0.0041, 0.0077, 0.0022, 1.1e-4,
+# 0.0064, 0.069, 0.010.
+MEAN_DIFF_LIMITS = {
+    "pts3d": 0.02, "pts3d_cam": 0.02, "ray_directions": 0.015, "depth_along_ray": 0.025,
+    "cam_trans": 0.008, "cam_quats": 4e-4, "metric_scaling_factor": 0.025, "conf": 0.25,
+    "non_ambiguous_mask_logits": 0.04,
+}
+# Phase 10: each step's loss against phase 7's at the same seeds, relative.
+# Sound runs read up to 8.8e-4. At lr 1e-7 the weights barely move, so this
+# holds the ring's forward, not its backward (phase 8 holds that).
+LOSS_GAP_LIMIT = 4e-3
 
 
 def emit(obj) -> None:
@@ -304,6 +346,160 @@ def train_kernel_checks(card):
     return rows
 
 
+# Phase 3c: (name, T, kernel, TPU kernel replaced). The 16-view global layer has
+# 16·1369 + 1 = 21905 tokens; a ring step attends the 16 views' 21904 grid tokens
+# (inference) or 4 views' 5476 (the train step), the scale token merged apart.
+LONG_SHAPES = [
+    ("k3_global_16_views", 21905, "flash_attention_fwd", f"{FA}:164"),
+    ("k7_ring_16_views", 21904, "flash_attention_fwd_lse", f"{FA}:168"),
+    ("k7_ring_4_views", 5476, "flash_attention_fwd_lse", f"{FA}:168"),
+]
+ROW_SLICE = 2048  # query rows held to the plain version: the first and the last 1024
+
+
+def plain_by_rows(fn, q, *rest, rows: int = ROW_SLICE):
+    """A plain attention function over every query row, ``rows`` at a time
+    (attention is independent row by row; all rows at once need ~23 GB of
+    fp32 logits at 21905 tokens)."""
+    import torch
+
+    outs = [fn(q[:, i:i + rows], *rest) for i in range(0, q.shape[1], rows)]
+    if isinstance(outs[0], tuple):
+        return torch.cat([o[0] for o in outs], 1), torch.cat([o[1] for o in outs], 2)
+    return torch.cat(outs, 1)
+
+
+def long_kernel_checks(card):
+    """Phase 3c: the forward kernels at K3's and K7's lengths, dq and dk/dv
+    against a merged lse; kernel, plain, library and bound times."""
+    import torch
+    import torch.nn.functional as F
+
+    from mapanything_tpu_torch.ops import flash_attention as fa
+    from mapanything_tpu_torch.parallel.sharded_attention import _block_attn_lse, _merge_lse
+
+    bf16_peak, _, mem_bw = peaks_for(card["name"])
+    b, h, d = 1, 12, 64
+    scale = d**-0.5
+    rows = []
+    for name, t, kname, replaces in LONG_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        qkv = torch.randn(b, t, 3, h, d, device="cuda", generator=gen).to(torch.bfloat16)
+        q, k, v = qkv.unbind(2)
+        sl = torch.cat([torch.arange(ROW_SLICE // 2), torch.arange(t - ROW_SLICE // 2, t)]).cuda()
+        with_lse = kname.endswith("lse")
+        if with_lse:
+            o, lse = fa.flash_attention_lse(q, k, v, scale)
+            o_e, lse_e = fa.attention_lse_reference(q[:, sl].float(), k.float(), v.float(), scale)
+            o_p, lse_p = fa.attention_lse_reference(q[:, sl], k, v, scale)
+            outs = {"o": (o[:, sl], o_e, o_p), "lse": (lse[:, :, sl], lse_e, lse_p)}
+            fn, plain_fn = fa.flash_attention_lse, fa.attention_lse_reference
+        else:
+            o = fa.flash_attention(q, k, v, scale)
+            exact = fa.attention_reference(q[:, sl].float(), k.float(), v.float(), scale)
+            outs = {"o": (o[:, sl], exact, fa.attention_reference(q[:, sl], k, v, scale))}
+            fn, plain_fn = fa.flash_attention, fa.attention_reference
+        torch.cuda.synchronize()
+        errs = {key: max_err(x, e) for key, (x, e, _) in outs.items()}
+        plain_errs = {key: max_err(pl, e) for key, (_, e, pl) in outs.items()}
+        tols = {key: tolerance(plain_errs[key], e) for key, (_, e, _) in outs.items()}
+        finite = all(bool(torch.isfinite(x).all()) for x, _, _ in outs.values())
+        del outs
+        torch.cuda.empty_cache()
+        ms = cuda_time_ms(lambda: fn(q, k, v, scale), iters=10)
+        plain_ms = cuda_time_ms(lambda: plain_by_rows(plain_fn, q, k, v, scale), iters=2, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), iters=10)
+        flop = fa.attention_flops(b, t, t, h, d)
+        nbytes = fa.attention_bytes(b, t, t, h, d, 2) + (4 * b * h * t if with_lse else 0)
+        t_ops, t_bytes = flop / bf16_peak * 1e3, nbytes / mem_bw * 1e3
+        row = {
+            "phase": "long_kernel_check", "shape": name, "kernel": kname, "b_t_h_d": [b, t, h, d],
+            "dtype": "bfloat16", "replaces": replaces, "rows_checked": ROW_SLICE,
+            "max_abs_err": errs, "plain_err": plain_errs, "tol": tols,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "tflops": flop / ms / 1e9, "card": card["name"], "power_limit": card["power_limit"],
+        }
+        emit(row)
+        bad = {key: (errs[key], tols[key]) for key in errs if not errs[key] <= tols[key]}
+        if not finite or bad:
+            raise AssertionError(f"{kname} disagrees with its plain version at {name}: {bad}")
+        rows.append(row)
+        del qkv, q, k, v, o
+        torch.cuda.empty_cache()
+
+    # dq and dk/dv at the 4-view ring block, fed the lse of the ring's forward:
+    # the kernel's own lse merged with a 1-token extra block (the scale token).
+    t = 5476
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    qkv = torch.randn(b, t, 3, h, d, device="cuda", generator=gen).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    ke, ve = torch.randn(2, b, 1, h, d, device="cuda", generator=gen).to(torch.bfloat16)
+    do = torch.randn(b, t, h, d, device="cuda", generator=gen).to(torch.bfloat16)
+
+    extra = _block_attn_lse(q, ke, ve, scale)  # the dense fp32 branch, as the ring runs it
+
+    def merged(o_g, lse_g):  # the ring's forward output and its global lse
+        o, lse = _merge_lse([(o_g.float(), lse_g), extra])
+        return o.to(o_g.dtype), lse.contiguous()
+
+    o, lse = merged(*fa.flash_attention_lse(q, k, v, scale))
+    delta = fa.attention_bwd_delta(o, do).contiguous()
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)
+    torch.cuda.synchronize()
+    xf = [x.float() for x in (q, k, v, do)]
+    o_x, lse_x = merged(*fa.attention_lse_reference(*xf[:3], scale))
+    delta_x = fa.attention_bwd_delta(o_x, xf[3])
+    exact = {"dq": fa.attention_bwd_dq_reference(*xf, lse_x, delta_x, scale)}
+    exact["dk"], exact["dv"] = fa.attention_bwd_dkv_reference(*xf, lse_x, delta_x, scale)
+    o_p, lse_p = merged(*fa.attention_lse_reference(q, k, v, scale))
+    delta_p = fa.attention_bwd_delta(o_p, do)
+    plain = {"dq": fa.attention_bwd_dq_reference(q, k, v, do, lse_p, delta_p, scale)}
+    plain["dk"], plain["dv"] = fa.attention_bwd_dkv_reference(q, k, v, do, lse_p, delta_p, scale)
+    got = {"dq": dq, "dk": dk, "dv": dv}
+    errs = {key: max_err(got[key], exact[key]) for key in got}
+    plain_errs = {key: max_err(plain[key], exact[key]) for key in got}
+    tols = {key: tolerance(plain_errs[key], exact[key]) for key in got}
+    finite = all(bool(torch.isfinite(x).all()) for x in got.values())
+    del exact, plain, xf
+    torch.cuda.empty_cache()
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+    library_bwd_ms = cuda_time_ms(
+        lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), iters=10)
+    del sdpa_out, qt, kt, vt
+    io_stats = 2 * 4 * b * h * t
+    kernels = {}
+    for kname, fn, plain_fn, flop, nbytes in (
+        ("flash_attention_bwd_dq", fa.flash_attention_bwd_dq, fa.attention_bwd_dq_reference,
+         4 * b * h * t * t * d, 5 * b * t * h * d * 2 + io_stats),
+        ("flash_attention_bwd_dkv", fa.flash_attention_bwd_dkv, fa.attention_bwd_dkv_reference,
+         6 * b * h * t * t * d, 6 * b * t * h * d * 2 + io_stats),
+    ):
+        ms = cuda_time_ms(lambda: fn(q, k, v, do, lse, delta, scale), iters=10)
+        plain_ms = cuda_time_ms(lambda: plain_fn(q, k, v, do, lse, delta, scale), iters=2, warmup=1)
+        t_ops, t_bytes = flop / bf16_peak * 1e3, nbytes / mem_bw * 1e3
+        kernels[kname] = {"replaces": TRAIN_REPLACES[kname]["encoder"], "ms": ms, "plain_ms": plain_ms,
+                          "library_ms": library_bwd_ms, "bound_ms": max(t_ops, t_bytes),
+                          "bound_by": "operations" if t_ops >= t_bytes else "bytes", "tflops": flop / ms / 1e9}
+    row = {"phase": "long_kernel_check", "shape": "ring_bwd_4_views_merged_lse", "b_t_h_d": [b, t, h, d],
+           "dtype": "bfloat16", "max_abs_err": errs, "plain_err": plain_errs, "tol": tols, "kernels": kernels,
+           "library_bwd_ms": library_bwd_ms, "card": card["name"], "power_limit": card["power_limit"]}
+    emit(row)
+    bad = {key: (errs[key], tols[key]) for key in errs if not errs[key] <= tols[key]}
+    if not finite or bad:
+        raise AssertionError(f"dq or dk/dv disagree with their plain versions against a merged lse: {bad}")
+    del qkv, q, k, v, do, o, lse, delta, dq, dk, dv
+    torch.cuda.empty_cache()
+    return rows, row
+
+
+PRED_FIELDS = ("pts3d", "pts3d_cam", "ray_directions", "depth_along_ray", "cam_trans",
+               "cam_quats", "metric_scaling_factor", "conf", "non_ambiguous_mask_logits")
+
+
 def slice_check():
     """Phase 4: the small model in fp32, the same seeded weights on cuda and cpu."""
     import torch
@@ -327,10 +523,7 @@ def slice_check():
     # tolerance is relative to each field's magnitude.
     rtol = 1e-3
     errs = {}
-    for field in (
-        "pts3d", "pts3d_cam", "ray_directions", "depth_along_ray", "cam_trans",
-        "cam_quats", "metric_scaling_factor", "conf", "non_ambiguous_mask_logits",
-    ):
+    for field in PRED_FIELDS:
         a, b = getattr(on_gpu, field).cpu(), getattr(on_cpu, field)
         err = (a - b).abs().max().item()
         errs[field] = err
@@ -341,6 +534,26 @@ def slice_check():
         raise AssertionError(f"non_ambiguous_mask agrees on only {agree:.4f} of pixels")
     emit({"phase": "slice_check", "config": "small fp32 1x2x56x56", "rtol": rtol,
           "max_abs_err": errs, "mask_agreement": agree})
+
+
+def check_invariants(preds, shape):
+    """Phase 5's checks of a flagship forward's outputs."""
+    import torch
+
+    B, V, H, W = shape
+    for f in PRED_FIELDS:
+        if not bool(torch.isfinite(getattr(preds, f)).all()):
+            raise AssertionError(f"non-finite {f}")
+    if tuple(preds.pts3d.shape) != (B, V, H, W, 3) or tuple(preds.conf.shape) != (B, V, H, W):
+        raise AssertionError(f"unexpected shapes {tuple(preds.pts3d.shape)}, {tuple(preds.conf.shape)}")
+    ray_norm_err = (preds.ray_directions.norm(dim=-1) - 1).abs().max().item()
+    if ray_norm_err > 1e-4:
+        raise AssertionError(f"|ray_directions| deviates from 1 by {ray_norm_err}")
+    if preds.conf.min().item() < 1.0:
+        raise AssertionError("confidence below 1")
+    if not torch.allclose(preds.pts3d_cam, preds.ray_directions * preds.depth_along_ray, rtol=1e-5, atol=1e-6):
+        raise AssertionError("pts3d_cam != ray_directions * depth_along_ray")
+    return ray_norm_err
 
 
 def flagship(card):
@@ -383,21 +596,7 @@ def flagship(card):
         raise AssertionError("the attention kernel did not run 48 times per forward")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
-    fields = {f: getattr(preds, f) for f in (
-        "pts3d", "pts3d_cam", "ray_directions", "depth_along_ray", "cam_trans",
-        "cam_quats", "metric_scaling_factor", "conf", "non_ambiguous_mask_logits")}
-    for f, x in fields.items():
-        if not bool(torch.isfinite(x).all()):
-            raise AssertionError(f"non-finite {f}")
-    if tuple(preds.pts3d.shape) != (B, V, H, W, 3) or tuple(preds.conf.shape) != (B, V, H, W):
-        raise AssertionError(f"unexpected shapes {tuple(preds.pts3d.shape)}, {tuple(preds.conf.shape)}")
-    ray_norm_err = (preds.ray_directions.norm(dim=-1) - 1).abs().max().item()
-    if ray_norm_err > 1e-4:
-        raise AssertionError(f"|ray_directions| deviates from 1 by {ray_norm_err}")
-    if preds.conf.min().item() < 1.0:
-        raise AssertionError("confidence below 1")
-    if not torch.allclose(preds.pts3d_cam, preds.ray_directions * preds.depth_along_ray, rtol=1e-5, atol=1e-6):
-        raise AssertionError("pts3d_cam != ray_directions * depth_along_ray")
+    ray_norm_err = check_invariants(preds, (B, V, H, W))
     ms = 1e3 * sum(times) / iters
     emit({
         "phase": "flagship",
@@ -490,47 +689,61 @@ def train_slice_check():
         raise AssertionError(f"cuda and cpu disagree beyond {rtol} of the magnitude: {bad}")
 
 
-def flagship_train(card):
-    """Phase 7: the main path of this slice, the flagship bf16 train step on 1 x 4 x 518."""
+def flagship_train(card, group=None, unsharded_loss=None):
+    """Phase 7, the flagship bf16 train step on 1 x 4 x 518; with a view
+    ``group``, phase 10: the same step view-parallel under the ring, each
+    rank on its block of the views, beside phase 7's loss."""
     import torch
 
     from mapanything_tpu_torch.models.mapanything import GeometricInputConfig, MapAnything, MapAnythingConfig
     from mapanything_tpu_torch.ops.flash_attention import launch_counts, reset_launch_counts
+    from mapanything_tpu_torch.parallel import sharded_attention as sa
+    from mapanything_tpu_torch.parallel.mesh import shard_views_pytree, view_slice
     from mapanything_tpu_torch.train.losses import LossConfig, synthetic_loss_batch
     from mapanything_tpu_torch.train.optim import OptimConfig, build_optimizer
     from mapanything_tpu_torch.train.step import init_train_state, make_train_step
 
     B, V, H, W = 1, 4, 518, 518
-    warmup, iters = 2, 5
+    warmup, iters = 2, 5  # seven steps: the masks of some step give every geometric encoder a gradient
     t0 = time.perf_counter()
     model = MapAnything(MapAnythingConfig(compute_dtype="bfloat16"), device="cuda", seed=0, geometric_inputs=True)
     # bench.py:229-231: a random init diverges at the production lr.
     opt = build_optimizer(OptimConfig(lr=1e-7, min_lr=1e-8, epoch_len=100, total_epochs=1.0), model)
     state = init_train_state(model, opt)
-    step = make_train_step(model, opt, LossConfig(), GeometricInputConfig())
+    step = make_train_step(model, opt, LossConfig(), GeometricInputConfig(), view_group=group)
     batch = synthetic_loss_batch(B, V, H, W, seed=0).to("cuda")  # bench.py:128-153
     img = torch.from_numpy(np.random.RandomState(0).randn(B, V, H, W, 3).astype(np.float32)).cuda()
+    n_ranks = 1
+    if group is not None:  # this rank's views; the masks are drawn for all views
+        n_ranks = group.size
+        batch, img = shard_views_pytree(batch, group), img[:, view_slice(group, V)]
     gen = torch.Generator().manual_seed(0)
     before = {n: p.detach().clone() for n, p in state.params.items()}
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
-    want = {"flash_attention_fwd": 0, "flash_attention_fwd_lse": 48,
-            "flash_attention_bwd_dq": 48, "flash_attention_bwd_dkv": 48}
+    # Per step: the encoder's 24 and the frame layers' 12 of each kernel, and the
+    # 12 global layers' (under the ring, n_ranks ring steps each).
+    per_kernel = 36 + 12 * n_ranks
+    want = {"flash_attention_fwd": 0, "flash_attention_fwd_lse": per_kernel,
+            "flash_attention_bwd_dq": per_kernel, "flash_attention_bwd_dkv": per_kernel}
     totals = dict.fromkeys(want, 0)
     names = list(state.params)
     ever_nonzero = torch.zeros(len(names), dtype=torch.bool, device="cuda")
     times, metrics = [], []
     torch.cuda.reset_peak_memory_stats()
+    want_ring = {"ring_steps": 12 * n_ranks, "ring_bwd_steps": 12 * n_ranks} if group is not None else {}
     for i in range(warmup + iters):
         reset_launch_counts()
+        sa.reset_counts()
         t = time.perf_counter()
         state, m = step(state, img, batch, gen)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
         counts = launch_counts()
-        if counts != want:
-            raise AssertionError(f"train step {i} launched {counts}, not {want}")
+        ring = sa.counts()
+        if counts != want or any(ring[k] != v for k, v in want_ring.items()):
+            raise AssertionError(f"train step {i} launched {counts} with {ring}, not {want} and {want_ring}")
         for k in totals:
             totals[k] += counts[k]
         m = {k: v.item() for k, v in m.items()}
@@ -560,27 +773,203 @@ def flagship_train(card):
         raise AssertionError(f"parameters with a gradient but a zero update: {no_update}")
     unchanged = [n for n in names if torch.equal(before[n], state.params[n])]
     ms = 1e3 * sum(times) / iters
-    emit({
-        "phase": "flagship_train",
+    line = {
+        "phase": "flagship_train" if group is None else "flagship_train_view_parallel",
         "config": "MapAnythingConfig(compute_dtype='bfloat16'), 1x4x518x518 train step, seeded random weights, "
-                  "bench.py LossBatch, GeometricInputConfig() masks, lr 1e-7",
+                  "bench.py LossBatch, GeometricInputConfig() masks, lr 1e-7"
+                  + ("" if group is None else f"; view-parallel, ring, {n_ranks} rank(s) (NCCL)"),
         "setup_s": setup_s, "warmup": warmup, "iters": iters,
         "ms_per_step": ms, "ms_each": [1e3 * t for t in times],
         "views_per_s": B * V / (ms / 1e3), "peak_mem_gib": peak_gib,
-        "launches_per_step": want, "launches_total": totals,
+        "launches_per_step": counts, "ring_per_step": ring, "launches_total": totals,
         "loss": [m["loss"] for m in metrics], "grad_norm": [m["grad_norm"] for m in metrics],
         "param_tensors_changed": [len(names) - len(unchanged), len(names)],
         "unchanged": {n: {"min": before[n].min().item(), "max": before[n].max().item(),
                           "max_abs_mu": state.opt_state.mu[n].abs().max().item()} for n in unchanged},
         "card": card["name"], "power_limit": card["power_limit"],
-    })
-    return totals, warmup + iters
+    }
+    if unsharded_loss is not None:  # phase 7's, the same seeds
+        gap = max(abs(a - b) / abs(b) for a, b in zip(line["loss"], unsharded_loss))
+        line.update(unsharded_loss=unsharded_loss, loss_gap=gap, loss_gap_limit=LOSS_GAP_LIMIT)
+    if group is None or group.rank == 0:
+        emit(line)
+    if unsharded_loss is not None and not gap <= LOSS_GAP_LIMIT:
+        raise AssertionError(f"the view-parallel step's loss is {gap:.3g} from phase 7's, over {LOSS_GAP_LIMIT}")
+    return totals, warmup + iters, line
 
 
-def summary_line(rows, train_rows, inference_launches, train_launches, train_steps):
+def view_parallel_slice_check(group):
+    """Phase 8: the small fp32 model view-sharded over a group of one rank
+    (NCCL), ring and allgather forwards and the ring train step, against the
+    unsharded ones on cuda."""
+    import torch
+
+    from mapanything_tpu_torch.models.mapanything import (
+        GeometricInputConfig, MapAnything, MapAnythingConfig, Views,
+    )
+    from mapanything_tpu_torch.ops.flash_attention import launch_counts, reset_launch_counts
+    from mapanything_tpu_torch.parallel import sharded_attention as sa
+    from mapanything_tpu_torch.parallel.context import gather_predictions, infer_view_sharded
+    from mapanything_tpu_torch.train.losses import synthetic_loss_batch
+    from mapanything_tpu_torch.train.optim import OptimConfig, build_optimizer
+    from mapanything_tpu_torch.train.step import init_train_state, make_train_step
+
+    cfg = MapAnythingConfig.small()
+    B, V, HW = 1, 4, 112
+    img = torch.from_numpy(np.random.RandomState(0).randn(B, V, HW, HW, 3).astype(np.float32)).cuda()
+    rtol = 1e-4
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        model = MapAnything(cfg, device="cuda", seed=0)
+        with torch.inference_mode():
+            want = model(Views(img=img))
+        fwd = {}
+        for schedule in ("ring", "allgather"):
+            reset_launch_counts()
+            sa.reset_counts()
+            got = gather_predictions(infer_view_sharded(model, Views(img=img), group, schedule), group)
+            torch.cuda.synchronize()
+            errs = {f: rel_err(getattr(got, f), getattr(want, f), floor=1.0) for f in PRED_FIELDS}
+            fwd[schedule] = {"errors": errs, "launches": launch_counts(), "ring": sa.counts()}
+            bad = {f: e for f, e in errs.items() if not e <= rtol}
+            if bad:
+                raise AssertionError(f"the {schedule} forward disagrees with the unsharded one: {bad}")
+        if fwd["ring"]["launches"]["flash_attention_fwd_lse"] != 2 or fwd["ring"]["ring"]["ring_steps"] != 2:
+            raise AssertionError(f"the ring forward did not take two ring steps through the lse kernel: {fwd['ring']}")
+        del model
+
+        # The train step: loss and details, every gradient after step 1, parameters after step 2.
+        batch = synthetic_loss_batch(B, V, HW, HW, seed=1).to("cuda")
+        geo = GeometricInputConfig(ray_dirs_prob=1.0, depth_prob=1.0, cam_prob=1.0, sparse_depth_prob=1.0)
+        runs = {}
+        for mode in ("unsharded", "ring"):
+            model = MapAnything(cfg, device="cuda", seed=0, geometric_inputs=True)
+            opt = build_optimizer(OptimConfig(lr=1e-4, min_lr=1e-6), model)
+            state = init_train_state(model, opt)
+            step = make_train_step(model, opt, geo_cfg=geo, view_group=None if mode == "unsharded" else group)
+            gen = torch.Generator().manual_seed(3)
+            reset_launch_counts()
+            sa.reset_counts()
+            state, m = step(state, img, batch, gen)
+            torch.cuda.synchronize()
+            run = {"metrics": {k: v.detach() for k, v in m.items() if k != "grad_norm"},
+                   "grads": {n: p.grad.detach().clone() for n, p in state.params.items()},
+                   "launches": launch_counts(), "ring": sa.counts()}
+            state, _ = step(state, img, batch, gen)
+            run["params"] = {n: p.detach().clone() for n, p in state.params.items()}
+            runs[mode] = run
+            del model, opt, state
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    ring, ref = runs["ring"], runs["unsharded"]
+    train_rtol = 1e-3  # phase 6's tolerance
+    errs = {k: rel_err(ring["metrics"][k], v) for k, v in ref["metrics"].items()}
+    grad_errs = {n: rel_err(ring["grads"][n], g) for n, g in ref["grads"].items()}
+    param_errs = {n: rel_err(ring["params"][n], p, floor=1.0) for n, p in ref["params"].items()}
+    worst = lambda d: max(d.items(), key=lambda kv: kv[1])  # noqa: E731
+    emit({"phase": "view_parallel_slice_check", "config": "small fp32 1x4x112x112, view-parallel, "
+          "one rank (NCCL)", "forward_rtol": rtol, "forward": fwd, "train_rtol": train_rtol,
+          "train_errors": errs, "worst_grad": worst(grad_errs), "worst_param_after_2_steps": worst(param_errs),
+          "train_launches": ring["launches"], "train_ring": ring["ring"]})
+    if ring["ring"]["ring_steps"] != 2 or ring["ring"]["ring_bwd_steps"] != 2 \
+            or ring["launches"]["flash_attention_bwd_dq"] != ref["launches"]["flash_attention_bwd_dq"]:
+        raise AssertionError(f"the ring step did not run the ring's kernels: {ring['launches']}, {ring['ring']}")
+    bad = {k: v for d in (errs, grad_errs, param_errs) for k, v in d.items() if not v <= train_rtol}
+    if bad:
+        raise AssertionError(f"the ring train step disagrees with the unsharded one: {bad}")
+
+
+def flagship_view_parallel(card, group):
+    """Phase 9: the flagship bf16 forward on 1 x 16 x 518 unsharded, under the
+    ring and under allgather, over ``group`` (one rank on one card, or one
+    rank a card). Every rank runs the view-parallel forwards; the first also
+    runs the unsharded one and compares the gathered outputs."""
+    import torch
+
+    from mapanything_tpu_torch.models.mapanything import MapAnything, MapAnythingConfig, Views
+    from mapanything_tpu_torch.ops.flash_attention import launch_counts, reset_launch_counts
+    from mapanything_tpu_torch.parallel import sharded_attention as sa
+    from mapanything_tpu_torch.parallel.context import gather_predictions, infer_view_sharded
+
+    B, V, H, W = 1, 16, 518, 518
+    warmup, iters = 2, 3
+    n, lead = group.size, group.rank == 0
+    model = MapAnything(MapAnythingConfig(compute_dtype="bfloat16"), device="cuda", seed=0)
+    img = torch.from_numpy(np.random.RandomState(0).randn(B, V, H, W, 3).astype(np.float32)).cuda()
+    views = Views(img=img)
+    forwards = {"ring": lambda: infer_view_sharded(model, views, group, "ring"),
+                "allgather": lambda: infer_view_sharded(model, views, group, "allgather")}
+    if lead:
+        forwards = {"unsharded": lambda: model(views), **forwards}
+    # Launches per forward on each rank: the encoder's 24 and the frame layers'
+    # 12 lse-free; the global layers' 12 lse-free, or 12 lse ring steps each of n steps.
+    want = {"unsharded": {"flash_attention_fwd": 48, "flash_attention_fwd_lse": 0},
+            "ring": {"flash_attention_fwd": 36, "flash_attention_fwd_lse": 12 * n},
+            "allgather": {"flash_attention_fwd": 48, "flash_attention_fwd_lse": 0}}
+    lines, outs = {}, {}
+    for mode, fwd in forwards.items():
+        with torch.inference_mode():
+            reset_launch_counts()
+            sa.reset_counts()
+            preds = fwd()
+            torch.cuda.synchronize()
+            counts, ring = launch_counts(), sa.counts()
+            expect = {**want[mode], "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+            if counts != expect or ring["ring_steps"] != (12 * n if mode == "ring" else 0):
+                raise AssertionError(f"one {mode} forward launched {counts} with {ring}, not {expect}")
+            for _ in range(warmup - 1):
+                fwd()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(iters):
+                t = time.perf_counter()
+                preds = fwd()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if mode != "unsharded":
+            preds = gather_predictions(preds, group)
+        if lead:
+            ray_norm_err = check_invariants(preds, (B, V, H, W))
+            outs[mode] = {f: getattr(preds, f).float() for f in PRED_FIELDS}
+        ms = 1e3 * sum(times) / iters
+        lines[mode] = {"launches_per_forward": counts, "ring_steps_per_forward": ring["ring_steps"],
+                       "collectives_per_forward": ring["collectives"], "ms_per_forward": ms,
+                       "ms_each": [1e3 * t for t in times], "views_per_s": B * V / (ms / 1e3),
+                       "peak_mem_gib": peak}
+        if lead:
+            lines[mode]["ray_norm_err"] = ray_norm_err
+        del preds
+        torch.cuda.empty_cache()
+    if not lead:
+        return None
+    pairs = (("ring", "unsharded"), ("allgather", "unsharded"), ("ring", "allgather"))
+    diffs = {f"{a}_vs_{b}": {f: (outs[a][f] - outs[b][f]).abs().max().item() for f in PRED_FIELDS} for a, b in pairs}
+    mean_diffs = {f"{a}_vs_{b}": {f: (outs[a][f] - outs[b][f]).abs().mean().item() for f in PRED_FIELDS}
+                  for a, b in pairs}
+    line = {"phase": "flagship_view_parallel",
+            "config": "MapAnythingConfig(compute_dtype='bfloat16'), "
+                      f"1x{V}x518x518, seeded random weights, {n} rank(s) (NCCL)",
+            "world_size": n, "warmup": warmup, "iters": iters, **lines, "max_abs_diff": diffs,
+            "mean_abs_diff": mean_diffs, "mean_abs_diff_limits": MEAN_DIFF_LIMITS,
+            "card": card["name"], "power_limit": card["power_limit"]}
+    emit(line)
+    bad = {pair: {f: x for f, x in d.items() if not x <= MEAN_DIFF_LIMITS[f]} for pair, d in mean_diffs.items()}
+    bad = {pair: d for pair, d in bad.items() if d}
+    if bad:
+        raise AssertionError(f"the forwards differ on average beyond MEAN_DIFF_LIMITS: {bad}")
+    return line
+
+
+def summary_line(rows, train_rows, long_rows, ring_bwd_row, inference_launches, train_launches, train_steps,
+                 vp_launches):
     """The kernels line: each kernel, what it replaces, its launches on its path
     (one forward; all train steps, and per step), its max error and its times
-    per forward (inference) or per train step."""
+    per forward (inference) or per train step. The K3 and K7 rows are the
+    forward kernel at the view-parallel paths' lengths: times per forward of
+    phase 9 (12 launches each: the unsharded global layers, the ring steps)."""
     main_rows = [r for r in rows if r["per_forward"]]
     per_forward = lambda key: sum(r[key] * r["per_forward"] for r in main_rows)  # noqa: E731
     kernels = [{
@@ -621,7 +1010,48 @@ def summary_line(rows, train_rows, inference_launches, train_launches, train_ste
                                max_abs_err={o: r["max_abs_err"][o] for o in outs}, **r["kernels"][name])
                           for r in train_rows],
         })
+        if name != "flash_attention_fwd_lse":  # the ring's block against a merged lse (phase 10)
+            kernels[-1]["per_shape"].append(dict(
+                shape=ring_bwd_row["shape"], dtype="bfloat16", per_step=vp_launches["k7_per_step"],
+                max_abs_err={o: ring_bwd_row["max_abs_err"][o] for o in outs}, **ring_bwd_row["kernels"][name]))
+    for r, launches in ((long_rows[0], vp_launches["k3_per_forward"]), (long_rows[1], vp_launches["k7_per_forward"])):
+        kernels.append({
+            "name": r["kernel"],
+            "route": "cuda",
+            "source": KERNEL_SOURCE,
+            "replaces": r["replaces"],
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"].values()),
+            **{key: r[key] * launches for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": r["bound_by"],
+            "per_shape": [{k: x[k] for k in ("shape", "b_t_h_d", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                             "library_ms")} for x in long_rows if x["kernel"] == r["kernel"]],
+        })
+    kernels[-1]["launches_per_train_step"] = vp_launches["k7_per_step"]
     emit({"kernels": kernels})
+
+
+def multi_card_rank(rank: int, world_size: int, card: dict, unsharded_loss) -> None:
+    """Phases 9 and 10 on one rank of ``world_size``, one card a rank (NCCL)."""
+    import torch
+
+    from mapanything_tpu_torch.parallel.mesh import make_view_group
+
+    group = make_view_group()
+    flagship_view_parallel(card, group)
+    gc.collect()
+    torch.cuda.empty_cache()
+    flagship_train(card, group, unsharded_loss)
+
+
+def multi_card(card, rendezvous: Path, unsharded_loss) -> None:
+    """Phases 9 and 10 over 4 cards (2 where there are 2 or 3), one rank a card."""
+    import torch
+
+    from mapanything_tpu_torch.parallel.distributed import run_ranks
+
+    cards = torch.cuda.device_count()
+    run_ranks(multi_card_rank, 4 if cards >= 4 else 2, "cuda", rendezvous / "cards", card, unsharded_loss)
 
 
 def main() -> int:
@@ -666,14 +1096,49 @@ def main() -> int:
         return 0
     rows = kernel_checks(card)
     train_rows = train_kernel_checks(card)
+    long_rows, ring_bwd_row = long_kernel_checks(card)
     slice_check()
     inference_launches = flagship(card)
     torch.cuda.empty_cache()
     train_slice_check()
     gc.collect()
     torch.cuda.empty_cache()
-    train_launches, train_steps = flagship_train(card)
-    summary_line(rows, train_rows, inference_launches, train_launches, train_steps)
+    train_launches, train_steps, train_line = flagship_train(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8-10. View parallelism on a process group of this process alone: NCCL at world size 1.
+    from mapanything_tpu_torch.parallel.distributed import init_distributed_mode
+    from mapanything_tpu_torch.parallel.mesh import make_view_group
+
+    rendezvous = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        init_distributed_mode("cuda", f"file://{rendezvous / 'one_rank'}", 0, 1)
+        try:
+            group = make_view_group()
+            view_parallel_slice_check(group)
+            gc.collect()
+            torch.cuda.empty_cache()
+            vp_line = flagship_view_parallel(card, group)
+            gc.collect()
+            torch.cuda.empty_cache()
+            _, _, vp_train = flagship_train(card, group, train_line["loss"])
+        finally:
+            torch.distributed.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+        # More than one card: phases 9 and 10 again, one rank a card.
+        if torch.cuda.device_count() > 1:
+            multi_card(card, rendezvous, train_line["loss"])
+    finally:
+        shutil.rmtree(rendezvous, ignore_errors=True)
+    vp_launches = {
+        "k3_per_forward": vp_line["unsharded"]["launches_per_forward"]["flash_attention_fwd"] - 36,
+        "k7_per_forward": vp_line["ring"]["ring_steps_per_forward"],
+        "k7_per_step": vp_train["ring_per_step"]["ring_steps"],
+    }
+    summary_line(rows, train_rows, long_rows, ring_bwd_row, inference_launches, train_launches, train_steps,
+                 vp_launches)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -4,6 +4,10 @@ Counterparts of ``mapanything_tpu/geometry/normalization.py``: ``safe_norm``
 (:14), ``normalize_depth_using_non_zero_pixels`` (:32),
 ``normalize_pose_translations`` (:58), ``normalize_pointcloud`` (:75) and
 ``apply_log_to_norm`` (:129), over stacked (B, V, ...) tensors.
+
+The two multi-view normalisers take an optional view group: with one, the
+views given are this rank's block, and the sums over views are all-reduced
+over the group (differentiably), so every rank gets the factor of all views.
 """
 
 from __future__ import annotations
@@ -11,6 +15,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from mapanything_tpu_torch.parallel.mesh import ViewGroup, all_reduce_sum
 
 
 def safe_norm(x: torch.Tensor, dim=-1, keepdim: bool = False) -> torch.Tensor:
@@ -32,11 +38,22 @@ def normalize_depth_using_non_zero_pixels(depth: torch.Tensor, return_norm_facto
     return (normalized, norm_factor) if return_norm_factor else normalized
 
 
-def normalize_pose_translations(pose_translations: torch.Tensor, return_norm_factor: bool = False):
+def _view_sums(sums: torch.Tensor, counts: torch.Tensor, group: Optional[ViewGroup]):
+    """Per-batch sums and counts over the views, over every rank's views with a group."""
+    if group is None:
+        return sums, counts
+    both = all_reduce_sum(torch.stack([sums, counts.to(sums.dtype)]), group)
+    return both[0], both[1]
+
+
+def normalize_pose_translations(
+    pose_translations: torch.Tensor, return_norm_factor: bool = False, group: Optional[ViewGroup] = None
+):
     """Divide (B, V, 3) translations by the mean norm of the non-zero ones (B,)."""
     dist = safe_norm(pose_translations, dim=-1)
     nonzero = dist > 0
-    norm_factor = torch.clamp(dist.sum(dim=1) / (nonzero.sum(dim=1) + 1e-8), min=1e-8)
+    total, count = _view_sums(dist.sum(dim=1), nonzero.sum(dim=1), group)
+    norm_factor = torch.clamp(total / (count + 1e-8), min=1e-8)
     normalized = pose_translations / norm_factor[:, None, None]
     return (normalized, norm_factor) if return_norm_factor else normalized
 
@@ -46,6 +63,7 @@ def normalize_pointcloud(
     valid_mask: Optional[torch.Tensor] = None,
     norm_mode: str = "avg_dis",
     ret_factor: bool = False,
+    group: Optional[ViewGroup] = None,
 ):
     """Normalise a stacked multi-view point cloud (B, ..., 3) jointly per batch
     element by its mean (transformed) distance over ``valid_mask`` (B, ...).
@@ -71,9 +89,9 @@ def normalize_pointcloud(
         dis = log_dis
     else:
         raise ValueError(f"bad dis_mode={dis_mode}")
-    nnz = valid_mask.sum(dim=dims)
     masked = torch.where(valid_mask, dis, torch.zeros_like(dis))
-    norm_factor = torch.clamp(masked.sum(dim=dims) / (nnz + 1e-8), min=1e-8)
+    total, nnz = _view_sums(masked.sum(dim=dims), valid_mask.sum(dim=dims), group)
+    norm_factor = torch.clamp(total / (nnz + 1e-8), min=1e-8)
     nf = norm_factor.reshape((pts.shape[0],) + (1,) * (pts.dim() - 1))
     res = pts / nf
     return (res, nf) if ret_factor else res

@@ -2,7 +2,8 @@
 
 Counterpart of ``mapanything_tpu/models/blocks.py`` for the images-only
 slice: ``gelu_matched`` (:43), ``Mlp`` (:55), ``LayerScale`` (:108),
-``DropPath`` (:122), ``Attention`` (:140) and ``SelfAttentionBlock`` (:313).
+``DropPath`` (:122), ``Attention`` (:140) with its context-parallel routing
+(:159-165, :215-237) and ``SelfAttentionBlock`` (:313).
 Parameter names are the reference's torch names (DINOv2 / UniCeption), so
 ``mapanything_tpu.utils.torch_convert`` reads a port state dict unchanged.
 
@@ -28,6 +29,8 @@ from mapanything_tpu_torch.ops.attention import (
     apply_scalable_softmax,
     sdpa,
 )
+from mapanything_tpu_torch.parallel.cp import current_cp
+from mapanything_tpu_torch.parallel.sharded_attention import global_attention_cp
 
 
 class Linear(nn.Linear):
@@ -131,6 +134,13 @@ class Attention(nn.Module):
 
     q, k and v are strided views of the fused ``qkv`` projection, (B, N, H, D)
     each; the attention kernel reads them in place.
+
+    Context-parallel routing (the trunk's global layers): with ``cp_global``
+    set and a ``parallel.cp`` context active, the last ``cp_extra_tokens``
+    tokens are the replicated extra tokens (the scale token) and the rest
+    are this rank's view-sharded grid tokens; attention then runs through
+    ``global_attention_cp`` with the context's schedule, and the token count
+    N of the softmax scalings is the global V·P + E.
     """
 
     def __init__(
@@ -142,10 +152,12 @@ class Attention(nn.Module):
         use_entropy_scaling=False,
         base_token_count_for_entropy_scaling=444,
         entropy_scaling_growth_factor=1.4,
+        cp_global=False,
         dtype=torch.float32,
     ):
         super().__init__()
         self.num_heads = num_heads
+        self.cp_global = cp_global
         self.use_scalable_softmax = use_scalable_softmax
         self.use_entropy_scaling = use_entropy_scaling
         self.base_token_count_for_entropy_scaling = base_token_count_for_entropy_scaling
@@ -153,17 +165,29 @@ class Attention(nn.Module):
         self.qkv = Linear(dim, dim * 3, bias=qkv_bias, dtype=dtype, init="xavier")
         self.proj = Linear(dim, dim, dtype=dtype, init="xavier")
 
-    def forward(self, x):
+    def forward(self, x, cp_extra_tokens: int = 0):
         B, N, C = x.shape
         head_dim = C // self.num_heads
         q, k, v = self.qkv(x).reshape(B, N, 3, self.num_heads, head_dim).unbind(2)
+        cp = current_cp() if self.cp_global else None
+        E = cp_extra_tokens
+        n_tokens = N if cp is None else (N - E) * cp.group.size + E
         if self.use_scalable_softmax:
-            q = apply_scalable_softmax(q, N)
+            q = apply_scalable_softmax(q, n_tokens)
         if self.use_entropy_scaling:
             q = apply_entropy_scaling(
-                q, N, self.base_token_count_for_entropy_scaling, self.entropy_scaling_growth_factor
+                q, n_tokens, self.base_token_count_for_entropy_scaling, self.entropy_scaling_growth_factor
             )
-        out = sdpa(q, k, v, scale=head_dim**-0.5)
+        if cp is None:
+            out = sdpa(q, k, v, scale=head_dim**-0.5)
+        else:
+            g = N - E
+            og, oe = global_attention_cp(
+                q[:, :g], k[:, :g], v[:, :g],
+                q[:, g:] if E else None, k[:, g:] if E else None, v[:, g:] if E else None,
+                cp.group, head_dim**-0.5, cp.schedule,
+            )
+            out = torch.cat([og, oe.to(og.dtype)], dim=1) if E else og
         return self.proj(out.reshape(B, N, C))
 
 
@@ -182,6 +206,7 @@ class SelfAttentionBlock(nn.Module):
         use_entropy_scaling=False,
         base_token_count_for_entropy_scaling=444,
         entropy_scaling_growth_factor=1.4,
+        cp_global=False,
         dtype=torch.float32,
     ):
         super().__init__()
@@ -194,6 +219,7 @@ class SelfAttentionBlock(nn.Module):
             use_entropy_scaling=use_entropy_scaling,
             base_token_count_for_entropy_scaling=base_token_count_for_entropy_scaling,
             entropy_scaling_growth_factor=entropy_scaling_growth_factor,
+            cp_global=cp_global,
             dtype=dtype,
         )
         self.ls1 = LayerScale(dim, init_values) if init_values is not None else nn.Identity()
@@ -202,8 +228,8 @@ class SelfAttentionBlock(nn.Module):
         self.ls2 = LayerScale(dim, init_values) if init_values is not None else nn.Identity()
         self.drop_path = DropPath(drop_path)
 
-    def forward(self, x):
-        x = x + self.drop_path(self.ls1(self.attn(self.norm1(x))))
+    def forward(self, x, cp_extra_tokens: int = 0):
+        x = x + self.drop_path(self.ls1(self.attn(self.norm1(x), cp_extra_tokens)))
         return x + self.drop_path(self.ls2(self.mlp(self.norm2(x))))
 
 

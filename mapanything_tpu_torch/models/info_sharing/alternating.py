@@ -6,6 +6,12 @@ branch :255-303). Even layers attend over all views' tokens plus the
 additional tokens (the scale token); odd layers attend within each view,
 and the additional tokens skip them. Parameter names follow the reference
 (``proj_embed``, ``self_attention_blocks.N.*``, ``norm``).
+
+While a ``parallel.cp`` context is active (JAX's ``context_parallel``,
+:136-139, :275-276), the views given are this rank's block of the group's
+views: the even layers attend across ranks (``global_attention_cp``), the
+odd layers stay local, and the view positional encodings go by global view
+index (the reference-view PE on global view 0 only).
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from torch import nn
 
 from mapanything_tpu_torch.models.blocks import LayerNorm, Linear, SelfAttentionBlock
 from mapanything_tpu_torch.models.encoders.dense_rep import sinusoid_encoding_table
+from mapanything_tpu_torch.parallel.cp import current_cp
 
 
 class AlternatingAttentionTransformer(nn.Module):
@@ -63,26 +70,36 @@ class AlternatingAttentionTransformer(nn.Module):
                 use_entropy_scaling=use_entropy_scaling,
                 base_token_count_for_entropy_scaling=base_token_count_for_entropy_scaling,
                 entropy_scaling_growth_factor=entropy_scaling_growth_factor,
+                cp_global=depth_idx % 2 == 0,
                 dtype=dtype,
             )
-            for _ in range(depth)
+            for depth_idx in range(depth)
         )
         self.norm = LayerNorm(dim, dtype=dtype)
 
-    def _add_view_pe(self, x, V, P, non_ref_view_pe_indices):
-        """Reference-view PE on view 0 (and optional PE on the other views)."""
+    def _add_view_pe(self, x, V, P, non_ref_view_pe_indices, first_view=0, total_views=None):
+        """Reference-view PE on global view 0 (and optional PE on the other
+        views). The V views given are global views [first_view, first_view + V)
+        of ``total_views``; ``non_ref_view_pe_indices`` (total_views - 1,) are
+        the PE rows of global views 1, 2, ... (default: their own indices)."""
+        total_views = V if total_views is None else total_views
         n_rows = self.max_num_views_for_pe if self.use_pe_for_non_reference_views else 1
         table = torch.from_numpy(sinusoid_encoding_table(n_rows, self.dim, 10000.0))
         table = table.to(device=x.device, dtype=self.dtype)
-        parts = [x[:, :P] + table[0]]
-        if self.use_pe_for_non_reference_views and V > 1:
+        local = 0  # the first local view that is not the reference view
+        parts = []
+        if first_view == 0:
+            parts.append(x[:, :P] + table[0])
+            local = 1
+        if self.use_pe_for_non_reference_views and local < V:
             if non_ref_view_pe_indices is None:
-                non_ref_view_pe_indices = torch.arange(1, V)
-            pe = table[non_ref_view_pe_indices.to(x.device)].repeat_interleave(P, dim=0)
-            parts.append(x[:, P : V * P] + pe)
+                non_ref_view_pe_indices = torch.arange(1, total_views)
+            rows = non_ref_view_pe_indices[first_view + local - 1 : first_view + V - 1]
+            pe = table[rows.to(x.device)].repeat_interleave(P, dim=0)
+            parts.append(x[:, local * P : V * P] + pe)
             parts.append(x[:, V * P :])
         else:
-            parts.append(x[:, P:])
+            parts.append(x[:, local * P :])
         return torch.cat(parts, dim=1)
 
     def forward(
@@ -95,7 +112,8 @@ class AlternatingAttentionTransformer(nn.Module):
         Args:
             features: (B, V, h, w, Cin) fused per-view patch features.
             additional_tokens: optional (B, T, Cin) extra tokens (the scale token).
-            non_ref_view_pe_indices: optional (V-1,) PE table rows for views 1..V-1.
+            non_ref_view_pe_indices: optional (V-1,) PE table rows for views
+                1..V-1 (under context parallelism, of all ranks' views).
 
         Returns:
             final (B, V, h, w, dim), the intermediates at ``indices`` (each
@@ -111,13 +129,15 @@ class AlternatingAttentionTransformer(nn.Module):
         if hasattr(self, "proj_embed"):
             x = self.proj_embed(x)
         x = x.to(self.dtype)
+        cp = current_cp()
+        n_ranks, rank = (1, 0) if cp is None else (cp.group.size, cp.group.rank)
         if self.distinguish_ref_and_non_ref_views:
-            x = self._add_view_pe(x, V, P, non_ref_view_pe_indices)
+            x = self._add_view_pe(x, V, P, non_ref_view_pe_indices, rank * V, n_ranks * V)
 
         intermediates = []
         for depth_idx, block in enumerate(self.self_attention_blocks):
             if depth_idx % 2 == 0:
-                x = block(x)
+                x = block(x, T)
             else:
                 view_tok = block(x[:, : V * P].reshape(B * V, P, self.dim))
                 view_tok = view_tok.reshape(B, V * P, self.dim)

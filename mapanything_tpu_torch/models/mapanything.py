@@ -9,6 +9,12 @@ encoders, depth sparsification, metric-scale tokens; :416-533), and
 ``assemble_scene_representation`` (:688), for the DPT head and the
 ``raydirs+depth+pose`` scene representation.
 
+View parallelism (JAX :291, :560): inside a ``parallel.cp`` context the
+views given are this rank's block of the group's views. The JAX package runs the whole batch as one SPMD
+program, where the cross-view steps need no code; here they are collectives
+that autograd differentiates: view 0's pose comes from the first rank by
+broadcast, and the mean translation norm is an all-reduce.
+
 Stages: the DINOv2 ViT encoder and the alternating trunk run in
 ``compute_dtype``; the DPT fusion pyramid follows ``dpt_fusion_dtype`` (or
 ``compute_dtype``); the regression decode, pose and scale heads and the
@@ -56,6 +62,8 @@ from mapanything_tpu_torch.models.heads.pose import MLPHead, PoseHead
 from mapanything_tpu_torch.models.info_sharing.alternating import (
     AlternatingAttentionTransformer,
 )
+from mapanything_tpu_torch.parallel.cp import current_cp
+from mapanything_tpu_torch.parallel.mesh import broadcast_from_first
 
 
 GEOMETRIC_INPUTS = ("ray_directions", "depth_along_ray", "camera_pose_quats", "camera_pose_trans")
@@ -232,7 +240,8 @@ class MapAnythingConfig:
     dense_adaptor: DenseAdaptorConfig = field(default_factory=DenseAdaptorConfig)
     pose_adaptor: PoseAdaptorConfig = field(default_factory=PoseAdaptorConfig)
     scale_adaptor: ScaleAdaptorConfig = field(default_factory=ScaleAdaptorConfig)
-    # execution
+    # execution (JAX's context_parallel_trunk has no counterpart: an active
+    # parallel.cp context alone routes the trunk's global layers)
     compute_dtype: str = "float32"
     head_dtype: str = "float32"
     dpt_fusion_dtype: Optional[str] = None  # None follows compute_dtype
@@ -376,9 +385,14 @@ class MapAnything(nn.Module):
         modality is used (``full_modality_masks``). The model has no
         stochastic layer (drop-path rate 0), so ``deterministic`` changes
         nothing; it is kept for the JAX signature. Inference callers run it
-        under ``torch.inference_mode()``."""
+        under ``torch.inference_mode()``. Inside a ``parallel.cp`` context
+        the views and masks are this rank's block of the group's views,
+        ``non_ref_view_pe_indices`` covers all of the group's views, and the
+        predictions are those of this rank's views."""
         del deterministic
         cfg = self.config
+        cp = current_cp()
+        group = None if cp is None else cp.group
         dev = self.device
         given = [name for name in GEOMETRIC_INPUTS if getattr(views, name) is not None]
         if given and not self.geometric_inputs:
@@ -413,9 +427,10 @@ class MapAnything(nn.Module):
         pose_trans = torch.zeros((B, V, 3), device=dev)
         if views.camera_pose_quats is not None:
             q_all, t_all = f32(views.camera_pose_quats), f32(views.camera_pose_trans)
-            q_rel, t_rel = relative_pose_quats_trans(
-                q_all[:, :1].expand_as(q_all), t_all[:, :1].expand_as(t_all), q_all, t_all
-            )
+            q0, t0 = q_all[:, :1], t_all[:, :1]
+            if group is not None:  # view 0 lives on the first rank
+                q0, t0 = broadcast_from_first(q0, group), broadcast_from_first(t0, group)
+            q_rel, t_rel = relative_pose_quats_trans(q0.expand_as(q_all), t0.expand_as(t_all), q_all, t_all)
             pose_quats = torch.where(cam_mask[..., None], q_rel, pose_quats)
             pose_trans = torch.where(cam_mask[..., None], t_rel, pose_trans)
         is_metric = (
@@ -453,7 +468,7 @@ class MapAnything(nn.Module):
         if views.camera_pose_quats is not None:
             quat_feats = self.cam_rot_encoder(pose_quats.reshape(B * V, 4)).reshape(B, V, E)
             quat_feats = quat_feats * cam_mask[..., None]
-            trans_scaled, trans_factor = normalize_pose_translations(pose_trans, return_norm_factor=True)
+            trans_scaled, trans_factor = normalize_pose_translations(pose_trans, True, group)
             trans_feats = self.cam_trans_encoder(trans_scaled.reshape(B * V, 3)).reshape(B, V, E)
             trans_feats = trans_feats * cam_mask[..., None]
             metric_pose = is_metric & ~masks.pose_scale_norm_all

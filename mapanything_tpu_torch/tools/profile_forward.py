@@ -1,13 +1,15 @@
 """Where the time of the flagship forward, or train step, goes on the card, by kernel family.
 
-    python3 -m mapanything_tpu_torch.tools.profile_forward [--train] [--out DIR]
+    python3 -m mapanything_tpu_torch.tools.profile_forward [--train] [--ring] [--out DIR]
 
 Builds MapAnythingConfig(compute_dtype="bfloat16") with seeded random
 weights. Without ``--train``: the images-only forward on 1 x 8 views at
 518 px, under ``torch.inference_mode()``. With ``--train``: the train step
 (forward, backward and optimizer) on 1 x 4 views at 518 px, with the
 bench.py LossBatch and GeometricInputConfig() masks, as ``chip_smoke.py``
-phase 7 runs it. Warms up, then traces three iterations with torch.profiler
+phase 7 runs it. With ``--ring``: the same, view-parallel under the ring
+schedule on a process group of this process alone (NCCL at world size 1),
+as ``chip_smoke.py`` phases 9 and 10 run it. Warms up, then traces three iterations with torch.profiler
 (CPU and CUDA activities). The Chrome trace is parsed directly: every
 "kernel" event is summed by name and by family (the port's attention
 kernels, GEMMs, convolutions, casts and copies, normalisation, resizes,
@@ -17,7 +19,7 @@ iteration traced and, timed just before the trace in the same process,
 untraced, the device's idle share over the traced window, an estimate of
 the idle share without the profiler (one minus busy time over untraced
 wall time), and the families in order. The per-kernel table goes to ``<out>/profile_forward.json``
-(``profile_train.json`` with ``--train``).
+(``profile_train.json`` with ``--train``; ``_ring`` added with ``--ring``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from __future__ import annotations
 import argparse
 import json
 import subprocess
+import tempfile
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -75,23 +78,29 @@ def busy_us(intervals) -> float:
     return total
 
 
-def forward_runner():
-    """The images-only forward on 1 x 8 x 518, under inference mode."""
+def forward_runner(group=None):
+    """The images-only forward on 1 x 8 x 518, under inference mode; with a
+    view group, view-parallel under the ring."""
     from mapanything_tpu_torch.models.mapanything import MapAnything, MapAnythingConfig, Views
+    from mapanything_tpu_torch.parallel.context import infer_view_sharded
 
     model = MapAnything(MapAnythingConfig(compute_dtype="bfloat16"), device="cuda", seed=0)
     img = np.random.RandomState(0).randn(1, 8, PX, PX, 3).astype(np.float32)
     views = Views(img=torch.from_numpy(img).cuda())
 
     def run():
+        if group is not None:
+            infer_view_sharded(model, views, group, "ring")
+            return
         with torch.inference_mode():
             model(views)
 
-    return run, "MapAnythingConfig(compute_dtype='bfloat16'), 1x8x518x518 forward"
+    return run, "MapAnythingConfig(compute_dtype='bfloat16'), 1x8x518x518 forward" + (", ring" if group else "")
 
 
-def train_runner():
-    """The train step on 1 x 4 x 518, as chip_smoke.py phase 7 runs it."""
+def train_runner(group=None):
+    """The train step on 1 x 4 x 518, as chip_smoke.py phase 7 runs it; with a
+    view group, as phase 10 does (the ring)."""
     from mapanything_tpu_torch.models.mapanything import GeometricInputConfig, MapAnything, MapAnythingConfig
     from mapanything_tpu_torch.train.losses import LossConfig, synthetic_loss_batch
     from mapanything_tpu_torch.train.optim import OptimConfig, build_optimizer
@@ -100,7 +109,7 @@ def train_runner():
     B, V = 1, 4
     model = MapAnything(MapAnythingConfig(compute_dtype="bfloat16"), device="cuda", seed=0, geometric_inputs=True)
     opt = build_optimizer(OptimConfig(lr=1e-7, min_lr=1e-8, epoch_len=100, total_epochs=1.0), model)
-    step = make_train_step(model, opt, LossConfig(), GeometricInputConfig())
+    step = make_train_step(model, opt, LossConfig(), GeometricInputConfig(), view_group=group)
     batch = synthetic_loss_batch(B, V, PX, PX, seed=0).to("cuda")  # bench.py:128-153
     img = torch.from_numpy(np.random.RandomState(0).randn(B, V, PX, PX, 3).astype(np.float32)).cuda()
     gen = torch.Generator().manual_seed(0)
@@ -109,13 +118,15 @@ def train_runner():
     def run():
         box[0], _ = step(box[0], img, batch, gen)
 
-    return run, "MapAnythingConfig(compute_dtype='bfloat16'), 1x4x518x518 train step (forward, backward, AdamW)"
+    return run, ("MapAnythingConfig(compute_dtype='bfloat16'), 1x4x518x518 train step (forward, backward, AdamW)"
+                 + (", ring" if group else ""))
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/profile")
     ap.add_argument("--train", action="store_true", help="profile the train step instead of the forward")
+    ap.add_argument("--ring", action="store_true", help="view-parallel under the ring, on a group of one rank")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward: no CUDA device")
@@ -126,7 +137,14 @@ def main() -> None:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
 
-    run, config = train_runner() if args.train else forward_runner()
+    group = None
+    if args.ring:
+        from mapanything_tpu_torch.parallel.distributed import init_distributed_mode
+        from mapanything_tpu_torch.parallel.mesh import make_view_group
+
+        init_distributed_mode("cuda", f"file://{tempfile.mkdtemp()}/rendezvous", 0, 1)
+        group = make_view_group()
+    run, config = train_runner(group) if args.train else forward_runner(group)
     for _ in range(3):
         run()
     torch.cuda.synchronize()
@@ -164,7 +182,7 @@ def main() -> None:
          for k, v in by_name.items()),
         key=lambda r: -r["ms_per_iteration"],
     )
-    name = "profile_train" if args.train else "profile_forward"
+    name = ("profile_train" if args.train else "profile_forward") + ("_ring" if args.ring else "")
     (out_dir / f"{name}.json").write_text(json.dumps({"card": smi, "config": config, "kernels": table}, indent=1))
     trace.unlink()  # large; the per-kernel table above keeps what it says
     print(json.dumps({
@@ -182,6 +200,8 @@ def main() -> None:
             ((k, v / n / 1e3) for k, v in by_family.items()), key=lambda kv: -kv[1])),
         "top_kernels": table[:12],
     }), flush=True)
+    if group is not None:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -11,13 +11,21 @@ BCE. One function over stacked (B, V, ...) tensors; every reduction is a
 mask-weighted mean, and the top-N% exclusion sorts each image's pixels.
 The disentangled variant, the DUSt3R loss and the perceptual RGB loss are
 not ported yet.
+
+Under view parallelism (an optional view group) each rank passes its block
+of views. Every term but the scale loss is a sum over views of per-view
+means, so it splits into one part a rank; the GT pose frame comes from view
+0 by broadcast, and the joint point-cloud normalisers all-reduce their sums
+over views. The scale loss is replicated and counts on the first rank only.
+Each rank then returns its part of the loss and of each detail: their sum
+over the ranks is the unsharded value.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, fields
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +41,7 @@ from mapanything_tpu_torch.geometry.quaternion import (
     relative_pose_quats_trans,
 )
 from mapanything_tpu_torch.models.mapanything import Predictions
+from mapanything_tpu_torch.parallel.mesh import ViewGroup, broadcast_first
 
 
 @dataclass
@@ -210,12 +219,14 @@ def exclude_top_n_percent_mean(
 
 
 def factored_geometry_scale_loss(
-    batch: LossBatch, preds: Predictions, cfg: LossConfig = LossConfig()
+    batch: LossBatch, preds: Predictions, cfg: LossConfig = LossConfig(),
+    group: Optional[ViewGroup] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The full production loss: (scalar, details). Loss sets: 0 world points
     (confidence-weighted), 1 camera points and 2 depth (top-N% excluded on
     real data), 3 ray directions, 4 pose quaternions, 5 pose translations,
-    6 scale; then the normal, gradient-matching and mask terms."""
+    6 scale; then the normal, gradient-matching and mask terms. With a view
+    ``group``: this rank's part of each (see the module's docstring)."""
     if cfg.disentangled:
         raise NotImplementedError("the disentangled loss is not ported yet")
     B, V, H, W, _ = batch.pts3d.shape
@@ -232,11 +243,12 @@ def factored_geometry_scale_loss(
 
     # Ground truth in view 0's frame.
     quats, trans = batch.camera_pose_quats, batch.camera_pose_trans
-    gt_quats, gt_trans = relative_pose_quats_trans(
-        quats[:, :1].expand_as(quats), trans[:, :1].expand_as(trans), quats, trans
-    )
-    inv_q0 = quat_inverse(quats[:, 0])
-    gt_pts_v0 = quat_rotate(inv_q0[:, None, None, None, :], batch.pts3d - trans[:, 0][:, None, None, None, :])
+    q0, t0 = quats[:, :1], trans[:, :1]
+    if group is not None:  # view 0 lives on the first rank
+        q0, t0 = broadcast_first(q0, group), broadcast_first(t0, group)
+    gt_quats, gt_trans = relative_pose_quats_trans(q0.expand_as(quats), t0.expand_as(trans), quats, trans)
+    inv_q0 = quat_inverse(q0[:, 0])
+    gt_pts_v0 = quat_rotate(inv_q0[:, None, None, None, :], batch.pts3d - t0[:, 0][:, None, None, None, :])
 
     # Predictions without the metric factor.
     s = preds.metric_scaling_factor
@@ -247,19 +259,19 @@ def factored_geometry_scale_loss(
     pr_trans = preds.cam_trans / s[:, None, None]
 
     # Joint multi-view normalisation, independently for GT and prediction.
-    gt_pts_n, gt_nf = normalize_pointcloud(gt_pts_v0, valid, cfg.norm_mode, True)
+    gt_pts_n, gt_nf = normalize_pointcloud(gt_pts_v0, valid, cfg.norm_mode, True, group)
     gt_nf_s = gt_nf.reshape(B)
     gt_pts_cam_n = batch.pts3d_cam / gt_nf
     gt_depth_n = batch.depth_along_ray / gt_nf
     gt_trans_n = gt_trans / gt_nf_s[:, None, None]
-    pr_pts_n, pr_nf = normalize_pointcloud(pr_pts, valid, cfg.norm_mode, True)
+    pr_pts_n, pr_nf = normalize_pointcloud(pr_pts, valid, cfg.norm_mode, True, group)
     pr_nf_s = pr_nf.reshape(B)
     pr_pts_cam_n = pr_pts_cam / pr_nf
     pr_depth_n = pr_depth / pr_nf
     pr_trans_n = pr_trans / pr_nf_s[:, None, None]
 
     # The predicted metric norm factor: the geometry held fixed, times the scale.
-    _, pr_metric_nf = normalize_pointcloud(pr_pts.detach() * s5, valid, cfg.norm_mode, True)
+    _, pr_metric_nf = normalize_pointcloud(pr_pts.detach() * s5, valid, cfg.norm_mode, True, group)
     pr_metric_nf_s = pr_metric_nf.reshape(B)
     metric_sample = batch.is_metric_scale & (gt_nf_s > 1e-8)
 
@@ -315,6 +327,8 @@ def factored_geometry_scale_loss(
     else:
         gt_sc, pr_sc = gt_nf_s[:, None], pr_metric_nf_s[:, None]
     details["scale_loss"] = masked_mean(crit(pr_sc, gt_sc) * cfg.scale_weight, metric_sample)
+    if group is not None and group.rank != 0:
+        details["scale_loss"] = details["scale_loss"] * 0.0  # replicated: counted on the first rank
 
     # Normal and gradient-matching terms (synthetic data only in production),
     # per-view scalars summed over the views.

@@ -9,6 +9,15 @@ scaled by 2 / V (training.py:475-478); back-propagates; and applies the
 optimizer. The parameters live in the model and are updated in place.
 Gradient accumulation, the trainer loop, checkpoints and the data loader
 wait for a later slice.
+
+Under a view group (view parallelism; the JAX package's view-sharded step,
+``__graft_entry__.py:377-418``) each rank passes its block of the views.
+The masks and PE indices are drawn for all views from the shared generator
+on every rank and sliced; the forward runs inside the group's ``parallel.cp``
+context under the ring schedule; each rank back-propagates its part of the
+loss; the parameters' gradients are all-reduced (summed) over the group, so
+every rank applies the same update; the metrics are the group's sums, the
+unsharded values.
 """
 
 from __future__ import annotations
@@ -26,6 +35,8 @@ from mapanything_tpu_torch.models.mapanything import (
     Views,
     sample_modality_masks,
 )
+from mapanything_tpu_torch.parallel.cp import context_parallel_attention
+from mapanything_tpu_torch.parallel.mesh import ViewGroup, all_reduce, all_reduce_, shard_views_pytree
 from mapanything_tpu_torch.train.losses import LossBatch, LossConfig, factored_geometry_scale_loss
 from mapanything_tpu_torch.train.optim import AdamW, OptState, apply_updates
 
@@ -54,18 +65,43 @@ def views_from_loss_batch(batch: LossBatch, img: torch.Tensor) -> Views:
     )
 
 
-def make_loss_fn(model: MapAnything, loss_cfg: LossConfig = LossConfig()):
+def make_loss_fn(
+    model: MapAnything,
+    loss_cfg: LossConfig = LossConfig(),
+    view_group: Optional[ViewGroup] = None,
+):
     """``loss_fn(batch, img, masks, pe_indices) -> (loss · 2 / V, details)``,
-    the differentiable part of the step."""
+    the differentiable part of the step. With a ``view_group`` the inputs are
+    this rank's views, the forward is view-parallel under the ring schedule
+    (the JAX package's view-sharded step), V counts every rank's views, and
+    the results are this rank's parts."""
+    n = 1 if view_group is None else view_group.size
 
     def loss_fn(batch: LossBatch, img: torch.Tensor, masks: ModalityMasks,
                 pe_indices: Optional[torch.Tensor] = None):
-        preds = model(views_from_loss_batch(batch, img), masks, deterministic=True,
-                      non_ref_view_pe_indices=pe_indices)
-        loss, details = factored_geometry_scale_loss(batch, preds, loss_cfg)
-        return loss * 2.0 / batch.valid_mask.shape[1], details
+        views = views_from_loss_batch(batch, img)
+        if view_group is None:
+            preds = model(views, masks, deterministic=True, non_ref_view_pe_indices=pe_indices)
+        else:
+            with context_parallel_attention(view_group, "ring"):
+                preds = model(views, masks, deterministic=True, non_ref_view_pe_indices=pe_indices)
+        loss, details = factored_geometry_scale_loss(batch, preds, loss_cfg, view_group)
+        return loss * 2.0 / (batch.valid_mask.shape[1] * n), details
 
     return loss_fn
+
+
+def all_reduce_grads(params, view_group: ViewGroup) -> None:
+    """Sum the parameters' gradients over the group, in place, one collective
+    for each dtype; a parameter without a gradient gets the others' sum."""
+    by_dtype: Dict[torch.dtype, list] = {}
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+    for grads in by_dtype.values():
+        flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads]), view_group)
+        torch._foreach_copy_(grads, [x.view_as(g) for x, g in zip(flat.split([g.numel() for g in grads]), grads)])
 
 
 def make_train_step(
@@ -73,32 +109,47 @@ def make_train_step(
     optimizer: AdamW,
     loss_cfg: LossConfig = LossConfig(),
     geo_cfg: GeometricInputConfig = GeometricInputConfig(),
+    view_group: Optional[ViewGroup] = None,
 ):
-    """``step(state, img, batch, generator) -> (state, metrics)``.
+    """``step(state, img, batch, generator, masks=None) -> (state, metrics)``.
 
-    ``generator`` (a CPU ``torch.Generator``) draws the modality masks and
-    the view-PE indices. ``metrics`` holds the loss details, ``loss`` and
-    ``grad_norm`` (the norm before clipping), as 0-dim tensors on the
-    model's device.
+    ``generator`` (a CPU ``torch.Generator``) draws the modality masks, unless
+    ``masks`` (for all views) are given, and the view-PE indices. ``metrics``
+    holds the loss details, ``loss`` and ``grad_norm`` (the norm before
+    clipping), as 0-dim tensors on the model's device. With a ``view_group``,
+    ``img`` and ``batch`` hold this rank's views (``shard_views_pytree``) and
+    the step runs view-parallel under the ring (see the module's docstring).
     """
-    loss_fn = make_loss_fn(model, loss_cfg)
+    loss_fn = make_loss_fn(model, loss_cfg, view_group)
     cfg = model.config
+    n = 1 if view_group is None else view_group.size
 
-    def step(state: TrainState, img: torch.Tensor, batch: LossBatch, generator: torch.Generator):
-        B, V, H, W = batch.valid_mask.shape
-        masks = sample_modality_masks(generator, B, V, (H, W), geo_cfg, device=model.device)
+    def step(state: TrainState, img: torch.Tensor, batch: LossBatch, generator: torch.Generator,
+             masks: Optional[ModalityMasks] = None):
+        B, V_local, H, W = batch.valid_mask.shape
+        V = V_local * n
+        if masks is None:
+            masks = sample_modality_masks(generator, B, V, (H, W), geo_cfg, device=model.device)
         pe_indices = None
         if cfg.use_pe_for_non_reference_views and cfg.use_rand_idx_pe_for_non_reference_views and V > 1:
             pe_indices = torch.randint(1, cfg.max_num_views_for_pe, (V - 1,), generator=generator)
+        if view_group is not None:
+            masks = shard_views_pytree(masks.to(model.device), view_group)
         for p in state.params.values():
             p.grad = None
         loss, details = loss_fn(batch, img, masks, pe_indices)
         loss.backward()
-        grads = {n: p.grad for n, p in state.params.items()}
+        metrics = {k: v.detach() for k, v in details.items()}
+        metrics["loss"] = loss.detach()
+        if view_group is not None:
+            all_reduce_grads(state.params.values(), view_group)
+            names = list(metrics)
+            sums = all_reduce(torch.stack([metrics[k].float() for k in names]), view_group)
+            metrics = dict(zip(names, sums.unbind()))
+        grads = {name: p.grad for name, p in state.params.items()}
         updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
         apply_updates(state.params, updates)
-        metrics = {k: v.detach() for k, v in details.items()}
-        metrics.update(loss=loss.detach(), grad_norm=opt_state.grad_norm)
+        metrics["grad_norm"] = opt_state.grad_norm
         return TrainState(params=state.params, opt_state=opt_state, step=state.step + 1), metrics
 
     return step

@@ -17,6 +17,8 @@ import torch
 
 from mapanything_tpu_torch.models import mapanything as port_ma
 from mapanything_tpu_torch.ops.flash_attention import flash_attention
+from mapanything_tpu_torch.parallel.distributed import run_ranks
+from mapanything_tpu_torch.tools import view_parallel_ranks
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "mapanything_tpu_torch"
@@ -34,7 +36,7 @@ bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r})
 print(len(names), bad, " ".join(names))
 """
 
-# Modules of the training slice that the fresh-process import must reach.
+# Modules of the training and view-parallel slices that the fresh-process import must reach.
 TRAINING_SLICE_MODULES = (
     "mapanything_tpu_torch.train.losses",
     "mapanything_tpu_torch.train.optim",
@@ -42,6 +44,12 @@ TRAINING_SLICE_MODULES = (
     "mapanything_tpu_torch.geometry.quaternion",
     "mapanything_tpu_torch.geometry.normalization",
     "mapanything_tpu_torch.models.encoders.dense_rep",
+    "mapanything_tpu_torch.parallel.distributed",
+    "mapanything_tpu_torch.parallel.mesh",
+    "mapanything_tpu_torch.parallel.cp",
+    "mapanything_tpu_torch.parallel.sharded_attention",
+    "mapanything_tpu_torch.parallel.context",
+    "mapanything_tpu_torch.tools.view_parallel_ranks",
 )
 
 
@@ -52,9 +60,19 @@ def test_port_imports_no_jax_in_a_fresh_process():
     )
     assert proc.returncode == 0, proc.stderr
     n_modules, bad, names = proc.stdout.strip().split(" ", 2)
-    assert int(n_modules) >= 19, proc.stdout  # every module of the port was imported
+    assert int(n_modules) >= 26, proc.stdout  # every module of the port was imported
     assert set(TRAINING_SLICE_MODULES) <= set(names.split()), names
     assert bad == "[]", f"the port pulled in {bad}"
+
+
+def test_rank_processes_import_no_jax(tmp_path):
+    """A rank that the launcher starts (spawn, gloo) holds no JAX, though this
+    test process does."""
+    assert "jax" in sys.modules
+    modules = run_ranks(view_parallel_ranks.loaded_modules, 2, "cpu", tmp_path / "rendezvous")
+    for names in modules:
+        assert "torch" in names and "mapanything_tpu_torch" in names
+        assert not set(FORBIDDEN) & set(names), sorted(set(FORBIDDEN) & set(names))
 
 
 def test_port_sources_and_chip_smoke_name_no_jax():

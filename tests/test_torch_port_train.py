@@ -22,6 +22,8 @@ from mapanything_tpu.train import losses as jax_losses
 from mapanything_tpu.train import optim as jax_optim
 from mapanything_tpu_torch.models import mapanything as port_ma
 from mapanything_tpu_torch.models.heads import pose as port_pose
+from mapanything_tpu_torch.parallel.distributed import run_ranks
+from mapanything_tpu_torch.tools import view_parallel_ranks
 from mapanything_tpu_torch.train import losses as port_losses
 from mapanything_tpu_torch.train import optim as port_optim
 from mapanything_tpu_torch.train import step as port_step
@@ -243,7 +245,7 @@ def small_step():
     load_jax_params(port, jax.tree.map(np.asarray, params))
     np_masks = {k: None if v is None else np.array(v) for k, v in vars(masks).items()}
     return dict(img=img, batch=batch, masks=np_masks, loss=loss, details=details, grads=grads,
-                new_params=new_params, opt_cfg=opt_cfg, port=port)
+                new_params=new_params, opt_cfg=opt_cfg, port=port, params=jax.tree.map(np.asarray, params))
 
 
 def test_small_train_step_matches_jax(small_step, record_property):
@@ -285,6 +287,42 @@ def test_small_train_step_matches_jax(small_step, record_property):
         g = want[name].numpy()
         ulp = np.spacing(np.abs(before[name].numpy()))
         ok = (np.abs(got - ref) <= 1e-3 * lr + ulp) | (np.abs(g) < 1e-3 * np.abs(g).max())
+        assert ok.all(), name
+
+
+def test_view_parallel_train_step_matches_jax(small_step, tmp_path, record_property):
+    """The port's train step over 2 gloo ranks, one view each, under the ring
+    schedule, against the JAX unsharded step: the loss, its details, every
+    gradient and the parameters after the update. The ranks agree exactly."""
+    s = small_step
+    results = run_ranks(view_parallel_ranks.cp_train_step, 2, "cpu", tmp_path / "rendezvous",
+                        STEP_CFG, s["params"], s["img"], s["batch"], s["masks"], s["opt_cfg"])
+    got = results[0]
+    for name in got["params"]:
+        assert np.array_equal(got["params"][name], results[1]["params"][name]), name
+    # one global layer: n = 2 ring steps each way
+    assert got["counts"]["ring_steps"] == 2 and got["counts"]["ring_bwd_steps"] == 2
+    np.testing.assert_allclose(got["metrics"]["loss"], float(s["loss"]), rtol=1e-4)
+    for name, ref in s["details"].items():
+        np.testing.assert_allclose(got["metrics"][name], float(ref), rtol=1e-4, atol=1e-6, err_msg=name)
+    port = s["port"]
+    want = jax_params_to_state_dict(port, s["grads"])
+    assert sorted(want) == sorted(got["grads"])
+    worst = 0.0
+    for name, r in want.items():
+        r = r.numpy()
+        worst = max(worst, float(np.abs(got["grads"][name] - r).max() / (np.abs(r).max() + 1e-12)))
+        np.testing.assert_allclose(got["grads"][name], r, atol=1e-4 * np.abs(r).max() + 1e-12, rtol=0, err_msg=name)
+    record_property("grad_err_over_leaf_magnitude", worst)
+    # The update, as in test_small_train_step_matches_jax.
+    before = jax_params_to_state_dict(port, s["params"])
+    want_new = jax_params_to_state_dict(port, s["new_params"])
+    lr = s["opt_cfg"]["lr"]
+    for name, p in got["params"].items():
+        b = before[name].numpy()
+        g = want[name].numpy()
+        ok = (np.abs((p - b) - (want_new[name].numpy() - b)) <= 1e-3 * lr + np.spacing(np.abs(b))) \
+            | (np.abs(g) < 1e-3 * np.abs(g).max())
         assert ok.all(), name
 
 
