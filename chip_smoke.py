@@ -22,6 +22,24 @@ Phases, each printing one JSON line:
   5. inference: the flagship MapAnythingConfig(compute_dtype="bfloat16")
      forward on 1 x 8 views at 518 px with seeded random weights, launch
      counts, output checks, views/s, ms per forward and peak memory;
+  11. the infer slice check: the small fp32 ``infer`` on cuda against cpu,
+     images only with the confidence mask, and with intrinsics, z-depth and
+     4x4 poses (a geometric_inputs=True model): float fields within 1e-3 of
+     their magnitude where both masks agree, masks equal on 99.9% of pixels;
+     head_chunk_size=1 against unchunked on cuda within CHUNK_RTOL;
+  12. the flagship bf16 ``infer`` on 1 x 8 x 518 (the user-facing path):
+     48 lse-free launches, ms, views/s and peak memory under the default
+     PostprocessConfig and with the confidence mask, the postprocess alone
+     beside phase 5's forward, the output invariants, head_chunk_size=2
+     against unchunked by mean difference per field (CHUNK_MEAN_DIFF_LIMITS),
+     and again with TF32 off and on a model with the DPT pyramid in fp32
+     (within CHUNK_RTOL of each field's magnitude);
+  13. memory-efficient many-view inference: the flagship bf16 ``infer`` on
+     1 x 64 x 518 with head_chunk_size=8 (bench.py:315-316): launches by key
+     length (36 at 1369-1370 tokens, 12 at 87617), ms per scene, views/s,
+     peak memory and the output invariants; then one unchunked infer, its
+     time and peak memory, and the chunked outputs against it within
+     CHUNK_MEAN_DIFF_LIMITS;
   6. train slice check: the small fp32 train step with every geometric
      input, fixed masks with depth sparsification, cuda against cpu: loss,
      loss details and every gradient, then the parameters after two steps;
@@ -38,6 +56,11 @@ Phases, each printing one JSON line:
      backward feeds them); each against its plain version on a slice of
      query rows (the whole shape for the backward), with kernel, plain (over
      every row, in chunks), torch SDPA and bound times;
+  3d. the kernels of phase 13's 64-view infer: K3 at 1 x 87617 x 12 x 64,
+     its global layer, as in 3c (the plain version in chunks of 512 query
+     rows), and K1 at 64 x 1370 x 16 x 64 and 64 x 1369 x 12 x 64, its
+     encoder and frame layers, as in phase 3 (the plain versions in batch
+     chunks of 8);
   8. view-parallel slice check on a process group of this process alone
      (NCCL, world size 1): MapAnythingConfig.small(), fp32, 1 x 4 x 112 (256
      grid tokens, so the ring's blocks reach the kernels), ring and
@@ -55,7 +78,8 @@ Phases, each printing one JSON line:
 On a machine with more than one card, phases 9 and 10 then run again over
 NCCL with one rank a card (2 or 4 cards); rank 0 checks the gathered
 outputs against the unsharded forward. A machine with one card skips this.
-Then the kernels' summary line and, last, {"ok": true, "device": {...}}.
+Phases 11-13 run after phase 5, before phase 6. Then the kernels' summary
+line and, last, {"ok": true, "device": {...}}.
 With --train-step-only, phase 7 runs in a fresh process after the build and
 the script stops after its line, printing neither the summary nor the ok line.
 Any failed check raises and the script exits non-zero. Without a CUDA device,
@@ -65,6 +89,7 @@ or without the port beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import shutil
@@ -94,6 +119,15 @@ ATTENTION_SHAPES = [
     ("global", (1, 10953, 12, 64), "bfloat16", 12, "mapanything_tpu/ops/flash_attention.py:516"),
     ("fp32_frame", (8, 1369, 12, 64), "float32", 0, "mapanything_tpu/ops/flash_attention.py:114"),
 ]
+# Phase 3d: K1 at the 64-view infer's encoder and frame layers (phase 13; its
+# launches there are counted by key length).
+MANY_VIEW_SHAPES = [
+    ("encoder_64_views", (64, 1370, 16, 64), "bfloat16", 24, "mapanything_tpu/ops/flash_attention.py:395"),
+    ("frame_64_views", (64, 1369, 12, 64), "bfloat16", 12, "mapanything_tpu/ops/flash_attention.py:395"),
+]
+# The plain versions run over batch chunks of at most this many (fp32 logits of
+# 8 x 16 heads at 1370 tokens: 0.96 GB).
+PLAIN_BATCH = 8
 
 # Phase 9: the largest mean |difference| of each output field allowed between
 # the unsharded, ring and allgather forwards (bf16 through 24 layers). About
@@ -136,8 +170,9 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_checks(card):
-    """Phase 3: the kernel against its plain version, with times and the bound."""
+def kernel_checks(card, shapes, phase_id: str):
+    """Phases 3 and 3d: the kernel against its plain version, with times and
+    the bound; the plain versions over batch chunks of PLAIN_BATCH."""
     import torch
     import torch.nn.functional as F
 
@@ -150,7 +185,7 @@ def kernel_checks(card):
 
     bf16_peak, f32_peak, mem_bw = peaks_for(card["name"])
     rows = []
-    for name, (b, t, h, d), dtype_name, per_forward, replaces in ATTENTION_SHAPES:
+    for name, (b, t, h, d), dtype_name, per_forward, replaces in shapes:
         dtype = getattr(torch, dtype_name)
         gen = torch.Generator(device="cuda").manual_seed(1)
         # q, k, v as Attention makes them: strided views of one fused qkv tensor.
@@ -159,20 +194,25 @@ def kernel_checks(card):
         scale = d**-0.5
         out = flash_attention(q, k, v, scale)
         torch.cuda.synchronize()
-        if dtype == torch.bfloat16:
-            exact = attention_reference(q.float(), k.float(), v.float(), scale)
-        else:
-            exact = attention_reference(q.double(), k.double(), v.double(), scale).float()
-        plain = attention_reference(q, k, v, scale)
-        err = (out.float() - exact).abs().max().item()
-        plain_err = (plain.float() - exact).abs().max().item()
-        tol = max(2.0 * plain_err, 1e-2 * exact.abs().max().item())
+        chunks = [slice(i, i + PLAIN_BATCH) for i in range(0, b, PLAIN_BATCH)]
+        err = plain_err = ref_max = 0.0
+        for c in chunks:
+            if dtype == torch.bfloat16:
+                exact = attention_reference(q[c].float(), k[c].float(), v[c].float(), scale)
+            else:
+                exact = attention_reference(q[c].double(), k[c].double(), v[c].double(), scale).float()
+            plain = attention_reference(q[c], k[c], v[c], scale)
+            err = max(err, (out[c].float() - exact).abs().max().item())
+            plain_err = max(plain_err, (plain.float() - exact).abs().max().item())
+            ref_max = max(ref_max, exact.abs().max().item())
+            del exact, plain
+        tol = max(2.0 * plain_err, 1e-2 * ref_max)
         finite = bool(torch.isfinite(out).all())
-        del exact, plain
         torch.cuda.empty_cache()
 
         ms = cuda_time_ms(lambda: flash_attention(q, k, v, scale), iters=20)
-        plain_ms = cuda_time_ms(lambda: attention_reference(q, k, v, scale), iters=3, warmup=1)
+        plain_ms = cuda_time_ms(lambda: [attention_reference(q[c], k[c], v[c], scale) for c in chunks],
+                                iters=3, warmup=1)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), iters=20)
         flops = attention_flops(b, t, t, h, d)
@@ -181,6 +221,7 @@ def kernel_checks(card):
         t_bytes = nbytes / mem_bw * 1e3
         row = {
             "phase": "kernel_check",
+            "phase_id": phase_id,
             "shape": name,
             "b_t_h_d": [b, t, h, d],
             "dtype": dtype_name,
@@ -346,15 +387,22 @@ def train_kernel_checks(card):
     return rows
 
 
-# Phase 3c: (name, T, kernel, TPU kernel replaced). The 16-view global layer has
-# 16·1369 + 1 = 21905 tokens; a ring step attends the 16 views' 21904 grid tokens
-# (inference) or 4 views' 5476 (the train step), the scale token merged apart.
+# Phases 3c and 3d: (phase, name, T, kernel, TPU kernel replaced, the count of
+# launches its row stands for in the kernels line, or None: a per_shape entry of
+# the row that has one). The 16-view global layer has 16·1369 + 1 = 21905 tokens;
+# a ring step attends the 16 views' 21904 grid tokens (inference) or 4 views'
+# 5476 (the train step), the scale token merged apart. Phase 3d: K3 at the
+# 64-view global layer, 64·1369 + 1 = 87617 tokens (phase 13's launches by length).
 LONG_SHAPES = [
-    ("k3_global_16_views", 21905, "flash_attention_fwd", f"{FA}:164"),
-    ("k7_ring_16_views", 21904, "flash_attention_fwd_lse", f"{FA}:168"),
-    ("k7_ring_4_views", 5476, "flash_attention_fwd_lse", f"{FA}:168"),
+    ("3c", "k3_global_16_views", 21905, "flash_attention_fwd", f"{FA}:164", "k3_per_forward"),
+    ("3c", "k7_ring_16_views", 21904, "flash_attention_fwd_lse", f"{FA}:168", "k7_per_forward"),
+    ("3c", "k7_ring_4_views", 5476, "flash_attention_fwd_lse", f"{FA}:168", None),
+    ("3d", "k3_global_64_views", 87617, "flash_attention_fwd", f"{FA}:164", "by_length"),
 ]
 ROW_SLICE = 2048  # query rows held to the plain version: the first and the last 1024
+# Query rows × key tokens of one plain chunk: 2048 rows at 21905 tokens, 512 at
+# 87617 (fp32 logits of 12 heads: 2.2 GB; 2048 rows there would be 8.6 GB).
+PLAIN_SLAB = ROW_SLICE * 21905
 
 
 def plain_by_rows(fn, q, *rest, rows: int = ROW_SLICE):
@@ -370,8 +418,8 @@ def plain_by_rows(fn, q, *rest, rows: int = ROW_SLICE):
 
 
 def long_kernel_checks(card):
-    """Phase 3c: the forward kernels at K3's and K7's lengths, dq and dk/dv
-    against a merged lse; kernel, plain, library and bound times."""
+    """Phases 3c and 3d: the forward kernels at K3's and K7's lengths, dq and
+    dk/dv against a merged lse; kernel, plain, library and bound times."""
     import torch
     import torch.nn.functional as F
 
@@ -382,22 +430,24 @@ def long_kernel_checks(card):
     b, h, d = 1, 12, 64
     scale = d**-0.5
     rows = []
-    for name, t, kname, replaces in LONG_SHAPES:
+    for phase_id, name, t, kname, replaces, launches_key in LONG_SHAPES:
         gen = torch.Generator(device="cuda").manual_seed(3)
         qkv = torch.randn(b, t, 3, h, d, device="cuda", generator=gen).to(torch.bfloat16)
         q, k, v = qkv.unbind(2)
         sl = torch.cat([torch.arange(ROW_SLICE // 2), torch.arange(t - ROW_SLICE // 2, t)]).cuda()
+        chunk = min(ROW_SLICE, PLAIN_SLAB // t)
         with_lse = kname.endswith("lse")
         if with_lse:
             o, lse = fa.flash_attention_lse(q, k, v, scale)
-            o_e, lse_e = fa.attention_lse_reference(q[:, sl].float(), k.float(), v.float(), scale)
-            o_p, lse_p = fa.attention_lse_reference(q[:, sl], k, v, scale)
+            o_e, lse_e = plain_by_rows(fa.attention_lse_reference, q[:, sl].float(), k.float(), v.float(), scale,
+                                       rows=chunk)
+            o_p, lse_p = plain_by_rows(fa.attention_lse_reference, q[:, sl], k, v, scale, rows=chunk)
             outs = {"o": (o[:, sl], o_e, o_p), "lse": (lse[:, :, sl], lse_e, lse_p)}
             fn, plain_fn = fa.flash_attention_lse, fa.attention_lse_reference
         else:
             o = fa.flash_attention(q, k, v, scale)
-            exact = fa.attention_reference(q[:, sl].float(), k.float(), v.float(), scale)
-            outs = {"o": (o[:, sl], exact, fa.attention_reference(q[:, sl], k, v, scale))}
+            exact = plain_by_rows(fa.attention_reference, q[:, sl].float(), k.float(), v.float(), scale, rows=chunk)
+            outs = {"o": (o[:, sl], exact, plain_by_rows(fa.attention_reference, q[:, sl], k, v, scale, rows=chunk))}
             fn, plain_fn = fa.flash_attention, fa.attention_reference
         torch.cuda.synchronize()
         errs = {key: max_err(x, e) for key, (x, e, _) in outs.items()}
@@ -407,15 +457,16 @@ def long_kernel_checks(card):
         del outs
         torch.cuda.empty_cache()
         ms = cuda_time_ms(lambda: fn(q, k, v, scale), iters=10)
-        plain_ms = cuda_time_ms(lambda: plain_by_rows(plain_fn, q, k, v, scale), iters=2, warmup=1)
+        plain_ms = cuda_time_ms(lambda: plain_by_rows(plain_fn, q, k, v, scale, rows=chunk), iters=2, warmup=1)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), iters=10)
         flop = fa.attention_flops(b, t, t, h, d)
         nbytes = fa.attention_bytes(b, t, t, h, d, 2) + (4 * b * h * t if with_lse else 0)
         t_ops, t_bytes = flop / bf16_peak * 1e3, nbytes / mem_bw * 1e3
         row = {
-            "phase": "long_kernel_check", "shape": name, "kernel": kname, "b_t_h_d": [b, t, h, d],
-            "dtype": "bfloat16", "replaces": replaces, "rows_checked": ROW_SLICE,
+            "phase": "long_kernel_check", "phase_id": phase_id, "shape": name, "launches_key": launches_key,
+            "kernel": kname, "b_t_h_d": [b, t, h, d], "dtype": "bfloat16", "replaces": replaces,
+            "rows_checked": ROW_SLICE, "plain_rows_per_chunk": chunk,
             "max_abs_err": errs, "plain_err": plain_errs, "tol": tols,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -613,7 +664,288 @@ def flagship(card):
         "card": card["name"],
         "power_limit": card["power_limit"],
     })
-    return launches
+    return launches, ms
+
+
+# InferenceOutputs' float fields; the masked ones are zero wherever the mask is off.
+INFER_FIELDS = ("pts3d", "pts3d_cam", "ray_directions", "depth_along_ray", "depth_z", "intrinsics",
+                "camera_poses", "cam_trans", "cam_quats", "metric_scaling_factor", "img_no_norm", "conf")
+MASKED_FIELDS = ("pts3d", "pts3d_cam", "depth_along_ray", "depth_z")
+# Phase 11: head_chunk_size=1 against unchunked on cuda, of each field's magnitude,
+# fp32 with TF32 off. An H100 read exactly 0 (the same convolution algorithms at
+# batch 1 and 2); on the CPU, where oneDNN picks by batch size, the two differ by
+# up to 2.9e-5 on unit ray directions (tests/test_torch_port_infer.py).
+CHUNK_RTOL = 1e-5
+# Phases 12 and 13: the largest mean |difference| of each field between the bf16
+# infer with the dense head over chunks and unchunked (masks off). Twice the
+# reading of phase 12 on an H100 (chunks of 2 of 8 views), which repeats to every
+# digit between runs: 4.95e-3, 5.02e-3, 2.25e-3, 7.00e-3, 1.20e-2. The pose and
+# scale heads run once over all views either way, so their outputs must not move.
+CHUNK_MEAN_DIFF_LIMITS = {
+    "pts3d": 0.011, "pts3d_cam": 0.011, "ray_directions": 0.005, "depth_along_ray": 0.015, "conf": 0.025,
+    "cam_trans": 0.0, "cam_quats": 0.0, "metric_scaling_factor": 0.0,
+}
+
+
+def with_head_chunks(model, chunk):
+    """The same model (and weights) with the dense head over chunks of ``chunk`` views."""
+    model.config = dataclasses.replace(model.config, head_chunk_size=chunk)
+    return model
+
+
+def infer_slice_check():
+    """Phase 11: the small fp32 infer on cuda against cpu, images only (with the
+    confidence mask) and with intrinsics, z-depth and 4x4 poses; then
+    head_chunk_size=1 against unchunked on cuda."""
+    import torch
+
+    from mapanything_tpu_torch.geometry.quaternion import quats_trans_to_pose_matrix
+    from mapanything_tpu_torch.models.mapanything import MapAnything, MapAnythingConfig
+    from mapanything_tpu_torch.utils.inference import PostprocessConfig, infer, preprocess_inputs_for_inference
+
+    B, V, S = 1, 2, 56
+    rng = np.random.RandomState(11)
+    quats = rng.randn(B, V, 4)
+    quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
+    K = np.tile(np.float32([[60, 0, 27.5], [0, 64, 26.0], [0, 0, 1]]), (B, V, 1, 1))
+    inputs = {
+        "images_only": (dict(), PostprocessConfig(apply_confidence_mask=True)),
+        "intrinsics_depth_poses": (dict(
+            intrinsics=K,
+            depth_z=rng.uniform(0.5, 4.0, (B, V, S, S)).astype(np.float32),
+            camera_poses=quats_trans_to_pose_matrix(torch.from_numpy(quats).float(),
+                                                    torch.from_numpy(rng.randn(B, V, 3)).float()).numpy(),
+        ), PostprocessConfig()),
+    }
+    images = rng.uniform(0, 1, (B, V, S, S, 3)).astype(np.float32)
+    models = {dev: MapAnything(MapAnythingConfig.small(), device=dev, seed=0, geometric_inputs=True)
+              for dev in ("cuda", "cpu")}
+    rtol = 1e-3  # phase 4's: fp32 on both, sums in other orders on the card
+    line = {"phase": "infer_slice_check", "config": "small fp32 1x2x56x56", "rtol": rtol}
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name, (modalities, post) in inputs.items():
+            outs = {dev: infer(m, images, post, **modalities) for dev, m in models.items()}
+            gpu, cpu = outs["cuda"], outs["cpu"]
+            if gpu.pts3d.device.type != "cuda":
+                raise AssertionError(f"infer on a cuda model returned {gpu.pts3d.device} tensors")
+            both = (gpu.mask.cpu() == cpu.mask)
+            agree = both.float().mean().item()
+            errs = {}
+            for f in INFER_FIELDS:
+                a, b = getattr(gpu, f).cpu(), getattr(cpu, f)
+                if f in MASKED_FIELDS:  # a threshold can flip a pixel: compare where both masks agree
+                    a, b = a * both, b * both
+                errs[f] = rel_err(a, b, 1.0)
+            line[name] = {"max_err_over_magnitude": errs, "mask_agreement": agree,
+                          "mask_kept": cpu.mask.float().mean().item()}
+            bad = {f: e for f, e in errs.items() if not e <= rtol}
+            if bad or agree < 0.999:
+                raise AssertionError(f"infer {name}: cuda and cpu disagree: {bad}, masks agree on {agree:.5f}")
+        gpu_model = models["cuda"]
+        with torch.inference_mode():
+            views = preprocess_inputs_for_inference(torch.from_numpy(images).cuda())
+            whole = gpu_model(views)
+            chunked = with_head_chunks(gpu_model, 1)(views)
+            with_head_chunks(gpu_model, None)
+        chunk_errs = {f: rel_err(getattr(chunked, f), getattr(whole, f), 1.0) for f in PRED_FIELDS}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    line.update(chunk_rtol=CHUNK_RTOL, chunk_1_vs_unchunked=chunk_errs)
+    emit(line)
+    bad = {f: e for f, e in chunk_errs.items() if not e <= CHUNK_RTOL}
+    if bad:
+        raise AssertionError(f"head_chunk_size=1 differs from the unchunked forward: {bad}")
+
+
+def check_infer_outputs(out, shape):
+    """Phases 12 and 13: finite outputs of the expected shapes, cam2world
+    poses with a [0, 0, 0, 1] bottom row and orthonormal rotations, zeros
+    wherever the mask is off, finite recovered intrinsics. Returns figures
+    for the phase's line."""
+    import torch
+
+    B, V, H, W = shape
+    for f in INFER_FIELDS:
+        if not bool(torch.isfinite(getattr(out, f)).all()):
+            raise AssertionError(f"non-finite {f}")
+    want = {"pts3d": (B, V, H, W, 3), "depth_z": (B, V, H, W, 1), "intrinsics": (B, V, 3, 3),
+            "camera_poses": (B, V, 4, 4), "img_no_norm": (B, V, H, W, 3), "conf": (B, V, H, W)}
+    got = {f: tuple(getattr(out, f).shape) for f in want}
+    if got != want:
+        raise AssertionError(f"unexpected shapes {got}")
+    bottom = out.camera_poses[..., 3, :]
+    if not torch.equal(bottom, torch.tensor([0.0, 0.0, 0.0, 1.0], device=bottom.device).expand_as(bottom)):
+        raise AssertionError("camera_poses' bottom row is not [0, 0, 0, 1]")
+    rot = out.camera_poses[..., :3, :3].double()
+    orth_err = (rot @ rot.transpose(-1, -2) - torch.eye(3, dtype=rot.dtype, device=rot.device)).abs().max().item()
+    if orth_err > 1e-5:
+        raise AssertionError(f"camera rotations deviate from orthonormal by {orth_err}")
+    mask = out.mask
+    if mask is None or mask.shape != (B, V, H, W, 1):
+        raise AssertionError("no combined mask")
+    for f in MASKED_FIELDS:
+        if bool(((getattr(out, f) != 0) & ~mask).any()):
+            raise AssertionError(f"{f} is not zero where the mask is off")
+    return {"orthonormal_err": orth_err, "mask_kept": mask.float().mean().item()}
+
+
+def time_infer(model, images, post, warmup: int, iters: int):
+    """(outputs, ms per call, each call's ms, peak GiB) of ``infer``."""
+    import torch
+
+    from mapanything_tpu_torch.utils.inference import infer
+
+    for _ in range(warmup):
+        infer(model, images, post)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(iters):
+        t = time.perf_counter()
+        out = infer(model, images, post)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t))
+    return out, sum(times) / iters, times, torch.cuda.max_memory_allocated() / 2**30
+
+
+def flagship_infer(card, forward_ms: float):
+    """Phase 12: the flagship bf16 infer on 1 x 8 x 518 x 518 (images already on
+    the card), under the default PostprocessConfig and with the confidence
+    mask; the postprocess alone beside phase 5's bare forward; head_chunk_size=2
+    against unchunked."""
+    import torch
+
+    from mapanything_tpu_torch.models.mapanything import MapAnything, MapAnythingConfig
+    from mapanything_tpu_torch.ops.flash_attention import launch_counts, reset_launch_counts
+    from mapanything_tpu_torch.utils.inference import (
+        PostprocessConfig,
+        infer,
+        postprocess_model_outputs_for_inference,
+        preprocess_inputs_for_inference,
+    )
+
+    B, V, H, W = 1, 8, 518, 518
+    model = MapAnything(MapAnythingConfig(compute_dtype="bfloat16"), device="cuda", seed=0)
+    images = torch.from_numpy(np.random.RandomState(12).uniform(0, 1, (B, V, H, W, 3)).astype(np.float32)).cuda()
+    reset_launch_counts()
+    infer(model, images)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts != {"flash_attention_fwd": 48, "flash_attention_fwd_lse": 0, "flash_attention_bwd_dq": 0,
+                  "flash_attention_bwd_dkv": 0}:
+        raise AssertionError(f"one flagship infer launched {counts}, not the lse-free forward 48 times")
+    line = {"phase": "flagship_infer",
+            "config": "MapAnythingConfig(compute_dtype='bfloat16'), 1x8x518x518, seeded random weights",
+            "launches_per_infer": counts, "phase5_forward_ms": forward_ms}
+    for name, post in (("default", PostprocessConfig()), ("confidence_mask", PostprocessConfig(apply_confidence_mask=True))):
+        out, ms, each, peak = time_infer(model, images, post, warmup=2, iters=5)
+        line[name] = {"ms_per_infer": ms, "ms_each": each, "views_per_s": B * V / (ms / 1e3), "peak_mem_gib": peak,
+                      **check_infer_outputs(out, (B, V, H, W))}
+        with torch.inference_mode():
+            views = preprocess_inputs_for_inference(images)
+            preds = model(views)
+            post_ms = cuda_time_ms(lambda: postprocess_model_outputs_for_inference(preds, views, post), iters=5)
+        line[name].update(postprocess_ms=post_ms, postprocess_share=post_ms / ms)
+        del out, views, preds
+    # The dense head over chunks of 2 views against unchunked, masks off: as the
+    # model runs (bf16 DPT pyramid, TF32 on), then with TF32 off, then on a model
+    # of the same weights with the pyramid in fp32 (TF32 off), which must read ~0:
+    # the difference is the head's convolutions rounding otherwise at another batch.
+    diffs = {"bf16_pyramid": chunk_diffs(model, images, 2)}
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        diffs["bf16_pyramid_tf32_off"] = chunk_diffs(model, images, 2)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        fp32_pyramid = MapAnything(MapAnythingConfig(compute_dtype="bfloat16", dpt_fusion_dtype="float32"),
+                                   device="cuda", seed=0)
+        diffs["fp32_pyramid_tf32_off"] = chunk_diffs(fp32_pyramid, images, 2)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    line.update(chunk_2_vs_unchunked=diffs, chunk_mean_abs_diff_limits=CHUNK_MEAN_DIFF_LIMITS,
+                fp32_pyramid_rtol=CHUNK_RTOL, card=card["name"], power_limit=card["power_limit"])
+    emit(line)
+    bad = {f: x for f, x in diffs["bf16_pyramid"]["mean_abs_diff"].items() if not x <= CHUNK_MEAN_DIFF_LIMITS[f]}
+    if bad:
+        raise AssertionError(f"head_chunk_size=2 differs from unchunked beyond CHUNK_MEAN_DIFF_LIMITS: {bad}")
+    bad = {f: x for f, x in diffs["fp32_pyramid_tf32_off"]["max_err_over_magnitude"].items() if not x <= CHUNK_RTOL}
+    if bad:
+        raise AssertionError(f"with the DPT pyramid in fp32, head_chunk_size=2 differs from unchunked: {bad}")
+    return line
+
+
+def chunk_diffs(model, images, chunk, unchunked=None):
+    """The bf16 infer (masks off) with the dense head over chunks of ``chunk``
+    views against unchunked (or the given unchunked outputs): each field's mean
+    |difference| and its largest over the field's magnitude. Leaves the model
+    unchunked."""
+    from mapanything_tpu_torch.utils.inference import PostprocessConfig, infer
+
+    unmasked = PostprocessConfig(apply_mask=False)
+    whole = infer(with_head_chunks(model, None), images, unmasked) if unchunked is None else unchunked
+    chunked = infer(with_head_chunks(model, chunk), images, unmasked)
+    with_head_chunks(model, None)
+    return {"mean_abs_diff": {f: (getattr(chunked, f) - getattr(whole, f)).abs().mean().item()
+                              for f in CHUNK_MEAN_DIFF_LIMITS},
+            "max_err_over_magnitude": {f: rel_err(getattr(chunked, f), getattr(whole, f))
+                                       for f in CHUNK_MEAN_DIFF_LIMITS}}
+
+
+def many_view_infer(card):
+    """Phase 13: memory-efficient many-view inference, the flagship bf16 infer
+    on 1 x 64 x 518 x 518 with head_chunk_size=8 (bench.py:315-316); then the
+    unchunked infer, its time and peak memory, the chunked outputs held to it."""
+    import torch
+
+    from mapanything_tpu_torch.models.mapanything import MapAnything, MapAnythingConfig
+    from mapanything_tpu_torch.ops.flash_attention import launch_counts, launch_lengths, reset_launch_counts
+    from mapanything_tpu_torch.utils.inference import PostprocessConfig, infer
+
+    B, V, H, W = 1, 64, 518, 518
+    t = V * 1369 + 1
+    model = MapAnything(MapAnythingConfig(compute_dtype="bfloat16", head_chunk_size=8), device="cuda", seed=0)
+    images = torch.from_numpy(np.random.RandomState(13).uniform(0, 1, (B, V, H, W, 3)).astype(np.float32)).cuda()
+    reset_launch_counts()
+    infer(model, images)
+    torch.cuda.synchronize()
+    counts, lengths = launch_counts(), launch_lengths()
+    # The encoder's 24 at 1370 tokens and the frame layers' 12 at 1369 (K1's regime);
+    # the global layers' 12 at 64 views' tokens (K3's).
+    if counts["flash_attention_fwd"] != 48 or lengths != {1369: 12, 1370: 24, t: 12} or any(
+            n for k, n in counts.items() if k != "flash_attention_fwd"):
+        raise AssertionError(f"one 64-view infer launched {counts}, by length {lengths}")
+    out, ms, each, peak = time_infer(model, images, PostprocessConfig(), warmup=1, iters=3)
+    line = {"phase": "many_view_infer",
+            "config": "MapAnythingConfig(compute_dtype='bfloat16', head_chunk_size=8), 1x64x518x518, "
+                      "seeded random weights",
+            "launches_per_infer": counts, "lse_free_launches_by_length": {str(k): n for k, n in lengths.items()},
+            "ms_per_scene": ms, "ms_each": each, "views_per_s": B * V / (ms / 1e3), "peak_mem_gib": peak,
+            **check_infer_outputs(out, (B, V, H, W))}
+    del out
+    # Unchunked, masks off: what the chunks save (a call after the one held to the
+    # chunked outputs, which warms it), and the chunked outputs against it.
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    whole = infer(with_head_chunks(model, None), images, PostprocessConfig(apply_mask=False))
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    infer(model, images, PostprocessConfig(apply_mask=False))
+    torch.cuda.synchronize()
+    line["unchunked"] = {"ms_per_scene": 1e3 * (time.perf_counter() - start),
+                         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    diffs = chunk_diffs(model, images, 8, unchunked=whole)
+    line.update(chunk_8_vs_unchunked=diffs, chunk_mean_abs_diff_limits=CHUNK_MEAN_DIFF_LIMITS,
+                card=card["name"], power_limit=card["power_limit"])
+    emit(line)
+    bad = {f: x for f, x in diffs["mean_abs_diff"].items() if not x <= CHUNK_MEAN_DIFF_LIMITS[f]}
+    if bad:
+        raise AssertionError(f"head_chunk_size=8 differs from unchunked at 64 views beyond the limits: {bad}")
+    return line
 
 
 def rel_err(a, b, floor: float = 1e-12) -> float:
@@ -963,30 +1295,47 @@ def flagship_view_parallel(card, group):
     return line
 
 
-def summary_line(rows, train_rows, long_rows, ring_bwd_row, inference_launches, train_launches, train_steps,
-                 vp_launches):
-    """The kernels line: each kernel, what it replaces, its launches on its path
-    (one forward; all train steps, and per step), its max error and its times
-    per forward (inference) or per train step. The K3 and K7 rows are the
-    forward kernel at the view-parallel paths' lengths: times per forward of
-    phase 9 (12 launches each: the unsharded global layers, the ring steps)."""
-    main_rows = [r for r in rows if r["per_forward"]]
-    per_forward = lambda key: sum(r[key] * r["per_forward"] for r in main_rows)  # noqa: E731
-    kernels = [{
-        "name": "flash_attention_fwd",
+def worst_err(row) -> float:
+    err = row["max_abs_err"]
+    return max(err.values()) if isinstance(err, dict) else err
+
+
+def path_entry(name, replaces, rows, launches, also=(), **extra):
+    """One kernel on one path in the kernels line: each shape's times, bound
+    and max error, and their sums over the path (times × ``launches[shape]``).
+    The rows of ``also`` (shapes off the path) are listed under per_shape only."""
+    total = lambda key: sum(r[key] * launches[r["shape"]] for r in rows)  # noqa: E731
+    shape = lambda r: {k: r[k] for k in ("shape", "b_t_h_d", "dtype", "replaces", "max_abs_err", "ms",  # noqa: E731
+                                         "plain_ms", "bound_ms", "library_ms") if k in r}
+    return {
+        "name": name,
         "route": "cuda",
         "source": KERNEL_SOURCE,
-        "replaces": "mapanything_tpu/ops/flash_attention.py:395",
-        "launches": inference_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in main_rows),
-        "ms": per_forward("ms"),
-        "plain_ms": per_forward("plain_ms"),
-        "bound_ms": per_forward("bound_ms"),
-        "bound_by": "operations" if all(r["bound_by"] == "operations" for r in main_rows) else "bytes",
-        "library_ms": per_forward("library_ms"),
-        "per_shape": [{k: r[k] for k in ("shape", "dtype", "replaces", "per_forward", "max_abs_err",
-                                         "ms", "plain_ms", "bound_ms", "library_ms")} for r in rows],
-    }]
+        "replaces": replaces,
+        "launches": sum(launches[r["shape"]] for r in rows),
+        "max_abs_err": max(worst_err(r) for r in rows),
+        **{key: total(key) for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "bound_by": "operations" if all(r["bound_by"] == "operations" for r in rows) else "bytes",
+        "per_shape": [shape(r) | {"launches": launches[r["shape"]]} for r in rows] + [shape(r) for r in also],
+        **extra,
+    }
+
+
+def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, inference_launches, train_launches,
+                 train_steps, vp_launches, many_view_line):
+    """The kernels line: each kernel, what it replaces, its launches on its path
+    (one forward; all train steps, and per step), its max error and its times
+    per forward (inference) or per train step. The phase-3c rows are the
+    forward kernel at the view-parallel paths' lengths: times per forward of
+    phase 9 (12 launches each: the unsharded global layers, the ring steps).
+    The phase-3d rows are the 64-view infer's (phase 13), K1 at its encoder
+    and frame layers and K3 at its global layers, each with that run's
+    launches at its key length; times per scene."""
+    main_rows = [r for r in rows if r["per_forward"]]
+    kernels = [path_entry("flash_attention_fwd", "mapanything_tpu/ops/flash_attention.py:395", main_rows,
+                          {r["shape"]: r["per_forward"] for r in main_rows},
+                          also=[r for r in rows if not r["per_forward"]])]
+    kernels[0]["launches"] = inference_launches  # the count of phase 5's run
     main_train = [r for r in train_rows if r["per_step"]]
     outputs = {"flash_attention_fwd_lse": ("o", "lse"), "flash_attention_bwd_dq": ("dq",),
                "flash_attention_bwd_dkv": ("dk", "dv")}
@@ -1014,20 +1363,25 @@ def summary_line(rows, train_rows, long_rows, ring_bwd_row, inference_launches, 
             kernels[-1]["per_shape"].append(dict(
                 shape=ring_bwd_row["shape"], dtype="bfloat16", per_step=vp_launches["k7_per_step"],
                 max_abs_err={o: ring_bwd_row["max_abs_err"][o] for o in outs}, **ring_bwd_row["kernels"][name]))
-    for r, launches in ((long_rows[0], vp_launches["k3_per_forward"]), (long_rows[1], vp_launches["k7_per_forward"])):
-        kernels.append({
-            "name": r["kernel"],
-            "route": "cuda",
-            "source": KERNEL_SOURCE,
-            "replaces": r["replaces"],
-            "launches": launches,
-            "max_abs_err": max(r["max_abs_err"].values()),
-            **{key: r[key] * launches for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
-            "bound_by": r["bound_by"],
-            "per_shape": [{k: x[k] for k in ("shape", "b_t_h_d", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                             "library_ms")} for x in long_rows if x["kernel"] == r["kernel"]],
-        })
-    kernels[-1]["launches_per_train_step"] = vp_launches["k7_per_step"]
+    # Phase 3c: each row with a launch count stands for its kernel on phase 9's path;
+    # the others of the same kernel ride along under per_shape.
+    view_parallel = [r for r in long_rows if r["phase_id"] == "3c"]
+    for r in view_parallel:
+        if r["launches_key"] is None:
+            continue
+        others = [x for x in view_parallel if x["kernel"] == r["kernel"] and x is not r]
+        kernels.append(path_entry(r["kernel"], r["replaces"], [r], {r["shape"]: vp_launches[r["launches_key"]]},
+                                  also=others))
+        if r["kernel"] == "flash_attention_fwd_lse":
+            kernels[-1]["launches_per_train_step"] = vp_launches["k7_per_step"]
+    # Phase 3d: the 64-view infer, one entry per TPU kernel replaced.
+    by_length = many_view_line["lse_free_launches_by_length"]
+    many = many_view_rows + [r for r in long_rows if r["phase_id"] == "3d"]
+    for replaces in dict.fromkeys(r["replaces"] for r in many):
+        group = [r for r in many if r["replaces"] == replaces]
+        kernels.append(path_entry("flash_attention_fwd", replaces, group,
+                                  {r["shape"]: by_length[str(r["b_t_h_d"][1])] for r in group},
+                                  path="infer 1x64x518, head_chunk_size=8 (phase 13); times per scene"))
     emit({"kernels": kernels})
 
 
@@ -1094,11 +1448,21 @@ def main() -> int:
     if args.train_step_only:
         flagship_train(card)
         return 0
-    rows = kernel_checks(card)
+    rows = kernel_checks(card, ATTENTION_SHAPES, "3")
     train_rows = train_kernel_checks(card)
     long_rows, ring_bwd_row = long_kernel_checks(card)
+    many_view_rows = kernel_checks(card, MANY_VIEW_SHAPES, "3d")
     slice_check()
-    inference_launches = flagship(card)
+    inference_launches, forward_ms = flagship(card)
+    torch.cuda.empty_cache()
+    infer_slice_check()
+    gc.collect()
+    torch.cuda.empty_cache()
+    flagship_infer(card, forward_ms)
+    gc.collect()
+    torch.cuda.empty_cache()
+    many_view_line = many_view_infer(card)
+    gc.collect()
     torch.cuda.empty_cache()
     train_slice_check()
     gc.collect()
@@ -1137,8 +1501,8 @@ def main() -> int:
         "k7_per_forward": vp_line["ring"]["ring_steps_per_forward"],
         "k7_per_step": vp_train["ring_per_step"]["ring_steps"],
     }
-    summary_line(rows, train_rows, long_rows, ring_bwd_row, inference_launches, train_launches, train_steps,
-                 vp_launches)
+    summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, inference_launches, train_launches,
+                 train_steps, vp_launches, many_view_line)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

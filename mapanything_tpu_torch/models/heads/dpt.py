@@ -20,11 +20,23 @@ from torch import nn
 from mapanything_tpu_torch.models.blocks import Conv2d, ConvTranspose2d
 
 
+# CUDA's bilinear resize of a channels-last tensor indexes its output with int32:
+# it refuses an output of INT_MAX elements or more (64 views of 128 channels at
+# 518 x 518 are 2.2e9).
+MAX_RESIZE_ELEMENTS = 2**31 - 1
+
+
 def _resize_bilinear_align_corners(x: torch.Tensor, out_hw) -> torch.Tensor:
-    """Bilinear resize of an NCHW tensor with torch's align_corners=True."""
+    """Bilinear resize of an NCHW tensor with torch's align_corners=True, over
+    batch pieces whose output stays under MAX_RESIZE_ELEMENTS (each item is
+    resized on its own, so the pieces change no value)."""
     if tuple(x.shape[-2:]) == tuple(out_hw):
         return x
-    return F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=True)
+    resize = lambda t: F.interpolate(t, size=tuple(out_hw), mode="bilinear", align_corners=True)  # noqa: E731
+    step = max(1, (MAX_RESIZE_ELEMENTS - 1) // (x.shape[1] * out_hw[0] * out_hw[1]))
+    if x.shape[0] <= step:
+        return resize(x)
+    return torch.cat([resize(x[i:i + step]) for i in range(0, x.shape[0], step)])
 
 
 class StridedConvTranspose(ConvTranspose2d):

@@ -7,7 +7,10 @@ Counterpart of ``mapanything_tpu/models/mapanything.py``: ``Views`` (:70),
 (:372-685) with its geometric branches (pose canonicalisation, ray and depth
 encoders, depth sparsification, metric-scale tokens; :416-533), and
 ``assemble_scene_representation`` (:688), for the DPT head and the
-``raydirs+depth+pose`` scene representation.
+``raydirs+depth+pose`` and ``raydirs+depth+rgb+pose`` scene representations.
+``MapAnythingConfig.head_chunk_size`` runs the dense head over consecutive
+chunks of the B·V views (JAX :653-668), which bounds the head's activations
+when many views are reconstructed at once.
 
 View parallelism (JAX :291, :560): inside a ``parallel.cp`` context the
 views given are this rank's block of the group's views. The JAX package runs the whole batch as one SPMD
@@ -209,11 +212,15 @@ class Predictions:
     conf: Optional[torch.Tensor] = None  # (B, V, H, W)
     non_ambiguous_mask: Optional[torch.Tensor] = None  # (B, V, H, W) bool
     non_ambiguous_mask_logits: Optional[torch.Tensor] = None
+    rgb: Optional[torch.Tensor] = None  # (B, V, H, W, 3) in [0, 1], rgb scene rep only
+
+
+SCENE_REPS = ("raydirs+depth+pose", "raydirs+depth+rgb+pose")
 
 
 @dataclass(frozen=True)
 class MapAnythingConfig:
-    """Static architecture config (the images-only subset of the JAX config)."""
+    """Static architecture config (the ported subset of the JAX config)."""
 
     # encoder
     encoder_size: str = "large"
@@ -245,6 +252,9 @@ class MapAnythingConfig:
     compute_dtype: str = "float32"
     head_dtype: str = "float32"
     dpt_fusion_dtype: Optional[str] = None  # None follows compute_dtype
+    # Views per chunk of the dense head (DPT feature head and regression
+    # processor) over the B·V views; None, 0 or >= B·V runs them at once.
+    head_chunk_size: Optional[int] = None
 
     @property
     def dense_components(self) -> Tuple[str, ...]:
@@ -312,10 +322,8 @@ class MapAnything(nn.Module):
         cfg = config
         if cfg.dense_head_type != "dpt":
             raise NotImplementedError(f"dense_head_type={cfg.dense_head_type!r}: only 'dpt' is ported")
-        if cfg.scene_rep_type != "raydirs+depth+pose":
-            raise NotImplementedError(
-                f"scene_rep_type={cfg.scene_rep_type!r}: only 'raydirs+depth+pose' is ported"
-            )
+        if cfg.scene_rep_type not in SCENE_REPS:
+            raise NotImplementedError(f"scene_rep_type={cfg.scene_rep_type!r}: only {SCENE_REPS} are ported")
         if cfg.dense_adaptor.components != cfg.dense_components:
             raise ValueError("dense_adaptor.components must match scene_rep_type")
         self.config = cfg
@@ -491,7 +499,7 @@ class MapAnything(nn.Module):
             x.to(fdt).reshape(B * V, h, w, x.shape[-1])
             for x in (feats, intermediates[0], intermediates[1], final_feats)
         ]
-        dense_raw = self.dpt_regressor_head(self.dpt_feature_head(dense_inputs), (H, W))
+        dense_raw = self._dense_head(dense_inputs, (H, W))
         pose_raw = self.pose_head(dense_inputs[3])
         scale_raw = self.scale_head(token_feats)
 
@@ -501,6 +509,17 @@ class MapAnything(nn.Module):
         scale = apply_scale_adaptor(scale_raw.float(), cfg.scale_adaptor).reshape(B)
         return assemble_scene_representation(cfg, dense_out, pose_out, scale, B, V, H, W)
 
+    def _dense_head(self, dense_inputs, hw: Tuple[int, int]) -> torch.Tensor:
+        """The DPT feature head and regression processor over all B·V views,
+        or over consecutive chunks of ``head_chunk_size`` views, concatenated."""
+        n, c = dense_inputs[0].shape[0], self.config.head_chunk_size
+        run = lambda xs: self.dpt_regressor_head(self.dpt_feature_head(xs), hw)  # noqa: E731
+        if not c or c >= n:
+            return run(dense_inputs)
+        if c < 0 or n % c:
+            raise ValueError(f"head_chunk_size={c} must divide B*V={n}")
+        return torch.cat([run([x[i:i + c] for x in dense_inputs]) for i in range(0, n, c)])
+
 
 def assemble_scene_representation(
     cfg: MapAnythingConfig, dense_out, pose_out, scale, B, V, H, W
@@ -508,9 +527,9 @@ def assemble_scene_representation(
     """Decode adapted channels into the factored metric scene representation.
 
     Metric scaling applies to points, depths and translations, not to
-    directions or quaternions.
+    directions, quaternions or colours.
     """
-    if cfg.scene_rep_type != "raydirs+depth+pose":
+    if cfg.scene_rep_type not in SCENE_REPS:
         raise NotImplementedError(f"scene_rep_type={cfg.scene_rep_type!r}")
     slices = cfg.dense_adaptor.component_slices()
     value = dense_out.value.reshape(B, V, H, W, -1)
@@ -534,6 +553,7 @@ def assemble_scene_representation(
         cam_trans=cam_trans * s_bv3,
         cam_quats=cam_quats,
         metric_scaling_factor=scale,
+        rgb=comp("rgb") if "rgb" in slices else None,
     )
     if dense_out.confidence is not None:
         preds.conf = dense_out.confidence.reshape(B, V, H, W)

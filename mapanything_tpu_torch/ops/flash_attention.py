@@ -17,12 +17,14 @@ else: a CPU tensor goes to the plain PyTorch version beside each kernel; a
 CUDA tensor launches the kernel or raises. Each kernel has its own launch
 count (``flash_attention.launches``, ``flash_attention_lse.launches``,
 ``flash_attention_bwd_dq.launches`` and ``flash_attention_bwd_dkv.launches``), so a run can
-show which kernels it went through.
+show which kernels it went through; the lse-free forward also counts its
+launches by key length (``launch_lengths``), which tells its regimes apart.
 """
 
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import Optional, Tuple
 
 import torch
@@ -321,10 +323,12 @@ def flash_attention(
         return attention_reference(q, k, v, scale)
     o, _ = _launch_fwd(q, k, v, scale, with_lse=False)
     flash_attention.launches += 1
+    flash_attention.launches_by_length[k.shape[1]] += 1
     return o
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_length = Counter()
 flash_attention_lse.launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
@@ -334,6 +338,7 @@ def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
     for fn in (flash_attention, flash_attention_lse, flash_attention_bwd_dq, flash_attention_bwd_dkv):
         fn.launches = 0
+    flash_attention.launches_by_length.clear()
 
 
 def launch_counts() -> dict:
@@ -344,6 +349,11 @@ def launch_counts() -> dict:
         "flash_attention_bwd_dq": flash_attention_bwd_dq.launches,
         "flash_attention_bwd_dkv": flash_attention_bwd_dkv.launches,
     }
+
+
+def launch_lengths() -> dict:
+    """Launches of the lse-free forward since the last reset, by key length Tk."""
+    return dict(sorted(flash_attention.launches_by_length.items()))
 
 
 def attention_flops(b: int, tq: int, tk: int, h: int, d: int) -> int:

@@ -1,14 +1,16 @@
 """The PyTorch port stands alone: no JAX, no Flax, nothing of mapanything_tpu.
 
 The import check runs in a subprocess, because this test session has JAX
-loaded already (conftest.py); it reaches every module, the training slice's
-(``train/``, ``geometry/``, ``dense_rep.py``) included. A second check reads the sources of the port
-and of chip_smoke.py for such imports. Also: the port's entry points run on
-CUDA unless the caller asks for the CPU, and raise when there is no CUDA.
+loaded already (conftest.py); it reaches every module, those of the training,
+view-parallel and inference slices included. A second check reads the sources
+of the port and of chip_smoke.py for such imports. Also: the port's entry
+points (the model and ``infer``) run on CUDA unless the caller asks for the
+CPU, and raise when there is no CUDA.
 """
 
 import re
 import subprocess
+import types
 import sys
 from pathlib import Path
 
@@ -19,6 +21,12 @@ from mapanything_tpu_torch.models import mapanything as port_ma
 from mapanything_tpu_torch.ops.flash_attention import flash_attention
 from mapanything_tpu_torch.parallel.distributed import run_ranks
 from mapanything_tpu_torch.tools import view_parallel_ranks
+from mapanything_tpu_torch.utils import threads
+from mapanything_tpu_torch.utils.inference import infer
+
+
+one_intra_op_thread = pytest.fixture(scope="module", autouse=True)(threads.one_intra_op_thread)
+
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "mapanything_tpu_torch"
@@ -36,8 +44,8 @@ bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r})
 print(len(names), bad, " ".join(names))
 """
 
-# Modules of the training and view-parallel slices that the fresh-process import must reach.
-TRAINING_SLICE_MODULES = (
+# Modules of the training, view-parallel and inference slices that the fresh-process import must reach.
+SLICE_MODULES = (
     "mapanything_tpu_torch.train.losses",
     "mapanything_tpu_torch.train.optim",
     "mapanything_tpu_torch.train.step",
@@ -50,6 +58,12 @@ TRAINING_SLICE_MODULES = (
     "mapanything_tpu_torch.parallel.sharded_attention",
     "mapanything_tpu_torch.parallel.context",
     "mapanything_tpu_torch.tools.view_parallel_ranks",
+    "mapanything_tpu_torch.geometry.camera",
+    "mapanything_tpu_torch.geometry.normals",
+    "mapanything_tpu_torch.models.encoders.normalizations",
+    "mapanything_tpu_torch.utils.inference",
+    "mapanything_tpu_torch.utils.viz",
+    "mapanything_tpu_torch.utils.colmap",
 )
 
 
@@ -60,8 +74,8 @@ def test_port_imports_no_jax_in_a_fresh_process():
     )
     assert proc.returncode == 0, proc.stderr
     n_modules, bad, names = proc.stdout.strip().split(" ", 2)
-    assert int(n_modules) >= 26, proc.stdout  # every module of the port was imported
-    assert set(TRAINING_SLICE_MODULES) <= set(names.split()), names
+    assert int(n_modules) >= 31, proc.stdout  # every module of the port was imported
+    assert set(SLICE_MODULES) <= set(names.split()), names
     assert bad == "[]", f"the port pulled in {bad}"
 
 
@@ -94,6 +108,11 @@ def test_entry_point_defaults_to_cuda_and_raises_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_ma.resolve_device("cuda")
     assert port_ma.resolve_device("cpu") == torch.device("cpu")
+    # infer runs where the model is: a model on the card (CUDA by default) needs
+    # CUDA, and nothing moves to the card before the check.
+    on_card = types.SimpleNamespace(device=torch.device("cuda", 0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        infer(on_card, torch.zeros(1, 1, 14, 14, 3))
 
 
 def test_unported_options_raise():

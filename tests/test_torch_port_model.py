@@ -33,7 +33,12 @@ from mapanything_tpu_torch.models.heads import adaptors as port_adaptors
 from mapanything_tpu_torch.models.heads import dpt as port_dpt
 from mapanything_tpu_torch.models.heads import pose as port_pose
 from mapanything_tpu_torch.models.info_sharing import alternating as port_alt
+from mapanything_tpu_torch.utils import threads
 from mapanything_tpu_torch.utils.jax_params import load_jax_params
+
+
+one_intra_op_thread = pytest.fixture(scope="module", autouse=True)(threads.one_intra_op_thread)
+
 
 FP32_ATOL = 1e-4  # fp32 on both sides, sums in other orders; ~5e-6 seen at these sizes
 
@@ -183,6 +188,15 @@ def test_strided_conv_transpose_in_ne_out():
     params, ref = jax_init_apply(jax_dpt.StridedConvTranspose(features=5, kernel_size=4), x)
     out = port_apply(port_dpt.StridedConvTranspose(7, 5, 4), params, x.transpose(0, 3, 1, 2).copy())
     close(out.permute(0, 2, 3, 1), ref, atol=1e-5)
+
+
+def test_resize_over_batch_pieces_changes_no_value(monkeypatch):
+    # Past the element limit (as 64 views at 518 px on the card) the resize runs
+    # over batch pieces: 3 items of 2 x 11 x 13 outputs a piece here, 7 items in all.
+    x = torch.from_numpy(randn(21, 7, 2, 5, 6)).to(memory_format=torch.channels_last)
+    whole = F.interpolate(x, size=(11, 13), mode="bilinear", align_corners=True)
+    monkeypatch.setattr(port_dpt, "MAX_RESIZE_ELEMENTS", 3 * 2 * 11 * 13 + 1)
+    torch.testing.assert_close(port_dpt._resize_bilinear_align_corners(x, (11, 13)), whole, rtol=0, atol=0)
 
 
 def test_pose_head():

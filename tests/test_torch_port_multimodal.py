@@ -22,7 +22,12 @@ from mapanything_tpu_torch.geometry import normalization as port_norm
 from mapanything_tpu_torch.geometry import quaternion as port_quat
 from mapanything_tpu_torch.models import mapanything as port_ma
 from mapanything_tpu_torch.models.encoders import dense_rep as port_dense_rep
+from mapanything_tpu_torch.utils import threads
 from mapanything_tpu_torch.utils.jax_params import load_jax_params
+
+
+one_intra_op_thread = pytest.fixture(scope="module", autouse=True)(threads.one_intra_op_thread)
+
 
 FP32_ATOL = 1e-4  # fp32 on both sides, sums in other orders
 PRED_FIELDS = (

@@ -34,6 +34,11 @@ from mapanything_tpu_torch.parallel.context import infer_view_sharded, max_views
 from mapanything_tpu_torch.parallel.distributed import init_distributed_mode, run_ranks
 from mapanything_tpu_torch.parallel.mesh import ViewGroup, all_reduce, make_view_group, view_slice
 from mapanything_tpu_torch.tools import view_parallel_ranks
+from mapanything_tpu_torch.utils import threads
+
+
+one_intra_op_thread = pytest.fixture(scope="module", autouse=True)(threads.one_intra_op_thread)
+
 
 ATTN_TOL = 1e-5  # of each output's magnitude; fp32 on both sides
 

@@ -27,7 +27,12 @@ from mapanything_tpu_torch.tools import view_parallel_ranks
 from mapanything_tpu_torch.train import losses as port_losses
 from mapanything_tpu_torch.train import optim as port_optim
 from mapanything_tpu_torch.train import step as port_step
+from mapanything_tpu_torch.utils import threads
 from mapanything_tpu_torch.utils.jax_params import jax_params_to_state_dict, load_jax_params
+
+
+one_intra_op_thread = pytest.fixture(scope="module", autouse=True)(threads.one_intra_op_thread)
+
 
 PRED_FIELDS = (
     "pts3d", "pts3d_cam", "ray_directions", "depth_along_ray", "cam_trans", "cam_quats",
