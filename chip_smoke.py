@@ -75,11 +75,27 @@ Phases, each printing one JSON line:
   10. the view-parallel train step: phase 7 under the ring schedule, with
      ring steps per step and the loss of every step within LOSS_GAP_LIMIT of
      phase 7's.
+  3e. K8, the D = 128 instances, at the shapes of flagship-h128 (the flagship
+     with info_sharing_num_heads=6: trunk heads of 128): the lse-free forward
+     at 8 x 1369 x 6 x 128 (frame) and 1 x 10953 x 6 x 128 (global); the lse
+     forward, dq and dk/dv at 4 x 1369 x 6 x 128 and 1 x 5477 x 6 x 128; each
+     kernel in fp32 at 1 x 5477 x 6 x 128; each against its plain version
+     under phase 3's rule, with kernel, plain, torch SDPA and bound times;
+  14. phases 4 and 6 for MapAnythingConfig.small(info_sharing_num_heads=2)
+     (trunk heads of 256 / 2 = 128): the fp32 forward and train step on cuda
+     against cpu, which launch the fp32 D = 128 instances;
+  15. phase 5 for flagship-h128: the bf16 forward on 1 x 8 x 518, launches
+     by key length and head dim (24 at D = 64; 12 at 1369 and 12 at 10953
+     tokens at D = 128), ms, views/s, peak memory, output invariants;
+  16. phase 7 for flagship-h128: the bf16 train step on 1 x 4 x 518, the
+     lse forward, dq and dk/dv launched 24 times each at D = 64 and 24 at
+     D = 128 a step (12 at 1369 and 12 at 5477 tokens).
 On a machine with more than one card, phases 9 and 10 then run again over
 NCCL with one rank a card (2 or 4 cards); rank 0 checks the gathered
 outputs against the unsharded forward. A machine with one card skips this.
-Phases 11-13 run after phase 5, before phase 6. Then the kernels' summary
-line and, last, {"ok": true, "device": {...}}.
+Phases 11-13 run after phase 5, before phase 6; phase 3e after 3d; phases
+14-16 after phase 7, before phase 8. Then the kernels' summary line and,
+last, {"ok": true, "device": {...}}.
 With --train-step-only, phase 7 runs in a fresh process after the build and
 the script stops after its line, printing neither the summary nor the ok line.
 Any failed check raises and the script exits non-zero. Without a CUDA device,
@@ -129,6 +145,19 @@ MANY_VIEW_SHAPES = [
 # 8 x 16 heads at 1370 tokens: 0.96 GB).
 PLAIN_BATCH = 8
 
+# flagship-h128: the flagship with 6 trunk heads of 128 (info_sharing_num_heads=6;
+# no released checkpoint uses it). Every trunk layer then runs the D = 128 instances.
+H128_TRUNK_HEADS = 6
+FA = "mapanything_tpu/ops/flash_attention.py"
+# Phase 3e, the lse-free rows: (name, shape, dtype, launches per flagship-h128
+# forward, the TPU kernel the JAX dispatch picks there: K1 packed at the frame
+# layers, K8 _fwd_kernel at the global layers and in fp32).
+H128_SHAPES = [
+    ("frame_h128", (8, 1369, 6, 128), "bfloat16", 12, f"{FA}:395"),
+    ("global_h128", (1, 10953, 6, 128), "bfloat16", 12, f"{FA}:214"),
+    ("fp32_global_h128", (1, 5477, 6, 128), "float32", 0, f"{FA}:214"),
+]
+
 # Phase 9: the largest mean |difference| of each output field allowed between
 # the unsharded, ring and allgather forwards (bf16 through 24 layers). About
 # 3.5x the largest reading of sound runs on an H100, at one rank and at four
@@ -168,6 +197,21 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def shape_counts(shapes: dict) -> dict:
+    """``launch_shapes()`` as JSON: {kernel: {"<Tk>x<D>": launches}}."""
+    return {name: {f"{tk}x{d}": n for (tk, d), n in by.items()} for name, by in shapes.items()}
+
+
+def by_head_dim(shapes: dict) -> dict:
+    """``launch_shapes()`` summed over key lengths: {kernel: {D: launches}}."""
+    out = {}
+    for name, by in shapes.items():
+        out[name] = {}
+        for (_, d), n in by.items():
+            out[name][d] = out[name].get(d, 0) + n
+    return out
 
 
 def kernel_checks(card, shapes, phase_id: str):
@@ -257,7 +301,6 @@ TRAIN_SHAPES = [
     ("fp32_global", (1, 5477, 12, 64), "float32", 0),
 ]
 # The TPU kernels each port replaces, by the JAX package's regime at that shape.
-FA = "mapanything_tpu/ops/flash_attention.py"
 TRAIN_REPLACES = {
     "flash_attention_fwd_lse": {"encoder": f"{FA}:118", "frame": f"{FA}:118",
                                 "global": f"{FA}:600", "fp32_global": f"{FA}:168"},
@@ -265,6 +308,18 @@ TRAIN_REPLACES = {
                                "global": f"{FA}:715", "fp32_global": f"{FA}:227"},
     "flash_attention_bwd_dkv": {"encoder": f"{FA}:262", "frame": f"{FA}:262",
                                 "global": f"{FA}:753", "fp32_global": f"{FA}:262"},
+}
+# Phase 3e, the training rows at flagship-h128's 1 x 4 x 518 step (launches per step).
+H128_TRAIN_SHAPES = [
+    ("frame_h128", (4, 1369, 6, 128), "bfloat16", 12),
+    ("global_h128", (1, 5477, 6, 128), "bfloat16", 12),
+    ("fp32_global_h128", (1, 5477, 6, 128), "float32", 0),
+]
+H128_TRAIN_REPLACES = {  # K4 single-pass at the frame layers' lse forward, else K8
+    "flash_attention_fwd_lse": {"frame_h128": f"{FA}:118", "global_h128": f"{FA}:218",
+                                "fp32_global_h128": f"{FA}:218"},
+    "flash_attention_bwd_dq": dict.fromkeys(("frame_h128", "global_h128", "fp32_global_h128"), f"{FA}:306"),
+    "flash_attention_bwd_dkv": dict.fromkeys(("frame_h128", "global_h128", "fp32_global_h128"), f"{FA}:339"),
 }
 
 
@@ -277,8 +332,8 @@ def max_err(x, ref) -> float:
     return (x.double() - ref.double()).abs().max().item()
 
 
-def train_kernel_checks(card):
-    """Phase 3b: the lse forward, dq and dk/dv kernels against their plain versions."""
+def train_kernel_checks(card, shapes=TRAIN_SHAPES, replaces=TRAIN_REPLACES, phase_id: str = "3b"):
+    """Phases 3b and 3e: the lse forward, dq and dk/dv kernels against their plain versions."""
     import torch
     import torch.nn.functional as F
 
@@ -286,7 +341,7 @@ def train_kernel_checks(card):
 
     bf16_peak, f32_peak, mem_bw = peaks_for(card["name"])
     rows = []
-    for name, (b, t, h, d), dtype_name, per_step in TRAIN_SHAPES:
+    for name, (b, t, h, d), dtype_name, per_step in shapes:
         dtype = getattr(torch, dtype_name)
         exact_dtype = torch.float32 if dtype == torch.bfloat16 else torch.float64
         gen = torch.Generator(device="cuda").manual_seed(2)
@@ -363,7 +418,7 @@ def train_kernel_checks(card):
             flop, nbytes = work[kname]
             t_ops, t_bytes = flop / peak * 1e3, nbytes / mem_bw * 1e3
             kernels[kname] = {
-                "replaces": TRAIN_REPLACES[kname][name],
+                "replaces": replaces[kname][name],
                 "ms": ms, "plain_ms": plain_ms,
                 "library_ms": library_fwd_ms if kname.endswith("lse") else library_bwd_ms,
                 "bound_ms": max(t_ops, t_bytes),
@@ -371,7 +426,8 @@ def train_kernel_checks(card):
                 "tflops": flop / ms / 1e9,
             }
         row = {
-            "phase": "train_kernel_check", "shape": name, "b_t_h_d": [b, t, h, d], "dtype": dtype_name,
+            "phase": "train_kernel_check", "phase_id": phase_id, "shape": name, "b_t_h_d": [b, t, h, d],
+            "dtype": dtype_name,
             "max_abs_err": errs, "plain_err": plain_errs, "tol": tols, "kernels": kernels,
             "backward_ms": times["flash_attention_bwd_dq"][0] + times["flash_attention_bwd_dkv"][0],
             "backward_bound_ms": bwd_bound_ms, "library_bwd_ms": library_bwd_ms,
@@ -551,21 +607,40 @@ PRED_FIELDS = ("pts3d", "pts3d_cam", "ray_directions", "depth_along_ray", "cam_t
                "cam_quats", "metric_scaling_factor", "conf", "non_ambiguous_mask_logits")
 
 
-def slice_check():
-    """Phase 4: the small model in fp32, the same seeded weights on cuda and cpu."""
+def small_config(trunk_heads=None):
+    """MapAnythingConfig.small(), with ``trunk_heads`` trunk heads if given (phase 14)."""
+    from mapanything_tpu_torch.models.mapanything import MapAnythingConfig
+
+    return MapAnythingConfig.small(**({} if trunk_heads is None else {"info_sharing_num_heads": trunk_heads}))
+
+
+def check_head_dim_launches(counts_by_d: dict, head_dim: int, kernels) -> None:
+    """Phase 14: each of ``kernels`` launched its ``head_dim`` instance."""
+    missing = [k for k in kernels if not counts_by_d[k].get(head_dim)]
+    if missing:
+        raise AssertionError(f"no D = {head_dim} launch of {missing}: {counts_by_d}")
+
+
+def slice_check(trunk_heads=None):
+    """Phase 4 (phase 14 with ``trunk_heads``): the small model in fp32, the same
+    seeded weights on cuda and cpu."""
     import torch
 
-    from mapanything_tpu_torch.models.mapanything import MapAnything, MapAnythingConfig, Views
+    from mapanything_tpu_torch.models.mapanything import MapAnything, Views
+    from mapanything_tpu_torch.ops.flash_attention import launch_shapes, reset_launch_counts
 
-    cfg = MapAnythingConfig.small()
+    cfg = small_config(trunk_heads)
     img = torch.from_numpy(np.random.RandomState(0).randn(1, 2, 56, 56, 3).astype(np.float32))
     # Full fp32 on the card for this comparison (cuDNN convolutions default to
     # TF32); the flagship phase then runs with PyTorch's defaults again.
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
+        reset_launch_counts()
         with torch.inference_mode():
             on_gpu = MapAnything(cfg, device="cuda", seed=0)(Views(img=img.cuda()))
+        torch.cuda.synchronize()
+        shapes = launch_shapes()
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     with torch.inference_mode():
@@ -583,8 +658,11 @@ def slice_check():
     agree = (on_gpu.non_ambiguous_mask.cpu() == on_cpu.non_ambiguous_mask).float().mean().item()
     if agree < 0.999:
         raise AssertionError(f"non_ambiguous_mask agrees on only {agree:.4f} of pixels")
-    emit({"phase": "slice_check", "config": "small fp32 1x2x56x56", "rtol": rtol,
-          "max_abs_err": errs, "mask_agreement": agree})
+    emit({"phase": "slice_check" if trunk_heads is None else "slice_check_h128",
+          "config": f"small{'' if trunk_heads is None else f'(info_sharing_num_heads={trunk_heads})'} fp32 1x2x56x56",
+          "rtol": rtol, "max_abs_err": errs, "mask_agreement": agree, "cuda_launches": shape_counts(shapes)})
+    if trunk_heads is not None:
+        check_head_dim_launches(by_head_dim(shapes), cfg.info_sharing_dim // trunk_heads, ["flash_attention_fwd"])
 
 
 def check_invariants(preds, shape):
@@ -607,17 +685,29 @@ def check_invariants(preds, shape):
     return ray_norm_err
 
 
-def flagship(card):
-    """Phase 5: the main path, the flagship bf16 forward on 1 x 8 x 518 x 518."""
+def flagship_config(trunk_heads: int):
+    """The flagship bf16 config; with trunk_heads=6, flagship-h128 (768 / 6 = 128)."""
+    from mapanything_tpu_torch.models.mapanything import MapAnythingConfig
+
+    return MapAnythingConfig(compute_dtype="bfloat16", info_sharing_num_heads=trunk_heads)
+
+
+def flagship(card, trunk_heads: int = 12):
+    """Phase 5: the main path, the flagship bf16 forward on 1 x 8 x 518 x 518;
+    phase 15 with trunk_heads=6: flagship-h128."""
     import torch
 
-    from mapanything_tpu_torch.models.mapanything import MapAnything, MapAnythingConfig, Views
-    from mapanything_tpu_torch.ops.flash_attention import flash_attention, launch_counts, reset_launch_counts
+    from mapanything_tpu_torch.models.mapanything import MapAnything, Views
+    from mapanything_tpu_torch.ops.flash_attention import (
+        flash_attention, launch_counts, launch_shapes, reset_launch_counts,
+    )
 
     B, V, H, W = 1, 8, 518, 518
     warmup, iters = 3, 5
     t0 = time.perf_counter()
-    model = MapAnything(MapAnythingConfig(compute_dtype="bfloat16"), device="cuda", seed=0)
+    cfg = flagship_config(trunk_heads)
+    d = cfg.info_sharing_dim // trunk_heads
+    model = MapAnything(cfg, device="cuda", seed=0)
     setup_s = time.perf_counter() - t0
     img = torch.from_numpy(np.random.RandomState(0).randn(B, V, H, W, 3).astype(np.float32)).cuda()
     views = Views(img=img)
@@ -626,11 +716,15 @@ def flagship(card):
     with torch.inference_mode():
         preds = model(views)
     torch.cuda.synchronize()
-    counts = launch_counts()
+    counts, shapes = launch_counts(), launch_shapes()
     launches = counts["flash_attention_fwd"]
     if counts != {**counts, "flash_attention_fwd": 48, "flash_attention_fwd_lse": 0,
                   "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}:
         raise AssertionError(f"one flagship forward launched {counts}, not the lse-free forward 48 times")
+    # The encoder's 24 layers at D = 64; the trunk's 12 frame and 12 global layers at D.
+    want_shapes = {(1370, 64): 24, (1369, d): 12, (V * 1369 + 1, d): 12}
+    if shapes["flash_attention_fwd"] != want_shapes:
+        raise AssertionError(f"one forward launched {shapes['flash_attention_fwd']}, not {want_shapes}")
     with torch.inference_mode():
         for _ in range(warmup - 1):
             model(views)
@@ -650,8 +744,10 @@ def flagship(card):
     ray_norm_err = check_invariants(preds, (B, V, H, W))
     ms = 1e3 * sum(times) / iters
     emit({
-        "phase": "flagship",
-        "config": "MapAnythingConfig(compute_dtype='bfloat16'), 1x8x518x518, seeded random weights",
+        "phase": "flagship" if trunk_heads == 12 else "flagship_h128",
+        "config": f"MapAnythingConfig(compute_dtype='bfloat16'"
+                  f"{'' if trunk_heads == 12 else f', info_sharing_num_heads={trunk_heads}'}), 1x8x518x518, "
+                  "seeded random weights",
         "setup_s": setup_s,
         "warmup": warmup,
         "iters": iters,
@@ -660,11 +756,13 @@ def flagship(card):
         "views_per_s": B * V / (ms / 1e3),
         "peak_mem_gib": peak_gib,
         "attention_launches_per_forward": launches,
+        "launches_by_shape": shape_counts(shapes)["flash_attention_fwd"],
+        "launches_by_head_dim": by_head_dim(shapes)["flash_attention_fwd"],
         "ray_norm_err": ray_norm_err,
         "card": card["name"],
         "power_limit": card["power_limit"],
     })
-    return launches, ms
+    return launches, ms, by_head_dim(shapes)["flash_attention_fwd"]
 
 
 # InferenceOutputs' float fields; the masked ones are zero wherever the mask is off.
@@ -954,19 +1052,18 @@ def rel_err(a, b, floor: float = 1e-12) -> float:
     return (a - b).abs().max().item() / max(b.abs().max().item(), floor)
 
 
-def train_slice_check():
-    """Phase 6: the small fp32 train step, the same seeded weights and masks on cuda and cpu."""
+def train_slice_check(trunk_heads=None):
+    """Phase 6 (phase 14 with ``trunk_heads``): the small fp32 train step, the same
+    seeded weights and masks on cuda and cpu."""
     import torch
 
-    from mapanything_tpu_torch.models.mapanything import (
-        GeometricInputConfig, MapAnything, MapAnythingConfig, sample_modality_masks,
-    )
-    from mapanything_tpu_torch.ops.flash_attention import launch_counts, reset_launch_counts
+    from mapanything_tpu_torch.models.mapanything import GeometricInputConfig, MapAnything, sample_modality_masks
+    from mapanything_tpu_torch.ops.flash_attention import launch_counts, launch_shapes, reset_launch_counts
     from mapanything_tpu_torch.train.losses import synthetic_loss_batch
     from mapanything_tpu_torch.train.optim import OptimConfig, build_optimizer
     from mapanything_tpu_torch.train.step import init_train_state, make_loss_fn, make_train_step
 
-    cfg = MapAnythingConfig.small()
+    cfg = small_config(trunk_heads)
     B, V, HW = 1, 2, 56
     img = torch.from_numpy(np.random.RandomState(0).randn(B, V, HW, HW, 3).astype(np.float32))
     batch = synthetic_loss_batch(B, V, HW, HW, seed=1)
@@ -987,7 +1084,7 @@ def train_slice_check():
             loss.backward()
             if device == "cuda":
                 torch.cuda.synchronize()
-            counts = launch_counts()
+            counts, shapes = launch_counts(), launch_shapes()
             grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
             opt = build_optimizer(opt_cfg, model)
             state = init_train_state(model, opt)
@@ -996,7 +1093,7 @@ def train_slice_check():
             for _ in range(2):
                 state, _ = step(state, img.to(device), batch.to(device), gen)
             runs[device] = dict(loss=loss.detach(), details={k: v.detach() for k, v in details.items()},
-                                grads=grads, counts=counts,
+                                grads=grads, counts=counts, shapes=shapes,
                                 params={n: p.detach().clone() for n, p in model.named_parameters()})
             del model, opt, state
     finally:
@@ -1010,9 +1107,14 @@ def train_slice_check():
     # a gradient element at rounding level may take either sign on either device.
     param_errs = {n: rel_err(gpu["params"][n], p, floor=1.0) for n, p in cpu["params"].items()}
     worst = lambda d: max(d.items(), key=lambda kv: kv[1])  # noqa: E731
-    emit({"phase": "train_slice_check", "config": "small fp32 1x2x56x56, all geometric inputs",
+    emit({"phase": "train_slice_check" if trunk_heads is None else "train_slice_check_h128",
+          "config": f"small{'' if trunk_heads is None else f'(info_sharing_num_heads={trunk_heads})'} fp32 1x2x56x56, "
+                    "all geometric inputs",
           "rtol": rtol, "errors": errs, "worst_grad": worst(grad_errs), "worst_param_after_2_steps": worst(param_errs),
-          "cuda_launches": gpu["counts"]})
+          "cuda_launches": gpu["counts"], "cuda_launches_by_shape": shape_counts(gpu["shapes"])})
+    if trunk_heads is not None:
+        check_head_dim_launches(by_head_dim(gpu["shapes"]), cfg.info_sharing_dim // trunk_heads,
+                                ["flash_attention_fwd_lse", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"])
     if gpu["counts"]["flash_attention_fwd_lse"] == 0 or gpu["counts"]["flash_attention_bwd_dq"] == 0 \
             or gpu["counts"]["flash_attention_bwd_dkv"] == 0 or gpu["counts"]["flash_attention_fwd"] != 0:
         raise AssertionError(f"the cuda step did not run the training kernels: {gpu['counts']}")
@@ -1021,14 +1123,15 @@ def train_slice_check():
         raise AssertionError(f"cuda and cpu disagree beyond {rtol} of the magnitude: {bad}")
 
 
-def flagship_train(card, group=None, unsharded_loss=None):
+def flagship_train(card, group=None, unsharded_loss=None, trunk_heads: int = 12):
     """Phase 7, the flagship bf16 train step on 1 x 4 x 518; with a view
     ``group``, phase 10: the same step view-parallel under the ring, each
-    rank on its block of the views, beside phase 7's loss."""
+    rank on its block of the views, beside phase 7's loss; with trunk_heads=6,
+    phase 16: flagship-h128's step."""
     import torch
 
-    from mapanything_tpu_torch.models.mapanything import GeometricInputConfig, MapAnything, MapAnythingConfig
-    from mapanything_tpu_torch.ops.flash_attention import launch_counts, reset_launch_counts
+    from mapanything_tpu_torch.models.mapanything import GeometricInputConfig, MapAnything
+    from mapanything_tpu_torch.ops.flash_attention import launch_counts, launch_shapes, reset_launch_counts
     from mapanything_tpu_torch.parallel import sharded_attention as sa
     from mapanything_tpu_torch.parallel.mesh import shard_views_pytree, view_slice
     from mapanything_tpu_torch.train.losses import LossConfig, synthetic_loss_batch
@@ -1038,7 +1141,9 @@ def flagship_train(card, group=None, unsharded_loss=None):
     B, V, H, W = 1, 4, 518, 518
     warmup, iters = 2, 5  # seven steps: the masks of some step give every geometric encoder a gradient
     t0 = time.perf_counter()
-    model = MapAnything(MapAnythingConfig(compute_dtype="bfloat16"), device="cuda", seed=0, geometric_inputs=True)
+    cfg = flagship_config(trunk_heads)
+    d = cfg.info_sharing_dim // trunk_heads
+    model = MapAnything(cfg, device="cuda", seed=0, geometric_inputs=True)
     # bench.py:229-231: a random init diverges at the production lr.
     opt = build_optimizer(OptimConfig(lr=1e-7, min_lr=1e-8, epoch_len=100, total_epochs=1.0), model)
     state = init_train_state(model, opt)
@@ -1054,12 +1159,15 @@ def flagship_train(card, group=None, unsharded_loss=None):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
-    # Per step: the encoder's 24 and the frame layers' 12 of each kernel, and the
-    # 12 global layers' (under the ring, n_ranks ring steps each).
+    # Per step: the encoder's 24 (D = 64) and the frame layers' 12 of each kernel, and
+    # the 12 global layers' (under the ring, n_ranks ring steps each), at the trunk's D.
     per_kernel = 36 + 12 * n_ranks
     want = {"flash_attention_fwd": 0, "flash_attention_fwd_lse": per_kernel,
             "flash_attention_bwd_dq": per_kernel, "flash_attention_bwd_dkv": per_kernel}
+    want_by_d = {64: 24}
+    want_by_d[d] = want_by_d.get(d, 0) + 12 + 12 * n_ranks
     totals = dict.fromkeys(want, 0)
+    totals_by_d = {k: {} for k in want if k != "flash_attention_fwd"}
     names = list(state.params)
     ever_nonzero = torch.zeros(len(names), dtype=torch.bool, device="cuda")
     times, metrics = [], []
@@ -1072,10 +1180,16 @@ def flagship_train(card, group=None, unsharded_loss=None):
         state, m = step(state, img, batch, gen)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
-        counts = launch_counts()
+        counts, shapes = launch_counts(), launch_shapes()
         ring = sa.counts()
         if counts != want or any(ring[k] != v for k, v in want_ring.items()):
             raise AssertionError(f"train step {i} launched {counts} with {ring}, not {want} and {want_ring}")
+        for k, by_d in by_head_dim(shapes).items():
+            if k in totals_by_d and by_d != want_by_d:
+                raise AssertionError(f"train step {i} launched {k} {by_d} times by head dim, not {want_by_d}")
+            for dim, n in by_d.items():
+                if k in totals_by_d:
+                    totals_by_d[k][dim] = totals_by_d[k].get(dim, 0) + n
         for k in totals:
             totals[k] += counts[k]
         m = {k: v.item() for k, v in m.items()}
@@ -1106,14 +1220,17 @@ def flagship_train(card, group=None, unsharded_loss=None):
     unchanged = [n for n in names if torch.equal(before[n], state.params[n])]
     ms = 1e3 * sum(times) / iters
     line = {
-        "phase": "flagship_train" if group is None else "flagship_train_view_parallel",
-        "config": "MapAnythingConfig(compute_dtype='bfloat16'), 1x4x518x518 train step, seeded random weights, "
-                  "bench.py LossBatch, GeometricInputConfig() masks, lr 1e-7"
+        "phase": ("flagship_train" if trunk_heads == 12 else "flagship_h128_train")
+                 + ("" if group is None else "_view_parallel"),
+        "config": f"MapAnythingConfig(compute_dtype='bfloat16'"
+                  f"{'' if trunk_heads == 12 else f', info_sharing_num_heads={trunk_heads}'}), 1x4x518x518 train "
+                  "step, seeded random weights, bench.py LossBatch, GeometricInputConfig() masks, lr 1e-7"
                   + ("" if group is None else f"; view-parallel, ring, {n_ranks} rank(s) (NCCL)"),
         "setup_s": setup_s, "warmup": warmup, "iters": iters,
         "ms_per_step": ms, "ms_each": [1e3 * t for t in times],
         "views_per_s": B * V / (ms / 1e3), "peak_mem_gib": peak_gib,
-        "launches_per_step": counts, "ring_per_step": ring, "launches_total": totals,
+        "launches_per_step": counts, "launches_per_step_by_shape": shape_counts(shapes),
+        "ring_per_step": ring, "launches_total": totals, "launches_total_by_head_dim": totals_by_d,
         "loss": [m["loss"] for m in metrics], "grad_norm": [m["grad_norm"] for m in metrics],
         "param_tensors_changed": [len(names) - len(unchanged), len(names)],
         "unchanged": {n: {"min": before[n].min().item(), "max": before[n].max().item(),
@@ -1321,8 +1438,39 @@ def path_entry(name, replaces, rows, launches, also=(), **extra):
     }
 
 
+TRAIN_OUTPUTS = {"flash_attention_fwd_lse": ("o", "lse"), "flash_attention_bwd_dq": ("dq",),
+                 "flash_attention_bwd_dkv": ("dk", "dv")}
+
+
+def train_entry(name, train_rows, replaces, launches, steps, **extra):
+    """One training kernel on one train step's path in the kernels line: each
+    shape's times, bound and max error, and their sums per step."""
+    outs = TRAIN_OUTPUTS[name]
+    main_train = [r for r in train_rows if r["per_step"]]
+    per_step = lambda key: sum(r["kernels"][name][key] * r["per_step"] for r in main_train)  # noqa: E731
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": KERNEL_SOURCE if name.endswith("lse") else BWD_KERNEL_SOURCE,
+        "replaces": replaces,
+        "launches": launches,
+        "launches_per_step": launches // steps,
+        "max_abs_err": max(r["max_abs_err"][o] for r in main_train for o in outs),
+        "ms": per_step("ms"),
+        "plain_ms": per_step("plain_ms"),
+        "bound_ms": per_step("bound_ms"),
+        "bound_by": "operations" if all(r["kernels"][name]["bound_by"] == "operations"
+                                         for r in main_train) else "bytes",
+        "library_ms": per_step("library_ms"),
+        "per_shape": [dict(shape=r["shape"], dtype=r["dtype"], per_step=r["per_step"],
+                           max_abs_err={o: r["max_abs_err"][o] for o in outs}, **r["kernels"][name])
+                      for r in train_rows],
+        **extra,
+    }
+
+
 def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, inference_launches, train_launches,
-                 train_steps, vp_launches, many_view_line):
+                 train_steps, vp_launches, many_view_line, h128):
     """The kernels line: each kernel, what it replaces, its launches on its path
     (one forward; all train steps, and per step), its max error and its times
     per forward (inference) or per train step. The phase-3c rows are the
@@ -1330,39 +1478,22 @@ def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, infe
     phase 9 (12 launches each: the unsharded global layers, the ring steps).
     The phase-3d rows are the 64-view infer's (phase 13), K1 at its encoder
     and frame layers and K3 at its global layers, each with that run's
-    launches at its key length; times per scene."""
+    launches at its key length; times per scene. The phase-3e rows are K8,
+    the D = 128 instances, on flagship-h128's forward (phase 15) and train
+    step (phase 16), with those runs' D = 128 launches (``h128``)."""
     main_rows = [r for r in rows if r["per_forward"]]
     kernels = [path_entry("flash_attention_fwd", "mapanything_tpu/ops/flash_attention.py:395", main_rows,
                           {r["shape"]: r["per_forward"] for r in main_rows},
                           also=[r for r in rows if not r["per_forward"]])]
     kernels[0]["launches"] = inference_launches  # the count of phase 5's run
-    main_train = [r for r in train_rows if r["per_step"]]
-    outputs = {"flash_attention_fwd_lse": ("o", "lse"), "flash_attention_bwd_dq": ("dq",),
-               "flash_attention_bwd_dkv": ("dk", "dv")}
-    for name, outs in outputs.items():
-        per_step = lambda key: sum(r["kernels"][name][key] * r["per_step"] for r in main_train)  # noqa: E731
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": KERNEL_SOURCE if name.endswith("lse") else BWD_KERNEL_SOURCE,
-            "replaces": TRAIN_REPLACES[name]["encoder"],
-            "launches": train_launches[name],
-            "launches_per_step": train_launches[name] // train_steps,
-            "max_abs_err": max(r["max_abs_err"][o] for r in main_train for o in outs),
-            "ms": per_step("ms"),
-            "plain_ms": per_step("plain_ms"),
-            "bound_ms": per_step("bound_ms"),
-            "bound_by": "operations" if all(r["kernels"][name]["bound_by"] == "operations"
-                                             for r in main_train) else "bytes",
-            "library_ms": per_step("library_ms"),
-            "per_shape": [dict(shape=r["shape"], dtype=r["dtype"], per_step=r["per_step"],
-                               max_abs_err={o: r["max_abs_err"][o] for o in outs}, **r["kernels"][name])
-                          for r in train_rows],
-        })
+    for name in TRAIN_OUTPUTS:
+        kernels.append(train_entry(name, train_rows, TRAIN_REPLACES[name]["encoder"], train_launches[name],
+                                   train_steps))
         if name != "flash_attention_fwd_lse":  # the ring's block against a merged lse (phase 10)
             kernels[-1]["per_shape"].append(dict(
                 shape=ring_bwd_row["shape"], dtype="bfloat16", per_step=vp_launches["k7_per_step"],
-                max_abs_err={o: ring_bwd_row["max_abs_err"][o] for o in outs}, **ring_bwd_row["kernels"][name]))
+                max_abs_err={o: ring_bwd_row["max_abs_err"][o] for o in TRAIN_OUTPUTS[name]},
+                **ring_bwd_row["kernels"][name]))
     # Phase 3c: each row with a launch count stands for its kernel on phase 9's path;
     # the others of the same kernel ride along under per_shape.
     view_parallel = [r for r in long_rows if r["phase_id"] == "3c"]
@@ -1382,6 +1513,16 @@ def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, infe
         kernels.append(path_entry("flash_attention_fwd", replaces, group,
                                   {r["shape"]: by_length[str(r["b_t_h_d"][1])] for r in group},
                                   path="infer 1x64x518, head_chunk_size=8 (phase 13); times per scene"))
+    # Phase 3e: K8, the D = 128 instances, on flagship-h128's paths.
+    h_rows = [r for r in h128["rows"] if r["per_forward"]]
+    kernels.append(path_entry("flash_attention_fwd", f"{FA}:214", h_rows, {r["shape"]: r["per_forward"] for r in h_rows},
+                              also=[r for r in h128["rows"] if not r["per_forward"]], head_dim=128,
+                              path="flagship-h128 forward 1x8x518 (phase 15); times per forward"))
+    kernels[-1]["launches"] = h128["forward_launches"][128]  # phase 15's D = 128 launches
+    for name in TRAIN_OUTPUTS:
+        kernels.append(train_entry(name, h128["train_rows"], H128_TRAIN_REPLACES[name]["global_h128"],
+                                   h128["train_launches"][name][128], h128["train_steps"], head_dim=128,
+                                   path="flagship-h128 train step 1x4x518 (phase 16); times per step"))
     emit({"kernels": kernels})
 
 
@@ -1452,8 +1593,10 @@ def main() -> int:
     train_rows = train_kernel_checks(card)
     long_rows, ring_bwd_row = long_kernel_checks(card)
     many_view_rows = kernel_checks(card, MANY_VIEW_SHAPES, "3d")
+    h128 = {"rows": kernel_checks(card, H128_SHAPES, "3e"),
+            "train_rows": train_kernel_checks(card, H128_TRAIN_SHAPES, H128_TRAIN_REPLACES, "3e")}
     slice_check()
-    inference_launches, forward_ms = flagship(card)
+    inference_launches, forward_ms, _ = flagship(card)
     torch.cuda.empty_cache()
     infer_slice_check()
     gc.collect()
@@ -1468,6 +1611,19 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_launches, train_steps, train_line = flagship_train(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 14-16. flagship-h128 and the small model with 128-wide trunk heads.
+    slice_check(trunk_heads=2)
+    train_slice_check(trunk_heads=2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, _, h128["forward_launches"] = flagship(card, trunk_heads=H128_TRUNK_HEADS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, h128["train_steps"], h128_train = flagship_train(card, trunk_heads=H128_TRUNK_HEADS)
+    h128["train_launches"] = h128_train["launches_total_by_head_dim"]
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1502,7 +1658,7 @@ def main() -> int:
         "k7_per_step": vp_train["ring_per_step"]["ring_steps"],
     }
     summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, inference_launches, train_launches,
-                 train_steps, vp_launches, many_view_line)
+                 train_steps, vp_launches, many_view_line, h128)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -12,9 +12,11 @@
 //
 // Replaces the TPU's backward kernels of mapanything_tpu/ops/flash_attention.py:
 //   K5 _dq_aug_kernel (:227, launched :1055) and _dkv_aug_kernel (:262, launched :1074),
-//      called from _core_bwd (:1036): encoder and trunk frame layers;
+//      called from _core_bwd (:1036) at d % 128 != 0: encoder and trunk frame layers;
 //   K6 _pair_dq_kernel (:715, launched :841) and _pair_dkv_kernel (:753, launched :862),
-//      called from _pair_core_bwd (:807): trunk global layers.
+//      called from _pair_core_bwd (:807): trunk global layers at d = 64;
+//   K8 _dq_kernel (:306, launched :1107) and _dkv_kernel (:339, launched :1128), called
+//      from _core_bwd at d % 128 == 0: every backward with 128-wide heads.
 // On the TPU these differ by head-pair packing, augmented ones/bias columns and a
 // constant-shift base-2 softmax, all ways to fit VMEM and the 128-wide MXU. Here one
 // streaming design serves every length, as the forward does.
@@ -25,59 +27,89 @@
 // Tq or Tk are zero-filled on load; query rows past Tq get P = 0 (lse = +inf), keys past
 // Tk get P = 0 in the dq kernel, and rows past the end are never stored.
 //
-// Instances (D = 64 only):
+// Instances, templated on the head dim D and instantiated for D = 64 and D = 128:
 //   fa_bwd_dq_bf16 / fa_bwd_dkv_bf16: bf16 inputs and outputs, mma.sync m16n8k16 with
 //     fp32 accumulation, 4 warps of 16 rows. P and dS are rounded to bf16 for the
-//     products that consume them, as FlashAttention-2 does.
-//   fa_bwd_dq_f32 / fa_bwd_dkv_f32: fp32 SIMT, two threads per row, each holding half
-//     of the head dim; the fp32 model's path.
+//     products that consume them, as FlashAttention-2 does. At D = 64 a warp keeps its
+//     A operands (Q and dO, or K and V) in registers. At D = 128 its accumulators alone
+//     are 64 (dq) or 128 (dk/dv) floats a thread, so it reads the A operands from shared
+//     memory at each use (SmemA), and dk/dv streams 32-query tiles instead of 64.
+//   fa_bwd_dq_f32 / fa_bwd_dkv_f32: fp32 SIMT, D / 32 threads per row (2 at D = 64, 4
+//     at D = 128), each holding its share of the head dim; the fp32 model's path.
+// Shared memory. The dq kernel's tiles take 48 KB at D = 64 and 96 KB at D = 128 (its q
+// and dO tiles, two K and two V buffers), dk/dv's 41 KB and 64.5 KB (K and V, two q and
+// two dO buffers of 64 or 32 rows, their lse and delta), the fp32 instances' 32.5 KB
+// and 64.5 KB. Up to 48 KB they are static shared memory; above, the D = 128 instances
+// take dynamic shared memory, and the launcher raises the instance's limit once per
+// device (cudaFuncSetAttribute) before its first launch there.
 //
 // Bound on this card. The backward does five T^2*D products (S, dP, dV, dK, dQ), 10 *
 // B*H*T^2*D flop, of which the dq kernel recomputes S and dP a second time; bytes moved
 // are O(T*H*D). At the training shapes it is bound by tensor-core throughput. mma.sync
 // reaches only part of that rate; wgmma, TMA and warp specialisation are later work.
 
+#include <type_traits>
+
 #include "flash_attention_common.cuh"
 
 namespace {
 
-// Load 16 rows x D of a swizzled tile as A fragments (rows r0 .. r0+15).
+// Tiles of the bf16 instances. A block owns kRows = 16 a warp rows of its side (query
+// rows for dq, keys for dk/dv) and streams tiles of kStream rows of the other side. At
+// D = 64 a warp holds its A operands (Q and dO for dq, K and V for dk/dv) in registers;
+// at D = 128 it reads them from shared memory (SmemA), which keeps the dQ or the dK and
+// dV accumulators (D / 4 or D / 2 floats a thread) in registers without spills, and
+// dk/dv streams 32-query tiles, which halves its P and dP registers.
 template <int D>
-__device__ __forceinline__ void load_a_frags(uint32_t (&f)[D / 16][4], const __nv_bfloat16* tile,
-                                             int r0, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    f[kk][0] = lds32<D>(tile, r0 + g, c);
-    f[kk][1] = lds32<D>(tile, r0 + g + 8, c);
-    f[kk][2] = lds32<D>(tile, r0 + g, c + 8);
-    f[kk][3] = lds32<D>(tile, r0 + g + 8, c + 8);
-  }
-}
+struct DqTiles {
+  static constexpr int kRows = 64, kStream = 64;
+  static constexpr int kThreads = kRows / 16 * 32;
+  using A = std::conditional_t<(D > 64), SmemA<D>, RegA<D>>;
+  static constexpr int kSmem = (2 * kRows + 4 * kStream) * D * 2;  // sQ, sdO, 2 sK, 2 sV
+};
 
-// acc[j] = A (16 x D, fragments) times B^T, with B a swizzled [64][D] tile: 16 x 64.
 template <int D>
-__device__ __forceinline__ void mma_abt(float (&acc)[8][4], const uint32_t (&a)[D / 16][4],
+struct DkvTiles {
+  static constexpr int kRows = 64, kStream = D > 64 ? 32 : 64;
+  static constexpr int kThreads = kRows / 16 * 32;
+  using A = std::conditional_t<(D > 64), SmemA<D>, RegA<D>>;
+  // K and V tiles: one staging tile when the fragments go to registers, else both stay.
+  static constexpr int kKVTiles = D > 64 ? 2 : 1;
+  static constexpr int kTileSmem = (kKVTiles * kRows + 4 * kStream) * D * 2;  // K/V, 2 q, 2 dO
+  static constexpr int kStatSmem = 4 * kStream * 4;  // lse and delta of two q tiles
+  // Static memory keeps the statistics in arrays of their own (the D = 64 instance ran
+  // 30% slower with them in the tiles' array); dynamic memory holds both.
+  static constexpr bool kStatic = kTileSmem + kStatSmem <= kStaticSmemLimit;
+  static constexpr int kSmem = kStatic ? kTileSmem : kTileSmem + kStatSmem;
+};
+
+// acc = A (16 x D) times B^T, with B a swizzled [N][D] tile: 16 x N. Each A fragment
+// is fetched once (from registers or from shared memory) for all N / 8 output tiles.
+template <int D, int N, class A>
+__device__ __forceinline__ void mma_abt(float (&acc)[N / 8][4], const A& a,
                                         const __nv_bfloat16* tile, int g, int t) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int j = 0; j < N / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t af[4];
+    a.get(kk, af);
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
       const uint32_t b0 = lds32<D>(tile, 8 * j + g, kk * 16 + 2 * t);
       const uint32_t b1 = lds32<D>(tile, 8 * j + g, kk * 16 + 2 * t + 8);
-      mma_16816(acc[j], a[kk], b0, b1);
+      mma_16816(acc[j], af, b0, b1);
     }
   }
 }
 
-// out (16 x D) += X (16 x 64, fp32 accumulators, rounded to bf16) times a swizzled
-// [64][D] tile.
-template <int D>
-__device__ __forceinline__ void mma_xb(float (&out)[D / 8][4], const float (&x)[8][4],
+// out (16 x D) += X (16 x N, fp32 accumulators, rounded to bf16) times a swizzled
+// [N][D] tile.
+template <int D, int N>
+__device__ __forceinline__ void mma_xb(float (&out)[D / 8][4], const float (&x)[N / 8][4],
                                        const __nv_bfloat16* tile, int lane) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < N / 16; ++kk) {
     const uint32_t xa[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
                             pack_bf16(x[2 * kk][2], x[2 * kk][3]),
                             pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
@@ -119,7 +151,7 @@ __device__ __forceinline__ void zero(float (&acc)[D / 8][4]) {
 
 // dQ for 64 query rows of one (batch, head); grid (ceil(Tq / 64), H, B).
 template <int D>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(DqTiles<D>::kThreads)
     fa_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
                    const float* __restrict__ lse, const float* __restrict__ delta,
@@ -127,23 +159,25 @@ __global__ void __launch_bounds__(kWarps * 32)
                    long long sqt, long long sqh, long long skb, long long skt, long long skh,
                    long long svb, long long svt, long long svh, long long sdb, long long sdt,
                    long long sdh, float scale, float scale_log2) {
-  __shared__ __align__(128) __nv_bfloat16 sQ[kBlockM * D];
-  __shared__ __align__(128) __nv_bfloat16 sdO[kBlockM * D];
-  __shared__ __align__(128) __nv_bfloat16 sK[2][kBlockN * D];
-  __shared__ __align__(128) __nv_bfloat16 sV[2][kBlockN * D];
+  using Tl = DqTiles<D>;
+  constexpr int kRows = Tl::kRows, kStream = Tl::kStream, kThreads = Tl::kThreads;
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(block_smem<Tl::kSmem>());
+  __nv_bfloat16* sdO = sQ + kRows * D;
+  __nv_bfloat16* sK = sdO + kRows * D;       // two K tiles
+  __nv_bfloat16* sV = sK + 2 * kStream * D;  // two V tiles
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.x * kBlockM;
+  const int m0 = blockIdx.x * kRows;
   const int h = blockIdx.y, b = blockIdx.z;
   const __nv_bfloat16* kbase = k + b * skb + h * skh;
   const __nv_bfloat16* vbase = v + b * svb + h * svh;
-  const int n_tiles = (Tk + kBlockN - 1) / kBlockN;
+  const int n_tiles = (Tk + kStream - 1) / kStream;
 
-  load_tile<D, kBlockM>(sQ, q + b * sqb + h * sqh, sqt, m0, Tq, tid);
-  load_tile<D, kBlockM>(sdO, dout + b * sdb + h * sdh, sdt, m0, Tq, tid);
-  load_tile<D, kBlockN>(sK[0], kbase, skt, 0, Tk, tid);
-  load_tile<D, kBlockN>(sV[0], vbase, svt, 0, Tk, tid);
+  load_tile<D, kRows, kThreads>(sQ, q + b * sqb + h * sqh, sqt, m0, Tq, tid);
+  load_tile<D, kRows, kThreads>(sdO, dout + b * sdb + h * sdh, sdt, m0, Tq, tid);
+  load_tile<D, kStream, kThreads>(sK, kbase, skt, 0, Tk, tid);
+  load_tile<D, kStream, kThreads>(sV, vbase, svt, 0, Tk, tid);
   cp_async_commit();
 
   // Row statistics of rows g and g + 8 of this warp: base-2 lse and delta.
@@ -157,32 +191,34 @@ __global__ void __launch_bounds__(kWarps * 32)
     dlt[r] = row < Tq ? delta[i] : 0.f;
   }
 
-  uint32_t qf[D / 16][4], dof[D / 16][4];
+  typename Tl::A qa, doa;  // this warp's rows of Q and dO
   float acc[D / 8][4];
   zero<D>(acc);
 
   for (int it = 0; it < n_tiles; ++it) {
     const int buf = it & 1;
     if (it + 1 < n_tiles) {
-      load_tile<D, kBlockN>(sK[buf ^ 1], kbase, skt, (it + 1) * kBlockN, Tk, tid);
-      load_tile<D, kBlockN>(sV[buf ^ 1], vbase, svt, (it + 1) * kBlockN, Tk, tid);
+      load_tile<D, kStream, kThreads>(sK + (buf ^ 1) * kStream * D, kbase, skt, (it + 1) * kStream,
+                                      Tk, tid);
+      load_tile<D, kStream, kThreads>(sV + (buf ^ 1) * kStream * D, vbase, svt, (it + 1) * kStream,
+                                      Tk, tid);
     }
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
     if (it == 0) {
-      load_a_frags<D>(qf, sQ, warp * 16, g, t);
-      load_a_frags<D>(dof, sdO, warp * 16, g, t);
+      qa.load(sQ, warp * 16, g, t);
+      doa.load(sdO, warp * 16, g, t);
     }
-    const __nv_bfloat16* Ks = sK[buf];
-    const __nv_bfloat16* Vs = sV[buf];
+    const __nv_bfloat16* Ks = sK + buf * kStream * D;
+    const __nv_bfloat16* Vs = sV + buf * kStream * D;
 
-    float p[8][4], dp[8][4];
-    mma_abt<D>(p, qf, Ks, g, t);   // S = Q K^T
-    mma_abt<D>(dp, dof, Vs, g, t);  // dP = dO V^T
-    const int kv0 = it * kBlockN;
+    float p[kStream / 8][4], dp[kStream / 8][4];
+    mma_abt<D, kStream>(p, qa, Ks, g, t);    // S = Q K^T
+    mma_abt<D, kStream>(dp, doa, Vs, g, t);  // dP = dO V^T
+    const int kv0 = it * kStream;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < kStream / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
@@ -190,7 +226,7 @@ __global__ void __launch_bounds__(kWarps * 32)
         const float pe = live ? ex2(fmaf(p[j][e], scale_log2, -lse2[r])) : 0.f;
         p[j][e] = pe * (dp[j][e] - dlt[r]);  // dS
       }
-    mma_xb<D>(acc, p, Ks, lane);  // dQ += dS K
+    mma_xb<D, kStream>(acc, p, Ks, lane);  // dQ += dS K
     __syncthreads();
   }
   store_rows<D>(dq, acc, scale, b, h, row0, Tq, H, t);
@@ -198,7 +234,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 
 // dK and dV for 64 keys of one (batch, head); grid (ceil(Tk / 64), H, B).
 template <int D>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(DkvTiles<D>::kThreads)
     fa_bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
@@ -206,43 +242,54 @@ __global__ void __launch_bounds__(kWarps * 32)
                     int Tk, int H, long long sqb, long long sqt, long long sqh, long long skb,
                     long long skt, long long skh, long long svb, long long svt, long long svh,
                     long long sdb, long long sdt, long long sdh, float scale, float scale_log2) {
-  __shared__ __align__(128) __nv_bfloat16 sQ[2][kBlockM * D];
-  __shared__ __align__(128) __nv_bfloat16 sdO[2][kBlockM * D];
-  __shared__ __align__(128) __nv_bfloat16 sKV[kBlockN * D];  // K, then V, then reused
-  __shared__ float sL[2][kBlockM];                            // base-2 lse of the q tile
-  __shared__ float sD[2][kBlockM];                            // delta of the q tile
+  using Tl = DkvTiles<D>;
+  constexpr int kRows = Tl::kRows, kStream = Tl::kStream, kThreads = Tl::kThreads;
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(block_smem<Tl::kSmem>());
+  __nv_bfloat16* sV = sK + (Tl::kKVTiles - 1) * kRows * D;  // own tile, or the K tile reused
+  __nv_bfloat16* sQ = sK + Tl::kKVTiles * kRows * D;        // two q tiles
+  __nv_bfloat16* sdO = sQ + 2 * kStream * D;                // two dO tiles
+  float *sL, *sD;  // base-2 lse and delta of two q tiles
+  if constexpr (Tl::kStatic) {
+    __shared__ float lse_tiles[2 * kStream], delta_tiles[2 * kStream];
+    sL = lse_tiles;
+    sD = delta_tiles;
+  } else {
+    sL = reinterpret_cast<float*>(sdO + 2 * kStream * D);
+    sD = sL + 2 * kStream;
+  }
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int n0 = blockIdx.x * kBlockN;
+  const int n0 = blockIdx.x * kRows;
   const int h = blockIdx.y, b = blockIdx.z;
   const __nv_bfloat16* qbase = q + b * sqb + h * sqh;
   const __nv_bfloat16* dbase = dout + b * sdb + h * sdh;
   const long long stat0 = (static_cast<long long>(b) * H + h) * Tq;
-  const int n_tiles = (Tq + kBlockM - 1) / kBlockM;
+  const int n_tiles = (Tq + kStream - 1) / kStream;
 
-  // K and V fragments of this warp's 16 keys, staged through one shared tile.
-  uint32_t kf[D / 16][4], vf[D / 16][4];
-  load_tile<D, kBlockN>(sKV, k + b * skb + h * skh, skt, n0, Tk, tid);
+  // K and V of this warp's 16 keys: fragments staged through one shared tile, or both
+  // tiles kept for SmemA.
+  typename Tl::A ka, va;
+  load_tile<D, kRows, kThreads>(sK, k + b * skb + h * skh, skt, n0, Tk, tid);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  load_a_frags<D>(kf, sKV, warp * 16, g, t);
+  ka.load(sK, warp * 16, g, t);
   __syncthreads();
-  load_tile<D, kBlockN>(sKV, v + b * svb + h * svh, svt, n0, Tk, tid);
+  load_tile<D, kRows, kThreads>(sV, v + b * svb + h * svh, svt, n0, Tk, tid);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  load_a_frags<D>(vf, sKV, warp * 16, g, t);
+  va.load(sV, warp * 16, g, t);
 
   auto stage = [&](int tile, int buf) {
-    const int m = tile * kBlockM;
-    load_tile<D, kBlockM>(sQ[buf], qbase, sqt, m, Tq, tid);
-    load_tile<D, kBlockM>(sdO[buf], dbase, sdt, m, Tq, tid);
-    if (tid < kBlockM) {
+    const int m = tile * kStream;
+    load_tile<D, kStream, kThreads>(sQ + buf * kStream * D, qbase, sqt, m, Tq, tid);
+    load_tile<D, kStream, kThreads>(sdO + buf * kStream * D, dbase, sdt, m, Tq, tid);
+    if (tid < kStream) {
       const int row = m + tid;
-      sL[buf][tid] = row < Tq ? lse[stat0 + row] * kLog2e : INFINITY;
-      sD[buf][tid] = row < Tq ? delta[stat0 + row] : 0.f;
+      sL[buf * kStream + tid] = row < Tq ? lse[stat0 + row] * kLog2e : INFINITY;
+      sD[buf * kStream + tid] = row < Tq ? delta[stat0 + row] : 0.f;
     }
   };
   stage(0, 0);
@@ -258,29 +305,31 @@ __global__ void __launch_bounds__(kWarps * 32)
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const __nv_bfloat16* Qs = sQ[buf];
-    const __nv_bfloat16* dOs = sdO[buf];
+    const __nv_bfloat16* Qs = sQ + buf * kStream * D;
+    const __nv_bfloat16* dOs = sdO + buf * kStream * D;
+    const float* Ls = sL + buf * kStream;
+    const float* Ds = sD + buf * kStream;
 
     // S^T = K Q^T and dP^T = V dO^T: rows are this warp's keys, columns the tile's queries.
-    float p[8][4], dp[8][4];
-    mma_abt<D>(p, kf, Qs, g, t);
-    mma_abt<D>(dp, vf, dOs, g, t);
+    float p[kStream / 8][4], dp[kStream / 8][4];
+    mma_abt<D, kStream>(p, ka, Qs, g, t);
+    mma_abt<D, kStream>(dp, va, dOs, g, t);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + 2 * t + (e & 1);
-        p[j][e] = ex2(fmaf(p[j][e], scale_log2, -sL[buf][col]));  // P^T
-      }
-    mma_xb<D>(dv_acc, p, dOs, lane);  // dV += P^T dO
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < kStream / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = 8 * j + 2 * t + (e & 1);
-        p[j][e] *= dp[j][e] - sD[buf][col];  // dS^T
+        p[j][e] = ex2(fmaf(p[j][e], scale_log2, -Ls[col]));  // P^T
       }
-    mma_xb<D>(dk_acc, p, Qs, lane);  // dK += dS^T Q
+    mma_xb<D, kStream>(dv_acc, p, dOs, lane);  // dV += P^T dO
+#pragma unroll
+    for (int j = 0; j < kStream / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * t + (e & 1);
+        p[j][e] *= dp[j][e] - Ds[col];  // dS^T
+      }
+    mma_xb<D, kStream>(dk_acc, p, Qs, lane);  // dK += dS^T Q
     __syncthreads();
   }
   const int row0 = n0 + warp * 16 + g;
@@ -288,25 +337,36 @@ __global__ void __launch_bounds__(kWarps * 32)
   store_rows<D>(dv, dv_acc, 1.f, b, h, row0, Tk, H, t);
 }
 
-// fp32 instances: 128 threads a block, two per row; thread half `hf` holds the head-dim
-// elements d = 2 * i + hf, so the two halves of a pair read neighbouring banks.
-constexpr int kF32Threads = 2 * kBlockM;
+// fp32 instances: kSplit threads a row (2 at D = 64, 4 at D = 128, so that a thread
+// holds D / kSplit elements of each of its rows' vectors); thread part `hf` holds the
+// head-dim elements d = kSplit * i + hf, so the parts of a row read neighbouring banks.
+template <int D>
+struct BwdF32Tiles {
+  static constexpr int kRows = 64, kStream = 64;
+  static constexpr int kSplit = D / 32;
+  static constexpr int kThreads = kRows * kSplit;
+  static constexpr int kSmem = 2 * kStream * D * 4 + 2 * kStream * 4;  // two tiles; sL, sD
+};
 
 template <int D>
-__device__ __forceinline__ float dot_half(const float (&x)[D / 2], const float* row, int hf) {
+__device__ __forceinline__ float dot_part(const float (&x)[D / BwdF32Tiles<D>::kSplit],
+                                          const float* row, int hf) {
+  constexpr int kSplit = BwdF32Tiles<D>::kSplit;
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) s = fmaf(x[i], row[2 * i + hf], s);
-  return s + __shfl_xor_sync(0xffffffffu, s, 1);
+  for (int i = 0; i < D / kSplit; ++i) s = fmaf(x[i], row[kSplit * i + hf], s);
+#pragma unroll
+  for (int lanes = 1; lanes < kSplit; lanes <<= 1) s += __shfl_xor_sync(0xffffffffu, s, lanes);
+  return s;
 }
 
-// Stage rows [row0, row0 + 64) of a (batch, head) slice into a [64][D] fp32 tile;
+// Stage rows [row0, row0 + ROWS) of a (batch, head) slice into a [ROWS][D] fp32 tile;
 // rows past `rows_total` are zero.
-template <int D>
+template <int D, int ROWS, int THREADS>
 __device__ __forceinline__ void load_tile_f32(float (*dst)[D], const float* base,
                                               long long stride_t, int row0, int rows_total,
                                               int tid) {
-  for (int i = tid; i < kBlockM * D / 4; i += kF32Threads) {
+  for (int i = tid; i < ROWS * D / 4; i += THREADS) {
     const int r = i / (D / 4), c = (i % (D / 4)) * 4;
     const int gr = row0 + r;
     *reinterpret_cast<float4*>(&dst[r][c]) =
@@ -316,7 +376,7 @@ __device__ __forceinline__ void load_tile_f32(float (*dst)[D], const float* base
 }
 
 template <int D>
-__global__ void __launch_bounds__(kF32Threads)
+__global__ void __launch_bounds__(BwdF32Tiles<D>::kThreads)
     fa_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ dout,
                   const float* __restrict__ lse, const float* __restrict__ delta,
@@ -324,11 +384,13 @@ __global__ void __launch_bounds__(kF32Threads)
                   long long sqh, long long skb, long long skt, long long skh, long long svb,
                   long long svt, long long svh, long long sdb, long long sdt, long long sdh,
                   float scale, float scale_log2) {
-  __shared__ __align__(16) float sK[kBlockN][D];
-  __shared__ __align__(16) float sV[kBlockN][D];
-  const int tid = threadIdx.x, hf = tid & 1;
+  using Tl = BwdF32Tiles<D>;
+  constexpr int kSplit = Tl::kSplit, kPart = D / kSplit, kStream = Tl::kStream;
+  float(*sK)[D] = reinterpret_cast<float(*)[D]>(block_smem<Tl::kSmem>());
+  float(*sV)[D] = sK + kStream;
+  const int tid = threadIdx.x, hf = tid % kSplit;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int row = blockIdx.x * kBlockM + (tid >> 1);
+  const int row = blockIdx.x * Tl::kRows + tid / kSplit;
   const bool live = row < Tq;
   const float* qp = q + b * sqb + h * sqh + static_cast<long long>(live ? row : 0) * sqt;
   const float* dp_ = dout + b * sdb + h * sdh + static_cast<long long>(live ? row : 0) * sdt;
@@ -338,36 +400,36 @@ __global__ void __launch_bounds__(kF32Threads)
   const float lse2 = live ? lse[si] * kLog2e : INFINITY;
   const float dlt = live ? delta[si] : 0.f;
 
-  float qr[D / 2], dor[D / 2], acc[D / 2];
+  float qr[kPart], dor[kPart], acc[kPart];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) {
-    qr[i] = live ? qp[2 * i + hf] : 0.f;
-    dor[i] = live ? dp_[2 * i + hf] : 0.f;
+  for (int i = 0; i < kPart; ++i) {
+    qr[i] = live ? qp[kSplit * i + hf] : 0.f;
+    dor[i] = live ? dp_[kSplit * i + hf] : 0.f;
     acc[i] = 0.f;
   }
-  for (int kv0 = 0; kv0 < Tk; kv0 += kBlockN) {
-    load_tile_f32<D>(sK, kbase, skt, kv0, Tk, tid);
-    load_tile_f32<D>(sV, vbase, svt, kv0, Tk, tid);
+  for (int kv0 = 0; kv0 < Tk; kv0 += kStream) {
+    load_tile_f32<D, kStream, Tl::kThreads>(sK, kbase, skt, kv0, Tk, tid);
+    load_tile_f32<D, kStream, Tl::kThreads>(sV, vbase, svt, kv0, Tk, tid);
     __syncthreads();
-    const int n = min(kBlockN, Tk - kv0);
+    const int n = min(kStream, Tk - kv0);
     for (int j = 0; j < n; ++j) {
-      const float s = dot_half<D>(qr, sK[j], hf);
-      const float dpj = dot_half<D>(dor, sV[j], hf);
+      const float s = dot_part<D>(qr, sK[j], hf);
+      const float dpj = dot_part<D>(dor, sV[j], hf);
       const float ds = ex2(fmaf(s, scale_log2, -lse2)) * (dpj - dlt);
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] = fmaf(ds, sK[j][2 * i + hf], acc[i]);
+      for (int i = 0; i < kPart; ++i) acc[i] = fmaf(ds, sK[j][kSplit * i + hf], acc[i]);
     }
     __syncthreads();
   }
   if (live) {
     float* op = dq + ((static_cast<long long>(b) * Tq + row) * H + h) * D;
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) op[2 * i + hf] = acc[i] * scale;
+    for (int i = 0; i < kPart; ++i) op[kSplit * i + hf] = acc[i] * scale;
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kF32Threads)
+__global__ void __launch_bounds__(BwdF32Tiles<D>::kThreads)
     fa_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ dout,
                    const float* __restrict__ lse, const float* __restrict__ delta,
@@ -375,13 +437,15 @@ __global__ void __launch_bounds__(kF32Threads)
                    long long sqb, long long sqt, long long sqh, long long skb, long long skt,
                    long long skh, long long svb, long long svt, long long svh, long long sdb,
                    long long sdt, long long sdh, float scale, float scale_log2) {
-  __shared__ __align__(16) float sQ[kBlockM][D];
-  __shared__ __align__(16) float sdO[kBlockM][D];
-  __shared__ float sL[kBlockM];
-  __shared__ float sD[kBlockM];
-  const int tid = threadIdx.x, hf = tid & 1;
+  using Tl = BwdF32Tiles<D>;
+  constexpr int kSplit = Tl::kSplit, kPart = D / kSplit, kStream = Tl::kStream;
+  float(*sQ)[D] = reinterpret_cast<float(*)[D]>(block_smem<Tl::kSmem>());
+  float(*sdO)[D] = sQ + kStream;
+  float* sL = reinterpret_cast<float*>(sdO + kStream);
+  float* sD = sL + kStream;
+  const int tid = threadIdx.x, hf = tid % kSplit;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int key = blockIdx.x * kBlockN + (tid >> 1);
+  const int key = blockIdx.x * Tl::kRows + tid / kSplit;
   const bool live = key < Tk;
   const float* kp = k + b * skb + h * skh + static_cast<long long>(live ? key : 0) * skt;
   const float* vp = v + b * svb + h * svh + static_cast<long long>(live ? key : 0) * svt;
@@ -389,32 +453,32 @@ __global__ void __launch_bounds__(kF32Threads)
   const float* dbase = dout + b * sdb + h * sdh;
   const long long stat0 = (static_cast<long long>(b) * H + h) * Tq;
 
-  float kr[D / 2], vr[D / 2], dk_acc[D / 2], dv_acc[D / 2];
+  float kr[kPart], vr[kPart], dk_acc[kPart], dv_acc[kPart];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) {
-    kr[i] = live ? kp[2 * i + hf] : 0.f;
-    vr[i] = live ? vp[2 * i + hf] : 0.f;
+  for (int i = 0; i < kPart; ++i) {
+    kr[i] = live ? kp[kSplit * i + hf] : 0.f;
+    vr[i] = live ? vp[kSplit * i + hf] : 0.f;
     dk_acc[i] = dv_acc[i] = 0.f;
   }
-  for (int m = 0; m < Tq; m += kBlockM) {
-    load_tile_f32<D>(sQ, qbase, sqt, m, Tq, tid);
-    load_tile_f32<D>(sdO, dbase, sdt, m, Tq, tid);
-    if (tid < kBlockM) {
+  for (int m = 0; m < Tq; m += kStream) {
+    load_tile_f32<D, kStream, Tl::kThreads>(sQ, qbase, sqt, m, Tq, tid);
+    load_tile_f32<D, kStream, Tl::kThreads>(sdO, dbase, sdt, m, Tq, tid);
+    if (tid < kStream) {
       const int row = m + tid;
       sL[tid] = row < Tq ? lse[stat0 + row] * kLog2e : INFINITY;
       sD[tid] = row < Tq ? delta[stat0 + row] : 0.f;
     }
     __syncthreads();
-    const int n = min(kBlockM, Tq - m);
+    const int n = min(kStream, Tq - m);
     for (int i = 0; i < n; ++i) {
-      const float s = dot_half<D>(kr, sQ[i], hf);
-      const float dpi = dot_half<D>(vr, sdO[i], hf);
+      const float s = dot_part<D>(kr, sQ[i], hf);
+      const float dpi = dot_part<D>(vr, sdO[i], hf);
       const float p = ex2(fmaf(s, scale_log2, -sL[i]));
       const float ds = p * (dpi - sD[i]);
 #pragma unroll
-      for (int c = 0; c < D / 2; ++c) {
-        dv_acc[c] = fmaf(p, sdO[i][2 * c + hf], dv_acc[c]);
-        dk_acc[c] = fmaf(ds, sQ[i][2 * c + hf], dk_acc[c]);
+      for (int c = 0; c < kPart; ++c) {
+        dv_acc[c] = fmaf(p, sdO[i][kSplit * c + hf], dv_acc[c]);
+        dk_acc[c] = fmaf(ds, sQ[i][kSplit * c + hf], dk_acc[c]);
       }
     }
     __syncthreads();
@@ -422,66 +486,104 @@ __global__ void __launch_bounds__(kF32Threads)
   if (live) {
     const long long o = ((static_cast<long long>(b) * Tk + key) * H + h) * D;
 #pragma unroll
-    for (int c = 0; c < D / 2; ++c) {
-      dk[o + 2 * c + hf] = dk_acc[c] * scale;
-      dv[o + 2 * c + hf] = dv_acc[c];
+    for (int c = 0; c < kPart; ++c) {
+      dk[o + kSplit * c + hf] = dk_acc[c] * scale;
+      dv[o + kSplit * c + hf] = dv_acc[c];
     }
   }
 }
 
+// The launchers of one head dim; each instance raises its shared memory limit once per
+// device. Outputs: dq, or dk and dv.
+struct BwdArgs {
+  const void *q, *k, *v, *dout;
+  const float *lse, *delta;
+  void *o0, *o1;
+  int B, Tq, Tk, H;
+  long long sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sdb, sdt, sdh;
+  float scale;
+  cudaStream_t st;
+};
+
+#define FA_BWD_KERNEL_ARGS(T)                                                                  \
+  static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),          \
+      static_cast<const T*>(a.dout), a.lse, a.delta
+#define FA_BWD_KERNEL_STRIDES                                                                  \
+  a.Tq, a.Tk, a.H, a.sqb, a.sqt, a.sqh, a.skb, a.skt, a.skh, a.svb, a.svt, a.svh, a.sdb, a.sdt, \
+      a.sdh, a.scale, a.scale * kLog2e
+
+template <int D>
+int bwd_dq(int dtype, const BwdArgs& a) {
+  if (dtype == 0) {
+    using T = __nv_bfloat16;
+    using Tl = DqTiles<D>;
+    static SmemOptIn opt_in;
+    return launch(fa_bwd_dq_bf16<D>, opt_in, dim3((a.Tq + Tl::kRows - 1) / Tl::kRows, a.H, a.B),
+                  Tl::kThreads, Tl::kSmem, a.st, FA_BWD_KERNEL_ARGS(T), static_cast<T*>(a.o0),
+                  FA_BWD_KERNEL_STRIDES);
+  }
+  if (dtype == 1) {
+    using Tl = BwdF32Tiles<D>;
+    static SmemOptIn opt_in;
+    return launch(fa_bwd_dq_f32<D>, opt_in, dim3((a.Tq + Tl::kRows - 1) / Tl::kRows, a.H, a.B),
+                  Tl::kThreads, Tl::kSmem, a.st, FA_BWD_KERNEL_ARGS(float), static_cast<float*>(a.o0),
+                  FA_BWD_KERNEL_STRIDES);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int D>
+int bwd_dkv(int dtype, const BwdArgs& a) {
+  if (dtype == 0) {
+    using T = __nv_bfloat16;
+    using Tl = DkvTiles<D>;
+    static SmemOptIn opt_in;
+    return launch(fa_bwd_dkv_bf16<D>, opt_in, dim3((a.Tk + Tl::kRows - 1) / Tl::kRows, a.H, a.B),
+                  Tl::kThreads, Tl::kSmem, a.st, FA_BWD_KERNEL_ARGS(T), static_cast<T*>(a.o0),
+                  static_cast<T*>(a.o1), FA_BWD_KERNEL_STRIDES);
+  }
+  if (dtype == 1) {
+    using Tl = BwdF32Tiles<D>;
+    static SmemOptIn opt_in;
+    return launch(fa_bwd_dkv_f32<D>, opt_in, dim3((a.Tk + Tl::kRows - 1) / Tl::kRows, a.H, a.B),
+                  Tl::kThreads, Tl::kSmem, a.st, FA_BWD_KERNEL_ARGS(float),
+                  static_cast<float*>(a.o0), static_cast<float*>(a.o1), FA_BWD_KERNEL_STRIDES);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+#undef FA_BWD_KERNEL_ARGS
+#undef FA_BWD_KERNEL_STRIDES
+
 }  // namespace
 
-// dtype: 0 = bf16, 1 = fp32. q, k, v, dout strides are in elements (batch, token, head;
-// the head-dim stride is 1). lse and delta are contiguous fp32 (B, H, Tq); outputs are
-// contiguous (B, T, H, D). Each returns cudaGetLastError() after its launch.
+// dtype: 0 = bf16, 1 = fp32; D: 64 or 128. q, k, v, dout strides are in elements (batch,
+// token, head; the head-dim stride is 1). lse and delta are contiguous fp32 (B, H, Tq);
+// outputs are contiguous (B, T, H, D). Each returns cudaErrorInvalidValue for arguments
+// no instance takes, else the shared memory attribute call's error or
+// cudaGetLastError() after its launch.
 #define FA_BWD_ARGS                                                                          \
   int dtype, int B, int Tq, int Tk, int H, int D, long long sqb, long long sqt,             \
       long long sqh, long long skb, long long skt, long long skh, long long svb,            \
       long long svt, long long svh, long long sdb, long long sdt, long long sdh, float scale, \
       void* stream
-#define FA_BWD_STRIDES sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sdb, sdt, sdh, scale, scale * kLog2e
 
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                       const void* dout, const float* lse, const float* delta,
                                       void* dq, FA_BWD_ARGS) {
-  if (D != 64 || B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((Tq + kBlockM - 1) / kBlockM, H, B);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    using T = __nv_bfloat16;
-    fa_bwd_dq_bf16<64><<<grid, kWarps * 32, 0, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), Tq, Tk, H, FA_BWD_STRIDES);
-  } else if (dtype == 1) {
-    fa_bwd_dq_f32<64><<<grid, kF32Threads, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), Tq, Tk, H,
-        FA_BWD_STRIDES);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const BwdArgs a{q,   k,   v,   dout, lse, delta, dq,  nullptr, B,   Tq,  Tk,  H,   sqb, sqt,
+                  sqh, skb, skt, skh,  svb, svt,   svh, sdb,     sdt, sdh, scale,
+                  static_cast<cudaStream_t>(stream)};
+  return by_head_dim(D, B, Tq, Tk, H, [&] { return bwd_dq<64>(dtype, a); },
+                     [&] { return bwd_dq<128>(dtype, a); });
 }
 
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                        const void* dout, const float* lse, const float* delta,
                                        void* dk, void* dv, FA_BWD_ARGS) {
-  if (D != 64 || B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((Tk + kBlockN - 1) / kBlockN, H, B);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    using T = __nv_bfloat16;
-    fa_bwd_dkv_bf16<64><<<grid, kWarps * 32, 0, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), Tq,
-        Tk, H, FA_BWD_STRIDES);
-  } else if (dtype == 1) {
-    fa_bwd_dkv_f32<64><<<grid, kF32Threads, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
-        static_cast<float*>(dv), Tq, Tk, H, FA_BWD_STRIDES);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const BwdArgs a{q,   k,   v,   dout, lse, delta, dk,  dv,  B,   Tq,  Tk,  H,   sqb, sqt,
+                  sqh, skb, skt, skh,  svb, svt,   svh, sdb, sdt, sdh, scale,
+                  static_cast<cudaStream_t>(stream)};
+  return by_head_dim(D, B, Tq, Tk, H, [&] { return bwd_dkv<64>(dtype, a); },
+                     [&] { return bwd_dkv<128>(dtype, a); });
 }

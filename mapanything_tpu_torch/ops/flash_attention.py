@@ -3,11 +3,14 @@
 The port's counterpart of ``mapanything_tpu/ops/flash_attention.py``:
 ``flash_attention`` (:1304) with its custom vjp (``_flash`` :1255,
 ``_flash_fwd_rule`` :1268, ``_flash_bwd_rule`` :1285), ``flash_attention_lse``
-(:1323) and ``flash_attention_bwd_lse`` (:1357). On the TPU these reach ten
-Pallas kernels (K1-K7 of PERF.md); here two hand-written Hopper sources serve
+(:1323) and ``flash_attention_bwd_lse`` (:1357). On the TPU these reach the
+Pallas kernels K1-K8 of PERF.md; here two hand-written Hopper sources serve
 them: ``csrc/flash_attention_fwd.cu`` (the forward, with or without the lse
 residual) and ``csrc/flash_attention_bwd.cu`` (the dq kernel and the dk/dv
-kernel).
+kernel), each instantiated for head dims 64 and 128 (``HEAD_DIMS``). D = 128
+is K8's regime on the TPU (``d % 128 == 0``: ``_fwd_kernel``,
+``_fwd_kernel_lse``, ``_dq_kernel``, ``_dkv_kernel``). The plain versions
+below take any head dim: they are the plain version of K8 as they are of K1-K7.
 
 Routing. ``flash_attention`` runs the lse-free forward when no input needs a
 gradient (inference is unchanged); otherwise an autograd Function runs the
@@ -17,8 +20,11 @@ else: a CPU tensor goes to the plain PyTorch version beside each kernel; a
 CUDA tensor launches the kernel or raises. Each kernel has its own launch
 count (``flash_attention.launches``, ``flash_attention_lse.launches``,
 ``flash_attention_bwd_dq.launches`` and ``flash_attention_bwd_dkv.launches``), so a run can
-show which kernels it went through; the lse-free forward also counts its
-launches by key length (``launch_lengths``), which tells its regimes apart.
+show which kernels it went through, and counts its launches by (key length,
+head dim) in ``launches_by_shape``: ``launch_lengths`` gives the lse-free
+forward's by key length, which tells its regimes apart, and ``launch_shapes``
+every kernel's by key length and head dim, which tells the D = 64 and D = 128
+instances apart.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ from mapanything_tpu_torch.ops import _build
 KERNEL_STEM = "flash_attention_fwd"
 BWD_KERNEL_STEM = "flash_attention_bwd"
 KERNEL_STEMS = (KERNEL_STEM, BWD_KERNEL_STEM)
-HEAD_DIMS = (64,)  # head dims the kernels are instantiated for
+HEAD_DIMS = (64, 128)  # head dims the kernels are instantiated for
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 
 
@@ -220,7 +226,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale):
     do = _check_bwd(q, k, v, do, lse, delta)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch_bwd("flash_attention_bwd_dq", 1, q, k, v, do, lse, delta, scale, (dq,))
-    flash_attention_bwd_dq.launches += 1
+    _count(flash_attention_bwd_dq, k)
     return dq
 
 
@@ -233,7 +239,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale):
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     _launch_bwd("flash_attention_bwd_dkv", 2, q, k, v, do, lse, delta, scale, (dk, dv))
-    flash_attention_bwd_dkv.launches += 1
+    _count(flash_attention_bwd_dkv, k)
     return dk, dv
 
 
@@ -254,7 +260,7 @@ def flash_attention_lse(
     if _device_of(q) == "cpu":
         return attention_lse_reference(q, k, v, scale)
     out = _launch_fwd(q, k, v, scale, with_lse=True)
-    flash_attention_lse.launches += 1
+    _count(flash_attention_lse, k)
     return out
 
 
@@ -310,7 +316,7 @@ def flash_attention(
 ) -> torch.Tensor:
     """softmax(q kᵀ scale) v over q (B, Tq, H, D) and k, v (B, Tk, H, D).
 
-    CUDA tensors run the Hopper kernels (bf16 or fp32, D = 64) and come back
+    CUDA tensors run the Hopper kernels (bf16 or fp32, D = 64 or 128) and come back
     as a contiguous (B, Tq, H, D) tensor; CPU tensors run the plain versions.
     The result is differentiable when an input requires grad.
     """
@@ -322,38 +328,50 @@ def flash_attention(
     if device == "cpu":
         return attention_reference(q, k, v, scale)
     o, _ = _launch_fwd(q, k, v, scale, with_lse=False)
-    flash_attention.launches += 1
-    flash_attention.launches_by_length[k.shape[1]] += 1
+    _count(flash_attention, k)
     return o
 
 
-flash_attention.launches = 0
-flash_attention.launches_by_length = Counter()
-flash_attention_lse.launches = 0
-flash_attention_bwd_dq.launches = 0
-flash_attention_bwd_dkv.launches = 0
+_KERNELS = {
+    "flash_attention_fwd": flash_attention,
+    "flash_attention_fwd_lse": flash_attention_lse,
+    "flash_attention_bwd_dq": flash_attention_bwd_dq,
+    "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
+}
+
+
+def _count(fn, k: torch.Tensor) -> None:
+    """One launch of ``fn``'s kernel over keys ``k`` (B, Tk, H, D)."""
+    fn.launches += 1
+    fn.launches_by_shape[(k.shape[1], k.shape[3])] += 1
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch count to 0."""
-    for fn in (flash_attention, flash_attention_lse, flash_attention_bwd_dq, flash_attention_bwd_dkv):
+    """Set every kernel's launch counts to 0."""
+    for fn in _KERNELS.values():
         fn.launches = 0
-    flash_attention.launches_by_length.clear()
+        fn.launches_by_shape = Counter()
+
+
+reset_launch_counts()
 
 
 def launch_counts() -> dict:
     """Launches of each kernel since the last reset, by kernel."""
-    return {
-        "flash_attention_fwd": flash_attention.launches,
-        "flash_attention_fwd_lse": flash_attention_lse.launches,
-        "flash_attention_bwd_dq": flash_attention_bwd_dq.launches,
-        "flash_attention_bwd_dkv": flash_attention_bwd_dkv.launches,
-    }
+    return {name: fn.launches for name, fn in _KERNELS.items()}
 
 
 def launch_lengths() -> dict:
     """Launches of the lse-free forward since the last reset, by key length Tk."""
-    return dict(sorted(flash_attention.launches_by_length.items()))
+    by_length = Counter()
+    for (tk, _), n in flash_attention.launches_by_shape.items():
+        by_length[tk] += n
+    return dict(sorted(by_length.items()))
+
+
+def launch_shapes() -> dict:
+    """Launches of each kernel since the last reset, by (key length Tk, head dim D)."""
+    return {name: dict(sorted(fn.launches_by_shape.items())) for name, fn in _KERNELS.items()}
 
 
 def attention_flops(b: int, tq: int, tk: int, h: int, d: int) -> int:

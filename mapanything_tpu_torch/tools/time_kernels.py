@@ -1,0 +1,93 @@
+"""Time the port's attention kernels at the main path's shapes, for an A/B between commits.
+
+    python3 mapanything_tpu_torch/tools/time_kernels.py [--root DIR] [--head-dims 64 128]
+
+Imports ``mapanything_tpu_torch`` from ``--root`` (default: the checkout this
+file is in), builds its kernels there and times each kernel with CUDA events:
+the lse-free forward at the flagship forward's encoder, frame and global
+shapes and one fp32 shape (``chip_smoke.py`` phase 3), and the lse forward, dq
+and dk/dv at the 1 x 4 x 518 train step's shapes and one fp32 shape (phase
+3b); with 128 in ``--head-dims``, the same at flagship-h128's trunk shapes
+(phase 3e). To time another commit, unpack it with ``git archive`` into a
+directory that .gitignore lists and pass that as ``--root`` (this file need
+not exist there). Compare two commits only within one call on one card, in
+turns: parent, change, change, parent. Prints one JSON line: the card, the
+root and ms per call of each kernel at each shape.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+# name -> (B, T, H, D, dtype): forward (phase 3) and training (phase 3b) shapes by head dim.
+FORWARD_SHAPES = {
+    64: {"encoder": (8, 1370, 16, 64, "bfloat16"), "frame": (8, 1369, 12, 64, "bfloat16"),
+         "global": (1, 10953, 12, 64, "bfloat16"), "fp32_frame": (8, 1369, 12, 64, "float32")},
+    128: {"frame_h128": (8, 1369, 6, 128, "bfloat16"), "global_h128": (1, 10953, 6, 128, "bfloat16"),
+          "fp32_global_h128": (1, 5477, 6, 128, "float32")},
+}
+TRAIN_SHAPES = {
+    64: {"encoder": (4, 1370, 16, 64, "bfloat16"), "frame": (4, 1369, 12, 64, "bfloat16"),
+         "global": (1, 5477, 12, 64, "bfloat16"), "fp32_global": (1, 5477, 12, 64, "float32")},
+    128: {"frame_h128": (4, 1369, 6, 128, "bfloat16"), "global_h128": (1, 5477, 6, 128, "bfloat16"),
+          "fp32_global_h128": (1, 5477, 6, 128, "float32")},
+}
+
+
+def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--root", type=Path, default=Path(__file__).resolve().parents[2],
+                        help="the checkout whose mapanything_tpu_torch is timed")
+    parser.add_argument("--head-dims", type=int, nargs="+", default=[64], choices=sorted(FORWARD_SHAPES))
+    args = parser.parse_args()
+    sys.path.insert(0, str(args.root.resolve()))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_kernels: no CUDA device", file=sys.stderr)
+        return 1
+    from mapanything_tpu_torch.ops import _build
+    from mapanything_tpu_torch.ops import flash_attention as fa
+
+    _build.build(*fa.KERNEL_STEMS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    times = {}
+    for d in args.head_dims:
+        for name, (b, t, h, hd, dtype) in FORWARD_SHAPES[d].items():
+            q, k, v = torch.randn(b, t, 3, h, hd, device="cuda", generator=gen).to(getattr(torch, dtype)).unbind(2)
+            times[f"fwd/{name}"] = cuda_time_ms(lambda: fa.flash_attention(q, k, v, hd**-0.5), iters=30)
+        for name, (b, t, h, hd, dtype) in TRAIN_SHAPES[d].items():
+            dt = getattr(torch, dtype)
+            q, k, v = torch.randn(b, t, 3, h, hd, device="cuda", generator=gen).to(dt).unbind(2)
+            do = torch.randn(b, t, h, hd, device="cuda", generator=gen).to(dt)
+            scale = hd**-0.5
+            o, lse = fa.flash_attention_lse(q, k, v, scale)
+            delta = fa.attention_bwd_delta(o, do).contiguous()
+            iters = 10 if dt == torch.float32 else 30
+            times[f"lse/{name}"] = cuda_time_ms(lambda: fa.flash_attention_lse(q, k, v, scale), iters)
+            times[f"dq/{name}"] = cuda_time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale), iters)
+            times[f"dkv/{name}"] = cuda_time_ms(
+                lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale), iters)
+    print(json.dumps({"card": torch.cuda.get_device_name(0), "root": str(args.root), "ms": times}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -292,21 +292,27 @@ PRED_FIELDS = (
 )
 
 
-@pytest.fixture(scope="module")
-def small_slice():
-    """JAX MapAnythingConfig.small() at 2 views x 56 px: init (seed 0) and forward."""
+def jax_small_slice(**cfg_kw):
+    """JAX MapAnythingConfig.small(**cfg_kw) at 2 views x 56 px: init (seed 0) and
+    forward, and the port model with the same weights."""
     img = randn(0, 1, 2, 56, 56, 3)
-    model = jax_ma.MapAnything(jax_ma.MapAnythingConfig.small())
+    model = jax_ma.MapAnything(jax_ma.MapAnythingConfig.small(**cfg_kw))
     views = jax_ma.Views(img=jnp.asarray(img))
     variables = jax.jit(model.init)(jax.random.PRNGKey(0), views)
     preds = jax.jit(model.apply)(variables, views)
     params = jax.tree.map(np.asarray, variables["params"])
-    port = port_ma.MapAnything(port_ma.MapAnythingConfig.small(), device="cpu")
+    port = port_ma.MapAnything(port_ma.MapAnythingConfig.small(**cfg_kw), device="cpu")
     load_jax_params(port, params)
     return img, params, preds, port
 
 
-def test_small_model_forward_matches_jax(small_slice):
+@pytest.fixture(scope="module")
+def small_slice():
+    return jax_small_slice()
+
+
+def assert_forward_matches(small_slice):
+    """The port's images-only forward against ``jax_small_slice``'s, field by field."""
     img, _, ref, port = small_slice
     from mapanything_tpu_torch.ops.flash_attention import flash_attention
 
@@ -322,6 +328,10 @@ def test_small_model_forward_matches_jax(small_slice):
         np.testing.assert_allclose(o, r, atol=tol, rtol=0, err_msg=name)
     agree = np.mean(np.asarray(ref.non_ambiguous_mask) == out.non_ambiguous_mask.numpy())
     assert agree >= 0.999
+
+
+def test_small_model_forward_matches_jax(small_slice):
+    assert_forward_matches(small_slice)
 
 
 def test_state_dict_names_are_the_reference_names(small_slice):

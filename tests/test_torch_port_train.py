@@ -215,14 +215,13 @@ B, V, HW = 1, 2, 56
 STEP_CFG = dict(encoder_size="test", info_sharing_depth=2, info_sharing_dim=64, info_sharing_indices=(0, 1))
 
 
-@pytest.fixture(scope="module")
-def small_step():
-    """The JAX small-model loss and gradients with JAX-sampled masks, and the
-    port model with the same weights."""
+def jax_small_step(step_cfg):
+    """The JAX loss and gradients of ``MapAnythingConfig.small(**step_cfg)`` with
+    JAX-sampled masks, one optax update, and the port model with the same weights."""
     rng = np.random.RandomState(11)
     img = rng.randn(B, V, HW, HW, 3).astype(np.float32)
     batch = loss_batch_np(B, V, HW, HW, 12, [True], [False], 0.9)
-    model = jax_ma.MapAnything(jax_ma.MapAnythingConfig.small(**STEP_CFG))
+    model = jax_ma.MapAnything(jax_ma.MapAnythingConfig.small(**step_cfg))
     jviews = jax_ma.Views(
         img=jnp.asarray(img),
         ray_directions=jnp.asarray(batch["ray_directions"]),
@@ -246,15 +245,20 @@ def small_step():
     jopt = jax_optim.build_optimizer(jax_optim.OptimConfig(**opt_cfg), params)
     updates, _ = jax.jit(jopt.update)(grads, jax.jit(jopt.init)(params), params)
     new_params = jax.jit(optax.apply_updates)(params, updates)
-    port = port_ma.MapAnything(port_ma.MapAnythingConfig.small(**STEP_CFG), device="cpu", geometric_inputs=True)
+    port = port_ma.MapAnything(port_ma.MapAnythingConfig.small(**step_cfg), device="cpu", geometric_inputs=True)
     load_jax_params(port, jax.tree.map(np.asarray, params))
     np_masks = {k: None if v is None else np.array(v) for k, v in vars(masks).items()}
     return dict(img=img, batch=batch, masks=np_masks, loss=loss, details=details, grads=grads,
                 new_params=new_params, opt_cfg=opt_cfg, port=port, params=jax.tree.map(np.asarray, params))
 
 
-def test_small_train_step_matches_jax(small_step, record_property):
-    s = small_step
+@pytest.fixture(scope="module")
+def small_step():
+    return jax_small_step(STEP_CFG)
+
+
+def assert_step_matches(s, record_property):
+    """The port's loss, details, gradients and one update against ``jax_small_step``'s."""
     port = s["port"]
     masks = port_ma.ModalityMasks(**{k: None if v is None else torch.from_numpy(v) for k, v in s["masks"].items()})
     assert bool(masks.ray_dirs.any()) and not bool(masks.depth_sparsification_keep.all())
@@ -293,6 +297,25 @@ def test_small_train_step_matches_jax(small_step, record_property):
         ulp = np.spacing(np.abs(before[name].numpy()))
         ok = (np.abs(got - ref) <= 1e-3 * lr + ulp) | (np.abs(g) < 1e-3 * np.abs(g).max())
         assert ok.all(), name
+
+
+def test_small_train_step_matches_jax(small_step, record_property):
+    assert_step_matches(small_step, record_property)
+
+
+# The same step with a trunk of 2 heads of 128: the D = 128 instances' plain
+# versions under autograd (tests/test_torch_port_headdim128.py holds them to K8).
+STEP_CFG_H128 = dict(STEP_CFG, info_sharing_dim=256, info_sharing_num_heads=2)
+
+
+def test_small_h128_train_step_matches_jax(monkeypatch, record_property):
+    from test_torch_port_headdim128 import head_dims_seen, trunk_head_dims
+
+    s = jax_small_step(STEP_CFG_H128)
+    assert trunk_head_dims(s["port"]) == {128}
+    seen = head_dims_seen(monkeypatch)
+    assert_step_matches(s, record_property)
+    assert 128 in seen
 
 
 def test_view_parallel_train_step_matches_jax(small_step, tmp_path, record_property):
