@@ -3,11 +3,23 @@
 
     python3 chip_smoke.py                      # every phase
     python3 chip_smoke.py --train-step-only    # phases 1, 2 and 7 alone
+    python3 chip_smoke.py --forward-edges-only # phases 1, 2 and 3f alone
 
 Phases, each printing one JSON line:
   1. the card's name and power limit, as nvidia-smi reports them;
   2. build: nvcc compiles every kernel source from csrc/ into build/, one
-     process per source, side by side;
+     process per source, side by side; the line gives each kernel
+     instance's registers, spills and shared memory (-Xptxas -v, and the
+     bf16 forward's dynamic shared memory), and cuobjdump -sass of the
+     forward library must show HGMMA (wgmma) and UTMALDG (TMA loads) in
+     every fa_fwd_bf16 instance;
+  3f. the bf16 forward's edges: both forms (lse-free and lse) at D = 64
+     and 128 against their plain versions under phase 3's rule, at
+     T = 1, 7, 64, 65, 127, 129 and 1370 and at Tq != Tk (129 against
+     4000, 5476 against 1), and at 320 and 384 work tiles (every block of
+     the persistent grid walks several), on contiguous tensors and on
+     views of fused qkv (and kv) tensors with a non-default scale, the lse
+     on every row;
   3. inference kernel checks: the lse-free attention forward against its
      plain PyTorch version at the inference shapes (encoder, frame and
      global layers in bf16) and one fp32 shape, with kernel, plain and
@@ -42,7 +54,8 @@ Phases, each printing one JSON line:
      CHUNK_MEAN_DIFF_LIMITS;
   6. train slice check: the small fp32 train step with every geometric
      input, fixed masks with depth sparsification, cuda against cpu: loss,
-     loss details and every gradient, then the parameters after two steps;
+     loss details and every gradient (the worst leaf named, with its
+     magnitude and the gap), then the parameters after two steps;
   7. the flagship bf16 train step on 1 x 4 views at 518 px (bench.py's
      LossBatch, GeometricInputConfig() masks), 2 warm-up and 5 timed steps,
      launch counts per step, finite loss and grad norm, finite gradients, a
@@ -83,7 +96,8 @@ Phases, each printing one JSON line:
      under phase 3's rule, with kernel, plain, torch SDPA and bound times;
   14. phases 4 and 6 for MapAnythingConfig.small(info_sharing_num_heads=2)
      (trunk heads of 256 / 2 = 128): the fp32 forward and train step on cuda
-     against cpu, which launch the fp32 D = 128 instances;
+     against cpu, which launch the fp32 D = 128 instances; the step's line
+     names its worst gradient leaf with the leaf's magnitude and the gap;
   15. phase 5 for flagship-h128: the bf16 forward on 1 x 8 x 518, launches
      by key length and head dim (24 at D = 64; 12 at 1369 and 12 at 10953
      tokens at D = 128), ms, views/s, peak memory, output invariants;
@@ -96,8 +110,10 @@ outputs against the unsharded forward. A machine with one card skips this.
 Phases 11-13 run after phase 5, before phase 6; phase 3e after 3d; phases
 14-16 after phase 7, before phase 8. Then the kernels' summary line and,
 last, {"ok": true, "device": {...}}.
-With --train-step-only, phase 7 runs in a fresh process after the build and
-the script stops after its line, printing neither the summary nor the ok line.
+Phase 3f runs right after the build. With --train-step-only, phase 7 runs in
+a fresh process after the build and the script stops after its line, printing
+neither the summary nor the ok line; with --forward-edges-only, phase 3f runs
+after the build and the script stops there, the same way.
 Any failed check raises and the script exits non-zero. Without a CUDA device,
 or without the port beside it, it exits non-zero and prints no result.
 """
@@ -108,6 +124,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -321,6 +338,101 @@ H128_TRAIN_REPLACES = {  # K4 single-pass at the frame layers' lse forward, else
     "flash_attention_bwd_dq": dict.fromkeys(("frame_h128", "global_h128", "fp32_global_h128"), f"{FA}:306"),
     "flash_attention_bwd_dkv": dict.fromkeys(("frame_h128", "global_h128", "fp32_global_h128"), f"{FA}:339"),
 }
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers, spills and static shared memory of each kernel instance, from
+    nvcc's -Xptxas -v output, by mangled name; and ptxas' warnings."""
+    report, name, warnings = {}, None, []
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            name = entry.group(1)
+            report[name] = {}
+        elif "warning" in line.lower() or "Performance Loss" in line:
+            warnings.append(line.strip())
+        elif name is not None:
+            for key, pattern in (("registers", r"Used (\d+) registers"), ("spill_stores", r"(\d+) bytes spill stores"),
+                                 ("spill_loads", r"(\d+) bytes spill loads"), ("static_smem", r"(\d+) bytes smem")):
+                found = re.search(pattern, line)
+                if found:
+                    report[name][key] = int(found.group(1))
+    return {"instances": report, "warnings": warnings}
+
+
+# Phase 2: the bf16 forward's instances by (D, lse) and the SASS each must hold:
+# HGMMA is wgmma, UTMALDG a TMA load.
+FWD_BF16_INSTANCES = {(d, lse): f"fa_fwd_bf16ILi{d}ELb{int(lse)}E" for d in (64, 128) for lse in (False, True)}
+FWD_BF16_SASS = ("HGMMA", "UTMALDG")
+
+
+def forward_sass_check(lib: Path) -> dict:
+    """Phase 2: cuobjdump -sass of the forward library; every fa_fwd_bf16 instance
+    must contain HGMMA and UTMALDG. Returns their counts by instance."""
+    from mapanything_tpu_torch.ops import _build
+
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
+    functions = {f.split("\n", 1)[0].strip(): f for f in sass.split("Function : ")[1:]}
+    counts = {}
+    for (d, lse), key in FWD_BF16_INSTANCES.items():
+        bodies = [body for fname, body in functions.items() if key in fname]
+        if len(bodies) != 1:
+            raise AssertionError(f"cuobjdump shows {len(bodies)} functions named like {key}")
+        counts[key] = {op: bodies[0].count(op) for op in FWD_BF16_SASS}
+    missing = {key: c for key, c in counts.items() if not all(c.values())}
+    if missing:
+        raise AssertionError(f"fa_fwd_bf16 instances without wgmma or TMA in their SASS: {missing}")
+    return counts
+
+
+# Phase 3f: (Tq, Tk, B, H) of each case: square lengths and Tq != Tk pairs at B = 2,
+# H = 3; then more than 2 x 132 work tiles of 128 query rows, so that every block of
+# the persistent grid walks several, with one key tile each and with six.
+EDGE_CASES = ([(t, t, 2, 3) for t in (1, 7, 64, 65, 127, 129, 1370)] + [(129, 4000, 2, 3), (5476, 1, 2, 3)]
+              + [(65, 65, 16, 20), (400, 1000, 4, 24)])
+EDGE_SCALE = 0.3  # the fused-layout cases' scale; the contiguous cases take D ** -0.5
+
+
+def forward_edge_checks(card) -> list:
+    """Phase 3f: the bf16 forward, lse-free and lse, at D = 64 and 128 against its
+    plain version under phase 3's rule, at the edge shapes; o and the lse of every row."""
+    import torch
+
+    from mapanything_tpu_torch.ops import flash_attention as fa
+
+    cases = []
+    for d in fa.HEAD_DIMS:
+        for tq, tk, b, h in EDGE_CASES:
+            for layout in ("contiguous", "fused"):
+                gen = torch.Generator(device="cuda").manual_seed(tq * 7919 + tk + d)
+                if layout == "contiguous":
+                    q, k, v = (torch.randn(b, t, h, d, device="cuda", generator=gen).bfloat16() for t in (tq, tk, tk))
+                    scale = d**-0.5
+                elif tq == tk:  # views of one fused qkv tensor
+                    q, k, v = torch.randn(b, tq, 3, h, d, device="cuda", generator=gen).bfloat16().unbind(2)
+                    scale = EDGE_SCALE
+                else:  # q from a fused qkv tensor, k and v from a fused kv tensor
+                    q = torch.randn(b, tq, 3, h, d, device="cuda", generator=gen).bfloat16()[:, :, 0]
+                    k, v = torch.randn(b, tk, 2, h, d, device="cuda", generator=gen).bfloat16().unbind(2)
+                    scale = EDGE_SCALE
+                o_free = fa.flash_attention(q, k, v, scale)
+                o_lse, lse = fa.flash_attention_lse(q, k, v, scale)
+                torch.cuda.synchronize()
+                o_exact, lse_exact = fa.attention_lse_reference(q.float(), k.float(), v.float(), scale)
+                o_plain, lse_plain = fa.attention_lse_reference(q, k, v, scale)
+                for form, out, exact, plain in (("o", o_free, o_exact, o_plain), ("o_lse", o_lse, o_exact, o_plain),
+                                                ("lse", lse, lse_exact, lse_plain)):
+                    err, tol = max_err(out, exact), tolerance(max_err(plain, exact), exact)
+                    cases.append({"d": d, "tq": tq, "tk": tk, "b": b, "h": h, "layout": layout, "out": form,
+                                  "err": err, "tol": tol, "finite": bool(torch.isfinite(out).all())})
+    bad = [c for c in cases if not (c["finite"] and c["err"] <= c["tol"])]
+    emit({"phase": "forward_edge_check", "phase_id": "3f", "cases": len(cases),
+          "worst": max(cases, key=lambda c: c["err"] / max(c["tol"], 1e-30)), "failed": bad,
+          "card": card["name"], "power_limit": card["power_limit"]})
+    if bad:
+        raise AssertionError(f"the bf16 forward disagrees with its plain version at {len(bad)} edge cases: {bad[:4]}")
+    return cases
 
 
 def tolerance(err_plain: float, ref) -> float:
@@ -1107,10 +1219,17 @@ def train_slice_check(trunk_heads=None):
     # a gradient element at rounding level may take either sign on either device.
     param_errs = {n: rel_err(gpu["params"][n], p, floor=1.0) for n, p in cpu["params"].items()}
     worst = lambda d: max(d.items(), key=lambda kv: kv[1])  # noqa: E731
+    # The worst gradient leaf: its name, its magnitude max|g| on the cpu and the gap
+    # max|g_cuda - g_cpu|, whose ratio is the relative error held to rtol.
+    leaf = worst(grad_errs)[0]
+    g_cpu, g_cuda = cpu["grads"][leaf].double(), gpu["grads"][leaf].detach().double().cpu()
+    worst_leaf = {"name": leaf, "magnitude": g_cpu.abs().max().item(), "gap": (g_cuda - g_cpu).abs().max().item(),
+                  "rel_err": grad_errs[leaf]}
     emit({"phase": "train_slice_check" if trunk_heads is None else "train_slice_check_h128",
           "config": f"small{'' if trunk_heads is None else f'(info_sharing_num_heads={trunk_heads})'} fp32 1x2x56x56, "
                     "all geometric inputs",
-          "rtol": rtol, "errors": errs, "worst_grad": worst(grad_errs), "worst_param_after_2_steps": worst(param_errs),
+          "rtol": rtol, "errors": errs, "worst_grad": worst(grad_errs), "worst_grad_leaf": worst_leaf,
+          "worst_param_after_2_steps": worst(param_errs),
           "cuda_launches": gpu["counts"], "cuda_launches_by_shape": shape_counts(gpu["shapes"])})
     if trunk_heads is not None:
         check_head_dim_launches(by_head_dim(gpu["shapes"]), cfg.info_sharing_dim // trunk_heads,
@@ -1553,6 +1672,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the PyTorch port on one NVIDIA GPU.")
     parser.add_argument("--train-step-only", action="store_true",
                         help="build the kernels, then run phase 7 alone and stop after its line")
+    parser.add_argument("--forward-edges-only", action="store_true",
+                        help="build the kernels, then run phase 3f alone and stop after its line")
     args = parser.parse_args()
     import torch
 
@@ -1579,15 +1700,26 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build(*KERNEL_STEMS)
     build_s = time.perf_counter() - t0
-    ptxas = []
+    instances, warnings = {}, []
     for lib in libs:
         log = lib.with_suffix(".log").read_text() if lib.with_suffix(".log").exists() else ""
-        ptxas += [ln.strip() for ln in log.splitlines()
-                  if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "kernels": list(KERNEL_STEMS), "seconds": build_s, "ptxas": ptxas})
+        report = ptxas_report(log)
+        instances.update(report["instances"])
+        warnings += report["warnings"]
+    smem_of = _build.load(KERNEL_STEMS[0]).flash_attention_fwd_bf16_smem
+    for (d, _), key in FWD_BF16_INSTANCES.items():
+        for name, report in instances.items():
+            if key in name:
+                report["dynamic_smem"] = smem_of(d)
+    sass = forward_sass_check(libs[0])
+    emit({"phase": "build", "kernels": list(KERNEL_STEMS), "seconds": build_s, "instances": instances,
+          "ptxas_warnings": warnings, "fwd_bf16_sass": sass})
 
     if args.train_step_only:
         flagship_train(card)
+        return 0
+    forward_edge_checks(card)
+    if args.forward_edges_only:
         return 0
     rows = kernel_checks(card, ATTENTION_SHAPES, "3")
     train_rows = train_kernel_checks(card)

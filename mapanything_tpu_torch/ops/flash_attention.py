@@ -12,6 +12,13 @@ is K8's regime on the TPU (``d % 128 == 0``: ``_fwd_kernel``,
 ``_fwd_kernel_lse``, ``_dq_kernel``, ``_dkv_kernel``). The plain versions
 below take any head dim: they are the plain version of K8 as they are of K1-K7.
 
+The bf16 forward is Hopper's own design (wgmma, TMA, a producer warpgroup and
+two consumer warpgroups): it reads q, k and v in place through 4-D TMA tensor
+maps, whose layout (dims, byte strides, box) ``tensor_map`` computes from each
+tensor at each call; the C entry point encodes them with the driver's
+``cuTensorMapEncodeTiled``, found through the runtime. Its tile plan
+(``FWD_TILES``) is the kernel's, which refuses maps of another box.
+
 Routing. ``flash_attention`` runs the lse-free forward when no input needs a
 gradient (inference is unchanged); otherwise an autograd Function runs the
 forward with lse, saves q, k, v, o and lse, and its backward launches the dq
@@ -30,6 +37,7 @@ instances apart.
 from __future__ import annotations
 
 import ctypes
+import struct
 from collections import Counter
 from typing import Optional, Tuple
 
@@ -42,6 +50,10 @@ BWD_KERNEL_STEM = "flash_attention_bwd"
 KERNEL_STEMS = (KERNEL_STEM, BWD_KERNEL_STEM)
 HEAD_DIMS = (64, 128)  # head dims the kernels are instantiated for
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+# The bf16 forward's tile plan by head dim, (query rows, key rows) a block: FwdPlan in
+# csrc/flash_attention_fwd.cu, which refuses maps whose boxes differ.
+FWD_TILES = {64: (128, 176), 128: (128, 176)}
+TMA_BOX_COLS = 64  # a box is one 128-byte swizzle row of bf16 wide
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -132,12 +144,45 @@ def attention_bwd_dkv_reference(q, k, v, do, lse, delta, scale):
 _PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
-def _bind(stem: str, name: str, n_ptrs: int, n_strides: int):
+def _bind(stem: str, name: str, n_ptrs: int, n_ints: int, n_strides: int):
     fn = getattr(_build.load(stem), name)
     if fn.argtypes is None:
-        fn.argtypes = [_PTR] * n_ptrs + [_I32] * 6 + [_I64] * n_strides + [ctypes.c_float, _PTR]
+        fn.argtypes = [_PTR] * n_ptrs + [_I32] * n_ints + [_I64] * n_strides + [ctypes.c_float, _PTR]
         fn.restype = ctypes.c_int
     return fn
+
+
+def tensor_map(x: torch.Tensor, box_rows: int) -> Tuple[Tuple[int, ...], Tuple[int, ...], Tuple[int, ...]]:
+    """The layout of the 4-D TMA tensor map through which the bf16 forward reads a
+    (B, T, H, D) tensor in place: (dims, byte strides, box).
+
+    dims are (D, T, H, B), innermost first; the strides are those of T, H and B in
+    bytes (they need not grow: a view of a fused qkv tensor has T-stride 3·H·D and
+    H-stride D); the box is (64, ``box_rows``, 1, 1), one 128-byte swizzle row wide, so
+    a row of D = 128 is two boxes. TMA demands a 16-byte-aligned base, strides that are
+    multiples of 16 bytes and a unit head-dim stride; anything else raises ValueError.
+    """
+    b, t, h, d = x.shape
+    sb, st, sh, sd = x.stride()
+    if sd != 1:
+        raise ValueError(f"the head-dim stride must be 1, got {x.stride()}")
+    if d % TMA_BOX_COLS:
+        raise ValueError(f"head dim {d} is not a multiple of the {TMA_BOX_COLS}-column box")
+    item = x.element_size()
+    strides = (st * item, sh * item, sb * item)
+    if x.data_ptr() % 16 or (strides[0] | strides[1] | strides[2]) % 16:
+        raise ValueError(f"base and strides must be 16-byte aligned, got {x.stride()} at {x.data_ptr():#x}")
+    return (d, t, h, b), strides, (TMA_BOX_COLS, box_rows, 1, 1)
+
+
+_MAPS = struct.Struct("33q")  # three maps of 11 int64: dims[4], strides[3], box[4]
+
+
+def _tensor_maps(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bytes:
+    """q's, k's and v's tensor maps, packed for the C entry point (11 int64 each)."""
+    rows_q, rows_kv = FWD_TILES[q.shape[3]]
+    return _MAPS.pack(*sum(tensor_map(q, rows_q), ()), *sum(tensor_map(k, rows_kv), ()),
+                      *sum(tensor_map(v, rows_kv), ()))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -152,11 +197,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise TypeError(f"flash_attention kernel takes bf16 or fp32, got {q.dtype}/{k.dtype}/{v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
-    align = 16 // q.element_size()  # 16-byte vector loads of each row
+    align = 16 // q.element_size()  # 16-byte vector loads (and TMA boxes) of each row
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.stride(3) != 1:
+        sb, st, sh, sd = x.stride()
+        if sd != 1:
             raise ValueError(f"{name}: the head-dim stride must be 1, got {x.stride()}")
-        if x.data_ptr() % 16 or any(s % align for s in x.stride()[:3]):
+        if x.data_ptr() % 16 or (sb | st | sh) % align:
             raise ValueError(f"{name}: base and strides must be 16-byte aligned, got {x.stride()}")
 
 
@@ -182,17 +228,19 @@ def _launch_fwd(
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     _check(q, k, v)
     b, tq, h, d = q.shape
-    fn = _bind(KERNEL_STEM, "flash_attention_fwd", 5, 9)
     o = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device) if with_lse else None
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None if lse is None else lse.data_ptr())
+    dims = (b, tq, k.shape[1], h, d)
     with torch.cuda.device(q.device):
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            None if lse is None else lse.data_ptr(),
-            _DTYPE_CODES[q.dtype], b, tq, k.shape[1], h, d,
-            *_strides(q, k, v), float(scale), torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on(err, "flash_attention_fwd")
+        stream = torch.cuda.current_stream().cuda_stream
+        if q.dtype == torch.bfloat16:
+            name = "flash_attention_fwd_bf16"
+            err = _bind(KERNEL_STEM, name, 6, 5, 0)(*ptrs, _tensor_maps(q, k, v), *dims, float(scale), stream)
+        else:
+            name = "flash_attention_fwd_f32"
+            err = _bind(KERNEL_STEM, name, 5, 5, 9)(*ptrs, *dims, *_strides(q, k, v), float(scale), stream)
+    _raise_on(err, name)
     return o, lse
 
 
@@ -210,7 +258,7 @@ def _check_bwd(q, k, v, do, lse, delta) -> torch.Tensor:
 
 def _launch_bwd(name, n_out, q, k, v, do, lse, delta, scale, outs):
     b, tq, h, d = q.shape
-    fn = _bind(BWD_KERNEL_STEM, name, 6 + n_out, 12)
+    fn = _bind(BWD_KERNEL_STEM, name, 6 + n_out, 6, 12)
     ptrs = [x.data_ptr() for x in (q, k, v, do, lse, delta, *outs)]
     with torch.cuda.device(q.device):
         err = fn(*ptrs, _DTYPE_CODES[q.dtype], b, tq, k.shape[1], h, d,

@@ -7,10 +7,11 @@ file is in), builds its kernels there and times each kernel with CUDA events:
 the lse-free forward at the flagship forward's encoder, frame and global
 shapes and one fp32 shape (``chip_smoke.py`` phase 3), and the lse forward, dq
 and dk/dv at the 1 x 4 x 518 train step's shapes and one fp32 shape (phase
-3b); with 128 in ``--head-dims``, the same at flagship-h128's trunk shapes
-(phase 3e). To time another commit, unpack it with ``git archive`` into a
-directory that .gitignore lists and pass that as ``--root`` (this file need
-not exist there). Compare two commits only within one call on one card, in
+3b); the long bf16 forwards of phases 3c and 3d (K3's lse-free 1 x 21905 and
+1 x 87617, K7's lse 1 x 21904, all x 12 x 64); with 128 in ``--head-dims``,
+the same at flagship-h128's trunk shapes (phase 3e). To time another commit,
+unpack it with ``git archive`` into a directory that .gitignore lists and pass
+that as ``--root`` (this file need not exist there). Compare two commits only within one call on one card, in
 turns: parent, change, change, parent. Prints one JSON line: the card, the
 root and ms per call of each kernel at each shape.
 """
@@ -28,6 +29,12 @@ FORWARD_SHAPES = {
          "global": (1, 10953, 12, 64, "bfloat16"), "fp32_frame": (8, 1369, 12, 64, "float32")},
     128: {"frame_h128": (8, 1369, 6, 128, "bfloat16"), "global_h128": (1, 10953, 6, 128, "bfloat16"),
           "fp32_global_h128": (1, 5477, 6, 128, "float32")},
+}
+# name -> (B, T, H, D, with lse): the long bf16 forwards (phases 3c and 3d), D = 64 only.
+LONG_SHAPES = {
+    "k3_global_16_views": (1, 21905, 12, 64, False),
+    "k3_global_64_views": (1, 87617, 12, 64, False),
+    "k7_ring_16_views": (1, 21904, 12, 64, True),
 }
 TRAIN_SHAPES = {
     64: {"encoder": (4, 1370, 16, 64, "bfloat16"), "frame": (4, 1369, 12, 64, "bfloat16"),
@@ -85,6 +92,13 @@ def main() -> int:
             times[f"dq/{name}"] = cuda_time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale), iters)
             times[f"dkv/{name}"] = cuda_time_ms(
                 lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale), iters)
+        if d == 64:
+            for name, (b, t, h, hd, with_lse) in LONG_SHAPES.items():
+                q, k, v = torch.randn(b, t, 3, h, hd, device="cuda", generator=gen).bfloat16().unbind(2)
+                fwd = fa.flash_attention_lse if with_lse else fa.flash_attention
+                iters = 3 if t > 50000 else 10
+                times[f"{'lse' if with_lse else 'fwd'}/{name}"] = cuda_time_ms(
+                    lambda: fwd(q, k, v, hd**-0.5), iters, warmup=1)
     print(json.dumps({"card": torch.cuda.get_device_name(0), "root": str(args.root), "ms": times}), flush=True)
     return 0
 

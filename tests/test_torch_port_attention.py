@@ -38,6 +38,7 @@ from mapanything_tpu_torch.ops.flash_attention import (
     flash_attention_lse,
     launch_counts,
     reset_launch_counts,
+    tensor_map,
 )
 from mapanything_tpu_torch.utils import threads
 
@@ -127,6 +128,37 @@ def test_kernel_wrapper_rejects_unit_stride_violations():
     x = torch.zeros(1, 8, 2, 128)[..., ::2]  # head-dim stride 2
     with pytest.raises(ValueError, match="head-dim stride"):
         _check(x, x, x)
+
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize(
+    "make,rows,want",
+    [
+        # contiguous (B, T, H, D): byte strides of T, H, B are H·D·2, D·2, T·H·D·2
+        (lambda: _bf16(2, 50, 4, 64), 128, ((64, 50, 4, 2), (512, 128, 25600), (64, 128, 1, 1))),
+        (lambda: _bf16(2, 50, 4, 128), 128, ((128, 50, 4, 2), (1024, 256, 51200), (64, 128, 1, 1))),
+        # q of a fused qkv (B, T, 3, H, D): T-stride 3·H·D, H-stride D, not monotonic
+        (lambda: _bf16(2, 50, 3, 4, 64).unbind(2)[0], 128, ((64, 50, 4, 2), (1536, 128, 76800), (64, 128, 1, 1))),
+        (lambda: _bf16(1, 9, 3, 6, 128).unbind(2)[2], 128, ((128, 9, 6, 1), (4608, 256, 41472), (64, 128, 1, 1))),
+        # one token
+        (lambda: _bf16(1, 1, 6, 128), 128, ((128, 1, 6, 1), (1536, 256, 1536), (64, 128, 1, 1))),
+        # a misaligned base (2 bytes in) and a misaligned token stride (68 columns)
+        (lambda: _bf16(1 + 5 * 2 * 64)[1:].view(1, 5, 2, 64), 128, "16-byte aligned"),
+        (lambda: _bf16(1, 5, 2, 68)[..., :64], 128, "16-byte aligned"),
+        (lambda: _bf16(1, 5, 2, 128)[..., ::2], 128, "head-dim stride"),
+    ],
+)
+def test_tensor_map_layout(make, rows, want):
+    # The bf16 forward's TMA maps: dims (D, T, H, B), byte strides of T, H, B, box (64, rows, 1, 1).
+    x = make()
+    if isinstance(want, str):
+        with pytest.raises(ValueError, match=want):
+            tensor_map(x, rows)
+    else:
+        assert tensor_map(x, rows) == want
 
 
 def test_flop_and_byte_counts():
