@@ -4,15 +4,16 @@
     python3 chip_smoke.py                      # every phase
     python3 chip_smoke.py --train-step-only    # phases 1, 2 and 7 alone
     python3 chip_smoke.py --forward-edges-only # phases 1, 2 and 3f alone
+    python3 chip_smoke.py --backward-edges-only  # phases 1, 2 and 3g alone
 
 Phases, each printing one JSON line:
   1. the card's name and power limit, as nvidia-smi reports them;
   2. build: nvcc compiles every kernel source from csrc/ into build/, one
      process per source, side by side; the line gives each kernel
      instance's registers, spills and shared memory (-Xptxas -v, and the
-     bf16 forward's dynamic shared memory), and cuobjdump -sass of the
-     forward library must show HGMMA (wgmma) and UTMALDG (TMA loads) in
-     every fa_fwd_bf16 instance;
+     bf16 instances' dynamic shared memory), and cuobjdump -sass of each
+     library must show HGMMA (wgmma) and UTMALDG (TMA loads) in every
+     fa_fwd_bf16, fa_bwd_dq_bf16 and fa_bwd_dkv_bf16 instance;
   3f. the bf16 forward's edges: both forms (lse-free and lse) at D = 64
      and 128 against their plain versions under phase 3's rule, at
      T = 1, 7, 64, 65, 127, 129 and 1370 and at Tq != Tk (129 against
@@ -20,6 +21,12 @@ Phases, each printing one JSON line:
      the persistent grid walks several), on contiguous tensors and on
      views of fused qkv (and kv) tensors with a non-default scale, the lse
      on every row;
+  3g. the bf16 backward's edges: dq and dk/dv at D = 64 and 128 against
+     their plain versions under phase 3's rule at phase 3f's shapes and
+     layouts (dO a view of a wider tensor in the fused layout), fed the
+     statistics of the plain forward (of a merged softmax where there is one
+     key, and in one more case, as the ring feeds them); each kernel called
+     twice, the outputs bitwise equal;
   3. inference kernel checks: the lse-free attention forward against its
      plain PyTorch version at the inference shapes (encoder, frame and
      global layers in bf16) and one fp32 shape, with kernel, plain and
@@ -27,8 +34,8 @@ Phases, each printing one JSON line:
   3b. training kernel checks: the forward with lse, the dq and the dk/dv
      kernels against their plain versions at the 1 x 4 x 518 training
      shapes in bf16 and one fp32 long shape, with kernel, plain and library
-     times (torch SDPA forward with autograd on; its backward alone) and
-     bounds;
+     times (torch SDPA forward with autograd on; its backward alone, beside
+     the whole flash_attention_bwd_lse: delta, dq and dk/dv) and bounds;
   4. slice check: MapAnythingConfig.small(), 2 views at 56 px in fp32, the same
      seeded weights on cuda and on cpu, every prediction compared;
   5. inference: the flagship MapAnythingConfig(compute_dtype="bfloat16")
@@ -110,10 +117,11 @@ outputs against the unsharded forward. A machine with one card skips this.
 Phases 11-13 run after phase 5, before phase 6; phase 3e after 3d; phases
 14-16 after phase 7, before phase 8. Then the kernels' summary line and,
 last, {"ok": true, "device": {...}}.
-Phase 3f runs right after the build. With --train-step-only, phase 7 runs in
-a fresh process after the build and the script stops after its line, printing
-neither the summary nor the ok line; with --forward-edges-only, phase 3f runs
-after the build and the script stops there, the same way.
+Phases 3f and 3g run right after the build. With --train-step-only, phase 7
+runs in a fresh process after the build and the script stops after its line,
+printing neither the summary nor the ok line; with --forward-edges-only, phase
+3f runs after the build and the script stops there, the same way; with
+--backward-edges-only, phase 3g.
 Any failed check raises and the script exits non-zero. Without a CUDA device,
 or without the port beside it, it exits non-zero and prints no result.
 """
@@ -360,29 +368,31 @@ def ptxas_report(log: str) -> dict:
     return {"instances": report, "warnings": warnings}
 
 
-# Phase 2: the bf16 forward's instances by (D, lse) and the SASS each must hold:
-# HGMMA is wgmma, UTMALDG a TMA load.
+# Phase 2: the bf16 instances whose SASS must hold HGMMA (wgmma) and UTMALDG (a TMA
+# load): the forward's by (D, lse) in the forward library, the backward's by (kernel, D)
+# in the backward library.
 FWD_BF16_INSTANCES = {(d, lse): f"fa_fwd_bf16ILi{d}ELb{int(lse)}E" for d in (64, 128) for lse in (False, True)}
-FWD_BF16_SASS = ("HGMMA", "UTMALDG")
+BWD_BF16_INSTANCES = {(kernel, d): f"fa_bwd_{kernel}_bf16ILi{d}E" for kernel in ("dq", "dkv") for d in (64, 128)}
+BF16_SASS = ("HGMMA", "UTMALDG")
 
 
-def forward_sass_check(lib: Path) -> dict:
-    """Phase 2: cuobjdump -sass of the forward library; every fa_fwd_bf16 instance
-    must contain HGMMA and UTMALDG. Returns their counts by instance."""
+def sass_check(lib: Path, instances: dict) -> dict:
+    """Phase 2: cuobjdump -sass of one kernel library; every instance named in
+    ``instances`` must contain HGMMA and UTMALDG. Returns their counts by instance."""
     from mapanything_tpu_torch.ops import _build
 
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
     functions = {f.split("\n", 1)[0].strip(): f for f in sass.split("Function : ")[1:]}
     counts = {}
-    for (d, lse), key in FWD_BF16_INSTANCES.items():
+    for key in instances.values():
         bodies = [body for fname, body in functions.items() if key in fname]
         if len(bodies) != 1:
             raise AssertionError(f"cuobjdump shows {len(bodies)} functions named like {key}")
-        counts[key] = {op: bodies[0].count(op) for op in FWD_BF16_SASS}
+        counts[key] = {op: bodies[0].count(op) for op in BF16_SASS}
     missing = {key: c for key, c in counts.items() if not all(c.values())}
     if missing:
-        raise AssertionError(f"fa_fwd_bf16 instances without wgmma or TMA in their SASS: {missing}")
+        raise AssertionError(f"bf16 instances without wgmma or TMA in their SASS: {missing}")
     return counts
 
 
@@ -432,6 +442,87 @@ def forward_edge_checks(card) -> list:
           "card": card["name"], "power_limit": card["power_limit"]})
     if bad:
         raise AssertionError(f"the bf16 forward disagrees with its plain version at {len(bad)} edge cases: {bad[:4]}")
+    return cases
+
+
+def backward_edge_inputs(d, tq, tk, b, h, layout, gen):
+    """q, k, v, dO and the scale of one phase-3g case: contiguous tensors, or views of
+    fused qkv (or q and kv) tensors with dO a view of a wider tensor."""
+    import torch
+
+    if layout == "contiguous":
+        q, k, v, do = (torch.randn(b, t, h, d, device="cuda", generator=gen).bfloat16() for t in (tq, tk, tk, tq))
+        return q, k, v, do, d**-0.5
+    if tq == tk:
+        q, k, v = torch.randn(b, tq, 3, h, d, device="cuda", generator=gen).bfloat16().unbind(2)
+    else:
+        q = torch.randn(b, tq, 3, h, d, device="cuda", generator=gen).bfloat16()[:, :, 0]
+        k, v = torch.randn(b, tk, 2, h, d, device="cuda", generator=gen).bfloat16().unbind(2)
+    do = torch.randn(b, tq, 2, h, d, device="cuda", generator=gen).bfloat16()[:, :, 1]
+    return q, k, v, do, EDGE_SCALE
+
+
+def backward_edge_checks(card) -> list:
+    """Phase 3g: the bf16 dq and dk/dv kernels at D = 64 and 128 against their plain
+    versions under phase 3's rule, at phase 3f's edge shapes, on contiguous and fused
+    layouts, and once fed a merged lse as the ring feeds them; each kernel called twice,
+    its outputs bitwise equal. Cases with one key take merged statistics too: against
+    their own, P = 1 and dS = dP - delta = 0 exactly, so dq and dk are rounding noise
+    that no rule relative to their magnitude can hold."""
+    import torch
+
+    from mapanything_tpu_torch.ops import flash_attention as fa
+    from mapanything_tpu_torch.parallel.sharded_attention import _block_attn_lse, _merge_lse
+
+    def statistics(q, k, v, do, scale, gen):
+        """lse and delta of the softmax over these keys, or (``gen`` given) over these
+        keys and a 1-token block of its own, merged through the lse as the ring does."""
+        part = fa.attention_lse_reference(q.float(), k.float(), v.float(), scale)
+        if gen is not None:
+            ke, ve = torch.randn(2, q.shape[0], 1, q.shape[2], q.shape[3], device="cuda", generator=gen).bfloat16()
+            part = _merge_lse([part, _block_attn_lse(q, ke, ve, scale)])
+        o, lse = part
+        return lse.contiguous(), fa.attention_bwd_delta(o, do).contiguous()
+
+    cases = []
+
+    def check(case, q, k, v, do, lse, delta, scale):
+        got = {"dq": fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)}
+        got["dk"], got["dv"] = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)
+        again = {"dq": fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)}
+        again["dk"], again["dv"] = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)
+        torch.cuda.synchronize()
+        xf = [x.float() for x in (q, k, v, do)]
+        exact = {"dq": fa.attention_bwd_dq_reference(*xf, lse, delta, scale)}
+        exact["dk"], exact["dv"] = fa.attention_bwd_dkv_reference(*xf, lse, delta, scale)
+        plain = {"dq": fa.attention_bwd_dq_reference(q, k, v, do, lse, delta, scale)}
+        plain["dk"], plain["dv"] = fa.attention_bwd_dkv_reference(q, k, v, do, lse, delta, scale)
+        for out in got:
+            err, tol = max_err(got[out], exact[out]), tolerance(max_err(plain[out], exact[out]), exact[out])
+            cases.append({**case, "out": out, "err": err, "tol": tol, "finite": bool(torch.isfinite(got[out]).all()),
+                          "repeatable": bool(torch.equal(got[out], again[out]))})
+
+    for d in fa.HEAD_DIMS:
+        for tq, tk, b, h in EDGE_CASES:
+            for layout in ("contiguous", "fused"):
+                gen = torch.Generator(device="cuda").manual_seed(tq * 7919 + tk + d + 1)
+                q, k, v, do, scale = backward_edge_inputs(d, tq, tk, b, h, layout, gen)
+                merged = tk == 1
+                lse, delta = statistics(q, k, v, do, scale, gen if merged else None)
+                check({"d": d, "tq": tq, "tk": tk, "b": b, "h": h, "layout": layout, "merged_lse": merged},
+                      q, k, v, do, lse, delta, scale)
+        gen = torch.Generator(device="cuda").manual_seed(d)
+        q, k, v, do = (torch.randn(1, 1370, 4, d, device="cuda", generator=gen).bfloat16() for _ in range(4))
+        lse, delta = statistics(q, k, v, do, d**-0.5, gen)
+        check({"d": d, "tq": 1370, "tk": 1370, "b": 1, "h": 4, "layout": "contiguous", "merged_lse": True},
+              q, k, v, do, lse, delta, d**-0.5)
+    bad = [c for c in cases if not (c["finite"] and c["repeatable"] and c["err"] <= c["tol"])]
+    emit({"phase": "backward_edge_check", "phase_id": "3g", "cases": len(cases),
+          "worst": max(cases, key=lambda c: c["err"] / max(c["tol"], 1e-30)), "failed": bad,
+          "card": card["name"], "power_limit": card["power_limit"]})
+    if bad:
+        raise AssertionError(f"the bf16 backward disagrees with its plain version or itself at {len(bad)} edge "
+                             f"cases: {bad[:4]}")
     return cases
 
 
@@ -510,6 +601,8 @@ def train_kernel_checks(card, shapes=TRAIN_SHAPES, replaces=TRAIN_REPLACES, phas
             lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot, retain_graph=True), iters=20
         )
         del sdpa_out, qt, kt, vt
+        # Like for like with SDPA's backward, which computes its own delta: the whole of ours.
+        bwd_lse_ms = cuda_time_ms(lambda: fa.flash_attention_bwd_lse(q, k, v, o, lse, do, scale), iters=20)
         peak = bf16_peak if dtype == torch.bfloat16 else f32_peak
         item = q.element_size()
         io_fwd = fa.attention_bytes(b, t, t, h, d, item) + 4 * b * h * t
@@ -542,7 +635,7 @@ def train_kernel_checks(card, shapes=TRAIN_SHAPES, replaces=TRAIN_REPLACES, phas
             "dtype": dtype_name,
             "max_abs_err": errs, "plain_err": plain_errs, "tol": tols, "kernels": kernels,
             "backward_ms": times["flash_attention_bwd_dq"][0] + times["flash_attention_bwd_dkv"][0],
-            "backward_bound_ms": bwd_bound_ms, "library_bwd_ms": library_bwd_ms,
+            "backward_bound_ms": bwd_bound_ms, "library_bwd_ms": library_bwd_ms, "bwd_lse_ms": bwd_lse_ms,
             "per_step": per_step, "card": card["name"], "power_limit": card["power_limit"],
         }
         emit(row)
@@ -689,6 +782,7 @@ def long_kernel_checks(card):
     library_bwd_ms = cuda_time_ms(
         lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), iters=10)
     del sdpa_out, qt, kt, vt
+    bwd_lse_ms = cuda_time_ms(lambda: fa.flash_attention_bwd_lse(q, k, v, o, lse, do, scale), iters=10)
     io_stats = 2 * 4 * b * h * t
     kernels = {}
     for kname, fn, plain_fn, flop, nbytes in (
@@ -705,7 +799,8 @@ def long_kernel_checks(card):
                           "bound_by": "operations" if t_ops >= t_bytes else "bytes", "tflops": flop / ms / 1e9}
     row = {"phase": "long_kernel_check", "shape": "ring_bwd_4_views_merged_lse", "b_t_h_d": [b, t, h, d],
            "dtype": "bfloat16", "max_abs_err": errs, "plain_err": plain_errs, "tol": tols, "kernels": kernels,
-           "library_bwd_ms": library_bwd_ms, "card": card["name"], "power_limit": card["power_limit"]}
+           "library_bwd_ms": library_bwd_ms, "bwd_lse_ms": bwd_lse_ms, "card": card["name"],
+           "power_limit": card["power_limit"]}
     emit(row)
     bad = {key: (errs[key], tols[key]) for key in errs if not errs[key] <= tols[key]}
     if not finite or bad:
@@ -1674,6 +1769,8 @@ def main() -> int:
                         help="build the kernels, then run phase 7 alone and stop after its line")
     parser.add_argument("--forward-edges-only", action="store_true",
                         help="build the kernels, then run phase 3f alone and stop after its line")
+    parser.add_argument("--backward-edges-only", action="store_true",
+                        help="build the kernels, then run phase 3g alone and stop after its line")
     args = parser.parse_args()
     import torch
 
@@ -1706,20 +1803,27 @@ def main() -> int:
         report = ptxas_report(log)
         instances.update(report["instances"])
         warnings += report["warnings"]
-    smem_of = _build.load(KERNEL_STEMS[0]).flash_attention_fwd_bf16_smem
-    for (d, _), key in FWD_BF16_INSTANCES.items():
+    fwd_smem = _build.load(KERNEL_STEMS[0]).flash_attention_fwd_bf16_smem
+    bwd_smem = _build.load(KERNEL_STEMS[1]).flash_attention_bwd_bf16_smem
+    dynamic = {key: fwd_smem(d) for (d, _), key in FWD_BF16_INSTANCES.items()}
+    dynamic.update({key: bwd_smem(0 if kernel == "dq" else 1, d) for (kernel, d), key in BWD_BF16_INSTANCES.items()})
+    for key, nbytes in dynamic.items():
         for name, report in instances.items():
             if key in name:
-                report["dynamic_smem"] = smem_of(d)
-    sass = forward_sass_check(libs[0])
+                report["dynamic_smem"] = nbytes
     emit({"phase": "build", "kernels": list(KERNEL_STEMS), "seconds": build_s, "instances": instances,
-          "ptxas_warnings": warnings, "fwd_bf16_sass": sass})
+          "ptxas_warnings": warnings, "fwd_bf16_sass": sass_check(libs[0], FWD_BF16_INSTANCES),
+          "bwd_bf16_sass": sass_check(libs[1], BWD_BF16_INSTANCES)})
 
     if args.train_step_only:
         flagship_train(card)
         return 0
-    forward_edge_checks(card)
+    if not args.backward_edges_only:
+        forward_edge_checks(card)
     if args.forward_edges_only:
+        return 0
+    backward_edge_checks(card)
+    if args.backward_edges_only:
         return 0
     rows = kernel_checks(card, ATTENTION_SHAPES, "3")
     train_rows = train_kernel_checks(card)

@@ -1,11 +1,9 @@
 // Device helpers of the port's attention kernels (flash_attention_fwd.cu and
-// flash_attention_bwd.cu). Both: ex2, bf16 packing, the tiles' shared memory and the
-// launch. The backward: cp.async staging into XOR-swizzled tiles,
-// mma.sync m16n8k16 (bf16 in, fp32 accumulate), ldmatrix, and the A operand of a warp's
-// 16-row products, held in registers or in shared memory. The bf16 forward, Hopper's own
-// (sm_90a): mbarriers, TMA loads through tensor maps, wgmma with its shared-memory
-// descriptors, named barriers and setmaxnreg.
-// Tile sizes belong to each kernel instance (see the traits in each source).
+// flash_attention_bwd.cu): ex2, bf16 packing, the fp32 instances' shared memory and the
+// launch; and the bf16 instances' Hopper (sm_90a) primitives: mbarriers, TMA loads
+// through tensor maps (encoded on the host from the layout ops/flash_attention.py's
+// tensor_map computes), wgmma with its shared-memory descriptors, named barriers and
+// setmaxnreg. Tile sizes belong to each kernel instance (see the plans in each source).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and the driver's enums; the header alone, nothing is linked
@@ -13,7 +11,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <atomic>
+#include <climits>
 #include <cmath>
 
 namespace {
@@ -28,9 +28,9 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// BYTES of shared memory for the block's tiles: a static array when it fits the 48 KB
-// that static shared memory allows (every D = 64 instance), else the block's dynamic
-// shared memory, which the launch sizes (launch() below).
+// BYTES of shared memory for the block's tiles (the fp32 instances): a static array when
+// it fits the 48 KB that static shared memory allows, else the block's dynamic shared
+// memory, which the launch sizes (launch() below).
 template <int BYTES>
 __device__ __forceinline__ unsigned char* block_smem() {
   if constexpr (BYTES <= kStaticSmemLimit) {
@@ -42,115 +42,10 @@ __device__ __forceinline__ unsigned char* block_smem() {
   }
 }
 
-// 16-byte async copy global -> shared; src_bytes = 0 zero-fills the destination.
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// d += a * b for one 16x8x16 tile, bf16 inputs, fp32 accumulation.
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
 }
-
-// Element offset of (row, col) in a [rows][D] bf16 tile whose 16-byte chunks are
-// XOR-swizzled by the row's low three bits. Conflict-free at D = 64 and D = 128 alike:
-// a row is 8 or 16 chunks, and the XOR on the low three chunk bits sends the same
-// chunk of 8 consecutive rows to 8 different 16-byte bank groups.
-template <int D>
-__device__ __forceinline__ int swz(int row, int col) {
-  return row * D + ((((col >> 3) ^ (row & 7))) << 3) + (col & 7);
-}
-
-template <int D>
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* tile, int row, int col) {
-  return *reinterpret_cast<const uint32_t*>(tile + swz<D>(row, col));
-}
-
-// Stage rows [row0, row0 + ROWS) of one (batch, head) slice into a swizzled tile with
-// THREADS threads; rows at or past `rows_total` are zero-filled.
-template <int D, int ROWS, int THREADS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* base,
-                                          long long stride_t, int row0, int rows_total,
-                                          int tid) {
-  constexpr int kChunks = D / 8;
-#pragma unroll
-  for (int i = tid; i < ROWS * kChunks; i += THREADS) {
-    const int r = i / kChunks, c = i % kChunks;
-    const int gr = row0 + r;
-    const bool valid = gr < rows_total;
-    const __nv_bfloat16* src = base + static_cast<long long>(valid ? gr : 0) * stride_t + c * 8;
-    cp_async_16(dst + swz<D>(r, c * 8), src, valid);
-  }
-}
-
-// The A operand (16 rows x D) of a warp's products, rows r0 .. r0+15 of a swizzled tile.
-// RegA loads its fragments into registers once; SmemA reads them from the tile at each
-// use, which frees D / 4 registers a thread where the D = 128 instances need them.
-template <int D>
-struct RegA {
-  uint32_t f[D / 16][4];
-  __device__ __forceinline__ void load(const __nv_bfloat16* tile, int r0, int g, int t) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int c = kk * 16 + 2 * t;
-      f[kk][0] = lds32<D>(tile, r0 + g, c);
-      f[kk][1] = lds32<D>(tile, r0 + g + 8, c);
-      f[kk][2] = lds32<D>(tile, r0 + g, c + 8);
-      f[kk][3] = lds32<D>(tile, r0 + g + 8, c + 8);
-    }
-  }
-  __device__ __forceinline__ void get(int kk, uint32_t (&a)[4]) const {
-    a[0] = f[kk][0];
-    a[1] = f[kk][1];
-    a[2] = f[kk][2];
-    a[3] = f[kk][3];
-  }
-};
-
-template <int D>
-struct SmemA {
-  const __nv_bfloat16* tile;
-  int r0, g, t;
-  __device__ __forceinline__ void load(const __nv_bfloat16* tile_, int r0_, int g_, int t_) {
-    tile = tile_;
-    r0 = r0_;
-    g = g_;
-    t = t_;
-  }
-  __device__ __forceinline__ void get(int kk, uint32_t (&a)[4]) const {
-    const int c = kk * 16 + 2 * t;
-    a[0] = lds32<D>(tile, r0 + g, c);
-    a[1] = lds32<D>(tile, r0 + g + 8, c);
-    a[2] = lds32<D>(tile, r0 + g, c + 8);
-    a[3] = lds32<D>(tile, r0 + g + 8, c + 8);
-  }
-};
 
 // ---- Hopper: mbarriers, TMA, wgmma, named barriers, setmaxnreg ----
 
@@ -250,11 +145,28 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[R][C]) {
 // wgmma m64nNk16, bf16 inputs, fp32 accumulators in the warpgroup's fragment layout
 // (thread lane of warp w holds rows 16w + lane/4 and +8, columns 8j + 2(lane%4) and +1 of
 // each 8-column group j: d[4j .. 4j+3]). ss: A and B from shared memory, both K-major
-// (N = 176: S = Q K^T of the forward). rs: A from registers (the same fragment layout as
-// mma.sync's m16n8k16 A, one per warp), B from shared memory MN-major (the transpose bit
-// of 16-bit types; N = D: O += P V). `accumulate` = 0 overwrites d.
+// (S = Q K^T of the forward at N = 176; the backward's S and dP at N = 32, 64, 96 and 128). rs: A
+// from registers (the same fragment layout as mma.sync's m16n8k16 A, one per warp), B
+// from shared memory MN-major (the transpose bit of 16-bit types; N = D: the forward's
+// O += P V, the backward's dQ += dS K, dV += P^T dO and dK += dS^T Q). `accumulate` = 0
+// overwrites d.
 template <int N>
 struct Wgmma;
+
+template <>
+struct Wgmma<32> {
+  // d (64 x 32, fp32) (+)= a (64 x 16, smem, K-major) * b (16 x 32, smem, K-major)
+  __device__ __forceinline__ static void ss(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
 
 template <>
 struct Wgmma<64> {
@@ -271,6 +183,41 @@ struct Wgmma<64> {
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+  }
+// d (64 x 64, fp32) (+)= a (64 x 16, smem, K-major) * b (16 x 64, smem, K-major)
+  __device__ __forceinline__ static void ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct Wgmma<96> {
+  // d (64 x 96, fp32) (+)= a (64 x 16, smem, K-major) * b (16 x 96, smem, K-major)
+  __device__ __forceinline__ static void ss(float (&d)[48], uint64_t a, uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+        "%48, %49, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "l"(a), "l"(b), "r"(accumulate));
   }
 };
 
@@ -295,6 +242,26 @@ struct Wgmma<128> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+  }
+  // d (64 x 128, fp32) (+)= a (64 x 16, smem, K-major) * b (16 x 128, smem, K-major)
+  __device__ __forceinline__ static void ss(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(accumulate));
   }
 };
 
@@ -373,6 +340,65 @@ int by_head_dim(int D, int B, int Tq, int Tk, int H, Fn64 fn64, Fn128 fn128) {
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// ---- Host: TMA tensor maps and the persistent grid of the bf16 instances ----
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, found through the runtime (cudaGetDriverEntryPoint),
+// so that the library links nothing beyond the runtime. Null if the driver lacks it.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(ptr)
+                                                                      : nullptr;
+  }();
+  return fn;
+}
+
+// One tensor's map: m holds the global dims (D, T, H, B), the byte strides of T, H and
+// B, and the box (64, rows, 1, 1), as ops/flash_attention.py's tensor_map computes them.
+// Refuses (cudaErrorInvalidValue) a map whose dims or box do not fit the launch.
+int encode_map(CUtensorMap* map, const void* ptr, const long long* m, int D, int T, int H, int B, int rows) {
+  if (m[0] != D || m[1] != T || m[2] != H || m[3] != B || m[7] != 64 || m[8] != rows || m[9] != 1 || m[10] != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(m[0]), static_cast<cuuint64_t>(m[1]),
+                              static_cast<cuuint64_t>(m[2]), static_cast<cuuint64_t>(m[3])};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(m[4]), static_cast<cuuint64_t>(m[5]),
+                                 static_cast<cuuint64_t>(m[6])};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+constexpr int kMapLongs = 11;  // dims[4], strides[3], box[4]
+
+// The persistent grid over `work` tiles: one block an SM, and no more blocks than tiles.
+// Sets n_work and blocks; returns cudaErrorInvalidValue if the tiles do not fit an int,
+// else the device queries' error.
+int persistent_grid(long long work, int& n_work, int& blocks) {
+  if (work > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  n_work = static_cast<int>(work);
+  int dev = 0, sms = 0;
+  int err = static_cast<int>(cudaGetDevice(&dev));
+  if (!err) err = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+  blocks = std::min(n_work, sms);
+  return err;
 }
 
 }  // namespace

@@ -69,9 +69,6 @@
 //   64 KB); above 48 KB the launcher raises the instance's dynamic shared memory limit
 //   once per device before its first launch there.
 
-#include <algorithm>
-#include <climits>
-
 #include "flash_attention_common.cuh"
 
 namespace {
@@ -455,51 +452,7 @@ __global__ void __launch_bounds__(FwdF32Tiles<D>::kThreads)
   }
 }
 
-// ---- Host: tensor maps and launchers ----
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, found through the runtime (cudaGetDriverEntryPoint),
-// so that the library links nothing beyond the runtime. Null if the driver lacks it.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(ptr)
-                                                                      : nullptr;
-  }();
-  return fn;
-}
-
-// One tensor's map: m holds the global dims (D, T, H, B), the byte strides of T, H and
-// B, and the box (64, rows, 1, 1), as ops/flash_attention.py's tensor_map computes them.
-// Refuses (cudaErrorInvalidValue) a map whose dims or box do not fit the launch.
-int encode_map(CUtensorMap* map, const void* ptr, const long long* m, int D, int T, int H, int B, int rows) {
-  if (m[0] != D || m[1] != T || m[2] != H || m[3] != B || m[7] != 64 || m[8] != rows || m[9] != 1 || m[10] != 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(m[0]), static_cast<cuuint64_t>(m[1]),
-                              static_cast<cuuint64_t>(m[2]), static_cast<cuuint64_t>(m[3])};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(m[4]), static_cast<cuuint64_t>(m[5]),
-                                 static_cast<cuuint64_t>(m[6])};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
-constexpr int kMapLongs = 11;  // dims[4], strides[3], box[4]
+// ---- Host: launchers ----
 
 template <int D, bool kLse>
 int fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse, const long long* maps, int B, int Tq,
@@ -511,15 +464,11 @@ int fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse, c
   if (!err) err = encode_map(&tv, v, maps + 2 * kMapLongs, D, Tk, H, B, P::kBlockN);
   if (err) return err;
   static SmemOptIn opt_in;
-  const long long work = static_cast<long long>((Tq + P::kBlockM - 1) / P::kBlockM) * H * B;
-  if (work > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  const int n_work = static_cast<int>(work);
-  int dev = 0, sms = 0;
-  err = static_cast<int>(cudaGetDevice(&dev));
-  if (!err) err = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+  int n_work = 0, blocks = 0;
+  err = persistent_grid(static_cast<long long>((Tq + P::kBlockM - 1) / P::kBlockM) * H * B, n_work, blocks);
   if (err) return err;
-  // Persistent: one block an SM, each walking the work tiles w = blockIdx.x + k * gridDim.x.
-  return launch(fa_fwd_bf16<D, kLse>, opt_in, dim3(std::min(n_work, sms)), P::kThreads, P::kSmem, st, tq, tk, tv,
+  // Each block walks the work tiles w = blockIdx.x + k * gridDim.x.
+  return launch(fa_fwd_bf16<D, kLse>, opt_in, dim3(blocks), P::kThreads, P::kSmem, st, tq, tk, tv,
                 static_cast<__nv_bfloat16*>(o), lse, Tq, Tk, H, n_work, scale_log2);
 }
 

@@ -12,12 +12,13 @@ is K8's regime on the TPU (``d % 128 == 0``: ``_fwd_kernel``,
 ``_fwd_kernel_lse``, ``_dq_kernel``, ``_dkv_kernel``). The plain versions
 below take any head dim: they are the plain version of K8 as they are of K1-K7.
 
-The bf16 forward is Hopper's own design (wgmma, TMA, a producer warpgroup and
-two consumer warpgroups): it reads q, k and v in place through 4-D TMA tensor
-maps, whose layout (dims, byte strides, box) ``tensor_map`` computes from each
-tensor at each call; the C entry point encodes them with the driver's
-``cuTensorMapEncodeTiled``, found through the runtime. Its tile plan
-(``FWD_TILES``) is the kernel's, which refuses maps of another box.
+The bf16 kernels are Hopper's own design (wgmma, TMA, a producer warpgroup and
+two consumer warpgroups on a persistent grid): they read q, k, v (and the
+backward's dO) in place through 4-D TMA tensor maps, whose layout (dims, byte
+strides, box) ``tensor_map`` computes from each tensor at each call; the C entry
+points encode them with the driver's ``cuTensorMapEncodeTiled``, found through
+the runtime. Their tile plans (``FWD_TILES``, ``BWD_TILES``) are the kernels',
+which refuse maps of another box. The fp32 kernels take element strides.
 
 Routing. ``flash_attention`` runs the lse-free forward when no input needs a
 gradient (inference is unchanged); otherwise an autograd Function runs the
@@ -49,10 +50,14 @@ KERNEL_STEM = "flash_attention_fwd"
 BWD_KERNEL_STEM = "flash_attention_bwd"
 KERNEL_STEMS = (KERNEL_STEM, BWD_KERNEL_STEM)
 HEAD_DIMS = (64, 128)  # head dims the kernels are instantiated for
-_DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+_DTYPES = (torch.bfloat16, torch.float32)  # the kernels' instances: bf16 (wgmma) and fp32 (SIMT)
 # The bf16 forward's tile plan by head dim, (query rows, key rows) a block: FwdPlan in
 # csrc/flash_attention_fwd.cu, which refuses maps whose boxes differ.
 FWD_TILES = {64: (128, 176), 128: (128, 176)}
+# The bf16 backward's plans by head dim: the dq kernel's (query rows a work tile, keys a
+# K or V tile) and the dk/dv kernel's (keys a work tile, query rows a stage): DqPlan and
+# DkvPlan in csrc/flash_attention_bwd.cu.
+BWD_TILES = {64: {"dq": (128, 128), "dkv": (128, 96)}, 128: {"dq": (128, 64), "dkv": (128, 32)}}
 TMA_BOX_COLS = 64  # a box is one 128-byte swizzle row of bf16 wide
 
 
@@ -153,7 +158,7 @@ def _bind(stem: str, name: str, n_ptrs: int, n_ints: int, n_strides: int):
 
 
 def tensor_map(x: torch.Tensor, box_rows: int) -> Tuple[Tuple[int, ...], Tuple[int, ...], Tuple[int, ...]]:
-    """The layout of the 4-D TMA tensor map through which the bf16 forward reads a
+    """The layout of the 4-D TMA tensor map through which a bf16 kernel reads a
     (B, T, H, D) tensor in place: (dims, byte strides, box).
 
     dims are (D, T, H, B), innermost first; the strides are those of T, H and B in
@@ -175,14 +180,25 @@ def tensor_map(x: torch.Tensor, box_rows: int) -> Tuple[Tuple[int, ...], Tuple[i
     return (d, t, h, b), strides, (TMA_BOX_COLS, box_rows, 1, 1)
 
 
-_MAPS = struct.Struct("33q")  # three maps of 11 int64: dims[4], strides[3], box[4]
+def _pack_maps(*maps: Tuple[torch.Tensor, int]) -> bytes:
+    """The tensor maps of (tensor, box rows) pairs, packed for a C entry point (11
+    int64 each: dims[4], strides[3], box[4])."""
+    values = [n for x, rows in maps for part in tensor_map(x, rows) for n in part]
+    return struct.pack(f"{len(values)}q", *values)
 
 
 def _tensor_maps(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bytes:
-    """q's, k's and v's tensor maps, packed for the C entry point (11 int64 each)."""
+    """q's, k's and v's tensor maps for the bf16 forward."""
     rows_q, rows_kv = FWD_TILES[q.shape[3]]
-    return _MAPS.pack(*sum(tensor_map(q, rows_q), ()), *sum(tensor_map(k, rows_kv), ()),
-                      *sum(tensor_map(v, rows_kv), ()))
+    return _pack_maps((q, rows_q), (k, rows_kv), (v, rows_kv))
+
+
+def _bwd_tensor_maps(kernel: str, q, k, v, do) -> bytes:
+    """q's, k's, v's and dO's tensor maps for the bf16 dq (``kernel`` "dq") or dk/dv
+    ("dkv") kernel: q and dO in boxes of query rows, k and v in boxes of keys."""
+    own, streamed = BWD_TILES[q.shape[3]][kernel]
+    rows_q, rows_kv = (own, streamed) if kernel == "dq" else (streamed, own)
+    return _pack_maps((q, rows_q), (k, rows_kv), (v, rows_kv), (do, rows_q))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -193,7 +209,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} has no kernel instance (built: {HEAD_DIMS})")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention kernel takes bf16 or fp32, got {q.dtype}/{k.dtype}/{v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
@@ -211,11 +227,16 @@ def _strides(*xs: torch.Tensor) -> list:
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """``x`` if the kernels can read it in place, else a contiguous copy."""
+    """``x`` if the kernels can read it in place (through a TMA map in bf16), else a
+    contiguous copy in a new allocation: a head-dim stride other than 1, a base or a
+    stride off 16 bytes, or a broadcast (zero) stride, as autograd may hand a cotangent.
+    (``contiguous()`` would hand back a contiguous tensor at a misaligned base as it is.)"""
     align = 16 // x.element_size()
-    if x.stride(3) == 1 and x.data_ptr() % 16 == 0 and not any(s % align for s in x.stride()[:3]):
+    strides = x.stride()[:3]
+    if (x.stride(3) == 1 and x.data_ptr() % 16 == 0 and not any(s % align for s in strides)
+            and all(s > 0 or n == 1 for s, n in zip(strides, x.shape))):
         return x
-    return x.contiguous()
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -256,13 +277,21 @@ def _check_bwd(q, k, v, do, lse, delta) -> torch.Tensor:
     return _aligned(do.to(q.dtype))
 
 
-def _launch_bwd(name, n_out, q, k, v, do, lse, delta, scale, outs):
+def _launch_bwd(kernel: str, q, k, v, do, lse, delta, scale, outs) -> None:
+    """Launch the dq (``kernel`` "dq") or dk/dv ("dkv") kernel into ``outs``."""
     b, tq, h, d = q.shape
-    fn = _bind(BWD_KERNEL_STEM, name, 6 + n_out, 6, 12)
     ptrs = [x.data_ptr() for x in (q, k, v, do, lse, delta, *outs)]
+    dims = (b, tq, k.shape[1], h, d)
     with torch.cuda.device(q.device):
-        err = fn(*ptrs, _DTYPE_CODES[q.dtype], b, tq, k.shape[1], h, d,
-                 *_strides(q, k, v, do), float(scale), torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if q.dtype == torch.bfloat16:
+            name = f"flash_attention_bwd_{kernel}_bf16"
+            maps = _bwd_tensor_maps(kernel, q, k, v, do)
+            err = _bind(BWD_KERNEL_STEM, name, len(ptrs) + 1, 5, 0)(*ptrs, maps, *dims, float(scale), stream)
+        else:
+            name = f"flash_attention_bwd_{kernel}_f32"
+            err = _bind(BWD_KERNEL_STEM, name, len(ptrs), 5, 12)(*ptrs, *dims, *_strides(q, k, v, do),
+                                                                 float(scale), stream)
     _raise_on(err, name)
 
 
@@ -273,7 +302,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale):
         return attention_bwd_dq_reference(q, k, v, do, lse, delta, scale)
     do = _check_bwd(q, k, v, do, lse, delta)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch_bwd("flash_attention_bwd_dq", 1, q, k, v, do, lse, delta, scale, (dq,))
+    _launch_bwd("dq", q, k, v, do, lse, delta, scale, (dq,))
     _count(flash_attention_bwd_dq, k)
     return dq
 
@@ -286,7 +315,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale):
     do = _check_bwd(q, k, v, do, lse, delta)
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    _launch_bwd("flash_attention_bwd_dkv", 2, q, k, v, do, lse, delta, scale, (dk, dv))
+    _launch_bwd("dkv", q, k, v, do, lse, delta, scale, (dk, dv))
     _count(flash_attention_bwd_dkv, k)
     return dk, dv
 

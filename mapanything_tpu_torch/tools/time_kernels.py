@@ -5,15 +5,19 @@
 Imports ``mapanything_tpu_torch`` from ``--root`` (default: the checkout this
 file is in), builds its kernels there and times each kernel with CUDA events:
 the lse-free forward at the flagship forward's encoder, frame and global
-shapes and one fp32 shape (``chip_smoke.py`` phase 3), and the lse forward, dq
-and dk/dv at the 1 x 4 x 518 train step's shapes and one fp32 shape (phase
-3b); the long bf16 forwards of phases 3c and 3d (K3's lse-free 1 x 21905 and
+shapes and one fp32 shape (``chip_smoke.py`` phase 3); the lse forward, dq,
+dk/dv and the whole ``flash_attention_bwd_lse`` (delta, dq and dk/dv), with
+torch SDPA's backward beside them in bf16, at the 1 x 4 x 518 train step's
+shapes and one fp32 shape (phase 3b); the same backward rows at the ring's
+block, 1 x 5476 x 12 x 64 fed a merged lse (phase 3c); the long bf16 forwards
+of phases 3c and 3d (K3's lse-free 1 x 21905 and
 1 x 87617, K7's lse 1 x 21904, all x 12 x 64); with 128 in ``--head-dims``,
 the same at flagship-h128's trunk shapes (phase 3e). To time another commit,
 unpack it with ``git archive`` into a directory that .gitignore lists and pass
 that as ``--root`` (this file need not exist there). Compare two commits only within one call on one card, in
 turns: parent, change, change, parent. Prints one JSON line: the card, the
-root and ms per call of each kernel at each shape.
+root and ms per call of each kernel at each shape (``host_us/bwd/...``: the
+host's microseconds to enqueue one whole backward, in bf16).
 """
 
 from __future__ import annotations
@@ -58,6 +62,58 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_us(fn, iters: int = 30) -> float:
+    """Host microseconds a call takes to enqueue its work (no synchronisation inside the
+    loop): where it reaches a kernel's ms, the CUDA-event time reads the host, not the card."""
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    elapsed = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return elapsed / iters * 1e6
+
+
+def sdpa_bwd_ms(q, k, v, do, scale, iters: int) -> float:
+    """torch SDPA's backward alone (its forward run once, with autograd on)."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+    return cuda_time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), iters)
+
+
+def ring_block_times(fa, gen) -> dict:
+    """dq, dk/dv, the whole backward and SDPA's backward at the ring's block of the train
+    step, 1 x 5476 x 12 x 64, fed the lse of its forward merged with a 1-token block
+    (the scale token), as the ring's backward feeds them (chip_smoke.py phase 3c)."""
+    import torch
+
+    from mapanything_tpu_torch.parallel.sharded_attention import _block_attn_lse, _merge_lse
+
+    b, t, h, d = 1, 5476, 12, 64
+    scale = d**-0.5
+    q, k, v = torch.randn(b, t, 3, h, d, device="cuda", generator=gen).bfloat16().unbind(2)
+    ke, ve = torch.randn(2, b, 1, h, d, device="cuda", generator=gen).bfloat16()
+    do = torch.randn(b, t, h, d, device="cuda", generator=gen).bfloat16()
+    o_g, lse_g = fa.flash_attention_lse(q, k, v, scale)
+    o, lse = _merge_lse([(o_g.float(), lse_g), _block_attn_lse(q, ke, ve, scale)])
+    o, lse = o.bfloat16(), lse.contiguous()
+    delta = fa.attention_bwd_delta(o, do).contiguous()
+    return {
+        "dq/ring_block": cuda_time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale), 30),
+        "dkv/ring_block": cuda_time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale), 30),
+        "bwd/ring_block": cuda_time_ms(lambda: fa.flash_attention_bwd_lse(q, k, v, o, lse, do, scale), 30),
+        "sdpa_bwd/ring_block": sdpa_bwd_ms(q, k, v, do, scale, 30),
+    }
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", type=Path, default=Path(__file__).resolve().parents[2],
@@ -92,7 +148,12 @@ def main() -> int:
             times[f"dq/{name}"] = cuda_time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale), iters)
             times[f"dkv/{name}"] = cuda_time_ms(
                 lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale), iters)
+            times[f"bwd/{name}"] = cuda_time_ms(lambda: fa.flash_attention_bwd_lse(q, k, v, o, lse, do, scale), iters)
+            if dt == torch.bfloat16:
+                times[f"sdpa_bwd/{name}"] = sdpa_bwd_ms(q, k, v, do, scale, iters)
+                times[f"host_us/bwd/{name}"] = host_us(lambda: fa.flash_attention_bwd_lse(q, k, v, o, lse, do, scale))
         if d == 64:
+            times.update(ring_block_times(fa, gen))
             for name, (b, t, h, hd, with_lse) in LONG_SHAPES.items():
                 q, k, v = torch.randn(b, t, 3, h, hd, device="cuda", generator=gen).bfloat16().unbind(2)
                 fwd = fa.flash_attention_lse if with_lse else fa.flash_attention

@@ -10,6 +10,7 @@ softmax equals the max-stabilised one.
 """
 
 import math
+import struct
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +25,8 @@ from mapanything_tpu.ops.flash_attention import flash_attention_bwd_lse as jax_b
 from mapanything_tpu.ops.flash_attention import flash_attention_lse as jax_flash_lse
 from mapanything_tpu_torch.ops import attention as port_attention
 from mapanything_tpu_torch.ops.flash_attention import (
+    BWD_TILES,
+    _bwd_tensor_maps,
     _check,
     _check_bwd,
     attention_bwd_bytes,
@@ -149,16 +152,72 @@ def _bf16(*shape):
         (lambda: _bf16(1 + 5 * 2 * 64)[1:].view(1, 5, 2, 64), 128, "16-byte aligned"),
         (lambda: _bf16(1, 5, 2, 68)[..., :64], 128, "16-byte aligned"),
         (lambda: _bf16(1, 5, 2, 128)[..., ::2], 128, "head-dim stride"),
+        # the backward's boxes (BWD_TILES): dq's key tiles, dk/dv's query stages
+        (lambda: _bf16(2, 50, 4, 64), BWD_TILES[64]["dq"][1],
+         ((64, 50, 4, 2), (512, 128, 25600), (64, BWD_TILES[64]["dq"][1], 1, 1))),
+        (lambda: _bf16(2, 50, 4, 128), BWD_TILES[128]["dq"][1],
+         ((128, 50, 4, 2), (1024, 256, 51200), (64, BWD_TILES[128]["dq"][1], 1, 1))),
+        (lambda: _bf16(2, 50, 3, 4, 64).unbind(2)[1], BWD_TILES[64]["dkv"][1],
+         ((64, 50, 4, 2), (1536, 128, 76800), (64, BWD_TILES[64]["dkv"][1], 1, 1))),
+        # dO as a view of a wider (B, T, 2, H, D) tensor: T-stride 2·H·D
+        (lambda: _bf16(1, 9, 2, 6, 128)[:, :, 1], BWD_TILES[128]["dkv"][1],
+         ((128, 9, 6, 1), (3072, 256, 27648), (64, BWD_TILES[128]["dkv"][1], 1, 1))),
+        (lambda: _bf16(1 + 5 * 2 * 128)[1:].view(1, 5, 2, 128), BWD_TILES[128]["dkv"][1], "16-byte aligned"),
+        (lambda: _bf16(1, 5, 1, 68)[..., :64], BWD_TILES[64]["dkv"][1], "16-byte aligned"),  # T-stride 136 bytes
     ],
 )
 def test_tensor_map_layout(make, rows, want):
-    # The bf16 forward's TMA maps: dims (D, T, H, B), byte strides of T, H, B, box (64, rows, 1, 1).
+    # The bf16 kernels' TMA maps: dims (D, T, H, B), byte strides of T, H, B, box (64, rows, 1, 1).
     x = make()
     if isinstance(want, str):
         with pytest.raises(ValueError, match=want):
             tensor_map(x, rows)
     else:
         assert tensor_map(x, rows) == want
+
+
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("fused", [False, True])
+def test_backward_tensor_maps_follow_the_tile_plan(kernel, d, fused):
+    # q, k, v and dO in that order, q and dO boxed by query rows, k and v by keys: the
+    # dq kernel owns query rows and streams keys, the dk/dv kernel the other way round.
+    if fused:
+        q, k, v = _bf16(2, 37, 3, 3, d).unbind(2)
+        do = _bf16(2, 37, 2, 3, d)[:, :, 0]
+    else:
+        q, do = _bf16(2, 37, 3, d), _bf16(2, 37, 3, d)
+        k, v = _bf16(2, 90, 3, d), _bf16(2, 90, 3, d)
+    own, streamed = BWD_TILES[d][kernel]
+    rows_q, rows_kv = (own, streamed) if kernel == "dq" else (streamed, own)
+    packed = struct.unpack(f"{4 * 11}q", _bwd_tensor_maps(kernel, q, k, v, do))
+    for i, (x, rows) in enumerate(((q, rows_q), (k, rows_kv), (v, rows_kv), (do, rows_q))):
+        assert packed[11 * i:11 * (i + 1)] == tuple(n for part in tensor_map(x, rows) for n in part)
+
+
+@pytest.mark.parametrize(
+    "make_do,in_place",
+    [
+        (lambda: _bf16(1, 1, 1, 1).expand(2, 9, 3, 64), False),  # the cotangent of a sum: every stride 0
+        (lambda: torch.randn(2, 9, 1, 64).bfloat16().expand(2, 9, 3, 64), False),  # broadcast over heads
+        (lambda: torch.randn(2, 9, 3, 128).bfloat16()[..., ::2], False),  # head-dim stride 2
+        (lambda: torch.randn(2 * 9 * 3 * 64 + 1).bfloat16()[1:].view(2, 9, 3, 64), False),  # base 2 bytes off
+        (lambda: torch.randn(2, 9, 3, 64), False),  # fp32 against bf16 q: converted
+        (lambda: torch.randn(2, 3, 9, 64).bfloat16().transpose(1, 2), True),  # (B, H, T, D) storage: TMA reads it
+    ],
+)
+def test_backward_wrapper_hands_the_kernel_an_aligned_cotangent(make_do, in_place):
+    # dO as autograd may hand it: the wrapper passes on what TMA can read in place and
+    # copies the rest, values untouched.
+    q = _bf16(2, 9, 3, 64)
+    stats = torch.zeros(2, 3, 9)
+    do = make_do()
+    got = _check_bwd(q, q, q, do, stats, stats)
+    assert got.dtype == torch.bfloat16
+    tensor_map(got, BWD_TILES[64]["dkv"][1])  # raises unless TMA can read it
+    assert all(s > 0 for s in got.stride())
+    assert (got.data_ptr() == do.data_ptr()) == in_place
+    torch.testing.assert_close(got, do.to(torch.bfloat16), rtol=0, atol=0)
 
 
 def test_flop_and_byte_counts():
