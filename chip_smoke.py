@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                      # every phase
     python3 chip_smoke.py --train-step-only    # phases 1, 2 and 7 alone
+    python3 chip_smoke.py --train-step-only --compute-dtype float32  # phases 1, 2 and 17 alone
     python3 chip_smoke.py --forward-edges-only # phases 1, 2 and 3f alone
     python3 chip_smoke.py --backward-edges-only  # phases 1, 2 and 3g alone
 
@@ -11,9 +12,10 @@ Phases, each printing one JSON line:
   2. build: nvcc compiles every kernel source from csrc/ into build/, one
      process per source, side by side; the line gives each kernel
      instance's registers, spills and shared memory (-Xptxas -v, and the
-     bf16 instances' dynamic shared memory), and cuobjdump -sass of each
+     wgmma instances' dynamic shared memory), and cuobjdump -sass of each
      library must show HGMMA (wgmma) and UTMALDG (TMA loads) in every
-     fa_fwd_bf16, fa_bwd_dq_bf16 and fa_bwd_dkv_bf16 instance;
+     fa_fwd_bf16 instance and every backward instance, bf16 and fp32
+     (fa_bwd_dq_bf16, fa_bwd_dkv_bf16, fa_bwd_dq_f32, fa_bwd_dkv_f32);
   3f. the bf16 forward's edges: both forms (lse-free and lse) at D = 64
      and 128 against their plain versions under phase 3's rule, at
      T = 1, 7, 64, 65, 127, 129 and 1370 and at Tq != Tk (129 against
@@ -21,21 +23,25 @@ Phases, each printing one JSON line:
      the persistent grid walks several), on contiguous tensors and on
      views of fused qkv (and kv) tensors with a non-default scale, the lse
      on every row;
-  3g. the bf16 backward's edges: dq and dk/dv at D = 64 and 128 against
-     their plain versions under phase 3's rule at phase 3f's shapes and
-     layouts (dO a view of a wider tensor in the fused layout), fed the
-     statistics of the plain forward (of a merged softmax where there is one
-     key, and in one more case, as the ring feeds them); each kernel called
-     twice, the outputs bitwise equal;
+  3g. the backward's edges: dq and dk/dv, bf16 and fp32, at D = 64 and 128
+     against their plain versions under phase 3's rule (fp32 also under the
+     fp32 rule, below) at phase 3f's shapes and layouts (dO a view of a wider
+     tensor in the fused layout), fed the statistics of the plain forward (of
+     a merged softmax where there is one key, and in one more case, as the
+     ring feeds them); each kernel called twice, the outputs bitwise equal;
   3. inference kernel checks: the lse-free attention forward against its
      plain PyTorch version at the inference shapes (encoder, frame and
      global layers in bf16) and one fp32 shape, with kernel, plain and
      torch-SDPA times and the bound;
   3b. training kernel checks: the forward with lse, the dq and the dk/dv
      kernels against their plain versions at the 1 x 4 x 518 training
-     shapes in bf16 and one fp32 long shape, with kernel, plain and library
-     times (torch SDPA forward with autograd on; its backward alone, beside
-     the whole flash_attention_bwd_lse: delta, dq and dk/dv) and bounds;
+     shapes in bf16 (phase 7's) and in fp32 (phase 17's), with kernel, plain
+     and library times (torch SDPA forward with autograd on; its backward
+     alone, beside the whole flash_attention_bwd_lse: delta, the fp32 split
+     pass, dq and dk/dv) and bounds. The fp32 dq, dk and dv are also held to
+     the fp32 rule: 4x the fp32 plain version's own error against fp64, or
+     1e-5 of the magnitude (phase 3's 1e-2 would pass a single bf16 pass);
+     the fp32 split pass is held bitwise to its plain version and timed;
   4. slice check: MapAnythingConfig.small(), 2 views at 56 px in fp32, the same
      seeded weights on cuda and on cpu, every prediction compared;
   5. inference: the flagship MapAnythingConfig(compute_dtype="bfloat16")
@@ -99,8 +105,9 @@ Phases, each printing one JSON line:
      with info_sharing_num_heads=6: trunk heads of 128): the lse-free forward
      at 8 x 1369 x 6 x 128 (frame) and 1 x 10953 x 6 x 128 (global); the lse
      forward, dq and dk/dv at 4 x 1369 x 6 x 128 and 1 x 5477 x 6 x 128; each
-     kernel in fp32 at 1 x 5477 x 6 x 128; each against its plain version
-     under phase 3's rule, with kernel, plain, torch SDPA and bound times;
+     kernel in fp32 at 1 x 5477 x 6 x 128 (the backward also under the fp32
+     rule); each against its plain version under phase 3's rule, with
+     kernel, plain, torch SDPA and bound times;
   14. phases 4 and 6 for MapAnythingConfig.small(info_sharing_num_heads=2)
      (trunk heads of 256 / 2 = 128): the fp32 forward and train step on cuda
      against cpu, which launch the fp32 D = 128 instances; the step's line
@@ -110,16 +117,23 @@ Phases, each printing one JSON line:
      tokens at D = 128), ms, views/s, peak memory, output invariants;
   16. phase 7 for flagship-h128: the bf16 train step on 1 x 4 x 518, the
      lse forward, dq and dk/dv launched 24 times each at D = 64 and 24 at
-     D = 128 a step (12 at 1369 and 12 at 5477 tokens).
+     D = 128 a step (12 at 1369 and 12 at 5477 tokens);
+  17. phase 7 at the config's default dtype: MapAnythingConfig() (fp32) on
+     1 x 4 x 518, the fp32 lse forward, split pass, dq and dk/dv launched 48
+     times each a step (24 at 1370, 12 at 1369, 12 at 5477 tokens, D = 64),
+     with the same checks, ms per step, views/s, peak memory and each fp32
+     kernel's time a step (phase 3b's per call x launches) and share of it.
 On a machine with more than one card, phases 9 and 10 then run again over
 NCCL with one rank a card (2 or 4 cards); rank 0 checks the gathered
 outputs against the unsharded forward. A machine with one card skips this.
 Phases 11-13 run after phase 5, before phase 6; phase 3e after 3d; phases
-14-16 after phase 7, before phase 8. Then the kernels' summary line and,
+14-17 after phase 7, before phase 8. Then the kernels' summary line and,
 last, {"ok": true, "device": {...}}.
 Phases 3f and 3g run right after the build. With --train-step-only, phase 7
-runs in a fresh process after the build and the script stops after its line,
-printing neither the summary nor the ok line; with --forward-edges-only, phase
+(phase 17 with --compute-dtype float32) runs after the build (without the SASS
+check) and the script stops after its line, printing neither the summary nor
+the ok line; copied into another checkout's tree, it times that checkout's step
+the same way. With --forward-edges-only, phase
 3f runs after the build and the script stops there, the same way; with
 --backward-edges-only, phase 3g.
 Any failed check raises and the script exits non-zero. Without a CUDA device,
@@ -318,21 +332,30 @@ def kernel_checks(card, shapes, phase_id: str):
 
 
 # (name, shape B x T x H x D, dtype, launches per flagship train step) at the shapes
-# of the flagship 1 x 4 x 518 training step; fp32_global is K7's regime.
+# of the flagship 1 x 4 x 518 training step (phase 7, bf16).
 TRAIN_SHAPES = [
     ("encoder", (4, 1370, 16, 64), "bfloat16", 24),
     ("frame", (4, 1369, 12, 64), "bfloat16", 12),
     ("global", (1, 5477, 12, 64), "bfloat16", 12),
-    ("fp32_global", (1, 5477, 12, 64), "float32", 0),
 ]
-# The TPU kernels each port replaces, by the JAX package's regime at that shape.
+# The same at the default-dtype (fp32) flagship step's shapes (phase 17); fp32_global is
+# K7's regime for the lse forward.
+FP32_TRAIN_SHAPES = [
+    ("fp32_encoder", (4, 1370, 16, 64), "float32", 24),
+    ("fp32_frame", (4, 1369, 12, 64), "float32", 12),
+    ("fp32_global", (1, 5477, 12, 64), "float32", 12),
+]
+# The TPU kernels each port replaces, by the JAX package's regime at that shape (fp32
+# never takes the head-pair kernels). The split pass of the fp32 backward is part of the
+# port of the dq and dk/dv kernels it feeds (K5's at D = 64, K8's at D = 128).
 TRAIN_REPLACES = {
-    "flash_attention_fwd_lse": {"encoder": f"{FA}:118", "frame": f"{FA}:118",
-                                "global": f"{FA}:600", "fp32_global": f"{FA}:168"},
-    "flash_attention_bwd_dq": {"encoder": f"{FA}:227", "frame": f"{FA}:227",
-                               "global": f"{FA}:715", "fp32_global": f"{FA}:227"},
-    "flash_attention_bwd_dkv": {"encoder": f"{FA}:262", "frame": f"{FA}:262",
-                                "global": f"{FA}:753", "fp32_global": f"{FA}:262"},
+    "flash_attention_fwd_lse": {"encoder": f"{FA}:118", "frame": f"{FA}:118", "global": f"{FA}:600",
+                                "fp32_encoder": f"{FA}:118", "fp32_frame": f"{FA}:118", "fp32_global": f"{FA}:168"},
+    "flash_attention_bwd_dq": {"encoder": f"{FA}:227", "frame": f"{FA}:227", "global": f"{FA}:715",
+                               **dict.fromkeys(("fp32_encoder", "fp32_frame", "fp32_global"), f"{FA}:227")},
+    "flash_attention_bwd_dkv": {"encoder": f"{FA}:262", "frame": f"{FA}:262", "global": f"{FA}:753",
+                                **dict.fromkeys(("fp32_encoder", "fp32_frame", "fp32_global"), f"{FA}:262")},
+    "flash_attention_split_f32": dict.fromkeys(("fp32_encoder", "fp32_frame", "fp32_global"), f"{FA}:227"),
 }
 # Phase 3e, the training rows at flagship-h128's 1 x 4 x 518 step (launches per step).
 H128_TRAIN_SHAPES = [
@@ -345,6 +368,7 @@ H128_TRAIN_REPLACES = {  # K4 single-pass at the frame layers' lse forward, else
                                 "fp32_global_h128": f"{FA}:218"},
     "flash_attention_bwd_dq": dict.fromkeys(("frame_h128", "global_h128", "fp32_global_h128"), f"{FA}:306"),
     "flash_attention_bwd_dkv": dict.fromkeys(("frame_h128", "global_h128", "fp32_global_h128"), f"{FA}:339"),
+    "flash_attention_split_f32": {"fp32_global_h128": f"{FA}:306"},
 }
 
 
@@ -368,12 +392,15 @@ def ptxas_report(log: str) -> dict:
     return {"instances": report, "warnings": warnings}
 
 
-# Phase 2: the bf16 instances whose SASS must hold HGMMA (wgmma) and UTMALDG (a TMA
-# load): the forward's by (D, lse) in the forward library, the backward's by (kernel, D)
-# in the backward library.
+# Phase 2: the instances whose SASS must hold HGMMA (wgmma) and UTMALDG (a TMA load): the
+# bf16 forward's by (D, lse) in the forward library; the backward's, bf16 and fp32, by
+# (kernel, dtype, D) in the backward library, with the index of each in the library's
+# flash_attention_bwd_smem.
 FWD_BF16_INSTANCES = {(d, lse): f"fa_fwd_bf16ILi{d}ELb{int(lse)}E" for d in (64, 128) for lse in (False, True)}
-BWD_BF16_INSTANCES = {(kernel, d): f"fa_bwd_{kernel}_bf16ILi{d}E" for kernel in ("dq", "dkv") for d in (64, 128)}
-BF16_SASS = ("HGMMA", "UTMALDG")
+BWD_INSTANCES = {(kernel, dtype, d): f"fa_bwd_{kernel}_{dtype}ILi{d}E"
+                 for kernel in ("dq", "dkv") for dtype in ("bf16", "f32") for d in (64, 128)}
+BWD_SMEM_INDEX = {("dq", "bf16"): 0, ("dkv", "bf16"): 1, ("dq", "f32"): 2, ("dkv", "f32"): 3}
+TENSOR_CORE_SASS = ("HGMMA", "UTMALDG")
 
 
 def sass_check(lib: Path, instances: dict) -> dict:
@@ -389,10 +416,10 @@ def sass_check(lib: Path, instances: dict) -> dict:
         bodies = [body for fname, body in functions.items() if key in fname]
         if len(bodies) != 1:
             raise AssertionError(f"cuobjdump shows {len(bodies)} functions named like {key}")
-        counts[key] = {op: bodies[0].count(op) for op in BF16_SASS}
+        counts[key] = {op: bodies[0].count(op) for op in TENSOR_CORE_SASS}
     missing = {key: c for key, c in counts.items() if not all(c.values())}
     if missing:
-        raise AssertionError(f"bf16 instances without wgmma or TMA in their SASS: {missing}")
+        raise AssertionError(f"instances without wgmma or TMA in their SASS: {missing}")
     return counts
 
 
@@ -445,30 +472,30 @@ def forward_edge_checks(card) -> list:
     return cases
 
 
-def backward_edge_inputs(d, tq, tk, b, h, layout, gen):
-    """q, k, v, dO and the scale of one phase-3g case: contiguous tensors, or views of
-    fused qkv (or q and kv) tensors with dO a view of a wider tensor."""
+def backward_edge_inputs(d, tq, tk, b, h, layout, gen, dtype):
+    """q, k, v, dO and the scale of one phase-3g case in ``dtype``: contiguous tensors, or
+    views of fused qkv (or q and kv) tensors with dO a view of a wider tensor."""
     import torch
 
     if layout == "contiguous":
-        q, k, v, do = (torch.randn(b, t, h, d, device="cuda", generator=gen).bfloat16() for t in (tq, tk, tk, tq))
+        q, k, v, do = (torch.randn(b, t, h, d, device="cuda", generator=gen).to(dtype) for t in (tq, tk, tk, tq))
         return q, k, v, do, d**-0.5
     if tq == tk:
-        q, k, v = torch.randn(b, tq, 3, h, d, device="cuda", generator=gen).bfloat16().unbind(2)
+        q, k, v = torch.randn(b, tq, 3, h, d, device="cuda", generator=gen).to(dtype).unbind(2)
     else:
-        q = torch.randn(b, tq, 3, h, d, device="cuda", generator=gen).bfloat16()[:, :, 0]
-        k, v = torch.randn(b, tk, 2, h, d, device="cuda", generator=gen).bfloat16().unbind(2)
-    do = torch.randn(b, tq, 2, h, d, device="cuda", generator=gen).bfloat16()[:, :, 1]
+        q = torch.randn(b, tq, 3, h, d, device="cuda", generator=gen).to(dtype)[:, :, 0]
+        k, v = torch.randn(b, tk, 2, h, d, device="cuda", generator=gen).to(dtype).unbind(2)
+    do = torch.randn(b, tq, 2, h, d, device="cuda", generator=gen).to(dtype)[:, :, 1]
     return q, k, v, do, EDGE_SCALE
 
 
 def backward_edge_checks(card) -> list:
-    """Phase 3g: the bf16 dq and dk/dv kernels at D = 64 and 128 against their plain
-    versions under phase 3's rule, at phase 3f's edge shapes, on contiguous and fused
-    layouts, and once fed a merged lse as the ring feeds them; each kernel called twice,
-    its outputs bitwise equal. Cases with one key take merged statistics too: against
-    their own, P = 1 and dS = dP - delta = 0 exactly, so dq and dk are rounding noise
-    that no rule relative to their magnitude can hold."""
+    """Phase 3g: the dq and dk/dv kernels, bf16 and fp32, at D = 64 and 128 against their
+    plain versions under phase 3's rule (fp32 also under the fp32 rule), at phase 3f's edge
+    shapes, on contiguous and fused layouts, and once fed a merged lse as the ring feeds
+    them; each kernel called twice, its outputs bitwise equal. Cases with one key take
+    merged statistics too: against their own, P = 1 and dS = dP - delta = 0 exactly, so dq
+    and dk are rounding noise that no rule relative to their magnitude can hold."""
     import torch
 
     from mapanything_tpu_torch.ops import flash_attention as fa
@@ -479,7 +506,7 @@ def backward_edge_checks(card) -> list:
         keys and a 1-token block of its own, merged through the lse as the ring does."""
         part = fa.attention_lse_reference(q.float(), k.float(), v.float(), scale)
         if gen is not None:
-            ke, ve = torch.randn(2, q.shape[0], 1, q.shape[2], q.shape[3], device="cuda", generator=gen).bfloat16()
+            ke, ve = torch.randn(2, q.shape[0], 1, q.shape[2], q.shape[3], device="cuda", generator=gen).to(q.dtype)
             part = _merge_lse([part, _block_attn_lse(q, ke, ve, scale)])
         o, lse = part
         return lse.contiguous(), fa.attention_bwd_delta(o, do).contiguous()
@@ -492,36 +519,47 @@ def backward_edge_checks(card) -> list:
         again = {"dq": fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)}
         again["dk"], again["dv"] = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)
         torch.cuda.synchronize()
-        xf = [x.float() for x in (q, k, v, do)]
-        exact = {"dq": fa.attention_bwd_dq_reference(*xf, lse, delta, scale)}
-        exact["dk"], exact["dv"] = fa.attention_bwd_dkv_reference(*xf, lse, delta, scale)
+        fp32 = q.dtype == torch.float32
+        exact_dtype = torch.float64 if fp32 else torch.float32
+        xe = [x.to(exact_dtype) for x in (q, k, v, do, lse, delta)]
+        exact = {"dq": fa.attention_bwd_dq_reference(*xe, scale)}
+        exact["dk"], exact["dv"] = fa.attention_bwd_dkv_reference(*xe, scale)
         plain = {"dq": fa.attention_bwd_dq_reference(q, k, v, do, lse, delta, scale)}
         plain["dk"], plain["dv"] = fa.attention_bwd_dkv_reference(q, k, v, do, lse, delta, scale)
         for out in got:
-            err, tol = max_err(got[out], exact[out]), tolerance(max_err(plain[out], exact[out]), exact[out])
-            cases.append({**case, "out": out, "err": err, "tol": tol, "finite": bool(torch.isfinite(got[out]).all()),
-                          "repeatable": bool(torch.equal(got[out], again[out]))})
+            plain_err = max_err(plain[out], exact[out])
+            err, tol = max_err(got[out], exact[out]), tolerance(plain_err, exact[out])
+            row = {**case, "out": out, "err": err, "tol": tol, "finite": bool(torch.isfinite(got[out]).all()),
+                   "repeatable": bool(torch.equal(got[out], again[out]))}
+            if fp32:
+                row["fp32_tol"] = fp32_tolerance(plain_err, exact[out])
+            cases.append(row)
 
-    for d in fa.HEAD_DIMS:
-        for tq, tk, b, h in EDGE_CASES:
-            for layout in ("contiguous", "fused"):
-                gen = torch.Generator(device="cuda").manual_seed(tq * 7919 + tk + d + 1)
-                q, k, v, do, scale = backward_edge_inputs(d, tq, tk, b, h, layout, gen)
-                merged = tk == 1
-                lse, delta = statistics(q, k, v, do, scale, gen if merged else None)
-                check({"d": d, "tq": tq, "tk": tk, "b": b, "h": h, "layout": layout, "merged_lse": merged},
-                      q, k, v, do, lse, delta, scale)
-        gen = torch.Generator(device="cuda").manual_seed(d)
-        q, k, v, do = (torch.randn(1, 1370, 4, d, device="cuda", generator=gen).bfloat16() for _ in range(4))
-        lse, delta = statistics(q, k, v, do, d**-0.5, gen)
-        check({"d": d, "tq": 1370, "tk": 1370, "b": 1, "h": 4, "layout": "contiguous", "merged_lse": True},
-              q, k, v, do, lse, delta, d**-0.5)
-    bad = [c for c in cases if not (c["finite"] and c["repeatable"] and c["err"] <= c["tol"])]
-    emit({"phase": "backward_edge_check", "phase_id": "3g", "cases": len(cases),
-          "worst": max(cases, key=lambda c: c["err"] / max(c["tol"], 1e-30)), "failed": bad,
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        for d in fa.HEAD_DIMS:
+            for tq, tk, b, h in EDGE_CASES:
+                for layout in ("contiguous", "fused"):
+                    gen = torch.Generator(device="cuda").manual_seed(tq * 7919 + tk + d + 1)
+                    q, k, v, do, scale = backward_edge_inputs(d, tq, tk, b, h, layout, gen, dtype)
+                    merged = tk == 1
+                    lse, delta = statistics(q, k, v, do, scale, gen if merged else None)
+                    check({"dtype": dname, "d": d, "tq": tq, "tk": tk, "b": b, "h": h, "layout": layout,
+                           "merged_lse": merged}, q, k, v, do, lse, delta, scale)
+            gen = torch.Generator(device="cuda").manual_seed(d)
+            q, k, v, do = (torch.randn(1, 1370, 4, d, device="cuda", generator=gen).to(dtype) for _ in range(4))
+            lse, delta = statistics(q, k, v, do, d**-0.5, gen)
+            check({"dtype": dname, "d": d, "tq": 1370, "tk": 1370, "b": 1, "h": 4, "layout": "contiguous",
+                   "merged_lse": True}, q, k, v, do, lse, delta, d**-0.5)
+    bad = [c for c in cases if not (c["finite"] and c["repeatable"] and c["err"] <= c["tol"]
+                                    and c["err"] <= c.get("fp32_tol", c["tol"]))]
+    worst = {dname: max((c for c in cases if c["dtype"] == dname),
+                        key=lambda c: c["err"] / max(min(c["tol"], c.get("fp32_tol", c["tol"])), 1e-30))
+             for dname in ("bfloat16", "float32")}
+    emit({"phase": "backward_edge_check", "phase_id": "3g", "cases": len(cases), "worst": worst, "failed": bad,
           "card": card["name"], "power_limit": card["power_limit"]})
     if bad:
-        raise AssertionError(f"the bf16 backward disagrees with its plain version or itself at {len(bad)} edge "
+        raise AssertionError(f"the backward disagrees with its plain version or itself at {len(bad)} edge "
                              f"cases: {bad[:4]}")
     return cases
 
@@ -531,12 +569,24 @@ def tolerance(err_plain: float, ref) -> float:
     return max(2.0 * err_plain, 1e-2 * ref.abs().max().item())
 
 
+def fp32_tolerance(err_plain: float, ref) -> float:
+    """The fp32 rule, held beside phase 3's by the fp32 backward (dq, dk, dv): 4x the fp32
+    plain version's own error against fp64, or 1e-5 of the reference's magnitude. Phase
+    3's 1e-2 of the magnitude alone would pass a single bf16 pass (~2^-9 of it)."""
+    return max(4.0 * err_plain, 1e-5 * ref.abs().max().item())
+
+
+FP32_RULE_OUTPUTS = ("dq", "dk", "dv")  # the fp32 forward (o, lse) is PR 1's design, held to phase 3's rule
+
+
 def max_err(x, ref) -> float:
     return (x.double() - ref.double()).abs().max().item()
 
 
 def train_kernel_checks(card, shapes=TRAIN_SHAPES, replaces=TRAIN_REPLACES, phase_id: str = "3b"):
-    """Phases 3b and 3e: the lse forward, dq and dk/dv kernels against their plain versions."""
+    """Phases 3b and 3e: the lse forward, dq and dk/dv kernels against their plain versions;
+    in fp32 also under the fp32 rule (dq, dk, dv), and the split pass bitwise against its
+    plain version."""
     import torch
     import torch.nn.functional as F
 
@@ -571,27 +621,45 @@ def train_kernel_checks(card, shapes=TRAIN_SHAPES, replaces=TRAIN_REPLACES, phas
         errs = {key: max_err(outs[key], exact[key]) for key in outs}
         plain_errs = {key: max_err(plain[key], exact[key]) for key in outs}
         tols = {key: tolerance(plain_errs[key], exact[key]) for key in outs}
+        fp32 = dtype == torch.float32
+        fp32_tols = {key: fp32_tolerance(plain_errs[key], exact[key]) for key in outs} if fp32 else {}
         finite = all(bool(torch.isfinite(x).all()) for x in outs.values())
         del exact, plain, xe, o_e, lse_e, o_p, lse_p
         torch.cuda.empty_cache()
+        split_bitwise = None
+        if fp32:  # the split pass against its plain version, bitwise
+            parts = fa.flash_attention_split_f32(q, k, v, do)
+            split_bitwise = all(torch.equal(got, fa.split_bf16x3_reference(x)) for got, x in zip(parts, (q, k, v, do)))
 
         plain_delta = fa.attention_bwd_delta(o, do)
+        if fp32:  # the fp32 dq and dk/dv kernels alone, on one split pass's parts (the split is timed apart)
+            outs_dq, outs_dkv = (torch.empty_like(q),), (torch.empty_like(k), torch.empty_like(v))
+            dq_call = lambda: fa._launch_bwd("dq", q, k, v, do, lse, delta, scale, outs_dq, parts)  # noqa: E731
+            dkv_call = lambda: fa._launch_bwd("dkv", q, k, v, do, lse, delta, scale, outs_dkv, parts)  # noqa: E731
+        else:
+            dq_call = lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)  # noqa: E731
+            dkv_call = lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)  # noqa: E731
         times = {
             "flash_attention_fwd_lse": (
                 cuda_time_ms(lambda: fa.flash_attention_lse(q, k, v, scale), iters=20),
                 cuda_time_ms(lambda: fa.attention_lse_reference(q, k, v, scale), iters=3, warmup=1),
             ),
             "flash_attention_bwd_dq": (
-                cuda_time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale), iters=20),
+                cuda_time_ms(dq_call, iters=20),
                 cuda_time_ms(lambda: fa.attention_bwd_dq_reference(q, k, v, do, lse, plain_delta, scale),
                              iters=3, warmup=1),
             ),
             "flash_attention_bwd_dkv": (
-                cuda_time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale), iters=20),
+                cuda_time_ms(dkv_call, iters=20),
                 cuda_time_ms(lambda: fa.attention_bwd_dkv_reference(q, k, v, do, lse, plain_delta, scale),
                              iters=3, warmup=1),
             ),
         }
+        if fp32:
+            times["flash_attention_split_f32"] = (
+                cuda_time_ms(lambda: fa.flash_attention_split_f32(q, k, v, do), iters=20),
+                cuda_time_ms(lambda: [fa.split_bf16x3_reference(x) for x in (q, k, v, do)], iters=5, warmup=1),
+            )
         # The library yardstick: torch SDPA forward with autograd on, and its backward alone.
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
         sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
@@ -615,35 +683,59 @@ def train_kernel_checks(card, shapes=TRAIN_SHAPES, replaces=TRAIN_REPLACES, phas
             "flash_attention_fwd_lse": (fa.attention_flops(b, t, t, h, d), io_fwd),
             "flash_attention_bwd_dq": (4 * b * h * t * t * d, 5 * b * t * h * d * item + io_stats),
             "flash_attention_bwd_dkv": (6 * b * h * t * t * d, 6 * b * t * h * d * item + io_stats),
+            # The split: q, k, v and dO read in fp32, their three bf16 parts written.
+            "flash_attention_split_f32": (0, 4 * b * t * h * d * (4 + 3 * 2)),
         }
-        bwd_bound_ms = max(fa.attention_bwd_flops(b, t, t, h, d) / peak,
+        # The fp32 backward runs its products as six bf16 passes on the tensor cores: its
+        # bound is 6x their flop at the bf16 rate (the split bound), 4.1x under the same
+        # flop at the fp32 FMA rate (the FFMA bound, kept beside it as ffma_bound_ms).
+        passes, bwd_peak = (6, bf16_peak) if fp32 else (1, peak)
+        bwd_bound_ms = max(passes * fa.attention_bwd_flops(b, t, t, h, d) / bwd_peak,
                            fa.attention_bwd_bytes(b, t, t, h, d, item) / mem_bw) * 1e3
         kernels = {}
         for kname, (ms, plain_ms) in times.items():
             flop, nbytes = work[kname]
-            t_ops, t_bytes = flop / peak * 1e3, nbytes / mem_bw * 1e3
+            backward = kname in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+            t_ops = flop * (passes if backward else 1) / (bwd_peak if backward else peak) * 1e3
+            t_bytes = nbytes / mem_bw * 1e3
             kernels[kname] = {
                 "replaces": replaces[kname][name],
                 "ms": ms, "plain_ms": plain_ms,
-                "library_ms": library_fwd_ms if kname.endswith("lse") else library_bwd_ms,
+                "library_ms": (library_fwd_ms if kname.endswith("lse") else
+                               None if kname == "flash_attention_split_f32" else library_bwd_ms),
                 "bound_ms": max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "tflops": flop / ms / 1e9,
             }
+            if fp32 and backward:
+                kernels[kname]["ffma_bound_ms"] = max(flop / f32_peak * 1e3, t_bytes)
+            if kname == "flash_attention_split_f32":
+                kernels[kname]["gb_per_s"] = nbytes / ms / 1e6
         row = {
             "phase": "train_kernel_check", "phase_id": phase_id, "shape": name, "b_t_h_d": [b, t, h, d],
             "dtype": dtype_name,
             "max_abs_err": errs, "plain_err": plain_errs, "tol": tols, "kernels": kernels,
-            "backward_ms": times["flash_attention_bwd_dq"][0] + times["flash_attention_bwd_dkv"][0],
+            "backward_ms": sum(times[k][0] for k in times if k != "flash_attention_fwd_lse"),
             "backward_bound_ms": bwd_bound_ms, "library_bwd_ms": library_bwd_ms, "bwd_lse_ms": bwd_lse_ms,
             "per_step": per_step, "card": card["name"], "power_limit": card["power_limit"],
         }
+        if fp32:
+            row.update(fp32_tol=fp32_tols, split_bitwise=split_bitwise,
+                       backward_ffma_bound_ms=max(fa.attention_bwd_flops(b, t, t, h, d) / f32_peak,
+                                                  fa.attention_bwd_bytes(b, t, t, h, d, item) / mem_bw) * 1e3,
+                       fp32_rule_forward={key: errs[key] <= fp32_tols[key] for key in ("o", "lse")})
         emit(row)
         bad = {key: (errs[key], tols[key]) for key in outs if not errs[key] <= tols[key]}
+        bad.update({f"{key} (fp32 rule)": (errs[key], fp32_tols[key]) for key in FP32_RULE_OUTPUTS
+                    if fp32 and not errs[key] <= fp32_tols[key]})
+        if split_bitwise is False:
+            bad["split"] = "the split kernel's parts differ from its plain version's"
         if not finite or bad:
             raise AssertionError(f"training kernels disagree with their plain versions at {name}: {bad}")
         rows.append(row)
         del qkv, q, k, v, do, o, lse, delta, dq, dk, dv, outs
+        if fp32:
+            del parts, outs_dq, outs_dkv
         torch.cuda.empty_cache()
     return rows
 
@@ -892,11 +984,12 @@ def check_invariants(preds, shape):
     return ray_norm_err
 
 
-def flagship_config(trunk_heads: int):
-    """The flagship bf16 config; with trunk_heads=6, flagship-h128 (768 / 6 = 128)."""
+def flagship_config(trunk_heads: int, compute_dtype: str = "bfloat16"):
+    """The flagship config in bf16; with trunk_heads=6, flagship-h128 (768 / 6 = 128); with
+    compute_dtype="float32", the config's default dtype (phase 17)."""
     from mapanything_tpu_torch.models.mapanything import MapAnythingConfig
 
-    return MapAnythingConfig(compute_dtype="bfloat16", info_sharing_num_heads=trunk_heads)
+    return MapAnythingConfig(compute_dtype=compute_dtype, info_sharing_num_heads=trunk_heads)
 
 
 def flagship(card, trunk_heads: int = 12):
@@ -1139,7 +1232,7 @@ def flagship_infer(card, forward_ms: float):
     torch.cuda.synchronize()
     counts = launch_counts()
     if counts != {"flash_attention_fwd": 48, "flash_attention_fwd_lse": 0, "flash_attention_bwd_dq": 0,
-                  "flash_attention_bwd_dkv": 0}:
+                  "flash_attention_bwd_dkv": 0, "flash_attention_split_f32": 0}:
         raise AssertionError(f"one flagship infer launched {counts}, not the lse-free forward 48 times")
     line = {"phase": "flagship_infer",
             "config": "MapAnythingConfig(compute_dtype='bfloat16'), 1x8x518x518, seeded random weights",
@@ -1329,19 +1422,23 @@ def train_slice_check(trunk_heads=None):
     if trunk_heads is not None:
         check_head_dim_launches(by_head_dim(gpu["shapes"]), cfg.info_sharing_dim // trunk_heads,
                                 ["flash_attention_fwd_lse", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"])
-    if gpu["counts"]["flash_attention_fwd_lse"] == 0 or gpu["counts"]["flash_attention_bwd_dq"] == 0 \
-            or gpu["counts"]["flash_attention_bwd_dkv"] == 0 or gpu["counts"]["flash_attention_fwd"] != 0:
+    if any(gpu["counts"][k] == 0 for k in ("flash_attention_fwd_lse", "flash_attention_bwd_dq",
+                                            "flash_attention_bwd_dkv", "flash_attention_split_f32")) \
+            or gpu["counts"]["flash_attention_fwd"] != 0:
         raise AssertionError(f"the cuda step did not run the training kernels: {gpu['counts']}")
     bad = {k: v for d in (errs, grad_errs, param_errs) for k, v in d.items() if not v <= rtol}
     if bad:
         raise AssertionError(f"cuda and cpu disagree beyond {rtol} of the magnitude: {bad}")
 
 
-def flagship_train(card, group=None, unsharded_loss=None, trunk_heads: int = 12):
+def flagship_train(card, group=None, unsharded_loss=None, trunk_heads: int = 12, compute_dtype: str = "bfloat16",
+                   kernel_rows=None):
     """Phase 7, the flagship bf16 train step on 1 x 4 x 518; with a view
     ``group``, phase 10: the same step view-parallel under the ring, each
     rank on its block of the views, beside phase 7's loss; with trunk_heads=6,
-    phase 16: flagship-h128's step."""
+    phase 16: flagship-h128's step; with compute_dtype="float32", phase 17: the
+    step at the config's default dtype, which launches the fp32 kernels (their
+    share of the step from phase 3b's ``kernel_rows``, where given)."""
     import torch
 
     from mapanything_tpu_torch.models.mapanything import GeometricInputConfig, MapAnything
@@ -1355,7 +1452,8 @@ def flagship_train(card, group=None, unsharded_loss=None, trunk_heads: int = 12)
     B, V, H, W = 1, 4, 518, 518
     warmup, iters = 2, 5  # seven steps: the masks of some step give every geometric encoder a gradient
     t0 = time.perf_counter()
-    cfg = flagship_config(trunk_heads)
+    cfg = flagship_config(trunk_heads, compute_dtype)
+    fp32 = compute_dtype == "float32"
     d = cfg.info_sharing_dim // trunk_heads
     model = MapAnything(cfg, device="cuda", seed=0, geometric_inputs=True)
     # bench.py:229-231: a random init diverges at the production lr.
@@ -1374,14 +1472,19 @@ def flagship_train(card, group=None, unsharded_loss=None, trunk_heads: int = 12)
     setup_s = time.perf_counter() - t0
 
     # Per step: the encoder's 24 (D = 64) and the frame layers' 12 of each kernel, and
-    # the 12 global layers' (under the ring, n_ranks ring steps each), at the trunk's D.
+    # the 12 global layers' (under the ring, n_ranks ring steps each), at the trunk's D;
+    # in fp32 a split pass before each dq and dk/dv pair. Unsharded, by (key length, D):
+    # 24 at 1370 tokens, 12 at 1369 and 12 at 4 * 1369 + 1 = 5477.
     per_kernel = 36 + 12 * n_ranks
     want = {"flash_attention_fwd": 0, "flash_attention_fwd_lse": per_kernel,
-            "flash_attention_bwd_dq": per_kernel, "flash_attention_bwd_dkv": per_kernel}
+            "flash_attention_bwd_dq": per_kernel, "flash_attention_bwd_dkv": per_kernel,
+            "flash_attention_split_f32": per_kernel if fp32 else 0}
     want_by_d = {64: 24}
     want_by_d[d] = want_by_d.get(d, 0) + 12 + 12 * n_ranks
+    want_by_shape = {(1370, 64): 24, (1369, d): 12, (5477, d): 12}
+    training = [k for k in want if want[k]]
     totals = dict.fromkeys(want, 0)
-    totals_by_d = {k: {} for k in want if k != "flash_attention_fwd"}
+    totals_by_d = {k: {} for k in training}
     names = list(state.params)
     ever_nonzero = torch.zeros(len(names), dtype=torch.bool, device="cuda")
     times, metrics = [], []
@@ -1396,15 +1499,18 @@ def flagship_train(card, group=None, unsharded_loss=None, trunk_heads: int = 12)
         dt = time.perf_counter() - t
         counts, shapes = launch_counts(), launch_shapes()
         ring = sa.counts()
-        if counts != want or any(ring[k] != v for k, v in want_ring.items()):
+        # (An older checkout that this script is copied into to time its step may lack the split's count.)
+        if counts != {k: want[k] for k in counts} or any(ring[k] != v for k, v in want_ring.items()):
             raise AssertionError(f"train step {i} launched {counts} with {ring}, not {want} and {want_ring}")
         for k, by_d in by_head_dim(shapes).items():
             if k in totals_by_d and by_d != want_by_d:
                 raise AssertionError(f"train step {i} launched {k} {by_d} times by head dim, not {want_by_d}")
+            if k in totals_by_d and group is None and shapes[k] != want_by_shape:
+                raise AssertionError(f"train step {i} launched {k} {shapes[k]} times by (Tk, D), not {want_by_shape}")
             for dim, n in by_d.items():
                 if k in totals_by_d:
                     totals_by_d[k][dim] = totals_by_d[k].get(dim, 0) + n
-        for k in totals:
+        for k in counts:
             totals[k] += counts[k]
         m = {k: v.item() for k, v in m.items()}
         if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])):
@@ -1433,10 +1539,11 @@ def flagship_train(card, group=None, unsharded_loss=None, trunk_heads: int = 12)
         raise AssertionError(f"parameters with a gradient but a zero update: {no_update}")
     unchanged = [n for n in names if torch.equal(before[n], state.params[n])]
     ms = 1e3 * sum(times) / iters
+    dtype_arg = "" if fp32 else "compute_dtype='bfloat16'"
     line = {
-        "phase": ("flagship_train" if trunk_heads == 12 else "flagship_h128_train")
+        "phase": ("flagship_fp32_train" if fp32 else "flagship_train" if trunk_heads == 12 else "flagship_h128_train")
                  + ("" if group is None else "_view_parallel"),
-        "config": f"MapAnythingConfig(compute_dtype='bfloat16'"
+        "config": f"MapAnythingConfig({dtype_arg}"
                   f"{'' if trunk_heads == 12 else f', info_sharing_num_heads={trunk_heads}'}), 1x4x518x518 train "
                   "step, seeded random weights, bench.py LossBatch, GeometricInputConfig() masks, lr 1e-7"
                   + ("" if group is None else f"; view-parallel, ring, {n_ranks} rank(s) (NCCL)"),
@@ -1451,6 +1558,9 @@ def flagship_train(card, group=None, unsharded_loss=None, trunk_heads: int = 12)
                           "max_abs_mu": state.opt_state.mu[n].abs().max().item()} for n in unchanged},
         "card": card["name"], "power_limit": card["power_limit"],
     }
+    if kernel_rows:  # each training kernel's time a step: phase 3b's ms per call x launches
+        per_step = {k: sum(r["kernels"][k]["ms"] * r["per_step"] for r in kernel_rows) for k in training}
+        line.update(kernel_ms_per_step=per_step, kernel_share_of_step={k: v / ms for k, v in per_step.items()})
     if unsharded_loss is not None:  # phase 7's, the same seeds
         gap = max(abs(a - b) / abs(b) for a, b in zip(line["loss"], unsharded_loss))
         line.update(unsharded_loss=unsharded_loss, loss_gap=gap, loss_gap_limit=LOSS_GAP_LIMIT)
@@ -1578,7 +1688,8 @@ def flagship_view_parallel(card, group):
             preds = fwd()
             torch.cuda.synchronize()
             counts, ring = launch_counts(), sa.counts()
-            expect = {**want[mode], "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+            expect = {**want[mode], "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+                      "flash_attention_split_f32": 0}
             if counts != expect or ring["ring_steps"] != (12 * n if mode == "ring" else 0):
                 raise AssertionError(f"one {mode} forward launched {counts} with {ring}, not {expect}")
             for _ in range(warmup - 1):
@@ -1653,13 +1764,15 @@ def path_entry(name, replaces, rows, launches, also=(), **extra):
 
 
 TRAIN_OUTPUTS = {"flash_attention_fwd_lse": ("o", "lse"), "flash_attention_bwd_dq": ("dq",),
-                 "flash_attention_bwd_dkv": ("dk", "dv")}
+                 "flash_attention_bwd_dkv": ("dk", "dv"), "flash_attention_split_f32": ()}
+TRAIN_KERNELS = ("flash_attention_fwd_lse", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")  # every dtype's
 
 
 def train_entry(name, train_rows, replaces, launches, steps, **extra):
     """One training kernel on one train step's path in the kernels line: each
     shape's times, bound and max error, and their sums per step."""
-    outs = TRAIN_OUTPUTS[name]
+    outs = TRAIN_OUTPUTS[name]  # none for the split pass, held bitwise (max_abs_err 0)
+    train_rows = [r for r in train_rows if name in r["kernels"]]
     main_train = [r for r in train_rows if r["per_step"]]
     per_step = lambda key: sum(r["kernels"][name][key] * r["per_step"] for r in main_train)  # noqa: E731
     return {
@@ -1669,13 +1782,14 @@ def train_entry(name, train_rows, replaces, launches, steps, **extra):
         "replaces": replaces,
         "launches": launches,
         "launches_per_step": launches // steps,
-        "max_abs_err": max(r["max_abs_err"][o] for r in main_train for o in outs),
+        "max_abs_err": max((r["max_abs_err"][o] for r in main_train for o in outs), default=0.0),
         "ms": per_step("ms"),
         "plain_ms": per_step("plain_ms"),
         "bound_ms": per_step("bound_ms"),
         "bound_by": "operations" if all(r["kernels"][name]["bound_by"] == "operations"
                                          for r in main_train) else "bytes",
-        "library_ms": per_step("library_ms"),
+        "library_ms": (None if any(r["kernels"][name]["library_ms"] is None for r in main_train)
+                       else per_step("library_ms")),
         "per_shape": [dict(shape=r["shape"], dtype=r["dtype"], per_step=r["per_step"],
                            max_abs_err={o: r["max_abs_err"][o] for o in outs}, **r["kernels"][name])
                       for r in train_rows],
@@ -1684,7 +1798,7 @@ def train_entry(name, train_rows, replaces, launches, steps, **extra):
 
 
 def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, inference_launches, train_launches,
-                 train_steps, vp_launches, many_view_line, h128):
+                 train_steps, vp_launches, many_view_line, h128, fp32_train):
     """The kernels line: each kernel, what it replaces, its launches on its path
     (one forward; all train steps, and per step), its max error and its times
     per forward (inference) or per train step. The phase-3c rows are the
@@ -1694,13 +1808,15 @@ def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, infe
     and frame layers and K3 at its global layers, each with that run's
     launches at its key length; times per scene. The phase-3e rows are K8,
     the D = 128 instances, on flagship-h128's forward (phase 15) and train
-    step (phase 16), with those runs' D = 128 launches (``h128``)."""
+    step (phase 16), with those runs' D = 128 launches (``h128``). The fp32 rows
+    of phase 3b are the default-dtype train step's (phase 17: ``fp32_train``), the
+    split pass among them."""
     main_rows = [r for r in rows if r["per_forward"]]
     kernels = [path_entry("flash_attention_fwd", "mapanything_tpu/ops/flash_attention.py:395", main_rows,
                           {r["shape"]: r["per_forward"] for r in main_rows},
                           also=[r for r in rows if not r["per_forward"]])]
     kernels[0]["launches"] = inference_launches  # the count of phase 5's run
-    for name in TRAIN_OUTPUTS:
+    for name in TRAIN_KERNELS:
         kernels.append(train_entry(name, train_rows, TRAIN_REPLACES[name]["encoder"], train_launches[name],
                                    train_steps))
         if name != "flash_attention_fwd_lse":  # the ring's block against a merged lse (phase 10)
@@ -1733,10 +1849,15 @@ def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, infe
                               also=[r for r in h128["rows"] if not r["per_forward"]], head_dim=128,
                               path="flagship-h128 forward 1x8x518 (phase 15); times per forward"))
     kernels[-1]["launches"] = h128["forward_launches"][128]  # phase 15's D = 128 launches
-    for name in TRAIN_OUTPUTS:
+    for name in TRAIN_KERNELS:
         kernels.append(train_entry(name, h128["train_rows"], H128_TRAIN_REPLACES[name]["global_h128"],
                                    h128["train_launches"][name][128], h128["train_steps"], head_dim=128,
                                    path="flagship-h128 train step 1x4x518 (phase 16); times per step"))
+    # Phase 17: the fp32 lse forward, the split pass, dq and dk/dv on the default-dtype step.
+    for name in TRAIN_OUTPUTS:
+        kernels.append(train_entry(name, fp32_train["rows"], TRAIN_REPLACES[name]["fp32_global"],
+                                   fp32_train["launches"][name], fp32_train["steps"], dtype="float32",
+                                   path="flagship fp32 train step 1x4x518 (phase 17); times per step"))
     emit({"kernels": kernels})
 
 
@@ -1766,7 +1887,9 @@ def multi_card(card, rendezvous: Path, unsharded_loss) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the PyTorch port on one NVIDIA GPU.")
     parser.add_argument("--train-step-only", action="store_true",
-                        help="build the kernels, then run phase 7 alone and stop after its line")
+                        help="build the kernels, then run phase 7 (or 17) alone and stop after its line")
+    parser.add_argument("--compute-dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                        help="with --train-step-only: the step's dtype, bfloat16 (phase 7) or float32 (phase 17)")
     parser.add_argument("--forward-edges-only", action="store_true",
                         help="build the kernels, then run phase 3f alone and stop after its line")
     parser.add_argument("--backward-edges-only", action="store_true",
@@ -1803,21 +1926,23 @@ def main() -> int:
         report = ptxas_report(log)
         instances.update(report["instances"])
         warnings += report["warnings"]
+    build = {"phase": "build", "kernels": list(KERNEL_STEMS), "seconds": build_s, "instances": instances,
+             "ptxas_warnings": warnings}
+    if args.train_step_only:  # the build and the step alone (also when this script times another checkout)
+        emit(build)
+        flagship_train(card, compute_dtype=args.compute_dtype)
+        return 0
     fwd_smem = _build.load(KERNEL_STEMS[0]).flash_attention_fwd_bf16_smem
-    bwd_smem = _build.load(KERNEL_STEMS[1]).flash_attention_bwd_bf16_smem
+    bwd_smem = _build.load(KERNEL_STEMS[1]).flash_attention_bwd_smem
     dynamic = {key: fwd_smem(d) for (d, _), key in FWD_BF16_INSTANCES.items()}
-    dynamic.update({key: bwd_smem(0 if kernel == "dq" else 1, d) for (kernel, d), key in BWD_BF16_INSTANCES.items()})
+    dynamic.update({key: bwd_smem(BWD_SMEM_INDEX[kernel, dtype], d)
+                    for (kernel, dtype, d), key in BWD_INSTANCES.items()})
     for key, nbytes in dynamic.items():
         for name, report in instances.items():
             if key in name:
                 report["dynamic_smem"] = nbytes
-    emit({"phase": "build", "kernels": list(KERNEL_STEMS), "seconds": build_s, "instances": instances,
-          "ptxas_warnings": warnings, "fwd_bf16_sass": sass_check(libs[0], FWD_BF16_INSTANCES),
-          "bwd_bf16_sass": sass_check(libs[1], BWD_BF16_INSTANCES)})
-
-    if args.train_step_only:
-        flagship_train(card)
-        return 0
+    emit({**build, "fwd_bf16_sass": sass_check(libs[0], FWD_BF16_INSTANCES),
+          "bwd_sass": sass_check(libs[1], BWD_INSTANCES)})
     if not args.backward_edges_only:
         forward_edge_checks(card)
     if args.forward_edges_only:
@@ -1827,6 +1952,7 @@ def main() -> int:
         return 0
     rows = kernel_checks(card, ATTENTION_SHAPES, "3")
     train_rows = train_kernel_checks(card)
+    fp32_train_rows = train_kernel_checks(card, FP32_TRAIN_SHAPES)
     long_rows, ring_bwd_row = long_kernel_checks(card)
     many_view_rows = kernel_checks(card, MANY_VIEW_SHAPES, "3d")
     h128 = {"rows": kernel_checks(card, H128_SHAPES, "3e"),
@@ -1863,6 +1989,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 17. The default-dtype (fp32) flagship train step.
+    fp32_launches, fp32_steps, _ = flagship_train(card, compute_dtype="float32", kernel_rows=fp32_train_rows)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # 8-10. View parallelism on a process group of this process alone: NCCL at world size 1.
     from mapanything_tpu_torch.parallel.distributed import init_distributed_mode
     from mapanything_tpu_torch.parallel.mesh import make_view_group
@@ -1894,7 +2025,8 @@ def main() -> int:
         "k7_per_step": vp_train["ring_per_step"]["ring_steps"],
     }
     summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, inference_launches, train_launches,
-                 train_steps, vp_launches, many_view_line, h128)
+                 train_steps, vp_launches, many_view_line, h128,
+                 {"rows": fp32_train_rows, "launches": fp32_launches, "steps": fp32_steps})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -25,7 +25,7 @@
 // (the views of the fused qkv projection need no copy). dq, dk and dv are written as
 // contiguous (B, T, H, D) tensors; rows past Tq or Tk are never stored.
 //
-// fa_bwd_dq_bf16<D> / fa_bwd_dkv_bf16<D>, D = 64 and 128: the main path's instances, in
+// fa_bwd_dq_bf16<D> / fa_bwd_dkv_bf16<D>, D = 64 and 128: the bf16 model's instances, in
 // the design of the bf16 forward (csrc/flash_attention_fwd.cu).
 //   Bound on this card. Five T^2*D products (S, dP, dV, dK, dQ), 10*B*H*T^2*D flop,
 //   against O(T*H*D) bytes: the tensor cores bound it. The split recomputes S and dP in
@@ -66,9 +66,31 @@
 //   consume them, as FlashAttention-2 does. Shared memory (dynamic, raised once per
 //   instance and device): dq 129.1 KB at D = 64 and 161.1 KB at D = 128, dk/dv 107.3 KB
 //   and 113.8 KB.
-// fa_bwd_dq_f32 / fa_bwd_dkv_f32: fp32 SIMT, D / 32 threads per row (2 at D = 64, 4 at
-//   D = 128), each holding its share of the head dim; the fp32 model's path. Their tiles
-//   take 32.5 KB and 64.5 KB; above 48 KB as dynamic shared memory.
+// fa_bwd_dq_f32<D> / fa_bwd_dkv_f32<D>, D = 64 and 128: the fp32 model's instances
+//   (compute_dtype="float32", the model's default), in the same design on the tensor
+//   cores. Single-pass bf16 or TF32 products would keep about 8 or 11 of fp32's 24
+//   significand bits; instead each fp32 operand x is split into three bf16 parts, hi =
+//   bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), which carry its 24 bits, and a
+//   product A B becomes six bf16 wgmma products into one fp32 accumulator (lo.hi,
+//   mid.mid, hi.lo, mid.hi, hi.mid, hi.hi: only terms of order 2^-24 and below are
+//   dropped, and each bf16 x bf16 product is exact in fp32).
+//   Bound on this card. Six bf16 passes of the backward's 10*B*H*T^2*D flop at 989
+//   TFLOP/s: 60*B*H*T^2*D / 989e12 s, 4.1x less than the same work in fp32 FMA (67
+//   TFLOP/s). (3xTF32 reaches the same ceiling, 3 passes at 495 TFLOP/s, but tf32 wgmma
+//   reads shared-memory operands K-major only and takes 8 bytes an element.)
+//   Design. A split pass (fa_split_f32, one launch a backward) writes the parts of q, k,
+//   v and dO, contiguous bf16 (3, B, T, H, D), which both kernels read through TMA maps
+//   over (D, T, H, 3B). dq and dk/dv are fa_bwd_dq_bf16 and fa_bwd_dkv_bf16 with every
+//   staged tile in three parts: S and dP (S^T and dP^T) accumulate six passes in fp32,
+//   P and dS are formed in fp32 and split into three sets of A fragments in registers.
+//   Each key tile's (query stage's) dQ, dK or dV product goes into a fresh accumulator
+//   that is then added to the running sum in fp32 registers, so that the tensor cores'
+//   accumulation rounds within one tile's wgmma only, not across every key (query row).
+//   Three tiles a staged operand take 3x the bf16 plan's shared memory (192 KB of the
+//   227 KB a block), and the fragments 3x its registers: dq takes 64-key tiles (D = 64)
+//   or one consumer of 64 query rows and 32-key tiles (D = 128); dk/dv 32-row query
+//   stages, and one consumer of 64 keys at D = 128 with dV's running sum in shared
+//   memory. Plans: DqF32Plan and DkvF32Plan below.
 
 #include "flash_attention_common.cuh"
 
@@ -565,307 +587,817 @@ __global__ void __launch_bounds__(DkvPlan<D>::kThreads, 1)
   }
 }
 
-// fp32 instances: kSplit threads a row (2 at D = 64, 4 at D = 128, so that a thread
-// holds D / kSplit elements of each of its rows' vectors); thread part `hf` holds the
-// head-dim elements d = kSplit * i + hf, so the parts of a row read neighbouring banks.
-template <int D>
-struct BwdF32Tiles {
-  static constexpr int kRows = 64, kStream = 64;
-  static constexpr int kSplit = D / 32;
-  static constexpr int kThreads = kRows * kSplit;
-  static constexpr int kSmem = 2 * kStream * D * 4 + 2 * kStream * 4;  // two tiles; sL, sD
+// ---- fp32 instances: each product as six bf16 products of split operands ----
+
+// bf16 halves of a packed pair as fp32 (the low half is the pair's first value).
+__device__ __forceinline__ float bf16_low(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf16_high(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
+
+// Split the pair (a, b) into three packed bf16 pairs, a in each low half: hi = bf16(x),
+// mid = bf16(x - hi), lo = bf16(x - hi - mid), rounded to nearest even. Both differences
+// are exact in fp32, and x - hi - mid - lo is within 2^-24 |x|: the parts carry x's 24
+// significand bits (ops/flash_attention.py's split_bf16x3_reference is the same split).
+__device__ __forceinline__ void split3(float a, float b, uint32_t& hi, uint32_t& mid, uint32_t& lo) {
+  hi = pack_bf16(a, b);
+  a -= bf16_low(hi);
+  b -= bf16_high(hi);
+  mid = pack_bf16(a, b);
+  a -= bf16_low(mid);
+  b -= bf16_high(mid);
+  lo = pack_bf16(a, b);
+}
+
+// The split pass: q, k, v and dO (blockIdx.y picks one), fp32 (B, T, H, D) in any batch,
+// token and head strides with a unit head-dim stride, into contiguous bf16 parts
+// (3, B, T, H, D): hi, mid, lo. Each thread splits 8 elements a step (two 16-byte loads,
+// three 16-byte stores).
+struct SplitArgs {
+  const float* x[4];
+  __nv_bfloat16* parts[4];
+  long long stride[4][3];  // batch, token, head, in elements
+  int T[4];
+  int B, H, D;
 };
 
-template <int D>
-__device__ __forceinline__ float dot_part(const float (&x)[D / BwdF32Tiles<D>::kSplit],
-                                          const float* row, int hf) {
-  constexpr int kSplit = BwdF32Tiles<D>::kSplit;
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < D / kSplit; ++i) s = fmaf(x[i], row[kSplit * i + hf], s);
-#pragma unroll
-  for (int lanes = 1; lanes < kSplit; lanes <<= 1) s += __shfl_xor_sync(0xffffffffu, s, lanes);
-  return s;
-}
+constexpr int kSplitThreads = 256;
 
-// Stage rows [row0, row0 + ROWS) of a (batch, head) slice into a [ROWS][D] fp32 tile;
-// rows past `rows_total` are zero.
-template <int D, int ROWS, int THREADS>
-__device__ __forceinline__ void load_tile_f32(float (*dst)[D], const float* base,
-                                              long long stride_t, int row0, int rows_total,
-                                              int tid) {
-  for (int i = tid; i < ROWS * D / 4; i += THREADS) {
-    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-    const int gr = row0 + r;
-    *reinterpret_cast<float4*>(&dst[r][c]) =
-        gr < rows_total ? *reinterpret_cast<const float4*>(base + gr * stride_t + c)
-                        : make_float4(0.f, 0.f, 0.f, 0.f);
+__global__ void __launch_bounds__(kSplitThreads) fa_split_f32(const __grid_constant__ SplitArgs a) {
+  const int which = blockIdx.y;
+  const int T = a.T[which], H = a.H, chunks = a.D / 8;
+  const long long n = static_cast<long long>(a.B) * T * H * chunks;
+  const long long part = 8 * n;  // elements of one part
+  const float* const x = a.x[which];
+  __nv_bfloat16* const out = a.parts[which];
+  const long long sb = a.stride[which][0], st = a.stride[which][1], sh = a.stride[which][2];
+  for (long long i = static_cast<long long>(blockIdx.x) * kSplitThreads + threadIdx.x; i < n;
+       i += static_cast<long long>(gridDim.x) * kSplitThreads) {
+    const int c = static_cast<int>(i % chunks);
+    long long r = i / chunks;
+    const int h = static_cast<int>(r % H);
+    r /= H;
+    const int t = static_cast<int>(r % T);
+    const long long b = r / T;
+    const float* src = x + b * sb + t * st + h * sh + 8 * c;
+    const float4 u = *reinterpret_cast<const float4*>(src), w = *reinterpret_cast<const float4*>(src + 4);
+    uint4 hi, mid, lo;
+    split3(u.x, u.y, hi.x, mid.x, lo.x);
+    split3(u.z, u.w, hi.y, mid.y, lo.y);
+    split3(w.x, w.y, hi.z, mid.z, lo.z);
+    split3(w.z, w.w, hi.w, mid.w, lo.w);
+    // Element 8i of a contiguous (B, T, H, D) part is row (b, t, h), column 8c.
+    *reinterpret_cast<uint4*>(out + 8 * i) = hi;
+    *reinterpret_cast<uint4*>(out + part + 8 * i) = mid;
+    *reinterpret_cast<uint4*>(out + 2 * part + 8 * i) = lo;
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(BwdF32Tiles<D>::kThreads)
-    fa_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ dout,
-                  const float* __restrict__ lse, const float* __restrict__ delta,
-                  float* __restrict__ dq, int Tq, int Tk, int H, long long sqb, long long sqt,
-                  long long sqh, long long skb, long long skt, long long skh, long long svb,
-                  long long svt, long long svh, long long sdb, long long sdt, long long sdh,
-                  float scale, float scale_log2) {
-  using Tl = BwdF32Tiles<D>;
-  constexpr int kSplit = Tl::kSplit, kPart = D / kSplit, kStream = Tl::kStream;
-  float(*sK)[D] = reinterpret_cast<float(*)[D]>(block_smem<Tl::kSmem>());
-  float(*sV)[D] = sK + kStream;
-  const int tid = threadIdx.x, hf = tid % kSplit;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int row = blockIdx.x * Tl::kRows + tid / kSplit;
-  const bool live = row < Tq;
-  const float* qp = q + b * sqb + h * sqh + static_cast<long long>(live ? row : 0) * sqt;
-  const float* dp_ = dout + b * sdb + h * sdh + static_cast<long long>(live ? row : 0) * sdt;
-  const float* kbase = k + b * skb + h * skh;
-  const float* vbase = v + b * svb + h * svh;
-  const long long si = (static_cast<long long>(b) * H + h) * Tq + row;
-  const float lse2 = live ? lse[si] * kLog2e : INFINITY;
-  const float dlt = live ? delta[si] : 0.f;
+// The six bf16 products of a split product A B, pass p taking part pass_a(p) of A and
+// pass_b(p) of B (0 hi, 1 mid, 2 lo): lo.hi, mid.mid, hi.lo, mid.hi, hi.mid, hi.hi. The
+// small terms go first, while the accumulator is still small; the dropped terms (mid.lo,
+// lo.mid, lo.lo) are of order 2^-24 of the product and below.
+// The descriptor of the tile `off` bytes past the tile whose descriptor is `base`, formed
+// here: the address field is the low 14 bits of the descriptor (bytes / 16), and no tile
+// here carries out of it. A product over three parts addresses 3 * D / 16 tiles of each
+// operand; without the pin the compiler forms their 64-bit descriptors ahead of the
+// wgmma (dq spilled 16 bytes at D = 64).
+__device__ __forceinline__ uint64_t desc_at(uint64_t base, uint32_t off) {
+  asm volatile("" : "+l"(base));
+  return base + (off >> 4);
+}
 
-  float qr[kPart], dor[kPart], acc[kPart];
+// 0, read from shared memory at each call: added to a tile base that does not change over
+// the kernel's loops (dq's Q and dO, dk/dv's K and V), it keeps ptxas from forming that
+// operand's 3 * D / 16 descriptors once and holding them across the loops (96 registers
+// at D = 128, where they spilled 36 and 100 bytes).
+__device__ __forceinline__ uint32_t reloaded_zero(const uint32_t* zero) {
+  return *static_cast<const volatile uint32_t*>(zero);
+}
+
+__host__ __device__ constexpr int pass_a(int p) { return p == 0 ? 2 : p == 1 || p == 3 ? 1 : 0; }
+__host__ __device__ constexpr int pass_b(int p) { return p == 2 ? 2 : p == 1 || p == 4 ? 1 : 0; }
+constexpr int kPasses = 6;
+
+// x (64 x N fp32 accumulators) as three sets of bf16 A fragments, one per 16 columns:
+// pa[part * N / 16 + kk].
+template <int N>
+__device__ __forceinline__ void split_fragments(uint32_t (&pa)[3 * N / 16][4], const float (&x)[N / 2]) {
 #pragma unroll
-  for (int i = 0; i < kPart; ++i) {
-    qr[i] = live ? qp[kSplit * i + hf] : 0.f;
-    dor[i] = live ? dp_[kSplit * i + hf] : 0.f;
-    acc[i] = 0.f;
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      split3(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1], pa[kk][i], pa[N / 16 + kk][i], pa[2 * N / 16 + kk][i]);
+}
+
+// Store a consumer's 64 x D fp32 accumulators (the wgmma fragment layout), times `mul`, as
+// rows row0 and row0 + 8 of a contiguous fp32 (B, T, H, D); rows at or past T are skipped.
+template <int D, class Acc>
+__device__ __forceinline__ void store_rows_f32(float* out, const Acc& acc, float mul, int b, int h, int row0, int T,
+                                               int H, int t) {
+  const int row1 = row0 + 8;
+  float* o0 = out + ((static_cast<long long>(b) * T + row0) * H + h) * D;
+  float* o1 = out + ((static_cast<long long>(b) * T + row1) * H + h) * D;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (row0 < T) *reinterpret_cast<float2*>(o0 + col) = make_float2(acc(4 * j) * mul, acc(4 * j + 1) * mul);
+    if (row1 < T) *reinterpret_cast<float2*>(o1 + col) = make_float2(acc(4 * j + 2) * mul, acc(4 * j + 3) * mul);
   }
-  for (int kv0 = 0; kv0 < Tk; kv0 += kStream) {
-    load_tile_f32<D, kStream, Tl::kThreads>(sK, kbase, skt, kv0, Tk, tid);
-    load_tile_f32<D, kStream, Tl::kThreads>(sV, vbase, svt, kv0, Tk, tid);
-    __syncthreads();
-    const int n = min(kStream, Tk - kv0);
-    for (int j = 0; j < n; ++j) {
-      const float s = dot_part<D>(qr, sK[j], hf);
-      const float dpj = dot_part<D>(dor, sV[j], hf);
-      const float ds = ex2(fmaf(s, scale_log2, -lse2)) * (dpj - dlt);
-#pragma unroll
-      for (int i = 0; i < kPart; ++i) acc[i] = fmaf(ds, sK[j][kSplit * i + hf], acc[i]);
+}
+
+// Tile plans of the fp32 instances (ops/flash_attention.py's BWD_F32_TILES mirrors them).
+// Each staged operand is three bf16 tiles (hi, mid, lo), 3x the bf16 plan's bytes, so the
+// tiles are smaller. The dQ, dK and dV products of each key tile (query stage) go into a
+// fresh accumulator, `tile`, which is then added to the running sum in fp32 registers:
+// the tensor cores' accumulation is not IEEE round-to-nearest, and one sum over every key
+// (query) would accumulate their rounding thousands of times (PERF.md, section 6).
+// dq: D = 64, two consumers of 64 query rows and 64-key tiles in two stages (Q, dO and the
+// K/V rings take 192 KB); a consumer holds S, dP (32 floats each), dQ and its tile (32
+// each) and the three fragment sets of dS (48). D = 128: 64 query rows (one consumer) and
+// 32-key tiles, for the same 192 KB.
+template <int D>
+struct DqF32Plan {
+  static constexpr int kBlockM = D == 64 ? 128 : 64;  // query rows a work tile
+  static constexpr int kBlockN = D == 64 ? 64 : 32;   // keys a K or V tile
+  static constexpr int kStages = 2;
+  static constexpr int kConsumers = kBlockM / 64;
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  static constexpr int kPanels = D / 64;
+  static constexpr int kPanelQ = kBlockM * 128;  // bytes of one panel of one part of the Q (or dO) tile
+  static constexpr int kPanelKV = kBlockN * 128;  // of a K or V tile
+  static constexpr int kQPart = kPanels * kPanelQ;
+  static constexpr int kKVPart = kPanels * kPanelKV;
+  static constexpr int kQBytes = 3 * kQPart;
+  static constexpr int kTileBytes = 3 * kKVPart;
+  static constexpr int kBarriers = 2 + 4 * kStages;
+  static constexpr int kBarOffset = 2 * kQBytes + 2 * kStages * kTileBytes;
+  static constexpr int kSmem = kBarOffset + 8 * kBarriers + 1024;
+  static constexpr bool kReloadBases = D == 128;  // reloaded_zero on Q's and dO's bases (1.04x the time)
+};
+
+// dk/dv: D = 64, two consumers of 64 keys and query stages of 64 rows in two stages; a
+// consumer holds dK, dV and the tile (32 floats each), S^T, dP^T (32 each) and three
+// fragment sets (48). (Stages of 32 and 48 rows took 1.11x and 1.04x as long.) D = 128:
+// 64 keys (one consumer), 32-row stages in two stages, and dV's running sum in shared
+// memory (dK, dV and the tile would take 192 registers).
+template <int D>
+struct DkvF32Plan {
+  static constexpr int kBlockN = D == 64 ? 128 : 64;  // keys a work tile
+  static constexpr int kBlockM = D == 64 ? 64 : 32;  // query rows a stage
+  static constexpr int kStatThreads = 96;
+  static constexpr int kStages = 2;
+  static constexpr bool kSmemDv = D == 128;
+  static constexpr int kConsumers = kBlockN / 64;
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  static constexpr int kPanels = D / 64;
+  static constexpr int kPanelKV = kBlockN * 128;
+  static constexpr int kPanelQ = kBlockM * 128;
+  static constexpr int kKVPart = kPanels * kPanelKV;
+  static constexpr int kQPart = kPanels * kPanelQ;
+  static constexpr int kKVBytes = 3 * kKVPart;
+  static constexpr int kStageBytes = 3 * kQPart;
+  static constexpr int kStatOffset = 2 * kKVBytes + 2 * kStages * kStageBytes;
+  static constexpr int kDvOffset = kStatOffset + kStages * 2 * kBlockM * 4;
+  static constexpr int kBarOffset = kDvOffset + (kSmemDv ? kConsumers * 64 * D * 4 : 0);
+  static constexpr int kBarriers = 2 + 2 * kStages;
+  static constexpr int kSmem = kBarOffset + 8 * kBarriers + 1024;
+  static constexpr bool kReloadBases = D == 128;  // reloaded_zero on K's and V's bases
+  // S^T's and dP^T's passes unrolled two at a time at D = 64: all six spilled 16 bytes
+  // there (0.97x the time); at D = 128 fewer than six took 2x the time.
+  static constexpr int kPassUnroll = D == 64 ? 2 : kPasses;
+};
+
+// dQ for work tiles of kBlockM query rows of one (batch, head), from the split parts of
+// q, k, v and dO: four tensor maps over (D, T, H, 3B), part p of batch b at p * B + b.
+template <int D>
+__global__ void __launch_bounds__(DqF32Plan<D>::kThreads, 1)
+    fa_bwd_dq_f32(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                  const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dq, int B,
+                  int Tq, int Tk, int H, int n_work, float scale, float scale_log2) {
+  static_assert(D == 64 || D == 128, "the tile plan covers D in {64, 128}");
+  using P = DqF32Plan<D>;
+  constexpr int kBlockN = P::kBlockN, kStages = P::kStages, kF = kBlockN / 16;
+  constexpr bool kPingPong = P::kConsumers == 2;
+  extern __shared__ __align__(1024) unsigned char dq_smem[];
+  __shared__ uint32_t zero;
+  const uint32_t base = (smem_u32(dq_smem) + 1023) & ~1023u;
+  const uint32_t sQ = base, sdO = sQ + P::kQBytes, sK = sdO + P::kQBytes, sV = sK + kStages * P::kTileBytes;
+  const uint32_t full_q = base + P::kBarOffset, empty_q = full_q + 8;
+  auto full_k = [&](int s) { return full_q + 8 * (2 + s); };
+  auto empty_k = [&](int s) { return full_q + 8 * (2 + kStages + s); };
+  auto full_v = [&](int s) { return full_q + 8 * (2 + 2 * kStages + s); };
+  auto empty_v = [&](int s) { return full_q + 8 * (2 + 3 * kStages + s); };
+
+  const int m_blocks = (Tq + P::kBlockM - 1) / P::kBlockM;
+  const int n_tiles = (Tk + kBlockN - 1) / kBlockN;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    zero = 0;
+    mbar_init(full_q, 1);
+    mbar_init(empty_q, 4 * P::kConsumers);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty_k(s), 4 * P::kConsumers);
+      mbar_init(empty_v(s), 4 * P::kConsumers);
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if (live) {
-    float* op = dq + ((static_cast<long long>(b) * Tq + row) * H + h) * D;
-#pragma unroll
-    for (int i = 0; i < kPart; ++i) op[kSplit * i + hf] = acc[i] * scale;
-  }
-}
+  __syncthreads();
 
-template <int D>
-__global__ void __launch_bounds__(BwdF32Tiles<D>::kThreads)
-    fa_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ dout,
-                   const float* __restrict__ lse, const float* __restrict__ delta,
-                   float* __restrict__ dk, float* __restrict__ dv, int Tq, int Tk, int H,
-                   long long sqb, long long sqt, long long sqh, long long skb, long long skt,
-                   long long skh, long long svb, long long svt, long long svh, long long sdb,
-                   long long sdt, long long sdh, float scale, float scale_log2) {
-  using Tl = BwdF32Tiles<D>;
-  constexpr int kSplit = Tl::kSplit, kPart = D / kSplit, kStream = Tl::kStream;
-  float(*sQ)[D] = reinterpret_cast<float(*)[D]>(block_smem<Tl::kSmem>());
-  float(*sdO)[D] = sQ + kStream;
-  float* sL = reinterpret_cast<float*>(sdO + kStream);
-  float* sD = sL + kStream;
-  const int tid = threadIdx.x, hf = tid % kSplit;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int key = blockIdx.x * Tl::kRows + tid / kSplit;
-  const bool live = key < Tk;
-  const float* kp = k + b * skb + h * skh + static_cast<long long>(live ? key : 0) * skt;
-  const float* vp = v + b * svb + h * svh + static_cast<long long>(live ? key : 0) * svt;
-  const float* qbase = q + b * sqb + h * sqh;
-  const float* dbase = dout + b * sdb + h * sdh;
-  const long long stat0 = (static_cast<long long>(b) * H + h) * Tq;
-
-  float kr[kPart], vr[kPart], dk_acc[kPart], dv_acc[kPart];
-#pragma unroll
-  for (int i = 0; i < kPart; ++i) {
-    kr[i] = live ? kp[kSplit * i + hf] : 0.f;
-    vr[i] = live ? vp[kSplit * i + hf] : 0.f;
-    dk_acc[i] = dv_acc[i] = 0.f;
-  }
-  for (int m = 0; m < Tq; m += kStream) {
-    load_tile_f32<D, kStream, Tl::kThreads>(sQ, qbase, sqt, m, Tq, tid);
-    load_tile_f32<D, kStream, Tl::kThreads>(sdO, dbase, sdt, m, Tq, tid);
-    if (tid < kStream) {
-      const int row = m + tid;
-      sL[tid] = row < Tq ? lse[stat0 + row] * kLog2e : INFINITY;
-      sD[tid] = row < Tq ? delta[stat0 + row] : 0.f;
-    }
-    __syncthreads();
-    const int n = min(kStream, Tq - m);
-    for (int i = 0; i < n; ++i) {
-      const float s = dot_part<D>(kr, sQ[i], hf);
-      const float dpi = dot_part<D>(vr, sdO[i], hf);
-      const float p = ex2(fmaf(s, scale_log2, -sL[i]));
-      const float ds = p * (dpi - sD[i]);
-#pragma unroll
-      for (int c = 0; c < kPart; ++c) {
-        dv_acc[c] = fmaf(p, sdO[i][kSplit * c + hf], dv_acc[c]);
-        dk_acc[c] = fmaf(ds, sQ[i][kSplit * c + hf], dk_acc[c]);
+  if (wg == 0) {
+    // Producer, as in fa_bwd_dq_bf16; each tile is its three parts.
+    if constexpr (kPingPong) regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      auto load = [&](const CUtensorMap* map, uint32_t ring, uint32_t full, uint32_t empty, int i, int j, int h,
+                      int b) {
+        mbar_wait(empty, ((i / kStages) & 1) ^ 1);
+        mbar_expect_tx(full, P::kTileBytes);
+        for (int part = 0; part < 3; ++part)
+          for (int p = 0; p < P::kPanels; ++p)
+            tma_load_4d(ring + part * P::kKVPart + p * P::kPanelKV, map, full, 64 * p, j * kBlockN, h, part * B + b);
+      };
+      int it = 0;
+      for (int w = blockIdx.x, round = 0; w < n_work; w += gridDim.x, ++round, it += n_tiles) {
+        const int m0 = (w % m_blocks) * P::kBlockM, h = (w / m_blocks) % H, b = w / (m_blocks * H);
+        mbar_wait(empty_q, (round & 1) ^ 1);
+        mbar_expect_tx(full_q, 2 * P::kQBytes);
+        for (int part = 0; part < 3; ++part)
+          for (int p = 0; p < P::kPanels; ++p) {
+            const uint32_t off = part * P::kQPart + p * P::kPanelQ;
+            tma_load_4d(sQ + off, &tm_q, full_q, 64 * p, m0, h, part * B + b);
+            tma_load_4d(sdO + off, &tm_do, full_q, 64 * p, m0, h, part * B + b);
+          }
+        for (int j = 0; j < n_tiles; ++j) {
+          const int s = (it + j) % kStages;
+          load(&tm_k, sK + s * P::kTileBytes, full_k(s), empty_k(s), it + j, j, h, b);
+          load(&tm_v, sV + s * P::kTileBytes, full_v(s), empty_v(s), it + j, j, h, b);
+        }
       }
     }
-    __syncthreads();
-  }
-  if (live) {
-    const long long o = ((static_cast<long long>(b) * Tk + key) * H + h) * D;
+  } else {
+    if constexpr (kPingPong) regs_alloc<kConsumerRegs>();
+    const int c = wg - 1;
+    const int tw = threadIdx.x % 128, warp = tw / 32, lane = tw % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const uint32_t q_rows = sQ + c * 64 * 128, do_rows = sdO + c * 64 * 128;
+
+    float acc[D / 2];           // dQ, 64 x D
+    float tile[D / 2];          // one key tile's dS K
+    float s[kBlockN / 2];       // S, then dS
+    float dp[kBlockN / 2];      // dP
+    uint32_t pa[3 * kF][4];     // dS split: hi, mid and lo A fragments of dS K
+    float lse2[2], dlt[2];
 #pragma unroll
-    for (int c = 0; c < kPart; ++c) {
-      dk[o + kSplit * c + hf] = dk_acc[c] * scale;
-      dv[o + kSplit * c + hf] = dv_acc[c];
+    for (int i = 0; i < kBlockN / 2; ++i) s[i] = dp[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) tile[i] = 0.f;
+
+    auto issue_sdp = [&](int stage) {  // S = Q K^T, dP = dO V^T, six passes each
+      const uint32_t z = P::kReloadBases ? reloaded_zero(&zero) : 0;
+      const uint64_t qd = sw128_desc(q_rows + z, 16), dod = sw128_desc(do_rows + z, 16);
+      const uint64_t kd = sw128_desc(sK + stage * P::kTileBytes, 16), vd = sw128_desc(sV + stage * P::kTileBytes, 16);
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int pass = 0; pass < kPasses; ++pass)
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t a = pass_a(pass) * P::kQPart + (kk / 4) * P::kPanelQ + (kk % 4) * 32;
+          const uint32_t bo = pass_b(pass) * P::kKVPart + (kk / 4) * P::kPanelKV + (kk % 4) * 32;
+          const int accumulate = pass > 0 || kk > 0;
+          Wgmma<kBlockN>::ss(s, desc_at(qd, a), desc_at(kd, bo), accumulate);
+          Wgmma<kBlockN>::ss(dp, desc_at(dod, a), desc_at(vd, bo), accumulate);
+        }
+      wgmma_commit();
+    };
+    auto issue_dq = [&](int stage) {  // tile = dS K, six passes
+      const uint64_t kd = sw128_desc(sK + stage * P::kTileBytes, P::kPanelKV);
+      fence_regs(tile);
+      fence_regs(pa);
+      wgmma_fence();
+#pragma unroll
+      for (int pass = 0; pass < kPasses; ++pass)
+#pragma unroll
+        for (int kk = 0; kk < kF; ++kk)
+          Wgmma<D>::rs(tile, pa[pass_a(pass) * kF + kk], desc_at(kd, pass_b(pass) * P::kKVPart + kk * 2048),
+                       pass > 0 || kk > 0);
+      wgmma_commit();
+    };
+    auto form_ds = [&](int kv0) {  // s = dS = P (dP - delta), P = exp2(S scale log2e - lse2)
+#pragma unroll
+      for (int j = 0; j < kBlockN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          s[4 * j + e] = ex2(fmaf(s[4 * j + e], scale_log2, -lse2[r])) * (dp[4 * j + e] - dlt[r]);
+        }
+      if (kv0 + kBlockN > Tk) {
+#pragma unroll
+        for (int j = 0; j < kBlockN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (kv0 + 8 * j + 2 * t + (e & 1) >= Tk) s[4 * j + e] = 0.f;
+      }
+    };
+    auto add_tile = [&]() {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] += tile[i];
+    };
+    auto release = [&](uint32_t empty) {
+      if (lane == 0) mbar_arrive(empty);
+    };
+    // Two consumers take turns to issue (ping-pong, as in fa_bwd_dq_bf16).
+    auto turn_begin = [&]() {
+      if constexpr (kPingPong) named_sync(kSchedBarrier + c, 256);
+    };
+    auto turn_end = [&](bool pass_on) {
+      if constexpr (kPingPong) {
+        if (pass_on) named_arrive(kSchedBarrier + (c ^ 1), 256);
+      }
+    };
+
+    if (kPingPong && c == 0) named_arrive(kSchedBarrier, 256);
+    int it = 0;
+    for (int w = blockIdx.x, round = 0; w < n_work; w += gridDim.x, ++round, it += n_tiles) {
+      const int m0 = (w % m_blocks) * P::kBlockM, h = (w / m_blocks) % H, b = w / (m_blocks * H);
+      const int row0 = m0 + c * 64 + warp * 16 + g;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        const long long i = (static_cast<long long>(b) * H + h) * Tq + row;
+        lse2[r] = row < Tq ? lse[i] * kLog2e : INFINITY;
+        dlt[r] = row < Tq ? delta[i] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      mbar_wait(full_q, round & 1);
+
+      const int s0 = it % kStages;
+      mbar_wait(full_k(s0), (it / kStages) & 1);
+      mbar_wait(full_v(s0), (it / kStages) & 1);
+      turn_begin();
+      issue_sdp(s0);
+      turn_end(true);
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      release(empty_v(s0));
+      if (n_tiles == 1) release(empty_q);
+      form_ds(0);
+      split_fragments<kBlockN>(pa, s);
+
+      for (int j = 1; j < n_tiles; ++j) {
+        const int sj = (it + j) % kStages, sp = (it + j - 1) % kStages;
+        mbar_wait(full_k(sj), ((it + j) / kStages) & 1);
+        mbar_wait(full_v(sj), ((it + j) / kStages) & 1);
+        turn_begin();
+        issue_sdp(sj);
+        issue_dq(sp);
+        turn_end(true);
+        wgmma_wait<1>();
+        fence_regs(s);
+        fence_regs(dp);
+        release(empty_v(sj));
+        if (j == n_tiles - 1) release(empty_q);
+        form_ds(j * kBlockN);
+        wgmma_wait<0>();
+        fence_regs(tile);
+        fence_regs(pa);
+        release(empty_k(sp));
+        add_tile();
+        split_fragments<kBlockN>(pa, s);
+      }
+
+      const int sl = (it + n_tiles - 1) % kStages;
+      turn_begin();
+      issue_dq(sl);
+      turn_end(c == 0 || w + static_cast<int>(gridDim.x) < n_work);
+      wgmma_wait<0>();
+      fence_regs(tile);
+      release(empty_k(sl));
+      add_tile();
+      store_rows_f32<D>(dq, [&](int i) { return acc[i]; }, scale, b, h, row0, Tq, H, t);
+    }
+  }
+}
+
+// dK and dV for work tiles of kBlockN keys of one (batch, head), from the split parts.
+template <int D>
+__global__ void __launch_bounds__(DkvF32Plan<D>::kThreads, 1)
+    fa_bwd_dkv_f32(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                   const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dk,
+                   float* __restrict__ dv, int B, int Tq, int Tk, int H, int n_work, float scale, float scale_log2) {
+  static_assert(D == 64 || D == 128, "the tile plan covers D in {64, 128}");
+  using P = DkvF32Plan<D>;
+  constexpr int kBlockM = P::kBlockM, kStages = P::kStages, kF = kBlockM / 16;
+  constexpr bool kTwoConsumers = P::kConsumers == 2;
+  extern __shared__ __align__(1024) unsigned char dkv_smem[];
+  __shared__ uint32_t zero;
+  const uint32_t pad = (1024 - (smem_u32(dkv_smem) & 1023)) & 1023;
+  const uint32_t base = smem_u32(dkv_smem) + pad;
+  const uint32_t sK = base, sV = sK + P::kKVBytes, sQ = sV + P::kKVBytes, sdO = sQ + kStages * P::kStageBytes;
+  float* const stats = reinterpret_cast<float*>(dkv_smem + pad + P::kStatOffset);
+  const uint32_t full_kv = base + P::kBarOffset, empty_kv = full_kv + 8;
+  auto full_s = [&](int s) { return full_kv + 8 * (2 + s); };
+  auto empty_s = [&](int s) { return full_kv + 8 * (2 + kStages + s); };
+
+  const int n_blocks = (Tk + P::kBlockN - 1) / P::kBlockN;
+  const int n_stages = (Tq + kBlockM - 1) / kBlockM;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    zero = 0;
+    mbar_init(full_kv, 1);
+    mbar_init(empty_kv, 4 * P::kConsumers);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_s(s), 1 + P::kStatThreads);
+      mbar_init(empty_s(s), 4 * P::kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // Producer, as in fa_bwd_dkv_bf16; each tile is its three parts.
+    if constexpr (kTwoConsumers) regs_dealloc<kProducerRegs>();
+    const int warp = threadIdx.x / 32;
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int w = blockIdx.x, round = 0; w < n_work; w += gridDim.x, ++round, it += n_stages) {
+        const int n0 = (w % n_blocks) * P::kBlockN, h = (w / n_blocks) % H, b = w / (n_blocks * H);
+        mbar_wait(empty_kv, (round & 1) ^ 1);
+        mbar_expect_tx(full_kv, 2 * P::kKVBytes);
+        for (int part = 0; part < 3; ++part)
+          for (int p = 0; p < P::kPanels; ++p) {
+            const uint32_t off = part * P::kKVPart + p * P::kPanelKV;
+            tma_load_4d(sK + off, &tm_k, full_kv, 64 * p, n0, h, part * B + b);
+            tma_load_4d(sV + off, &tm_v, full_kv, 64 * p, n0, h, part * B + b);
+          }
+        for (int i = 0; i < n_stages; ++i) {
+          const int st = (it + i) % kStages;
+          mbar_wait(empty_s(st), (((it + i) / kStages) & 1) ^ 1);
+          mbar_expect_tx(full_s(st), 2 * P::kStageBytes);
+          for (int part = 0; part < 3; ++part)
+            for (int p = 0; p < P::kPanels; ++p) {
+              const uint32_t off = st * P::kStageBytes + part * P::kQPart + p * P::kPanelQ;
+              tma_load_4d(sQ + off, &tm_q, full_s(st), 64 * p, i * kBlockM, h, part * B + b);
+              tma_load_4d(sdO + off, &tm_do, full_s(st), 64 * p, i * kBlockM, h, part * B + b);
+            }
+        }
+      }
+    } else if (warp > 0) {
+      int it = 0;
+      for (int w = blockIdx.x; w < n_work; w += gridDim.x, it += n_stages) {
+        const long long row_base = static_cast<long long>(w / n_blocks) * Tq;  // (b * H + h) * Tq
+        const float *lse_rows = lse + row_base, *delta_rows = delta + row_base;
+        for (int i = 0; i < n_stages; ++i) {
+          const int st = (it + i) % kStages;
+          mbar_wait(empty_s(st), (((it + i) / kStages) & 1) ^ 1);
+          float* const st_stats = stats + st * 2 * kBlockM;
+          for (int r = threadIdx.x - 32; r < kBlockM; r += P::kStatThreads) {
+            const int row = i * kBlockM + r;
+            st_stats[r] = row < Tq ? lse_rows[row] * kLog2e : INFINITY;
+            st_stats[kBlockM + r] = row < Tq ? delta_rows[row] : 0.f;
+          }
+          mbar_arrive(full_s(st));
+        }
+      }
+    }
+  } else {
+    if constexpr (kTwoConsumers) regs_alloc<kConsumerRegs>();
+    const int c = wg - 1;  // consumer: keys 64c .. 64c + 63 of each work tile
+    const int tw = threadIdx.x % 128, warp = tw / 32, lane = tw % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const uint32_t k_rows = sK + c * 64 * 128, v_rows = sV + c * 64 * 128;
+    // dV's running sum in shared memory where the plan says so: element i of thread tw at
+    // [i][tw], so a warp's accesses fall on 32 banks.
+    float* const dv_smem = reinterpret_cast<float*>(dkv_smem + pad + P::kDvOffset) + c * 64 * D;
+
+    float dk_acc[D / 2], dv_acc[P::kSmemDv ? 1 : D / 2];  // dK; dV unless kSmemDv
+    float tile[D / 2];                   // one stage's P^T dO or dS^T Q
+    float s[kBlockM / 2];                // S^T, then P^T
+    float dp[kBlockM / 2];               // dP^T, then dS^T
+    uint32_t pa[3 * kF][4];              // P^T, then dS^T, split into A fragments
+#pragma unroll
+    for (int i = 0; i < kBlockM / 2; ++i) s[i] = dp[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) tile[i] = 0.f;
+
+    auto issue_sdp = [&](int st) {  // S^T = K Q^T, dP^T = V dO^T, six passes each
+      const uint32_t z = P::kReloadBases ? reloaded_zero(&zero) : 0;
+      const uint64_t kd = sw128_desc(k_rows + z, 16), vd = sw128_desc(v_rows + z, 16);
+      const uint64_t qd = sw128_desc(sQ + st * P::kStageBytes, 16), dod = sw128_desc(sdO + st * P::kStageBytes, 16);
+#pragma unroll
+      for (int i = 0; i < kBlockM / 2; ++i) s[i] = dp[i] = 0.f;  // a new value: the old ones died at the split
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll (P::kPassUnroll)
+      for (int pass = 0; pass < kPasses; ++pass)
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t col = (kk % 4) * 32;
+          const uint32_t a = pass_a(pass) * P::kKVPart + (kk / 4) * P::kPanelKV + col;
+          const uint32_t bo = pass_b(pass) * P::kQPart + (kk / 4) * P::kPanelQ + col;
+          const int accumulate = pass > 0 || kk > 0;
+          Wgmma<kBlockM>::ss(s, desc_at(kd, a), desc_at(qd, bo), accumulate);
+          Wgmma<kBlockM>::ss(dp, desc_at(vd, a), desc_at(dod, bo), accumulate);
+        }
+      wgmma_commit();
+    };
+    // tile = a * stage tile, with the stage's dO (P^T dO) or Q (dS^T Q), six passes.
+    auto issue_acc = [&](uint32_t stage_tile) {
+      const uint64_t td = sw128_desc(stage_tile, P::kPanelQ);
+      fence_regs(tile);
+      fence_regs(pa);
+      wgmma_fence();
+#pragma unroll
+      for (int pass = 0; pass < kPasses; ++pass)
+#pragma unroll
+        for (int kk = 0; kk < kF; ++kk)
+          Wgmma<D>::rs(tile, pa[pass_a(pass) * kF + kk], desc_at(td, pass_b(pass) * P::kQPart + kk * 2048),
+                       pass > 0 || kk > 0);
+      wgmma_commit();
+    };
+    auto form_p = [&](int st) {  // s = P^T = exp2(S^T scale log2e - lse2[col])
+      const float* l2 = stats + st * 2 * kBlockM + 2 * t;
+#pragma unroll
+      for (int j = 0; j < kBlockM / 8; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(l2 + 8 * j);
+        s[4 * j] = ex2(fmaf(s[4 * j], scale_log2, -l.x));
+        s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], scale_log2, -l.y));
+        s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], scale_log2, -l.x));
+        s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], scale_log2, -l.y));
+      }
+    };
+    auto form_ds = [&](int st) {  // dp = dS^T = P^T (dP^T - delta[col]), P^T in s
+      const float* dl = stats + st * 2 * kBlockM + kBlockM + 2 * t;
+#pragma unroll
+      for (int j = 0; j < kBlockM / 8; ++j) {
+        const float2 d = *reinterpret_cast<const float2*>(dl + 8 * j);
+        dp[4 * j] = s[4 * j] * (dp[4 * j] - d.x);
+        dp[4 * j + 1] = s[4 * j + 1] * (dp[4 * j + 1] - d.y);
+        dp[4 * j + 2] = s[4 * j + 2] * (dp[4 * j + 2] - d.x);
+        dp[4 * j + 3] = s[4 * j + 3] * (dp[4 * j + 3] - d.y);
+      }
+    };
+    auto add_dk = [&]() {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dk_acc[i] += tile[i];
+    };
+    auto add_dv = [&]() {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) {
+        if constexpr (P::kSmemDv)
+          dv_smem[i * 128 + tw] += tile[i];
+        else
+          dv_acc[i] += tile[i];
+      }
+    };
+    auto release = [&](uint32_t empty) {
+      if (lane == 0) mbar_arrive(empty);
+    };
+
+    int it = 0;
+    for (int w = blockIdx.x, round = 0; w < n_work; w += gridDim.x, ++round, it += n_stages) {
+      const int n0 = (w % n_blocks) * P::kBlockN, h = (w / n_blocks) % H, b = w / (n_blocks * H);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) {
+        dk_acc[i] = 0.f;
+        if constexpr (P::kSmemDv)
+          dv_smem[i * 128 + tw] = 0.f;
+        else
+          dv_acc[i] = 0.f;
+      }
+      mbar_wait(full_kv, round & 1);
+
+      // Stage 0's S^T and dP^T.
+      mbar_wait(full_s(it % kStages), (it / kStages) & 1);
+      issue_sdp(it % kStages);
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      if (n_stages == 1) release(empty_kv);
+
+      // Stage i: P^T (under dK of stage i - 1), tile = P^T dO and dS^T under it, dV +=
+      // tile; then the next stage's S^T and dP^T with tile = dS^T Q.
+      for (int i = 0; i < n_stages; ++i) {
+        const int st = (it + i) % kStages;
+        form_p(st);
+        wgmma_wait<0>();
+        fence_regs(tile);
+        fence_regs(pa);
+        if (i > 0) {
+          release(empty_s((it + i - 1) % kStages));
+          add_dk();
+        }
+        split_fragments<kBlockM>(pa, s);
+        issue_acc(sdO + st * P::kStageBytes);
+        form_ds(st);
+        wgmma_wait<0>();
+        fence_regs(tile);
+        fence_regs(pa);
+        add_dv();
+        split_fragments<kBlockM>(pa, dp);
+        if (i + 1 < n_stages) {
+          const int sn = (it + i + 1) % kStages;
+          mbar_wait(full_s(sn), ((it + i + 1) / kStages) & 1);
+          issue_sdp(sn);
+          issue_acc(sQ + st * P::kStageBytes);
+          wgmma_wait<1>();  // S^T and dP^T are done
+          fence_regs(s);
+          fence_regs(dp);
+          if (i + 2 == n_stages) release(empty_kv);
+        } else {
+          issue_acc(sQ + st * P::kStageBytes);
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(tile);
+      release(empty_s((it + n_stages - 1) % kStages));
+      add_dk();
+      const int key0 = n0 + c * 64 + warp * 16 + g;
+      store_rows_f32<D>(dk, [&](int i) { return dk_acc[i]; }, scale, b, h, key0, Tk, H, t);
+      if constexpr (P::kSmemDv)
+        store_rows_f32<D>(dv, [&](int i) { return dv_smem[i * 128 + tw]; }, 1.f, b, h, key0, Tk, H, t);
+      else
+        store_rows_f32<D>(dv, [&](int i) { return dv_acc[i]; }, 1.f, b, h, key0, Tk, H, t);
     }
   }
 }
 
 // ---- Host: launchers ----
 
-// The bf16 launchers: the tensor maps of q, k, v and dO (11 values each, see encode_map),
-// with boxes of the plan's rows, then a persistent grid of one block an SM.
-struct BwdBf16Args {
+// The launchers of both dtypes: the tensor maps of q, k, v and dO (11 values each, see
+// encode_map; in fp32, of their split parts), with boxes of the plan's rows, then a
+// persistent grid of one block an SM.
+struct BwdArgs {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
-  __nv_bfloat16 *o0, *o1;  // dq; or dk and dv
+  void *o0, *o1;  // dq; or dk and dv
   const long long* maps;
   int B, Tq, Tk, H;
   float scale;
   cudaStream_t st;
 };
 
+// `batches`: B, or 3B for the fp32 parts' maps (part p of batch b at p * B + b).
 template <int D>
-int encode_bwd_maps(CUtensorMap (&tm)[4], const BwdBf16Args& a, int q_rows, int kv_rows) {
-  int err = encode_map(&tm[0], a.q, a.maps, D, a.Tq, a.H, a.B, q_rows);
-  if (!err) err = encode_map(&tm[1], a.k, a.maps + kMapLongs, D, a.Tk, a.H, a.B, kv_rows);
-  if (!err) err = encode_map(&tm[2], a.v, a.maps + 2 * kMapLongs, D, a.Tk, a.H, a.B, kv_rows);
-  if (!err) err = encode_map(&tm[3], a.dout, a.maps + 3 * kMapLongs, D, a.Tq, a.H, a.B, q_rows);
+int encode_bwd_maps(CUtensorMap (&tm)[4], const BwdArgs& a, int batches, int q_rows, int kv_rows) {
+  int err = encode_map(&tm[0], a.q, a.maps, D, a.Tq, a.H, batches, q_rows);
+  if (!err) err = encode_map(&tm[1], a.k, a.maps + kMapLongs, D, a.Tk, a.H, batches, kv_rows);
+  if (!err) err = encode_map(&tm[2], a.v, a.maps + 2 * kMapLongs, D, a.Tk, a.H, batches, kv_rows);
+  if (!err) err = encode_map(&tm[3], a.dout, a.maps + 3 * kMapLongs, D, a.Tq, a.H, batches, q_rows);
   return err;
 }
 
 template <int D>
-int bwd_dq_bf16(const BwdBf16Args& a) {
+int bwd_dq_bf16(const BwdArgs& a) {
   using P = DqPlan<D>;
   static_assert(P::kSmem > kStaticSmemLimit, "launch() sizes dynamic shared memory above 48 KB only");
   CUtensorMap tm[4];
   int n_work = 0, blocks = 0;
-  int err = encode_bwd_maps<D>(tm, a, P::kBlockM, P::kBlockN);
+  int err = encode_bwd_maps<D>(tm, a, a.B, P::kBlockM, P::kBlockN);
   if (!err) err = persistent_grid(static_cast<long long>((a.Tq + P::kBlockM - 1) / P::kBlockM) * a.H * a.B, n_work, blocks);
   if (err) return err;
   static SmemOptIn opt_in;
   return launch(fa_bwd_dq_bf16<D>, opt_in, dim3(blocks), P::kThreads, P::kSmem, a.st, tm[0], tm[1], tm[2], tm[3],
-                a.lse, a.delta, a.o0, a.Tq, a.Tk, a.H, n_work, a.scale, a.scale * kLog2e);
+                a.lse, a.delta, static_cast<__nv_bfloat16*>(a.o0), a.Tq, a.Tk, a.H, n_work, a.scale,
+                a.scale * kLog2e);
 }
 
 template <int D>
-int bwd_dkv_bf16(const BwdBf16Args& a) {
+int bwd_dkv_bf16(const BwdArgs& a) {
   using P = DkvPlan<D>;
   static_assert(P::kSmem > kStaticSmemLimit, "launch() sizes dynamic shared memory above 48 KB only");
   CUtensorMap tm[4];
   int n_work = 0, blocks = 0;
-  int err = encode_bwd_maps<D>(tm, a, P::kBlockM, P::kBlockN);
+  int err = encode_bwd_maps<D>(tm, a, a.B, P::kBlockM, P::kBlockN);
   if (!err) err = persistent_grid(static_cast<long long>((a.Tk + P::kBlockN - 1) / P::kBlockN) * a.H * a.B, n_work, blocks);
   if (err) return err;
   static SmemOptIn opt_in;
   return launch(fa_bwd_dkv_bf16<D>, opt_in, dim3(blocks), P::kThreads, P::kSmem, a.st, tm[0], tm[1], tm[2], tm[3],
-                a.lse, a.delta, a.o0, a.o1, a.Tq, a.Tk, a.H, n_work, a.scale, a.scale * kLog2e);
-}
-
-// The fp32 launchers, a block for each 64 rows of each (batch, head); each instance raises
-// its shared memory limit once per device. Strides in elements: batch, token and head of
-// q, k, v and dO.
-struct BwdF32Args {
-  const float *q, *k, *v, *dout;
-  const float *lse, *delta;
-  float *o0, *o1;  // dq; or dk and dv
-  int B, Tq, Tk, H;
-  long long sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sdb, sdt, sdh;
-  float scale;
-  cudaStream_t st;
-};
-
-#define FA_BWD_F32_ARGS                                                                                    \
-  a.q, a.k, a.v, a.dout, a.lse, a.delta
-#define FA_BWD_F32_STRIDES                                                                                 \
-  a.Tq, a.Tk, a.H, a.sqb, a.sqt, a.sqh, a.skb, a.skt, a.skh, a.svb, a.svt, a.svh, a.sdb, a.sdt, a.sdh, a.scale, \
-      a.scale * kLog2e
-
-template <int D>
-int bwd_dq_f32(const BwdF32Args& a) {
-  using Tl = BwdF32Tiles<D>;
-  static SmemOptIn opt_in;
-  return launch(fa_bwd_dq_f32<D>, opt_in, dim3((a.Tq + Tl::kRows - 1) / Tl::kRows, a.H, a.B), Tl::kThreads,
-                Tl::kSmem, a.st, FA_BWD_F32_ARGS, a.o0, FA_BWD_F32_STRIDES);
+                a.lse, a.delta, static_cast<__nv_bfloat16*>(a.o0), static_cast<__nv_bfloat16*>(a.o1), a.Tq, a.Tk,
+                a.H, n_work, a.scale, a.scale * kLog2e);
 }
 
 template <int D>
-int bwd_dkv_f32(const BwdF32Args& a) {
-  using Tl = BwdF32Tiles<D>;
+int bwd_dq_f32(const BwdArgs& a) {
+  using P = DqF32Plan<D>;
+  static_assert(P::kSmem > kStaticSmemLimit, "launch() sizes dynamic shared memory above 48 KB only");
+  CUtensorMap tm[4];
+  int n_work = 0, blocks = 0;
+  int err = encode_bwd_maps<D>(tm, a, 3 * a.B, P::kBlockM, P::kBlockN);
+  if (!err) err = persistent_grid(static_cast<long long>((a.Tq + P::kBlockM - 1) / P::kBlockM) * a.H * a.B, n_work, blocks);
+  if (err) return err;
   static SmemOptIn opt_in;
-  return launch(fa_bwd_dkv_f32<D>, opt_in, dim3((a.Tk + Tl::kRows - 1) / Tl::kRows, a.H, a.B), Tl::kThreads,
-                Tl::kSmem, a.st, FA_BWD_F32_ARGS, a.o0, a.o1, FA_BWD_F32_STRIDES);
+  return launch(fa_bwd_dq_f32<D>, opt_in, dim3(blocks), P::kThreads, P::kSmem, a.st, tm[0], tm[1], tm[2], tm[3],
+                a.lse, a.delta, static_cast<float*>(a.o0), a.B, a.Tq, a.Tk, a.H, n_work, a.scale, a.scale * kLog2e);
 }
 
-#undef FA_BWD_F32_ARGS
-#undef FA_BWD_F32_STRIDES
+template <int D>
+int bwd_dkv_f32(const BwdArgs& a) {
+  using P = DkvF32Plan<D>;
+  static_assert(P::kSmem > kStaticSmemLimit, "launch() sizes dynamic shared memory above 48 KB only");
+  CUtensorMap tm[4];
+  int n_work = 0, blocks = 0;
+  int err = encode_bwd_maps<D>(tm, a, 3 * a.B, P::kBlockM, P::kBlockN);
+  if (!err) err = persistent_grid(static_cast<long long>((a.Tk + P::kBlockN - 1) / P::kBlockN) * a.H * a.B, n_work, blocks);
+  if (err) return err;
+  static SmemOptIn opt_in;
+  return launch(fa_bwd_dkv_f32<D>, opt_in, dim3(blocks), P::kThreads, P::kSmem, a.st, tm[0], tm[1], tm[2], tm[3],
+                a.lse, a.delta, static_cast<float*>(a.o0), static_cast<float*>(a.o1), a.B, a.Tq, a.Tk, a.H, n_work,
+                a.scale, a.scale * kLog2e);
+}
 
 }  // namespace
 
-// The bf16 backward. maps: the tensor maps' layout of q, k, v and dO, 11 values each
-// (encode_map), with boxes of BWD_TILES' rows (ops/flash_attention.py); D: 64 or 128. lse
-// and delta are contiguous fp32 (B, H, Tq); outputs are contiguous (B, T, H, D). Each
-// returns cudaErrorInvalidValue for arguments no instance takes or a map the driver
-// refuses, cudaErrorNotSupported if the driver has no cuTensorMapEncodeTiled, else the
-// shared memory attribute call's error or cudaGetLastError() after its launch.
-#define FA_BWD_BF16_ARGS \
+// The backward. maps: the tensor maps' layout of q, k, v and dO, 11 values each
+// (encode_map), with boxes of BWD_TILES' rows in bf16 and BWD_F32_TILES' in fp32
+// (ops/flash_attention.py); D: 64 or 128. The bf16 entry points take q, k, v and dO
+// themselves, the fp32 ones their split parts (flash_attention_split_f32), each a
+// contiguous bf16 (3, B, T, H, D). lse and delta are contiguous fp32 (B, H, Tq); outputs
+// are contiguous (B, T, H, D) in the inputs' dtype. Each returns cudaErrorInvalidValue for
+// arguments no instance takes or a map the driver refuses, cudaErrorNotSupported if the
+// driver has no cuTensorMapEncodeTiled, else the shared memory attribute call's error or
+// cudaGetLastError() after its launch.
+#define FA_BWD_ARGS \
   const long long *maps, int B, int Tq, int Tk, int H, int D, float scale, void *stream
 
 extern "C" int flash_attention_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
-                                           const float* lse, const float* delta, void* dq, FA_BWD_BF16_ARGS) {
-  const BwdBf16Args a{q,    k, v,  dout, lse, delta, static_cast<__nv_bfloat16*>(dq), nullptr, maps,
-                      B,    Tq, Tk, H,    scale, static_cast<cudaStream_t>(stream)};
+                                           const float* lse, const float* delta, void* dq, FA_BWD_ARGS) {
+  const BwdArgs a{q, k, v, dout, lse, delta, dq, nullptr, maps, B, Tq, Tk, H, scale, static_cast<cudaStream_t>(stream)};
   return by_head_dim(D, B, Tq, Tk, H, [&] { return bwd_dq_bf16<64>(a); }, [&] { return bwd_dq_bf16<128>(a); });
 }
 
 extern "C" int flash_attention_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
-                                            const float* lse, const float* delta, void* dk, void* dv,
-                                            FA_BWD_BF16_ARGS) {
-  const BwdBf16Args a{q,  k,  v, dout, lse,   delta, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-                      maps, B, Tq, Tk,  H, scale, static_cast<cudaStream_t>(stream)};
+                                            const float* lse, const float* delta, void* dk, void* dv, FA_BWD_ARGS) {
+  const BwdArgs a{q, k, v, dout, lse, delta, dk, dv, maps, B, Tq, Tk, H, scale, static_cast<cudaStream_t>(stream)};
   return by_head_dim(D, B, Tq, Tk, H, [&] { return bwd_dkv_bf16<64>(a); }, [&] { return bwd_dkv_bf16<128>(a); });
 }
 
-// The fp32 backward. q, k, v, dout strides are in elements (batch, token, head; the
-// head-dim stride is 1). Returns as the bf16 entry points, without the maps.
-#define FA_BWD_F32_ENTRY_ARGS                                                                                     \
-  int B, int Tq, int Tk, int H, int D, long long sqb, long long sqt, long long sqh, long long skb, long long skt, \
-      long long skh, long long svb, long long svt, long long svh, long long sdb, long long sdt, long long sdh,    \
-      float scale, void *stream
-
-extern "C" int flash_attention_bwd_dq_f32(const void* q, const void* k, const void* v, const void* dout,
-                                          const float* lse, const float* delta, void* dq, FA_BWD_F32_ENTRY_ARGS) {
-  const BwdF32Args a{static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-                     static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), nullptr, B, Tq, Tk, H,
-                     sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sdb, sdt, sdh, scale,
-                     static_cast<cudaStream_t>(stream)};
+extern "C" int flash_attention_bwd_dq_f32(const void* q_parts, const void* k_parts, const void* v_parts,
+                                          const void* dout_parts, const float* lse, const float* delta, void* dq,
+                                          FA_BWD_ARGS) {
+  const BwdArgs a{q_parts, k_parts, v_parts, dout_parts, lse, delta, dq, nullptr, maps, B, Tq, Tk, H, scale,
+                  static_cast<cudaStream_t>(stream)};
   return by_head_dim(D, B, Tq, Tk, H, [&] { return bwd_dq_f32<64>(a); }, [&] { return bwd_dq_f32<128>(a); });
 }
 
-extern "C" int flash_attention_bwd_dkv_f32(const void* q, const void* k, const void* v, const void* dout,
-                                           const float* lse, const float* delta, void* dk, void* dv,
-                                           FA_BWD_F32_ENTRY_ARGS) {
-  const BwdF32Args a{static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-                     static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk), static_cast<float*>(dv),
-                     B, Tq, Tk, H, sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sdb, sdt, sdh, scale,
-                     static_cast<cudaStream_t>(stream)};
+extern "C" int flash_attention_bwd_dkv_f32(const void* q_parts, const void* k_parts, const void* v_parts,
+                                           const void* dout_parts, const float* lse, const float* delta, void* dk,
+                                           void* dv, FA_BWD_ARGS) {
+  const BwdArgs a{q_parts, k_parts, v_parts, dout_parts, lse, delta, dk, dv, maps, B, Tq, Tk, H, scale,
+                  static_cast<cudaStream_t>(stream)};
   return by_head_dim(D, B, Tq, Tk, H, [&] { return bwd_dkv_f32<64>(a); }, [&] { return bwd_dkv_f32<128>(a); });
 }
 
-// Bytes of dynamic shared memory a block of the bf16 dq (kernel 0) or dk/dv (kernel 1)
-// instance of head dim D takes (0 for another D): printed in the build line.
-extern "C" int flash_attention_bwd_bf16_smem(int kernel, int D) {
-  if (D == 64) return kernel == 0 ? DqPlan<64>::kSmem : DkvPlan<64>::kSmem;
-  if (D == 128) return kernel == 0 ? DqPlan<128>::kSmem : DkvPlan<128>::kSmem;
-  return 0;
+// The split pass of the fp32 backward: q, k, v and dout, fp32 (B, T, H, D) (Tq rows for q
+// and dout, Tk for k and v) with their batch, token and head strides in elements (the
+// head-dim stride is 1; rows 16-byte aligned), into the contiguous bf16 parts q_parts ..
+// dout_parts, (3, B, T, H, D) each. One launch. Returns cudaErrorInvalidValue for a D
+// other than 64 or 128 or empty shapes, else cudaGetLastError() after the launch.
+extern "C" int flash_attention_split_f32(const void* q, const void* k, const void* v, const void* dout, void* q_parts,
+                                         void* k_parts, void* v_parts, void* dout_parts, int B, int Tq, int Tk, int H,
+                                         int D, long long sqb, long long sqt, long long sqh, long long skb,
+                                         long long skt, long long skh, long long svb, long long svt, long long svh,
+                                         long long sdb, long long sdt, long long sdh, void* stream) {
+  if (by_head_dim(D, B, Tq, Tk, H, [] { return 0; }, [] { return 0; })) return static_cast<int>(cudaErrorInvalidValue);
+  const SplitArgs a{{static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+                     static_cast<const float*>(dout)},
+                    {static_cast<__nv_bfloat16*>(q_parts), static_cast<__nv_bfloat16*>(k_parts),
+                     static_cast<__nv_bfloat16*>(v_parts), static_cast<__nv_bfloat16*>(dout_parts)},
+                    {{sqb, sqt, sqh}, {skb, skt, skh}, {svb, svt, svh}, {sdb, sdt, sdh}},
+                    {Tq, Tk, Tk, Tq},
+                    B,
+                    H,
+                    D};
+  const long long chunks = static_cast<long long>(B) * std::max(Tq, Tk) * H * (D / 8);
+  const int blocks = static_cast<int>(std::min<long long>((chunks + kSplitThreads - 1) / kSplitThreads, 4096));
+  fa_split_f32<<<dim3(blocks, 4), kSplitThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Bytes of dynamic shared memory a block of an instance of head dim D takes (0 for
+// another D): kernel 0 the bf16 dq, 1 the bf16 dk/dv, 2 the fp32 dq, 3 the fp32 dk/dv.
+// Printed in the build line.
+extern "C" int flash_attention_bwd_smem(int kernel, int D) {
+  if (D != 64 && D != 128) return 0;
+  const bool d64 = D == 64;
+  switch (kernel) {
+    case 0:
+      return d64 ? DqPlan<64>::kSmem : DqPlan<128>::kSmem;
+    case 1:
+      return d64 ? DkvPlan<64>::kSmem : DkvPlan<128>::kSmem;
+    case 2:
+      return d64 ? DqF32Plan<64>::kSmem : DqF32Plan<128>::kSmem;
+    case 3:
+      return d64 ? DkvF32Plan<64>::kSmem : DkvF32Plan<128>::kSmem;
+    default:
+      return 0;
+  }
 }

@@ -18,7 +18,12 @@ backward's dO) in place through 4-D TMA tensor maps, whose layout (dims, byte
 strides, box) ``tensor_map`` computes from each tensor at each call; the C entry
 points encode them with the driver's ``cuTensorMapEncodeTiled``, found through
 the runtime. Their tile plans (``FWD_TILES``, ``BWD_TILES``) are the kernels',
-which refuse maps of another box. The fp32 kernels take element strides.
+which refuse maps of another box. The fp32 backward is the same design on
+split operands: a split pass (``flash_attention_split_f32``, one launch a
+backward) writes each of q, k, v and dO as three bf16 parts (hi, mid, lo:
+``split_bf16x3_reference``), and the dq and dk/dv kernels compute every
+product as six bf16 products of the parts, read through tensor maps of the
+parts (``BWD_F32_TILES``). The fp32 forward takes element strides.
 
 Routing. ``flash_attention`` runs the lse-free forward when no input needs a
 gradient (inference is unchanged); otherwise an autograd Function runs the
@@ -27,8 +32,9 @@ and dk/dv kernels. Dispatch is by the device of the inputs and by nothing
 else: a CPU tensor goes to the plain PyTorch version beside each kernel; a
 CUDA tensor launches the kernel or raises. Each kernel has its own launch
 count (``flash_attention.launches``, ``flash_attention_lse.launches``,
-``flash_attention_bwd_dq.launches`` and ``flash_attention_bwd_dkv.launches``), so a run can
-show which kernels it went through, and counts its launches by (key length,
+``flash_attention_bwd_dq.launches``, ``flash_attention_bwd_dkv.launches`` and the
+fp32 backward's ``flash_attention_split_f32.launches``), so a run can show which
+kernels it went through, and counts its launches by (key length,
 head dim) in ``launches_by_shape``: ``launch_lengths`` gives the lse-free
 forward's by key length, which tells its regimes apart, and ``launch_shapes``
 every kernel's by key length and head dim, which tells the D = 64 and D = 128
@@ -50,7 +56,9 @@ KERNEL_STEM = "flash_attention_fwd"
 BWD_KERNEL_STEM = "flash_attention_bwd"
 KERNEL_STEMS = (KERNEL_STEM, BWD_KERNEL_STEM)
 HEAD_DIMS = (64, 128)  # head dims the kernels are instantiated for
-_DTYPES = (torch.bfloat16, torch.float32)  # the kernels' instances: bf16 (wgmma) and fp32 (SIMT)
+# The kernels' instances: bf16 (wgmma); fp32, the backward on wgmma over split bf16 parts,
+# the forward on SIMT fp32 FMA.
+_DTYPES = (torch.bfloat16, torch.float32)
 # The bf16 forward's tile plan by head dim, (query rows, key rows) a block: FwdPlan in
 # csrc/flash_attention_fwd.cu, which refuses maps whose boxes differ.
 FWD_TILES = {64: (128, 176), 128: (128, 176)}
@@ -58,6 +66,8 @@ FWD_TILES = {64: (128, 176), 128: (128, 176)}
 # K or V tile) and the dk/dv kernel's (keys a work tile, query rows a stage): DqPlan and
 # DkvPlan in csrc/flash_attention_bwd.cu.
 BWD_TILES = {64: {"dq": (128, 128), "dkv": (128, 96)}, 128: {"dq": (128, 64), "dkv": (128, 32)}}
+# The fp32 backward's plans, the same pairs: DqF32Plan and DkvF32Plan.
+BWD_F32_TILES = {64: {"dq": (128, 64), "dkv": (128, 64)}, 128: {"dq": (64, 32), "dkv": (64, 32)}}
 TMA_BOX_COLS = 64  # a box is one 128-byte swizzle row of bf16 wide
 
 
@@ -146,13 +156,25 @@ def attention_bwd_dkv_reference(q, k, v, do, lse, delta, scale):
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def split_bf16x3_reference(x: torch.Tensor) -> torch.Tensor:
+    """x (fp32) as its three bf16 parts stacked on a new leading axis, a contiguous
+    (3, *x.shape) tensor: hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid),
+    rounded to nearest even. Both differences are exact in fp32, and hi + mid + lo is
+    within 2^-24 |x| of x. The plain version of the split kernel."""
+    hi = x.to(torch.bfloat16)
+    rest = x - hi.float()
+    mid = rest.to(torch.bfloat16)
+    return torch.stack((hi, mid, (rest - mid.float()).to(torch.bfloat16)))
+
+
 _PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
-def _bind(stem: str, name: str, n_ptrs: int, n_ints: int, n_strides: int):
+def _bind(stem: str, name: str, n_ptrs: int, n_ints: int, n_strides: int, scale: bool = True):
     fn = getattr(_build.load(stem), name)
     if fn.argtypes is None:
-        fn.argtypes = [_PTR] * n_ptrs + [_I32] * n_ints + [_I64] * n_strides + [ctypes.c_float, _PTR]
+        fn.argtypes = ([_PTR] * n_ptrs + [_I32] * n_ints + [_I64] * n_strides
+                       + ([ctypes.c_float] if scale else []) + [_PTR])
         fn.restype = ctypes.c_int
     return fn
 
@@ -193,12 +215,19 @@ def _tensor_maps(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bytes:
     return _pack_maps((q, rows_q), (k, rows_kv), (v, rows_kv))
 
 
-def _bwd_tensor_maps(kernel: str, q, k, v, do) -> bytes:
-    """q's, k's, v's and dO's tensor maps for the bf16 dq (``kernel`` "dq") or dk/dv
-    ("dkv") kernel: q and dO in boxes of query rows, k and v in boxes of keys."""
-    own, streamed = BWD_TILES[q.shape[3]][kernel]
+def _bwd_tensor_maps(kernel: str, q, k, v, do, tiles: dict = BWD_TILES) -> bytes:
+    """q's, k's, v's and dO's tensor maps for the dq (``kernel`` "dq") or dk/dv ("dkv")
+    kernel of the plan ``tiles``: q and dO in boxes of query rows, k and v in boxes of keys."""
+    own, streamed = tiles[q.shape[3]][kernel]
     rows_q, rows_kv = (own, streamed) if kernel == "dq" else (streamed, own)
     return _pack_maps((q, rows_q), (k, rows_kv), (v, rows_kv), (do, rows_q))
+
+
+def _bwd_f32_tensor_maps(kernel: str, *parts: torch.Tensor) -> bytes:
+    """The tensor maps of the fp32 dq or dk/dv kernel: each (3, B, T, H, D) part tensor
+    of q, k, v and dO as one (3B, T, H, D) map (part p of batch b at p·B + b), boxed by
+    ``BWD_F32_TILES``."""
+    return _bwd_tensor_maps(kernel, *(x.flatten(0, 1) for x in parts), tiles=BWD_F32_TILES)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -277,47 +306,79 @@ def _check_bwd(q, k, v, do, lse, delta) -> torch.Tensor:
     return _aligned(do.to(q.dtype))
 
 
-def _launch_bwd(kernel: str, q, k, v, do, lse, delta, scale, outs) -> None:
-    """Launch the dq (``kernel`` "dq") or dk/dv ("dkv") kernel into ``outs``."""
+def flash_attention_split_f32(q, k, v, do) -> Tuple[torch.Tensor, ...]:
+    """The split pass of the fp32 backward: each of q, k, v and dO (fp32 (B, T, H, D))
+    as its three bf16 parts, a contiguous (3, B, T, H, D) tensor each (hi, mid, lo of
+    ``split_bf16x3_reference``). One launch of the split kernel for the four on CUDA
+    tensors; the plain version on CPU tensors."""
+    if _device_of(q) == "cpu":
+        return tuple(split_bf16x3_reference(x) for x in (q, k, v, do))
+    _check(q, k, v)
+    if q.dtype != torch.float32 or do.dtype != torch.float32 or do.shape != q.shape:
+        raise TypeError(f"the split takes fp32 q, k, v and a dO of q's shape, got {q.dtype} and "
+                        f"{do.dtype} {tuple(do.shape)}")
+    do = _aligned(do)
+    parts = tuple(torch.empty((3, *x.shape), dtype=torch.bfloat16, device=q.device) for x in (q, k, v, do))
     b, tq, h, d = q.shape
-    ptrs = [x.data_ptr() for x in (q, k, v, do, lse, delta, *outs)]
-    dims = (b, tq, k.shape[1], h, d)
+    ptrs = [x.data_ptr() for x in (q, k, v, do, *parts)]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if q.dtype == torch.bfloat16:
-            name = f"flash_attention_bwd_{kernel}_bf16"
-            maps = _bwd_tensor_maps(kernel, q, k, v, do)
-            err = _bind(BWD_KERNEL_STEM, name, len(ptrs) + 1, 5, 0)(*ptrs, maps, *dims, float(scale), stream)
-        else:
-            name = f"flash_attention_bwd_{kernel}_f32"
-            err = _bind(BWD_KERNEL_STEM, name, len(ptrs), 5, 12)(*ptrs, *dims, *_strides(q, k, v, do),
-                                                                 float(scale), stream)
+        err = _bind(BWD_KERNEL_STEM, "flash_attention_split_f32", 8, 5, 12, scale=False)(
+            *ptrs, b, tq, k.shape[1], h, d, *_strides(q, k, v, do), stream)
+    _raise_on(err, "flash_attention_split_f32")
+    _count(flash_attention_split_f32, k)
+    return parts
+
+
+def _launch_bwd(kernel: str, q, k, v, do, lse, delta, scale, outs, parts=None) -> None:
+    """Launch the dq (``kernel`` "dq") or dk/dv ("dkv") kernel into ``outs``; in fp32 on
+    ``parts``, the split pass's parts of q, k, v and dO."""
+    b, tq, h, d = q.shape
+    if q.dtype == torch.bfloat16:
+        name, inputs, maps = f"flash_attention_bwd_{kernel}_bf16", (q, k, v, do), _bwd_tensor_maps(kernel, q, k, v, do)
+    else:
+        name, inputs, maps = f"flash_attention_bwd_{kernel}_f32", parts, _bwd_f32_tensor_maps(kernel, *parts)
+    ptrs = [x.data_ptr() for x in (*inputs, lse, delta, *outs)]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bind(BWD_KERNEL_STEM, name, len(ptrs) + 1, 5, 0)(*ptrs, maps, b, tq, k.shape[1], h, d, float(scale),
+                                                               stream)
     _raise_on(err, name)
+
+
+def _launch_bwd_kernels(kernels: Tuple[str, ...], q, k, v, do, lse, delta, scale) -> dict:
+    """The dq ("dq") and/or dk/dv ("dkv") kernels on CUDA tensors, after one split pass
+    in fp32: {"dq": dq, "dk": dk, "dv": dv} of those launched."""
+    do = _check_bwd(q, k, v, do, lse, delta)
+    parts = flash_attention_split_f32(q, k, v, do) if q.dtype == torch.float32 else None
+    out = {}
+    if "dq" in kernels:
+        out["dq"] = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        _launch_bwd("dq", q, k, v, do, lse, delta, scale, (out["dq"],), parts)
+        _count(flash_attention_bwd_dq, k)
+    if "dkv" in kernels:
+        out["dk"] = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+        out["dv"] = torch.empty_like(out["dk"])
+        _launch_bwd("dkv", q, k, v, do, lse, delta, scale, (out["dk"], out["dv"]), parts)
+        _count(flash_attention_bwd_dkv, k)
+    return out
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale):
     """dq of the backward from lse and delta (each (B, H, Tq) fp32): the dq kernel
-    on CUDA tensors, its plain version on CPU tensors."""
+    on CUDA tensors (in fp32 after its split pass), its plain version on CPU tensors."""
     if _device_of(q) == "cpu":
         return attention_bwd_dq_reference(q, k, v, do, lse, delta, scale)
-    do = _check_bwd(q, k, v, do, lse, delta)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch_bwd("dq", q, k, v, do, lse, delta, scale, (dq,))
-    _count(flash_attention_bwd_dq, k)
-    return dq
+    return _launch_bwd_kernels(("dq",), q, k, v, do, lse, delta, scale)["dq"]
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale):
     """(dk, dv) of the backward from lse and delta: the dk/dv kernel on CUDA
-    tensors, its plain version on CPU tensors."""
+    tensors (in fp32 after its split pass), its plain version on CPU tensors."""
     if _device_of(q) == "cpu":
         return attention_bwd_dkv_reference(q, k, v, do, lse, delta, scale)
-    do = _check_bwd(q, k, v, do, lse, delta)
-    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
-    dv = torch.empty_like(dk)
-    _launch_bwd("dkv", q, k, v, do, lse, delta, scale, (dk, dv))
-    _count(flash_attention_bwd_dkv, k)
-    return dk, dv
+    out = _launch_bwd_kernels(("dkv",), q, k, v, do, lse, delta, scale)
+    return out["dk"], out["dv"]
 
 
 def _device_of(q: torch.Tensor) -> str:
@@ -366,9 +427,8 @@ def flash_attention_bwd_lse(
         raise ValueError(f"o {tuple(o.shape)} does not fit q {tuple(q.shape)}")
     # delta = rowsum(dO·O) in fp32, outside the kernels as in the JAX package (:1048).
     delta = attention_bwd_delta(o, do).contiguous()
-    lse = lse.float().contiguous()
-    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
-    return (dq, *flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale))
+    out = _launch_bwd_kernels(("dq", "dkv"), q, k, v, do, lse.float().contiguous(), delta, scale)
+    return out["dq"], out["dk"], out["dv"]
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -414,6 +474,7 @@ _KERNELS = {
     "flash_attention_fwd_lse": flash_attention_lse,
     "flash_attention_bwd_dq": flash_attention_bwd_dq,
     "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
+    "flash_attention_split_f32": flash_attention_split_f32,
 }
 
 

@@ -6,9 +6,10 @@ Imports ``mapanything_tpu_torch`` from ``--root`` (default: the checkout this
 file is in), builds its kernels there and times each kernel with CUDA events:
 the lse-free forward at the flagship forward's encoder, frame and global
 shapes and one fp32 shape (``chip_smoke.py`` phase 3); the lse forward, dq,
-dk/dv and the whole ``flash_attention_bwd_lse`` (delta, dq and dk/dv), with
-torch SDPA's backward beside them in bf16, at the 1 x 4 x 518 train step's
-shapes and one fp32 shape (phase 3b); the same backward rows at the ring's
+dk/dv and the whole ``flash_attention_bwd_lse`` (delta, dq and dk/dv; in fp32
+its split pass too, and the split pass alone as ``split/<shape>``), with torch
+SDPA's backward beside them, at the 1 x 4 x 518 train step's shapes in bf16
+(phase 7) and fp32 (phase 17) (chip_smoke.py phase 3b); the same backward rows at the ring's
 block, 1 x 5476 x 12 x 64 fed a merged lse (phase 3c); the long bf16 forwards
 of phases 3c and 3d (K3's lse-free 1 x 21905 and
 1 x 87617, K7's lse 1 x 21904, all x 12 x 64); with 128 in ``--head-dims``,
@@ -17,7 +18,10 @@ unpack it with ``git archive`` into a directory that .gitignore lists and pass
 that as ``--root`` (this file need not exist there). Compare two commits only within one call on one card, in
 turns: parent, change, change, parent. Prints one JSON line: the card, the
 root and ms per call of each kernel at each shape (``host_us/bwd/...``: the
-host's microseconds to enqueue one whole backward, in bf16).
+host's microseconds to enqueue one whole backward, in bf16). With ``--errors``,
+also each fp32 backward's max |error| against the same formulas in fp64 on the
+same inputs (o and lse the kernel's), beside the fp32 plain version's and
+1e-5 of the reference's magnitude (``chip_smoke.py``'s fp32 rule).
 """
 
 from __future__ import annotations
@@ -42,7 +46,8 @@ LONG_SHAPES = {
 }
 TRAIN_SHAPES = {
     64: {"encoder": (4, 1370, 16, 64, "bfloat16"), "frame": (4, 1369, 12, 64, "bfloat16"),
-         "global": (1, 5477, 12, 64, "bfloat16"), "fp32_global": (1, 5477, 12, 64, "float32")},
+         "global": (1, 5477, 12, 64, "bfloat16"), "fp32_encoder": (4, 1370, 16, 64, "float32"),
+         "fp32_frame": (4, 1369, 12, 64, "float32"), "fp32_global": (1, 5477, 12, 64, "float32")},
     128: {"frame_h128": (4, 1369, 6, 128, "bfloat16"), "global_h128": (1, 5477, 6, 128, "bfloat16"),
           "fp32_global_h128": (1, 5477, 6, 128, "float32")},
 }
@@ -114,11 +119,24 @@ def ring_block_times(fa, gen) -> dict:
     }
 
 
+def fp32_errors(fa, q, k, v, o, lse, do, scale) -> dict:
+    """{output: [the backward's max |error| against fp64, the fp32 plain version's,
+    1e-5 max |fp64|]} for dq, dk and dv."""
+    got = fa.flash_attention_bwd_lse(q, k, v, o, lse, do, scale)
+    exact = fa.attention_bwd_reference(*(x.double() for x in (q, k, v, o, lse, do)), scale)
+    plain = fa.attention_bwd_reference(q, k, v, o, lse, do, scale)
+    return {name: [(g.double() - e).abs().max().item(), (p.double() - e).abs().max().item(),
+                   1e-5 * e.abs().max().item()] for name, g, e, p in zip(("dq", "dk", "dv"), got, exact, plain)}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", type=Path, default=Path(__file__).resolve().parents[2],
                         help="the checkout whose mapanything_tpu_torch is timed")
     parser.add_argument("--head-dims", type=int, nargs="+", default=[64], choices=sorted(FORWARD_SHAPES))
+    parser.add_argument("--errors", action="store_true", help="also the fp32 backward's errors against fp64")
+    parser.add_argument("--dtypes", nargs="+", default=["bfloat16", "float32"], choices=["bfloat16", "float32"],
+                        help="time the shapes of these dtypes only (the long and ring rows are bf16)")
     args = parser.parse_args()
     sys.path.insert(0, str(args.root.resolve()))
     import torch
@@ -131,12 +149,16 @@ def main() -> int:
 
     _build.build(*fa.KERNEL_STEMS)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    times = {}
+    times, errors = {}, {}
     for d in args.head_dims:
         for name, (b, t, h, hd, dtype) in FORWARD_SHAPES[d].items():
+            if dtype not in args.dtypes:
+                continue
             q, k, v = torch.randn(b, t, 3, h, hd, device="cuda", generator=gen).to(getattr(torch, dtype)).unbind(2)
             times[f"fwd/{name}"] = cuda_time_ms(lambda: fa.flash_attention(q, k, v, hd**-0.5), iters=30)
         for name, (b, t, h, hd, dtype) in TRAIN_SHAPES[d].items():
+            if dtype not in args.dtypes:
+                continue
             dt = getattr(torch, dtype)
             q, k, v = torch.randn(b, t, 3, h, hd, device="cuda", generator=gen).to(dt).unbind(2)
             do = torch.randn(b, t, h, hd, device="cuda", generator=gen).to(dt)
@@ -149,10 +171,16 @@ def main() -> int:
             times[f"dkv/{name}"] = cuda_time_ms(
                 lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale), iters)
             times[f"bwd/{name}"] = cuda_time_ms(lambda: fa.flash_attention_bwd_lse(q, k, v, o, lse, do, scale), iters)
+            times[f"sdpa_bwd/{name}"] = sdpa_bwd_ms(q, k, v, do, scale, iters)
             if dt == torch.bfloat16:
-                times[f"sdpa_bwd/{name}"] = sdpa_bwd_ms(q, k, v, do, scale, iters)
                 times[f"host_us/bwd/{name}"] = host_us(lambda: fa.flash_attention_bwd_lse(q, k, v, o, lse, do, scale))
-        if d == 64:
+            else:
+                if hasattr(fa, "flash_attention_split_f32"):
+                    times[f"split/{name}"] = cuda_time_ms(lambda: fa.flash_attention_split_f32(q, k, v, do), iters)
+                if args.errors:
+                    errors[name] = fp32_errors(fa, q, k, v, o, lse, do, scale)
+                    torch.cuda.empty_cache()
+        if d == 64 and "bfloat16" in args.dtypes:
             times.update(ring_block_times(fa, gen))
             for name, (b, t, h, hd, with_lse) in LONG_SHAPES.items():
                 q, k, v = torch.randn(b, t, 3, h, hd, device="cuda", generator=gen).bfloat16().unbind(2)
@@ -160,7 +188,10 @@ def main() -> int:
                 iters = 3 if t > 50000 else 10
                 times[f"{'lse' if with_lse else 'fwd'}/{name}"] = cuda_time_ms(
                     lambda: fwd(q, k, v, hd**-0.5), iters, warmup=1)
-    print(json.dumps({"card": torch.cuda.get_device_name(0), "root": str(args.root), "ms": times}), flush=True)
+    line = {"card": torch.cuda.get_device_name(0), "root": str(args.root), "ms": times}
+    if args.errors:
+        line["fp32_bwd_errors"] = errors
+    print(json.dumps(line), flush=True)
     return 0
 
 

@@ -1,15 +1,21 @@
-"""One intra-op thread for torch while many CPU-bound processes share a host.
+"""One intra-op thread for torch while many CPU-bound processes share a host,
+and the freed heap handed back to the OS between the modules of a long-lived
+test process.
 
 With torch's default pool (a thread a core) in each of several busy
 processes, every small op waits on the others' threads; one thread a
-process is faster then. The port's CPU tests make this an autouse fixture:
+process is faster then. A test worker that runs many modules also keeps the
+peak heap of each (the C allocator holds freed pages), unless it is trimmed.
+The port's CPU tests make both an autouse fixture:
 
-    one_intra_op_thread = pytest.fixture(scope="module", autouse=True)(threads.one_intra_op_thread)
+    lean_module = pytest.fixture(scope="module", autouse=True)(threads.lean_module)
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import gc
 import os
 from typing import Iterator
 
@@ -35,3 +41,21 @@ def one_intra_op_thread() -> Iterator[None]:
 
 single_thread = contextlib.contextmanager(one_intra_op_thread)
 """The same as a context manager: ``with single_thread(): ...``."""
+
+
+def trim_heap() -> None:
+    """Collect garbage, then hand the C heap's free pages back to the OS (glibc's
+    ``malloc_trim``; nothing where the C library has none). The small train-step
+    tests leave a process at 4.5 GB resident without it, 0.9 GB with it."""
+    gc.collect()
+    try:
+        ctypes.CDLL("libc.so.6").malloc_trim(0)
+    except (OSError, AttributeError):
+        pass
+
+
+def lean_module() -> Iterator[None]:
+    """Generator for a test module's fixture: one intra-op thread while the module
+    runs (``one_intra_op_thread``), and ``trim_heap`` after it."""
+    yield from one_intra_op_thread()
+    trim_heap()

@@ -45,6 +45,8 @@ from mapanything_tpu_torch.ops.flash_attention import (
 )
 from mapanything_tpu_torch.utils import threads
 
+lean_module = pytest.fixture(scope="module", autouse=True)(threads.lean_module)
+
 ATOL = 2e-5  # as tests/test_flash_attention.py holds the Pallas kernels to XLA
 GRAD_ATOL = 2e-4  # its tolerance for gradients
 
@@ -358,7 +360,7 @@ def test_routing_inference_and_training_and_counts():
     # CPU tensors run the plain versions and launch no kernel
     assert launch_counts() == {
         "flash_attention_fwd": 0, "flash_attention_fwd_lse": 0,
-        "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+        "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0, "flash_attention_split_f32": 0,
     }
 
 

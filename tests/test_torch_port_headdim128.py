@@ -26,7 +26,7 @@ from mapanything_tpu_torch.ops import flash_attention as port_fa
 from mapanything_tpu_torch.utils import threads
 from test_torch_port_model import assert_forward_matches, jax_small_slice
 
-one_intra_op_thread = pytest.fixture(scope="module", autouse=True)(threads.one_intra_op_thread)
+lean_module = pytest.fixture(scope="module", autouse=True)(threads.lean_module)
 
 ATOL = 2e-5  # the D = 64 tests' tolerances (tests/test_torch_port_attention.py)
 GRAD_ATOL = 2e-4

@@ -44,7 +44,7 @@ from mapanything_tpu_torch.utils import viz as port_viz
 from mapanything_tpu_torch.utils.jax_params import load_jax_params
 
 
-one_intra_op_thread = pytest.fixture(scope="module", autouse=True)(threads.one_intra_op_thread)
+lean_module = pytest.fixture(scope="module", autouse=True)(threads.lean_module)
 
 
 GEOM_RTOL = 1e-5  # of each output's magnitude

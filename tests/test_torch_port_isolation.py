@@ -25,7 +25,7 @@ from mapanything_tpu_torch.utils import threads
 from mapanything_tpu_torch.utils.inference import infer
 
 
-one_intra_op_thread = pytest.fixture(scope="module", autouse=True)(threads.one_intra_op_thread)
+lean_module = pytest.fixture(scope="module", autouse=True)(threads.lean_module)
 
 
 ROOT = Path(__file__).resolve().parents[1]

@@ -37,7 +37,7 @@ from mapanything_tpu_torch.utils import threads
 from mapanything_tpu_torch.utils.jax_params import load_jax_params
 
 
-one_intra_op_thread = pytest.fixture(scope="module", autouse=True)(threads.one_intra_op_thread)
+lean_module = pytest.fixture(scope="module", autouse=True)(threads.lean_module)
 
 
 FP32_ATOL = 1e-4  # fp32 on both sides, sums in other orders; ~5e-6 seen at these sizes

@@ -37,7 +37,7 @@ from mapanything_tpu_torch.tools import view_parallel_ranks
 from mapanything_tpu_torch.utils import threads
 
 
-one_intra_op_thread = pytest.fixture(scope="module", autouse=True)(threads.one_intra_op_thread)
+lean_module = pytest.fixture(scope="module", autouse=True)(threads.lean_module)
 
 
 ATTN_TOL = 1e-5  # of each output's magnitude; fp32 on both sides

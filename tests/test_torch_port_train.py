@@ -31,7 +31,7 @@ from mapanything_tpu_torch.utils import threads
 from mapanything_tpu_torch.utils.jax_params import jax_params_to_state_dict, load_jax_params
 
 
-one_intra_op_thread = pytest.fixture(scope="module", autouse=True)(threads.one_intra_op_thread)
+lean_module = pytest.fixture(scope="module", autouse=True)(threads.lean_module)
 
 
 PRED_FIELDS = (
@@ -248,6 +248,7 @@ def jax_small_step(step_cfg):
     port = port_ma.MapAnything(port_ma.MapAnythingConfig.small(**step_cfg), device="cpu", geometric_inputs=True)
     load_jax_params(port, jax.tree.map(np.asarray, params))
     np_masks = {k: None if v is None else np.array(v) for k, v in vars(masks).items()}
+    threads.trim_heap()  # the compiles' transient heap, before the next step's (4.2 GB otherwise)
     return dict(img=img, batch=batch, masks=np_masks, loss=loss, details=details, grads=grads,
                 new_params=new_params, opt_cfg=opt_cfg, port=port, params=jax.tree.map(np.asarray, params))
 
