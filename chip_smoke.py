@@ -14,10 +14,11 @@ Phases, each printing one JSON line:
      instance's registers, spills and shared memory (-Xptxas -v, and the
      wgmma instances' dynamic shared memory), and cuobjdump -sass of each
      library must show HGMMA (wgmma) and UTMALDG (TMA loads) in every
-     fa_fwd_bf16 instance and every backward instance, bf16 and fp32
-     (fa_bwd_dq_bf16, fa_bwd_dkv_bf16, fa_bwd_dq_f32, fa_bwd_dkv_f32);
-  3f. the bf16 forward's edges: both forms (lse-free and lse) at D = 64
-     and 128 against their plain versions under phase 3's rule, at
+     forward and backward instance, bf16 and fp32 (fa_fwd_bf16, fa_fwd_f32,
+     fa_bwd_dq_bf16, fa_bwd_dkv_bf16, fa_bwd_dq_f32, fa_bwd_dkv_f32);
+  3f. the forward's edges, bf16 and fp32: both forms (lse-free and lse) at
+     D = 64 and 128 against their plain versions under phase 3's rule (fp32
+     also under the fp32 rule, below), at
      T = 1, 7, 64, 65, 127, 129 and 1370 and at Tq != Tk (129 against
      4000, 5476 against 1), and at 320 and 384 work tiles (every block of
      the persistent grid walks several), on contiguous tensors and on
@@ -31,17 +32,21 @@ Phases, each printing one JSON line:
      ring feeds them); each kernel called twice, the outputs bitwise equal;
   3. inference kernel checks: the lse-free attention forward against its
      plain PyTorch version at the inference shapes (encoder, frame and
-     global layers in bf16) and one fp32 shape, with kernel, plain and
-     torch-SDPA times and the bound;
+     global layers in bf16, and in fp32: phase 18's), with kernel, plain and
+     torch-SDPA times and the bound; the fp32 rows also under the fp32 rule,
+     with the kernel timed alone on one split pass's parts, the split pass
+     (held bitwise to its plain version) and the whole call timed apart;
   3b. training kernel checks: the forward with lse, the dq and the dk/dv
      kernels against their plain versions at the 1 x 4 x 518 training
      shapes in bf16 (phase 7's) and in fp32 (phase 17's), with kernel, plain
      and library times (torch SDPA forward with autograd on; its backward
      alone, beside the whole flash_attention_bwd_lse: delta, the fp32 split
-     pass, dq and dk/dv) and bounds. The fp32 dq, dk and dv are also held to
-     the fp32 rule: 4x the fp32 plain version's own error against fp64, or
-     1e-5 of the magnitude (phase 3's 1e-2 would pass a single bf16 pass);
-     the fp32 split pass is held bitwise to its plain version and timed;
+     pass, dq and dk/dv) and bounds. The fp32 o, lse, dq, dk and dv are also
+     held to the fp32 rule: 4x the fp32 plain version's own error against
+     fp64, or 1e-5 of the magnitude (phase 3's 1e-2 would pass a single bf16
+     pass); the fp32 kernels are timed alone on split parts, and the split
+     passes (the forward's of q, k, v and the backward's of q, k, v, dO) are
+     held bitwise to their plain version and timed;
   4. slice check: MapAnythingConfig.small(), 2 views at 56 px in fp32, the same
      seeded weights on cuda and on cpu, every prediction compared;
   5. inference: the flagship MapAnythingConfig(compute_dtype="bfloat16")
@@ -119,15 +124,22 @@ Phases, each printing one JSON line:
      lse forward, dq and dk/dv launched 24 times each at D = 64 and 24 at
      D = 128 a step (12 at 1369 and 12 at 5477 tokens);
   17. phase 7 at the config's default dtype: MapAnythingConfig() (fp32) on
-     1 x 4 x 518, the fp32 lse forward, split pass, dq and dk/dv launched 48
-     times each a step (24 at 1370, 12 at 1369, 12 at 5477 tokens, D = 64),
-     with the same checks, ms per step, views/s, peak memory and each fp32
-     kernel's time a step (phase 3b's per call x launches) and share of it.
+     1 x 4 x 518, the fp32 lse forward, dq and dk/dv launched 48 times each a
+     step (24 at 1370, 12 at 1369, 12 at 5477 tokens, D = 64) and the split
+     pass 96 (48 in the forward, 48 in the backward), with the same checks,
+     ms per step, views/s, peak memory and each fp32 kernel's time a step
+     (phase 3b's per call x launches) and share of it;
+  18. phase 5 at the config's default dtype: MapAnythingConfig() (fp32) on
+     1 x 8 x 518 under torch.inference_mode(), the fp32 lse-free forward and
+     its split pass launched 48 times each (24 at 1370, 12 at 1369, 12 at
+     10953 tokens), ms per forward, views/s, peak memory, the output
+     invariants and each fp32 kernel's time a forward (phase 3's per call x
+     launches) and share of it.
 On a machine with more than one card, phases 9 and 10 then run again over
 NCCL with one rank a card (2 or 4 cards); rank 0 checks the gathered
 outputs against the unsharded forward. A machine with one card skips this.
 Phases 11-13 run after phase 5, before phase 6; phase 3e after 3d; phases
-14-17 after phase 7, before phase 8. Then the kernels' summary line and,
+14-18 after phase 7, before phase 8. Then the kernels' summary line and,
 last, {"ok": true, "device": {...}}.
 Phases 3f and 3g run right after the build. With --train-step-only, phase 7
 (phase 17 with --compute-dtype float32) runs after the build (without the SASS
@@ -167,12 +179,16 @@ PEAKS = {
     "H100": (989e12, 67e12, 3.35e12),  # SXM
 }
 
-# (name, shape B x T x H x D, dtype, launches per flagship forward, TPU kernel replaced)
+# (name, shape B x T x H x D, dtype, launches per flagship forward of that dtype (phase 5
+# in bf16, phase 18 in fp32), TPU kernel replaced: in fp32 the JAX dispatch takes the
+# single-pass kernel up to 2048 padded keys, the augmented stream beyond)
 ATTENTION_SHAPES = [
     ("encoder", (8, 1370, 16, 64), "bfloat16", 24, "mapanything_tpu/ops/flash_attention.py:395"),
     ("frame", (8, 1369, 12, 64), "bfloat16", 12, "mapanything_tpu/ops/flash_attention.py:395"),
     ("global", (1, 10953, 12, 64), "bfloat16", 12, "mapanything_tpu/ops/flash_attention.py:516"),
-    ("fp32_frame", (8, 1369, 12, 64), "float32", 0, "mapanything_tpu/ops/flash_attention.py:114"),
+    ("fp32_encoder", (8, 1370, 16, 64), "float32", 24, "mapanything_tpu/ops/flash_attention.py:114"),
+    ("fp32_frame", (8, 1369, 12, 64), "float32", 12, "mapanything_tpu/ops/flash_attention.py:114"),
+    ("fp32_global", (1, 10953, 12, 64), "float32", 12, "mapanything_tpu/ops/flash_attention.py:164"),
 ]
 # Phase 3d: K1 at the 64-view infer's encoder and frame layers (phase 13; its
 # launches there are counted by key length).
@@ -253,55 +269,97 @@ def by_head_dim(shapes: dict) -> dict:
     return out
 
 
+def forward_bounds(card, b, tq, tk, h, d, dtype_name, with_lse: bool) -> dict:
+    """The forward's bound: the larger of its bytes (q, k, v read, o and the lse written)
+    over the memory rate and its 4·B·H·Tq·Tk·D flop over the tensor cores' bf16 rate, in
+    fp32 six times that flop (the six bf16 passes of the split products: the split bound);
+    beside it the exponentials' bound (one a score at 16 a clock per SM, 1/256 of the bf16
+    flop rate) and, in fp32, the same flop at the fp32 FMA rate (the FFMA bound)."""
+    from mapanything_tpu_torch.ops.flash_attention import attention_bytes, attention_flops
+
+    bf16_peak, f32_peak, mem_bw = peaks_for(card["name"])
+    fp32 = dtype_name == "float32"
+    flops = attention_flops(b, tq, tk, h, d)
+    t_bytes = (attention_bytes(b, tq, tk, h, d, 4 if fp32 else 2) + (4 * b * h * tq if with_lse else 0)) / mem_bw * 1e3
+    t_ops = (6 if fp32 else 1) * flops / bf16_peak * 1e3
+    out = {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "exp_bound_ms": b * h * tq * tk / (bf16_peak / 256) * 1e3}
+    if fp32:
+        out["ffma_bound_ms"] = max(flops / f32_peak * 1e3, t_bytes)
+    return out
+
+
+def split_bound_ms(card, n_elements: int) -> float:
+    """The split pass's bound: each fp32 element read (4 bytes) and its three bf16 parts
+    written (6), over the memory rate."""
+    return n_elements * (4 + 3 * 2) / peaks_for(card["name"])[2] * 1e3
+
+
+def plain_chunks(b: int, t: int, fp32: bool) -> list:
+    """(batch, query-row) slices over which the plain versions run: batch chunks of
+    PLAIN_BATCH; in fp32 also query rows, PLAIN_SLAB // t at a time (fp64 logits of
+    12 heads at 10953 tokens would take 11.5 GB a copy)."""
+    rows = min(t, PLAIN_SLAB // t) if fp32 else t
+    return [(slice(i, i + PLAIN_BATCH), slice(r, r + rows)) for i in range(0, b, PLAIN_BATCH)
+            for r in range(0, t, rows)]
+
+
 def kernel_checks(card, shapes, phase_id: str):
-    """Phases 3 and 3d: the kernel against its plain version, with times and
-    the bound; the plain versions over batch chunks of PLAIN_BATCH."""
+    """Phases 3 and 3d: the kernel against its plain version under phase 3's rule (fp32
+    also under the fp32 rule), with times and the bound; the plain versions over chunks
+    (plain_chunks). The fp32 rows time the kernel alone on one split pass's parts
+    (``ms``), the split pass (``split_ms``, held bitwise to its plain version) and the
+    whole call (``call_ms``)."""
     import torch
     import torch.nn.functional as F
 
-    from mapanything_tpu_torch.ops.flash_attention import (
-        attention_bytes,
-        attention_flops,
-        attention_reference,
-        flash_attention,
-    )
+    from mapanything_tpu_torch.ops import flash_attention as fa
 
-    bf16_peak, f32_peak, mem_bw = peaks_for(card["name"])
     rows = []
     for name, (b, t, h, d), dtype_name, per_forward, replaces in shapes:
         dtype = getattr(torch, dtype_name)
+        fp32 = dtype == torch.float32
         gen = torch.Generator(device="cuda").manual_seed(1)
         # q, k, v as Attention makes them: strided views of one fused qkv tensor.
         qkv = torch.randn(b, t, 3, h, d, device="cuda", dtype=torch.float32, generator=gen).to(dtype)
         q, k, v = qkv.unbind(2)
         scale = d**-0.5
-        out = flash_attention(q, k, v, scale)
+        out = fa.flash_attention(q, k, v, scale)
         torch.cuda.synchronize()
-        chunks = [slice(i, i + PLAIN_BATCH) for i in range(0, b, PLAIN_BATCH)]
+        chunks = plain_chunks(b, t, fp32)
+        exact_dtype = torch.float64 if fp32 else torch.float32
         err = plain_err = ref_max = 0.0
-        for c in chunks:
-            if dtype == torch.bfloat16:
-                exact = attention_reference(q[c].float(), k[c].float(), v[c].float(), scale)
-            else:
-                exact = attention_reference(q[c].double(), k[c].double(), v[c].double(), scale).float()
-            plain = attention_reference(q[c], k[c], v[c], scale)
-            err = max(err, (out[c].float() - exact).abs().max().item())
-            plain_err = max(plain_err, (plain.float() - exact).abs().max().item())
+        for cb, cr in chunks:
+            exact = fa.attention_reference(*(x.to(exact_dtype) for x in (q[cb, cr], k[cb], v[cb])), scale)
+            plain = fa.attention_reference(q[cb, cr], k[cb], v[cb], scale)
+            err = max(err, max_err(out[cb, cr], exact))
+            plain_err = max(plain_err, max_err(plain, exact))
             ref_max = max(ref_max, exact.abs().max().item())
             del exact, plain
         tol = max(2.0 * plain_err, 1e-2 * ref_max)
+        fp32_tol = max(4.0 * plain_err, 1e-5 * ref_max) if fp32 else None
         finite = bool(torch.isfinite(out).all())
         torch.cuda.empty_cache()
 
-        ms = cuda_time_ms(lambda: flash_attention(q, k, v, scale), iters=20)
-        plain_ms = cuda_time_ms(lambda: [attention_reference(q[c], k[c], v[c], scale) for c in chunks],
+        if fp32:  # the kernel alone on one split's parts; the split and the whole call apart
+            parts = fa.flash_attention_split_f32(q, k, v)
+            split_bitwise = all(torch.equal(got, fa.split_bf16x3_reference(x)) for got, x in zip(parts, (q, k, v)))
+            ms = cuda_time_ms(lambda: fa._launch_fwd(q, k, v, scale, False, parts), iters=20)
+            extra = {"split_ms": cuda_time_ms(lambda: fa.flash_attention_split_f32(q, k, v), iters=20),
+                     "split_plain_ms": cuda_time_ms(lambda: [fa.split_bf16x3_reference(x) for x in (q, k, v)],
+                                                    iters=5, warmup=1),
+                     "split_bound_ms": split_bound_ms(card, 3 * b * t * h * d),
+                     "split_bitwise": split_bitwise,
+                     "call_ms": cuda_time_ms(lambda: fa.flash_attention(q, k, v, scale), iters=20),
+                     "plain_fp32_err": plain_err, "fp32_tol": fp32_tol}
+            del parts
+        else:
+            ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v, scale), iters=20)
+            extra = {"plain_bf16_err": plain_err}
+        plain_ms = cuda_time_ms(lambda: [fa.attention_reference(q[cb, cr], k[cb], v[cb], scale) for cb, cr in chunks],
                                 iters=3, warmup=1)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), iters=20)
-        flops = attention_flops(b, t, t, h, d)
-        nbytes = attention_bytes(b, t, t, h, d, q.element_size())
-        t_ops = flops / (bf16_peak if dtype == torch.bfloat16 else f32_peak) * 1e3
-        t_bytes = nbytes / mem_bw * 1e3
         row = {
             "phase": "kernel_check",
             "phase_id": phase_id,
@@ -310,21 +368,21 @@ def kernel_checks(card, shapes, phase_id: str):
             "dtype": dtype_name,
             "replaces": replaces,
             "max_abs_err": err,
-            "plain_bf16_err" if dtype == torch.bfloat16 else "plain_fp32_err": plain_err,
             "tol": tol,
             "ms": ms,
             "plain_ms": plain_ms,
             "library_ms": library_ms,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "tflops": flops / ms / 1e9,
+            **forward_bounds(card, b, t, t, h, d, dtype_name, with_lse=False),
+            "tflops": fa.attention_flops(b, t, t, h, d) / ms / 1e9,
+            **extra,
             "per_forward": per_forward,
             "card": card["name"],
             "power_limit": card["power_limit"],
         }
         emit(row)
-        if not finite or err > tol:
-            raise AssertionError(f"kernel disagrees with its plain version at {name}: {err} > {tol}")
+        if not finite or err > tol or (fp32 and (err > fp32_tol or not split_bitwise)):
+            raise AssertionError(f"kernel disagrees with its plain version at {name}: {err} > {tol} "
+                                 f"(fp32 rule {fp32_tol}; split bitwise {extra.get('split_bitwise')})")
         rows.append(row)
         del qkv, q, k, v, out
         torch.cuda.empty_cache()
@@ -393,10 +451,12 @@ def ptxas_report(log: str) -> dict:
 
 
 # Phase 2: the instances whose SASS must hold HGMMA (wgmma) and UTMALDG (a TMA load): the
-# bf16 forward's by (D, lse) in the forward library; the backward's, bf16 and fp32, by
-# (kernel, dtype, D) in the backward library, with the index of each in the library's
-# flash_attention_bwd_smem.
-FWD_BF16_INSTANCES = {(d, lse): f"fa_fwd_bf16ILi{d}ELb{int(lse)}E" for d in (64, 128) for lse in (False, True)}
+# forward's, bf16 and fp32, by (dtype, D, lse) in the forward library; the backward's by
+# (kernel, dtype, D) in the backward library; with the index of each in its library's
+# flash_attention_fwd_smem or flash_attention_bwd_smem.
+FWD_INSTANCES = {(dtype, d, lse): f"fa_fwd_{dtype}ILi{d}ELb{int(lse)}E"
+                 for dtype in ("bf16", "f32") for d in (64, 128) for lse in (False, True)}
+FWD_SMEM_INDEX = {"bf16": 0, "f32": 1}
 BWD_INSTANCES = {(kernel, dtype, d): f"fa_bwd_{kernel}_{dtype}ILi{d}E"
                  for kernel in ("dq", "dkv") for dtype in ("bf16", "f32") for d in (64, 128)}
 BWD_SMEM_INDEX = {("dq", "bf16"): 0, ("dkv", "bf16"): 1, ("dq", "f32"): 2, ("dkv", "f32"): 3}
@@ -432,43 +492,55 @@ EDGE_SCALE = 0.3  # the fused-layout cases' scale; the contiguous cases take D *
 
 
 def forward_edge_checks(card) -> list:
-    """Phase 3f: the bf16 forward, lse-free and lse, at D = 64 and 128 against its
-    plain version under phase 3's rule, at the edge shapes; o and the lse of every row."""
+    """Phase 3f: the forward, bf16 and fp32, lse-free and lse, at D = 64 and 128 against
+    its plain version under phase 3's rule (fp32 also under the fp32 rule), at the edge
+    shapes; o and the lse of every row."""
     import torch
 
     from mapanything_tpu_torch.ops import flash_attention as fa
 
     cases = []
-    for d in fa.HEAD_DIMS:
-        for tq, tk, b, h in EDGE_CASES:
-            for layout in ("contiguous", "fused"):
-                gen = torch.Generator(device="cuda").manual_seed(tq * 7919 + tk + d)
-                if layout == "contiguous":
-                    q, k, v = (torch.randn(b, t, h, d, device="cuda", generator=gen).bfloat16() for t in (tq, tk, tk))
-                    scale = d**-0.5
-                elif tq == tk:  # views of one fused qkv tensor
-                    q, k, v = torch.randn(b, tq, 3, h, d, device="cuda", generator=gen).bfloat16().unbind(2)
-                    scale = EDGE_SCALE
-                else:  # q from a fused qkv tensor, k and v from a fused kv tensor
-                    q = torch.randn(b, tq, 3, h, d, device="cuda", generator=gen).bfloat16()[:, :, 0]
-                    k, v = torch.randn(b, tk, 2, h, d, device="cuda", generator=gen).bfloat16().unbind(2)
-                    scale = EDGE_SCALE
-                o_free = fa.flash_attention(q, k, v, scale)
-                o_lse, lse = fa.flash_attention_lse(q, k, v, scale)
-                torch.cuda.synchronize()
-                o_exact, lse_exact = fa.attention_lse_reference(q.float(), k.float(), v.float(), scale)
-                o_plain, lse_plain = fa.attention_lse_reference(q, k, v, scale)
-                for form, out, exact, plain in (("o", o_free, o_exact, o_plain), ("o_lse", o_lse, o_exact, o_plain),
-                                                ("lse", lse, lse_exact, lse_plain)):
-                    err, tol = max_err(out, exact), tolerance(max_err(plain, exact), exact)
-                    cases.append({"d": d, "tq": tq, "tk": tk, "b": b, "h": h, "layout": layout, "out": form,
-                                  "err": err, "tol": tol, "finite": bool(torch.isfinite(out).all())})
-    bad = [c for c in cases if not (c["finite"] and c["err"] <= c["tol"])]
-    emit({"phase": "forward_edge_check", "phase_id": "3f", "cases": len(cases),
-          "worst": max(cases, key=lambda c: c["err"] / max(c["tol"], 1e-30)), "failed": bad,
+    for dtype in (torch.bfloat16, torch.float32):
+        dname, fp32 = str(dtype).split(".")[-1], dtype == torch.float32
+        for d in fa.HEAD_DIMS:
+            for tq, tk, b, h in EDGE_CASES:
+                for layout in ("contiguous", "fused"):
+                    gen = torch.Generator(device="cuda").manual_seed(tq * 7919 + tk + d)
+                    if layout == "contiguous":
+                        q, k, v = (torch.randn(b, t, h, d, device="cuda", generator=gen).to(dtype)
+                                   for t in (tq, tk, tk))
+                        scale = d**-0.5
+                    elif tq == tk:  # views of one fused qkv tensor
+                        q, k, v = torch.randn(b, tq, 3, h, d, device="cuda", generator=gen).to(dtype).unbind(2)
+                        scale = EDGE_SCALE
+                    else:  # q from a fused qkv tensor, k and v from a fused kv tensor
+                        q = torch.randn(b, tq, 3, h, d, device="cuda", generator=gen).to(dtype)[:, :, 0]
+                        k, v = torch.randn(b, tk, 2, h, d, device="cuda", generator=gen).to(dtype).unbind(2)
+                        scale = EDGE_SCALE
+                    o_free = fa.flash_attention(q, k, v, scale)
+                    o_lse, lse = fa.flash_attention_lse(q, k, v, scale)
+                    torch.cuda.synchronize()
+                    exact_dtype = torch.float64 if fp32 else torch.float32
+                    o_exact, lse_exact = fa.attention_lse_reference(*(x.to(exact_dtype) for x in (q, k, v)), scale)
+                    o_plain, lse_plain = fa.attention_lse_reference(q, k, v, scale)
+                    for form, out, exact, plain in (("o", o_free, o_exact, o_plain),
+                                                    ("o_lse", o_lse, o_exact, o_plain),
+                                                    ("lse", lse, lse_exact, lse_plain)):
+                        plain_err = max_err(plain, exact)
+                        row = {"dtype": dname, "d": d, "tq": tq, "tk": tk, "b": b, "h": h, "layout": layout,
+                               "out": form, "err": max_err(out, exact), "tol": tolerance(plain_err, exact),
+                               "finite": bool(torch.isfinite(out).all())}
+                        if fp32:
+                            row["fp32_tol"] = fp32_tolerance(plain_err, exact)
+                        cases.append(row)
+    bad = [c for c in cases if not (c["finite"] and c["err"] <= c["tol"] and c["err"] <= c.get("fp32_tol", c["tol"]))]
+    worst = {dname: max((c for c in cases if c["dtype"] == dname),
+                        key=lambda c: c["err"] / max(min(c["tol"], c.get("fp32_tol", c["tol"])), 1e-30))
+             for dname in ("bfloat16", "float32")}
+    emit({"phase": "forward_edge_check", "phase_id": "3f", "cases": len(cases), "worst": worst, "failed": bad,
           "card": card["name"], "power_limit": card["power_limit"]})
     if bad:
-        raise AssertionError(f"the bf16 forward disagrees with its plain version at {len(bad)} edge cases: {bad[:4]}")
+        raise AssertionError(f"the forward disagrees with its plain version at {len(bad)} edge cases: {bad[:4]}")
     return cases
 
 
@@ -570,13 +642,13 @@ def tolerance(err_plain: float, ref) -> float:
 
 
 def fp32_tolerance(err_plain: float, ref) -> float:
-    """The fp32 rule, held beside phase 3's by the fp32 backward (dq, dk, dv): 4x the fp32
-    plain version's own error against fp64, or 1e-5 of the reference's magnitude. Phase
-    3's 1e-2 of the magnitude alone would pass a single bf16 pass (~2^-9 of it)."""
+    """The fp32 rule, held beside phase 3's by the fp32 kernels (o, lse, dq, dk, dv): 4x the
+    fp32 plain version's own error against fp64, or 1e-5 of the reference's magnitude.
+    Phase 3's 1e-2 of the magnitude alone would pass a single bf16 pass (~2^-9 of it)."""
     return max(4.0 * err_plain, 1e-5 * ref.abs().max().item())
 
 
-FP32_RULE_OUTPUTS = ("dq", "dk", "dv")  # the fp32 forward (o, lse) is PR 1's design, held to phase 3's rule
+FP32_RULE_OUTPUTS = ("o", "lse", "dq", "dk", "dv")
 
 
 def max_err(x, ref) -> float:
@@ -585,8 +657,9 @@ def max_err(x, ref) -> float:
 
 def train_kernel_checks(card, shapes=TRAIN_SHAPES, replaces=TRAIN_REPLACES, phase_id: str = "3b"):
     """Phases 3b and 3e: the lse forward, dq and dk/dv kernels against their plain versions;
-    in fp32 also under the fp32 rule (dq, dk, dv), and the split pass bitwise against its
-    plain version."""
+    in fp32 also under the fp32 rule (o, lse, dq, dk, dv), each kernel timed alone on one
+    split pass's parts, and the split passes (the forward's of q, k and v, the backward's of
+    q, k, v and dO, a layer's two together) bitwise against their plain version."""
     import torch
     import torch.nn.functional as F
 
@@ -627,21 +700,24 @@ def train_kernel_checks(card, shapes=TRAIN_SHAPES, replaces=TRAIN_REPLACES, phas
         del exact, plain, xe, o_e, lse_e, o_p, lse_p
         torch.cuda.empty_cache()
         split_bitwise = None
-        if fp32:  # the split pass against its plain version, bitwise
-            parts = fa.flash_attention_split_f32(q, k, v, do)
-            split_bitwise = all(torch.equal(got, fa.split_bf16x3_reference(x)) for got, x in zip(parts, (q, k, v, do)))
+        if fp32:  # the split passes against their plain version, bitwise
+            parts, fwd_parts = fa.flash_attention_split_f32(q, k, v, do), fa.flash_attention_split_f32(q, k, v)
+            split_bitwise = all(torch.equal(got, fa.split_bf16x3_reference(x))
+                                for got, x in zip(parts + fwd_parts, (q, k, v, do, q, k, v)))
 
         plain_delta = fa.attention_bwd_delta(o, do)
-        if fp32:  # the fp32 dq and dk/dv kernels alone, on one split pass's parts (the split is timed apart)
+        if fp32:  # the fp32 kernels alone, on one split pass's parts (the splits are timed apart)
             outs_dq, outs_dkv = (torch.empty_like(q),), (torch.empty_like(k), torch.empty_like(v))
+            fwd_call = lambda: fa._launch_fwd(q, k, v, scale, True, fwd_parts)  # noqa: E731
             dq_call = lambda: fa._launch_bwd("dq", q, k, v, do, lse, delta, scale, outs_dq, parts)  # noqa: E731
             dkv_call = lambda: fa._launch_bwd("dkv", q, k, v, do, lse, delta, scale, outs_dkv, parts)  # noqa: E731
         else:
+            fwd_call = lambda: fa.flash_attention_lse(q, k, v, scale)  # noqa: E731
             dq_call = lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)  # noqa: E731
             dkv_call = lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)  # noqa: E731
         times = {
             "flash_attention_fwd_lse": (
-                cuda_time_ms(lambda: fa.flash_attention_lse(q, k, v, scale), iters=20),
+                cuda_time_ms(fwd_call, iters=20),
                 cuda_time_ms(lambda: fa.attention_lse_reference(q, k, v, scale), iters=3, warmup=1),
             ),
             "flash_attention_bwd_dq": (
@@ -655,10 +731,14 @@ def train_kernel_checks(card, shapes=TRAIN_SHAPES, replaces=TRAIN_REPLACES, phas
                              iters=3, warmup=1),
             ),
         }
-        if fp32:
+        split_ms = {}
+        if fp32:  # a layer's two split passes: the forward's (q, k, v) and the backward's (q, k, v, dO)
+            split_ms = {"fwd_split_ms": cuda_time_ms(lambda: fa.flash_attention_split_f32(q, k, v), iters=20),
+                        "bwd_split_ms": cuda_time_ms(lambda: fa.flash_attention_split_f32(q, k, v, do), iters=20)}
             times["flash_attention_split_f32"] = (
-                cuda_time_ms(lambda: fa.flash_attention_split_f32(q, k, v, do), iters=20),
-                cuda_time_ms(lambda: [fa.split_bf16x3_reference(x) for x in (q, k, v, do)], iters=5, warmup=1),
+                split_ms["fwd_split_ms"] + split_ms["bwd_split_ms"],
+                cuda_time_ms(lambda: [fa.split_bf16x3_reference(x) for x in (q, k, v, do, q, k, v)], iters=5,
+                             warmup=1),
             )
         # The library yardstick: torch SDPA forward with autograd on, and its backward alone.
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
@@ -671,59 +751,53 @@ def train_kernel_checks(card, shapes=TRAIN_SHAPES, replaces=TRAIN_REPLACES, phas
         del sdpa_out, qt, kt, vt
         # Like for like with SDPA's backward, which computes its own delta: the whole of ours.
         bwd_lse_ms = cuda_time_ms(lambda: fa.flash_attention_bwd_lse(q, k, v, o, lse, do, scale), iters=20)
-        peak = bf16_peak if dtype == torch.bfloat16 else f32_peak
         item = q.element_size()
-        io_fwd = fa.attention_bytes(b, t, t, h, d, item) + 4 * b * h * t
         io_stats = 2 * 4 * b * h * t  # lse and delta, fp32
         # The backward's necessary work is five T²·D products, 10·B·H·T²·D flop,
         # whatever the kernels recompute: dq is given dS·K and half of S and dP (4),
         # dk/dv is given Pᵀ·dO, dSᵀ·Q and the other half (6), so that the two
         # bounds sum to the backward's.
-        work = {  # (flop, bytes) each kernel's function needs
-            "flash_attention_fwd_lse": (fa.attention_flops(b, t, t, h, d), io_fwd),
+        work = {  # (flop, bytes) each backward kernel's function needs
             "flash_attention_bwd_dq": (4 * b * h * t * t * d, 5 * b * t * h * d * item + io_stats),
             "flash_attention_bwd_dkv": (6 * b * h * t * t * d, 6 * b * t * h * d * item + io_stats),
-            # The split: q, k, v and dO read in fp32, their three bf16 parts written.
-            "flash_attention_split_f32": (0, 4 * b * t * h * d * (4 + 3 * 2)),
         }
         # The fp32 backward runs its products as six bf16 passes on the tensor cores: its
         # bound is 6x their flop at the bf16 rate (the split bound), 4.1x under the same
         # flop at the fp32 FMA rate (the FFMA bound, kept beside it as ffma_bound_ms).
-        passes, bwd_peak = (6, bf16_peak) if fp32 else (1, peak)
-        bwd_bound_ms = max(passes * fa.attention_bwd_flops(b, t, t, h, d) / bwd_peak,
+        passes = 6 if fp32 else 1
+        bwd_bound_ms = max(passes * fa.attention_bwd_flops(b, t, t, h, d) / bf16_peak,
                            fa.attention_bwd_bytes(b, t, t, h, d, item) / mem_bw) * 1e3
         kernels = {}
         for kname, (ms, plain_ms) in times.items():
-            flop, nbytes = work[kname]
-            backward = kname in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
-            t_ops = flop * (passes if backward else 1) / (bwd_peak if backward else peak) * 1e3
-            t_bytes = nbytes / mem_bw * 1e3
-            kernels[kname] = {
-                "replaces": replaces[kname][name],
-                "ms": ms, "plain_ms": plain_ms,
-                "library_ms": (library_fwd_ms if kname.endswith("lse") else
-                               None if kname == "flash_attention_split_f32" else library_bwd_ms),
-                "bound_ms": max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "tflops": flop / ms / 1e9,
-            }
-            if fp32 and backward:
-                kernels[kname]["ffma_bound_ms"] = max(flop / f32_peak * 1e3, t_bytes)
-            if kname == "flash_attention_split_f32":
-                kernels[kname]["gb_per_s"] = nbytes / ms / 1e6
+            entry = {"replaces": replaces[kname][name], "ms": ms, "plain_ms": plain_ms}
+            if kname == "flash_attention_fwd_lse":
+                entry.update(library_ms=library_fwd_ms, **forward_bounds(card, b, t, t, h, d, dtype_name, True),
+                             tflops=fa.attention_flops(b, t, t, h, d) / ms / 1e9)
+            elif kname == "flash_attention_split_f32":  # q, k, v (and dO) read in fp32, three bf16 parts written
+                n_elements = 7 * b * t * h * d
+                entry.update(library_ms=None, bound_ms=split_bound_ms(card, n_elements), bound_by="bytes",
+                             gb_per_s=n_elements * 10 / ms / 1e6, **split_ms)
+            else:
+                flop, nbytes = work[kname]
+                t_ops, t_bytes = flop * passes / bf16_peak * 1e3, nbytes / mem_bw * 1e3
+                entry.update(library_ms=library_bwd_ms, bound_ms=max(t_ops, t_bytes),
+                             bound_by="operations" if t_ops >= t_bytes else "bytes", tflops=flop / ms / 1e9)
+                if fp32:
+                    entry["ffma_bound_ms"] = max(flop / f32_peak * 1e3, t_bytes)
+            kernels[kname] = entry
         row = {
             "phase": "train_kernel_check", "phase_id": phase_id, "shape": name, "b_t_h_d": [b, t, h, d],
             "dtype": dtype_name,
             "max_abs_err": errs, "plain_err": plain_errs, "tol": tols, "kernels": kernels,
-            "backward_ms": sum(times[k][0] for k in times if k != "flash_attention_fwd_lse"),
+            "backward_ms": (times["flash_attention_bwd_dq"][0] + times["flash_attention_bwd_dkv"][0]
+                            + split_ms.get("bwd_split_ms", 0.0)),
             "backward_bound_ms": bwd_bound_ms, "library_bwd_ms": library_bwd_ms, "bwd_lse_ms": bwd_lse_ms,
             "per_step": per_step, "card": card["name"], "power_limit": card["power_limit"],
         }
         if fp32:
             row.update(fp32_tol=fp32_tols, split_bitwise=split_bitwise,
                        backward_ffma_bound_ms=max(fa.attention_bwd_flops(b, t, t, h, d) / f32_peak,
-                                                  fa.attention_bwd_bytes(b, t, t, h, d, item) / mem_bw) * 1e3,
-                       fp32_rule_forward={key: errs[key] <= fp32_tols[key] for key in ("o", "lse")})
+                                                  fa.attention_bwd_bytes(b, t, t, h, d, item) / mem_bw) * 1e3)
         emit(row)
         bad = {key: (errs[key], tols[key]) for key in outs if not errs[key] <= tols[key]}
         bad.update({f"{key} (fp32 rule)": (errs[key], fp32_tols[key]) for key in FP32_RULE_OUTPUTS
@@ -735,7 +809,7 @@ def train_kernel_checks(card, shapes=TRAIN_SHAPES, replaces=TRAIN_REPLACES, phas
         rows.append(row)
         del qkv, q, k, v, do, o, lse, delta, dq, dk, dv, outs
         if fp32:
-            del parts, outs_dq, outs_dkv
+            del parts, fwd_parts, outs_dq, outs_dkv
         torch.cuda.empty_cache()
     return rows
 
@@ -992,9 +1066,13 @@ def flagship_config(trunk_heads: int, compute_dtype: str = "bfloat16"):
     return MapAnythingConfig(compute_dtype=compute_dtype, info_sharing_num_heads=trunk_heads)
 
 
-def flagship(card, trunk_heads: int = 12):
+def flagship(card, trunk_heads: int = 12, compute_dtype: str = "bfloat16", kernel_rows=None):
     """Phase 5: the main path, the flagship bf16 forward on 1 x 8 x 518 x 518;
-    phase 15 with trunk_heads=6: flagship-h128."""
+    phase 15 with trunk_heads=6: flagship-h128; phase 18 with compute_dtype="float32":
+    the forward at the config's default dtype, which launches the fp32 forward and its
+    split pass (their share of the forward from phase 3's ``kernel_rows``, where given).
+    Returns the lse-free launches, ms per forward, the launches by head dim and every
+    kernel's launch count of one forward."""
     import torch
 
     from mapanything_tpu_torch.models.mapanything import MapAnything, Views
@@ -1004,8 +1082,9 @@ def flagship(card, trunk_heads: int = 12):
 
     B, V, H, W = 1, 8, 518, 518
     warmup, iters = 3, 5
+    fp32 = compute_dtype == "float32"
     t0 = time.perf_counter()
-    cfg = flagship_config(trunk_heads)
+    cfg = flagship_config(trunk_heads, compute_dtype)
     d = cfg.info_sharing_dim // trunk_heads
     model = MapAnything(cfg, device="cuda", seed=0)
     setup_s = time.perf_counter() - t0
@@ -1018,13 +1097,16 @@ def flagship(card, trunk_heads: int = 12):
     torch.cuda.synchronize()
     counts, shapes = launch_counts(), launch_shapes()
     launches = counts["flash_attention_fwd"]
-    if counts != {**counts, "flash_attention_fwd": 48, "flash_attention_fwd_lse": 0,
-                  "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}:
-        raise AssertionError(f"one flagship forward launched {counts}, not the lse-free forward 48 times")
+    # In fp32 a split pass before each forward launch.
+    want = {"flash_attention_fwd": 48, "flash_attention_fwd_lse": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0, "flash_attention_split_f32": 48 if fp32 else 0}
+    if counts != {k: want[k] for k in counts}:
+        raise AssertionError(f"one flagship forward launched {counts}, not {want}")
     # The encoder's 24 layers at D = 64; the trunk's 12 frame and 12 global layers at D.
     want_shapes = {(1370, 64): 24, (1369, d): 12, (V * 1369 + 1, d): 12}
-    if shapes["flash_attention_fwd"] != want_shapes:
-        raise AssertionError(f"one forward launched {shapes['flash_attention_fwd']}, not {want_shapes}")
+    for k in ("flash_attention_fwd", "flash_attention_split_f32") if fp32 else ("flash_attention_fwd",):
+        if shapes[k] != want_shapes:
+            raise AssertionError(f"one forward launched {k} {shapes[k]} times by (Tk, D), not {want_shapes}")
     with torch.inference_mode():
         for _ in range(warmup - 1):
             model(views)
@@ -1043,9 +1125,9 @@ def flagship(card, trunk_heads: int = 12):
 
     ray_norm_err = check_invariants(preds, (B, V, H, W))
     ms = 1e3 * sum(times) / iters
-    emit({
-        "phase": "flagship" if trunk_heads == 12 else "flagship_h128",
-        "config": f"MapAnythingConfig(compute_dtype='bfloat16'"
+    line = {
+        "phase": "flagship_fp32" if fp32 else "flagship" if trunk_heads == 12 else "flagship_h128",
+        "config": f"MapAnythingConfig({'' if fp32 else 'compute_dtype=' + repr(compute_dtype)}"
                   f"{'' if trunk_heads == 12 else f', info_sharing_num_heads={trunk_heads}'}), 1x8x518x518, "
                   "seeded random weights",
         "setup_s": setup_s,
@@ -1056,13 +1138,21 @@ def flagship(card, trunk_heads: int = 12):
         "views_per_s": B * V / (ms / 1e3),
         "peak_mem_gib": peak_gib,
         "attention_launches_per_forward": launches,
+        "launches_per_forward": counts,
         "launches_by_shape": shape_counts(shapes)["flash_attention_fwd"],
         "launches_by_head_dim": by_head_dim(shapes)["flash_attention_fwd"],
         "ray_norm_err": ray_norm_err,
         "card": card["name"],
         "power_limit": card["power_limit"],
-    })
-    return launches, ms, by_head_dim(shapes)["flash_attention_fwd"]
+    }
+    if kernel_rows:  # each fp32 kernel's time a forward: phase 3's ms per call x launches
+        rows = [r for r in kernel_rows if r["dtype"] == compute_dtype and r["per_forward"]]
+        per_forward = {"flash_attention_fwd": sum(r["ms"] * r["per_forward"] for r in rows),
+                       "flash_attention_split_f32": sum(r["split_ms"] * r["per_forward"] for r in rows)}
+        line.update(kernel_ms_per_forward=per_forward,
+                    kernel_share_of_forward={k: v / ms for k, v in per_forward.items()})
+    emit(line)
+    return launches, ms, by_head_dim(shapes)["flash_attention_fwd"], counts
 
 
 # InferenceOutputs' float fields; the masked ones are zero wherever the mask is off.
@@ -1473,15 +1563,17 @@ def flagship_train(card, group=None, unsharded_loss=None, trunk_heads: int = 12,
 
     # Per step: the encoder's 24 (D = 64) and the frame layers' 12 of each kernel, and
     # the 12 global layers' (under the ring, n_ranks ring steps each), at the trunk's D;
-    # in fp32 a split pass before each dq and dk/dv pair. Unsharded, by (key length, D):
-    # 24 at 1370 tokens, 12 at 1369 and 12 at 4 * 1369 + 1 = 5477.
+    # in fp32 a split pass before each lse forward and before each dq and dk/dv pair (twice
+    # the others' counts). Unsharded, by (key length, D): 24 at 1370 tokens, 12 at 1369 and
+    # 12 at 4 * 1369 + 1 = 5477.
     per_kernel = 36 + 12 * n_ranks
     want = {"flash_attention_fwd": 0, "flash_attention_fwd_lse": per_kernel,
             "flash_attention_bwd_dq": per_kernel, "flash_attention_bwd_dkv": per_kernel,
-            "flash_attention_split_f32": per_kernel if fp32 else 0}
+            "flash_attention_split_f32": 2 * per_kernel if fp32 else 0}
     want_by_d = {64: 24}
     want_by_d[d] = want_by_d.get(d, 0) + 12 + 12 * n_ranks
     want_by_shape = {(1370, 64): 24, (1369, d): 12, (5477, d): 12}
+    times_of = lambda k: 2 if k == "flash_attention_split_f32" else 1  # noqa: E731
     training = [k for k in want if want[k]]
     totals = dict.fromkeys(want, 0)
     totals_by_d = {k: {} for k in training}
@@ -1503,10 +1595,12 @@ def flagship_train(card, group=None, unsharded_loss=None, trunk_heads: int = 12,
         if counts != {k: want[k] for k in counts} or any(ring[k] != v for k, v in want_ring.items()):
             raise AssertionError(f"train step {i} launched {counts} with {ring}, not {want} and {want_ring}")
         for k, by_d in by_head_dim(shapes).items():
-            if k in totals_by_d and by_d != want_by_d:
-                raise AssertionError(f"train step {i} launched {k} {by_d} times by head dim, not {want_by_d}")
-            if k in totals_by_d and group is None and shapes[k] != want_by_shape:
-                raise AssertionError(f"train step {i} launched {k} {shapes[k]} times by (Tk, D), not {want_by_shape}")
+            want_d = {dim: n * times_of(k) for dim, n in want_by_d.items()}
+            want_s = {s: n * times_of(k) for s, n in want_by_shape.items()}
+            if k in totals_by_d and by_d != want_d:
+                raise AssertionError(f"train step {i} launched {k} {by_d} times by head dim, not {want_d}")
+            if k in totals_by_d and group is None and shapes[k] != want_s:
+                raise AssertionError(f"train step {i} launched {k} {shapes[k]} times by (Tk, D), not {want_s}")
             for dim, n in by_d.items():
                 if k in totals_by_d:
                     totals_by_d[k][dim] = totals_by_d[k].get(dim, 0) + n
@@ -1742,17 +1836,23 @@ def worst_err(row) -> float:
     return max(err.values()) if isinstance(err, dict) else err
 
 
-def path_entry(name, replaces, rows, launches, also=(), **extra):
+def path_entry(name, replaces, rows, launches, also=(), source=KERNEL_SOURCE, **extra):
     """One kernel on one path in the kernels line: each shape's times, bound
-    and max error, and their sums over the path (times × ``launches[shape]``).
-    The rows of ``also`` (shapes off the path) are listed under per_shape only."""
-    total = lambda key: sum(r[key] * launches[r["shape"]] for r in rows)  # noqa: E731
+    and max error, and their sums over the path (times × ``launches[shape]``;
+    null where a shape has none). The rows of ``also`` (shapes off the path) are
+    listed under per_shape only."""
+    def total(key):
+        if any(r[key] is None for r in rows):
+            return None
+        return sum(r[key] * launches[r["shape"]] for r in rows)
+
     shape = lambda r: {k: r[k] for k in ("shape", "b_t_h_d", "dtype", "replaces", "max_abs_err", "ms",  # noqa: E731
-                                         "plain_ms", "bound_ms", "library_ms") if k in r}
+                                         "plain_ms", "bound_ms", "library_ms", "exp_bound_ms", "ffma_bound_ms",
+                                         "split_ms", "call_ms") if k in r}
     return {
         "name": name,
         "route": "cuda",
-        "source": KERNEL_SOURCE,
+        "source": source,
         "replaces": replaces,
         "launches": sum(launches[r["shape"]] for r in rows),
         "max_abs_err": max(worst_err(r) for r in rows),
@@ -1797,8 +1897,15 @@ def train_entry(name, train_rows, replaces, launches, steps, **extra):
     }
 
 
+def split_rows(rows) -> list:
+    """The fp32 forward rows of phase 3 as rows of their split pass (held bitwise: error 0)."""
+    return [{"shape": r["shape"], "b_t_h_d": r["b_t_h_d"], "dtype": r["dtype"], "replaces": r["replaces"],
+             "max_abs_err": 0.0, "ms": r["split_ms"], "plain_ms": r["split_plain_ms"], "bound_ms": r["split_bound_ms"],
+             "library_ms": None, "bound_by": "bytes"} for r in rows]
+
+
 def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, inference_launches, train_launches,
-                 train_steps, vp_launches, many_view_line, h128, fp32_train):
+                 train_steps, vp_launches, many_view_line, h128, fp32_train, fp32_forward):
     """The kernels line: each kernel, what it replaces, its launches on its path
     (one forward; all train steps, and per step), its max error and its times
     per forward (inference) or per train step. The phase-3c rows are the
@@ -1810,8 +1917,10 @@ def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, infe
     the D = 128 instances, on flagship-h128's forward (phase 15) and train
     step (phase 16), with those runs' D = 128 launches (``h128``). The fp32 rows
     of phase 3b are the default-dtype train step's (phase 17: ``fp32_train``), the
-    split pass among them."""
-    main_rows = [r for r in rows if r["per_forward"]]
+    split pass among them (a layer's forward and backward splits); the fp32 rows of
+    phase 3 the default-dtype forward's (phase 18: ``fp32_forward``, that run's counts),
+    its split pass beside it."""
+    main_rows = [r for r in rows if r["per_forward"] and r["dtype"] == "bfloat16"]
     kernels = [path_entry("flash_attention_fwd", "mapanything_tpu/ops/flash_attention.py:395", main_rows,
                           {r["shape"]: r["per_forward"] for r in main_rows},
                           also=[r for r in rows if not r["per_forward"]])]
@@ -1853,11 +1962,19 @@ def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, infe
         kernels.append(train_entry(name, h128["train_rows"], H128_TRAIN_REPLACES[name]["global_h128"],
                                    h128["train_launches"][name][128], h128["train_steps"], head_dim=128,
                                    path="flagship-h128 train step 1x4x518 (phase 16); times per step"))
-    # Phase 17: the fp32 lse forward, the split pass, dq and dk/dv on the default-dtype step.
+    # Phase 17: the fp32 lse forward, the split passes, dq and dk/dv on the default-dtype step.
     for name in TRAIN_OUTPUTS:
         kernels.append(train_entry(name, fp32_train["rows"], TRAIN_REPLACES[name]["fp32_global"],
                                    fp32_train["launches"][name], fp32_train["steps"], dtype="float32",
                                    path="flagship fp32 train step 1x4x518 (phase 17); times per step"))
+    # Phase 18: the fp32 lse-free forward and its split pass on the default-dtype forward.
+    f_rows = [r for r in rows if r["per_forward"] and r["dtype"] == "float32"]
+    f_launches = {r["shape"]: r["per_forward"] for r in f_rows}
+    for name, entry_rows, source in (("flash_attention_fwd", f_rows, KERNEL_SOURCE),
+                                     ("flash_attention_split_f32", split_rows(f_rows), BWD_KERNEL_SOURCE)):
+        kernels.append(path_entry(name, f"{FA}:114", entry_rows, f_launches, source=source, dtype="float32",
+                                  path="flagship fp32 forward 1x8x518 (phase 18); times per forward"))
+        kernels[-1]["launches"] = fp32_forward[name]  # the count of phase 18's run
     emit({"kernels": kernels})
 
 
@@ -1932,16 +2049,16 @@ def main() -> int:
         emit(build)
         flagship_train(card, compute_dtype=args.compute_dtype)
         return 0
-    fwd_smem = _build.load(KERNEL_STEMS[0]).flash_attention_fwd_bf16_smem
+    fwd_smem = _build.load(KERNEL_STEMS[0]).flash_attention_fwd_smem
     bwd_smem = _build.load(KERNEL_STEMS[1]).flash_attention_bwd_smem
-    dynamic = {key: fwd_smem(d) for (d, _), key in FWD_BF16_INSTANCES.items()}
+    dynamic = {key: fwd_smem(FWD_SMEM_INDEX[dtype], d) for (dtype, d, _), key in FWD_INSTANCES.items()}
     dynamic.update({key: bwd_smem(BWD_SMEM_INDEX[kernel, dtype], d)
                     for (kernel, dtype, d), key in BWD_INSTANCES.items()})
     for key, nbytes in dynamic.items():
         for name, report in instances.items():
             if key in name:
                 report["dynamic_smem"] = nbytes
-    emit({**build, "fwd_bf16_sass": sass_check(libs[0], FWD_BF16_INSTANCES),
+    emit({**build, "fwd_sass": sass_check(libs[0], FWD_INSTANCES),
           "bwd_sass": sass_check(libs[1], BWD_INSTANCES)})
     if not args.backward_edges_only:
         forward_edge_checks(card)
@@ -1958,7 +2075,7 @@ def main() -> int:
     h128 = {"rows": kernel_checks(card, H128_SHAPES, "3e"),
             "train_rows": train_kernel_checks(card, H128_TRAIN_SHAPES, H128_TRAIN_REPLACES, "3e")}
     slice_check()
-    inference_launches, forward_ms, _ = flagship(card)
+    inference_launches, forward_ms, _, _ = flagship(card)
     torch.cuda.empty_cache()
     infer_slice_check()
     gc.collect()
@@ -1981,7 +2098,7 @@ def main() -> int:
     train_slice_check(trunk_heads=2)
     gc.collect()
     torch.cuda.empty_cache()
-    _, _, h128["forward_launches"] = flagship(card, trunk_heads=H128_TRUNK_HEADS)
+    _, _, h128["forward_launches"], _ = flagship(card, trunk_heads=H128_TRUNK_HEADS)
     gc.collect()
     torch.cuda.empty_cache()
     _, h128["train_steps"], h128_train = flagship_train(card, trunk_heads=H128_TRUNK_HEADS)
@@ -1989,8 +2106,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 17. The default-dtype (fp32) flagship train step.
+    # 17-18. The default-dtype (fp32) flagship train step and forward.
     fp32_launches, fp32_steps, _ = flagship_train(card, compute_dtype="float32", kernel_rows=fp32_train_rows)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, _, _, fp32_forward = flagship(card, compute_dtype="float32", kernel_rows=rows)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2026,7 +2146,7 @@ def main() -> int:
     }
     summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, inference_launches, train_launches,
                  train_steps, vp_launches, many_view_line, h128,
-                 {"rows": fp32_train_rows, "launches": fp32_launches, "steps": fp32_steps})
+                 {"rows": fp32_train_rows, "launches": fp32_launches, "steps": fp32_steps}, fp32_forward)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -589,28 +589,10 @@ __global__ void __launch_bounds__(DkvPlan<D>::kThreads, 1)
 
 // ---- fp32 instances: each product as six bf16 products of split operands ----
 
-// bf16 halves of a packed pair as fp32 (the low half is the pair's first value).
-__device__ __forceinline__ float bf16_low(uint32_t v) { return __uint_as_float(v << 16); }
-__device__ __forceinline__ float bf16_high(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
-
-// Split the pair (a, b) into three packed bf16 pairs, a in each low half: hi = bf16(x),
-// mid = bf16(x - hi), lo = bf16(x - hi - mid), rounded to nearest even. Both differences
-// are exact in fp32, and x - hi - mid - lo is within 2^-24 |x|: the parts carry x's 24
-// significand bits (ops/flash_attention.py's split_bf16x3_reference is the same split).
-__device__ __forceinline__ void split3(float a, float b, uint32_t& hi, uint32_t& mid, uint32_t& lo) {
-  hi = pack_bf16(a, b);
-  a -= bf16_low(hi);
-  b -= bf16_high(hi);
-  mid = pack_bf16(a, b);
-  a -= bf16_low(mid);
-  b -= bf16_high(mid);
-  lo = pack_bf16(a, b);
-}
-
-// The split pass: q, k, v and dO (blockIdx.y picks one), fp32 (B, T, H, D) in any batch,
-// token and head strides with a unit head-dim stride, into contiguous bf16 parts
-// (3, B, T, H, D): hi, mid, lo. Each thread splits 8 elements a step (two 16-byte loads,
-// three 16-byte stores).
+// The split pass of the fp32 forward and backward: q, k, v and, for the backward, dO
+// (blockIdx.y picks one), fp32 (B, T, H, D) in any batch, token and head strides with a
+// unit head-dim stride, into contiguous bf16 parts (3, B, T, H, D): hi, mid, lo (split3).
+// Each thread splits 8 elements a step (two 16-byte loads, three 16-byte stores).
 struct SplitArgs {
   const float* x[4];
   __nv_bfloat16* parts[4];
@@ -648,59 +630,6 @@ __global__ void __launch_bounds__(kSplitThreads) fa_split_f32(const __grid_const
     *reinterpret_cast<uint4*>(out + 8 * i) = hi;
     *reinterpret_cast<uint4*>(out + part + 8 * i) = mid;
     *reinterpret_cast<uint4*>(out + 2 * part + 8 * i) = lo;
-  }
-}
-
-// The six bf16 products of a split product A B, pass p taking part pass_a(p) of A and
-// pass_b(p) of B (0 hi, 1 mid, 2 lo): lo.hi, mid.mid, hi.lo, mid.hi, hi.mid, hi.hi. The
-// small terms go first, while the accumulator is still small; the dropped terms (mid.lo,
-// lo.mid, lo.lo) are of order 2^-24 of the product and below.
-// The descriptor of the tile `off` bytes past the tile whose descriptor is `base`, formed
-// here: the address field is the low 14 bits of the descriptor (bytes / 16), and no tile
-// here carries out of it. A product over three parts addresses 3 * D / 16 tiles of each
-// operand; without the pin the compiler forms their 64-bit descriptors ahead of the
-// wgmma (dq spilled 16 bytes at D = 64).
-__device__ __forceinline__ uint64_t desc_at(uint64_t base, uint32_t off) {
-  asm volatile("" : "+l"(base));
-  return base + (off >> 4);
-}
-
-// 0, read from shared memory at each call: added to a tile base that does not change over
-// the kernel's loops (dq's Q and dO, dk/dv's K and V), it keeps ptxas from forming that
-// operand's 3 * D / 16 descriptors once and holding them across the loops (96 registers
-// at D = 128, where they spilled 36 and 100 bytes).
-__device__ __forceinline__ uint32_t reloaded_zero(const uint32_t* zero) {
-  return *static_cast<const volatile uint32_t*>(zero);
-}
-
-__host__ __device__ constexpr int pass_a(int p) { return p == 0 ? 2 : p == 1 || p == 3 ? 1 : 0; }
-__host__ __device__ constexpr int pass_b(int p) { return p == 2 ? 2 : p == 1 || p == 4 ? 1 : 0; }
-constexpr int kPasses = 6;
-
-// x (64 x N fp32 accumulators) as three sets of bf16 A fragments, one per 16 columns:
-// pa[part * N / 16 + kk].
-template <int N>
-__device__ __forceinline__ void split_fragments(uint32_t (&pa)[3 * N / 16][4], const float (&x)[N / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      split3(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1], pa[kk][i], pa[N / 16 + kk][i], pa[2 * N / 16 + kk][i]);
-}
-
-// Store a consumer's 64 x D fp32 accumulators (the wgmma fragment layout), times `mul`, as
-// rows row0 and row0 + 8 of a contiguous fp32 (B, T, H, D); rows at or past T are skipped.
-template <int D, class Acc>
-__device__ __forceinline__ void store_rows_f32(float* out, const Acc& acc, float mul, int b, int h, int row0, int T,
-                                               int H, int t) {
-  const int row1 = row0 + 8;
-  float* o0 = out + ((static_cast<long long>(b) * T + row0) * H + h) * D;
-  float* o1 = out + ((static_cast<long long>(b) * T + row1) * H + h) * D;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int col = 8 * j + 2 * t;
-    if (row0 < T) *reinterpret_cast<float2*>(o0 + col) = make_float2(acc(4 * j) * mul, acc(4 * j + 1) * mul);
-    if (row1 < T) *reinterpret_cast<float2*>(o1 + col) = make_float2(acc(4 * j + 2) * mul, acc(4 * j + 3) * mul);
   }
 }
 
@@ -1356,9 +1285,10 @@ extern "C" int flash_attention_bwd_dkv_f32(const void* q_parts, const void* k_pa
   return by_head_dim(D, B, Tq, Tk, H, [&] { return bwd_dkv_f32<64>(a); }, [&] { return bwd_dkv_f32<128>(a); });
 }
 
-// The split pass of the fp32 backward: q, k, v and dout, fp32 (B, T, H, D) (Tq rows for q
-// and dout, Tk for k and v) with their batch, token and head strides in elements (the
-// head-dim stride is 1; rows 16-byte aligned), into the contiguous bf16 parts q_parts ..
+// The split pass of the fp32 forward (dout null: q, k and v) and backward (q, k, v and
+// dout): fp32 (B, T, H, D) (Tq rows for q and dout, Tk for k and v) with their batch,
+// token and head strides in elements (the head-dim stride is 1; rows 16-byte aligned;
+// dout's strides are not read without it), into the contiguous bf16 parts q_parts ..
 // dout_parts, (3, B, T, H, D) each. One launch. Returns cudaErrorInvalidValue for a D
 // other than 64 or 128 or empty shapes, else cudaGetLastError() after the launch.
 extern "C" int flash_attention_split_f32(const void* q, const void* k, const void* v, const void* dout, void* q_parts,
@@ -1378,7 +1308,7 @@ extern "C" int flash_attention_split_f32(const void* q, const void* k, const voi
                     D};
   const long long chunks = static_cast<long long>(B) * std::max(Tq, Tk) * H * (D / 8);
   const int blocks = static_cast<int>(std::min<long long>((chunks + kSplitThreads - 1) / kSplitThreads, 4096));
-  fa_split_f32<<<dim3(blocks, 4), kSplitThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  fa_split_f32<<<dim3(blocks, dout ? 4 : 3), kSplitThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,9 +1,10 @@
 // Device helpers of the port's attention kernels (flash_attention_fwd.cu and
-// flash_attention_bwd.cu): ex2, bf16 packing, the fp32 instances' shared memory and the
-// launch; and the bf16 instances' Hopper (sm_90a) primitives: mbarriers, TMA loads
-// through tensor maps (encoded on the host from the layout ops/flash_attention.py's
-// tensor_map computes), wgmma with its shared-memory descriptors, named barriers and
-// setmaxnreg. Tile sizes belong to each kernel instance (see the plans in each source).
+// flash_attention_bwd.cu): ex2, bf16 packing and the launch; Hopper (sm_90a) primitives:
+// mbarriers, TMA loads through tensor maps (encoded on the host from the layout
+// ops/flash_attention.py's tensor_map computes), wgmma with its shared-memory descriptors,
+// named barriers and setmaxnreg; and the fp32 instances' split arithmetic: three bf16 parts
+// of each fp32 value, six bf16 products for each fp32 one. Tile sizes belong to each kernel
+// instance (see the plans in each source).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and the driver's enums; the header alone, nothing is linked
@@ -26,20 +27,6 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-// BYTES of shared memory for the block's tiles (the fp32 instances): a static array when
-// it fits the 48 KB that static shared memory allows, else the block's dynamic shared
-// memory, which the launch sizes (launch() below).
-template <int BYTES>
-__device__ __forceinline__ unsigned char* block_smem() {
-  if constexpr (BYTES <= kStaticSmemLimit) {
-    __shared__ __align__(128) unsigned char smem[BYTES];
-    return smem;
-  } else {
-    extern __shared__ __align__(128) unsigned char dyn_smem[];
-    return dyn_smem;
-  }
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -145,7 +132,8 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[R][C]) {
 // wgmma m64nNk16, bf16 inputs, fp32 accumulators in the warpgroup's fragment layout
 // (thread lane of warp w holds rows 16w + lane/4 and +8, columns 8j + 2(lane%4) and +1 of
 // each 8-column group j: d[4j .. 4j+3]). ss: A and B from shared memory, both K-major
-// (S = Q K^T of the forward at N = 176; the backward's S and dP at N = 32, 64, 96 and 128). rs: A
+// (S = Q K^T of the bf16 forward at N = 176, of the fp32 forward at N = 64 and 32; the
+// backward's S and dP at N = 32, 64, 96 and 128). rs: A
 // from registers (the same fragment layout as mma.sync's m16n8k16 A, one per warp), B
 // from shared memory MN-major (the transpose bit of 16-bit types; N = D: the forward's
 // O += P V, the backward's dQ += dS K, dV += P^T dO and dK += dS^T Q). `accumulate` = 0
@@ -311,8 +299,7 @@ struct SmemOptIn {
   }
 };
 
-// Launch `kernel`, whose tiles take `smem` bytes (block_smem<smem>): above 48 KB as
-// dynamic shared memory, after raising the instance's limit (once per device, through
+// Launch `kernel`, whose tiles take `smem` bytes: above 48 KB as dynamic shared memory, after raising the instance's limit (once per device, through
 // its own `opt_in`). Returns the attribute call's error if it failed, else
 // cudaGetLastError() after the launch (0 on success).
 template <class Kernel, class... Args>
@@ -342,7 +329,80 @@ int by_head_dim(int D, int B, int Tq, int Tk, int H, Fn64 fn64, Fn128 fn128) {
   }
 }
 
-// ---- Host: TMA tensor maps and the persistent grid of the bf16 instances ----
+// ---- The fp32 instances: each product as six bf16 products of split operands ----
+
+// bf16 halves of a packed pair as fp32 (the low half is the pair's first value).
+__device__ __forceinline__ float bf16_low(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf16_high(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
+
+// Split the pair (a, b) into three packed bf16 pairs, a in each low half: hi = bf16(x),
+// mid = bf16(x - hi), lo = bf16(x - hi - mid), rounded to nearest even. Both differences
+// are exact in fp32, and x - hi - mid - lo is within 2^-24 |x|: the parts carry x's 24
+// significand bits (ops/flash_attention.py's split_bf16x3_reference is the same split).
+__device__ __forceinline__ void split3(float a, float b, uint32_t& hi, uint32_t& mid, uint32_t& lo) {
+  hi = pack_bf16(a, b);
+  a -= bf16_low(hi);
+  b -= bf16_high(hi);
+  mid = pack_bf16(a, b);
+  a -= bf16_low(mid);
+  b -= bf16_high(mid);
+  lo = pack_bf16(a, b);
+}
+
+// The descriptor of the tile `off` bytes past the tile whose descriptor is `base`, formed
+// here: the address field is the low 14 bits of the descriptor (bytes / 16), and no tile
+// here carries out of it. A product over three parts addresses 3 * D / 16 tiles of each
+// operand; without the pin the compiler forms their 64-bit descriptors ahead of the
+// wgmma (dq spilled 16 bytes at D = 64).
+__device__ __forceinline__ uint64_t desc_at(uint64_t base, uint32_t off) {
+  asm volatile("" : "+l"(base));
+  return base + (off >> 4);
+}
+
+// 0, read from shared memory at each call: added to a tile base that does not change over
+// the kernel's loops (dq's Q and dO, dk/dv's K and V), it keeps ptxas from forming that
+// operand's 3 * D / 16 descriptors once and holding them across the loops (96 registers
+// at D = 128, where they spilled 36 and 100 bytes).
+__device__ __forceinline__ uint32_t reloaded_zero(const uint32_t* zero) {
+  return *static_cast<const volatile uint32_t*>(zero);
+}
+
+// The six bf16 products of a split product A B, pass p taking part pass_a(p) of A and
+// pass_b(p) of B (0 hi, 1 mid, 2 lo): lo.hi, mid.mid, hi.lo, mid.hi, hi.mid, hi.hi. The
+// small terms go first, while the accumulator is still small; the dropped terms (mid.lo,
+// lo.mid, lo.lo) are of order 2^-24 of the product and below.
+__host__ __device__ constexpr int pass_a(int p) { return p == 0 ? 2 : p == 1 || p == 3 ? 1 : 0; }
+__host__ __device__ constexpr int pass_b(int p) { return p == 2 ? 2 : p == 1 || p == 4 ? 1 : 0; }
+constexpr int kPasses = 6;
+
+// x (64 x N fp32 accumulators) as three sets of bf16 A fragments, one per 16 columns:
+// pa[part * N / 16 + kk].
+template <int N>
+__device__ __forceinline__ void split_fragments(uint32_t (&pa)[3 * N / 16][4], const float (&x)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      split3(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1], pa[kk][i], pa[N / 16 + kk][i], pa[2 * N / 16 + kk][i]);
+}
+
+// Store a consumer's 64 x D fp32 accumulators (the wgmma fragment layout), times `mul`, as
+// rows row0 and row0 + 8 of a contiguous fp32 (B, T, H, D); rows at or past T are skipped.
+template <int D, class Acc>
+__device__ __forceinline__ void store_rows_f32(float* out, const Acc& acc, float mul, int b, int h, int row0, int T,
+                                               int H, int t) {
+  const int row1 = row0 + 8;
+  float* o0 = out + ((static_cast<long long>(b) * T + row0) * H + h) * D;
+  float* o1 = out + ((static_cast<long long>(b) * T + row1) * H + h) * D;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (row0 < T) *reinterpret_cast<float2*>(o0 + col) = make_float2(acc(4 * j) * mul, acc(4 * j + 1) * mul);
+    if (row1 < T) *reinterpret_cast<float2*>(o1 + col) = make_float2(acc(4 * j + 2) * mul, acc(4 * j + 3) * mul);
+  }
+}
+
+// ---- Host: TMA tensor maps and the persistent grid ----
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,

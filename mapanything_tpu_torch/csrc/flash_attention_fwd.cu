@@ -14,11 +14,12 @@
 // separate bias row instead of augmented columns). Here one streaming kernel serves
 // every length: a max-stabilised online softmax in fp32 registers over K/V tiles.
 //
-// Layout. q is (B, Tq, H, D) and k, v are (B, Tk, H, D), read in place through their
-// batch, token and head strides (the last stride is 1), so the views that Attention
-// cuts out of its fused qkv projection need no transpose or copy. o is written as a
-// contiguous (B, Tq, H, D) tensor. The kernels allocate nothing and do not
-// synchronise; they run on the stream they are given.
+// Layout. q is (B, Tq, H, D) and k, v are (B, Tk, H, D). The bf16 instance reads them in
+// place through tensor maps of their batch, token and head strides (the last stride is
+// 1), so the views that Attention cuts out of its fused qkv projection need no transpose
+// or copy; the fp32 instance reads their split parts, which the split pass writes from
+// those views. o is written as a contiguous (B, Tq, H, D) tensor. The kernels allocate
+// nothing and do not synchronise; they run on the stream they are given.
 //
 // Each instance comes in two forms, chosen by the template flag kLse. Without it
 // (inference) the kernel writes o alone. With it (training) the kernel also writes the
@@ -61,15 +62,33 @@
 //   consumers take turns to issue on two named barriers (ping-pong), so that one's
 //   softmax runs under the other's products. The last key tile's columns past Tk are
 //   masked to -inf; query rows past Tq are computed on zeros and not stored.
-// fa_fwd_f32<D, kLse>: fp32 inputs, SIMT fp32 FMA, one thread per query row at D = 64
-//   and two at D = 128 (a whole row's q and o would take 256 registers; the two halves'
-//   dot products are summed with one shuffle), K/V tiles of 64 keys staged in shared
-//   memory by the block's threads. It serves the fp32 model (compute_dtype="float32"),
-//   which K3/K4/K7/K8 served on the TPU. Its tiles take 2 * 64 * D * 4 bytes (32 KB,
-//   64 KB); above 48 KB the launcher raises the instance's dynamic shared memory limit
-//   once per device before its first launch there.
+// fa_fwd_f32<D, kLse>, D = 64 and 128: the fp32 model's instance (compute_dtype="float32",
+//   the model's default), which K3/K4/K7/K8 and _fwd_kernel_single (:114) served on the
+//   TPU in fp32. One bf16 or TF32 pass would keep 8 or 11 of fp32's 24 significand bits.
+//   As in the fp32 backward (csrc/flash_attention_bwd.cu), each fp32 operand x is split
+//   into three bf16 parts, hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), and
+//   each product becomes six bf16 wgmma products of the parts (lo.hi, mid.mid, hi.lo,
+//   mid.hi, hi.mid, hi.hi) summed in fp32.
+//   Bound on this card. Six bf16 passes of 4*B*H*T^2*D flop at 989 TFLOP/s: the same
+//   work in fp32 FMA (67 TFLOP/s) would take 2.46x as long. The exponentials (one a score,
+//   16 a clock per SM) take 1/6 of the six passes' tensor-core time at D = 64 and 1/12
+//   at D = 128, so the softmax can hide under the products.
+//   Design. fa_fwd_bf16's, on operands in three parts. A split pass (fa_split_f32, in
+//   csrc/flash_attention_bwd.cu; one launch a forward) writes q, k and v as contiguous bf16
+//   (3, B, T, H, D) parts, read through tensor maps over (D, T, H, 3B). The producer
+//   stages each Q, K and V tile as its three parts; each consumer issues S_j = Q K_j^T as
+//   six passes into one fp32 accumulator with P_{j-1} V_{j-1}, runs the online softmax on
+//   S_j while that product runs, and splits P_j in registers into three sets of A
+//   fragments (the accumulator's layout is the A fragment's). Each key tile's P V goes
+//   into a fresh accumulator that is then added to the rescaled O in fp32 registers: the
+//   tensor cores' accumulation is not IEEE round-to-nearest, and one sum over thousands of
+//   keys drifts (the fp32 backward's dq read 24x the plain version's error that way). The
+//   two consumers issue without taking turns. The plan (FwdF32Plan) takes smaller key
+//   tiles than the bf16 one: three parts a tile.
 
 #include "flash_attention_common.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -345,144 +364,277 @@ __global__ void __launch_bounds__(FwdPlan<D>::kThreads, 1)
   }
 }
 
-constexpr int kF32SubTile = 16;  // keys per online-softmax step in the fp32 instance
-
-// Tiles of the fp32 instance: kBlockM query rows a block, kSplit threads a row, each
-// holding D / kSplit of the row's q and o (one thread a row at D = 64; two at D = 128,
-// where a whole row would take 2 * D = 256 registers), over K/V tiles of kBlockN keys.
+// Tile plan of the fp32 instance (ops/flash_attention.py's FWD_F32_TILES mirrors it; the
+// launcher refuses maps of another box). Q, K and V are staged as three bf16 parts each,
+// 3x the bf16 plan's bytes a tile: Q takes 48 KB at D = 64 and 96 KB at D = 128 for the
+// two consumers' 128 rows, a K or V tile 36 KB at D = 64 (96 keys) and 24 KB at D = 128
+// (32 keys), in rings of 2 stages: 193 KB with the barriers and the slack. A consumer
+// thread holds O and the fresh P V tile (D / 2 floats each), S (kBlockN / 2) and the three
+// fragment sets of P (3 kBlockN / 4): 184 registers at D = 64, 168 at D = 128, against
+// setmaxnreg's 240; none spilled. 96-key tiles ran 0.93-0.97x the time of 64-key ones at
+// D = 64, where 3 stages of 64 keys ran as 2 did (PERF.md, section 6). At D = 128 the Q
+// descriptors stay in registers: the backward's reloaded_zero cost 1.04-1.05x here.
 template <int D>
-struct FwdF32Tiles {
-  static constexpr int kBlockM = 64, kBlockN = 64;
-  static constexpr int kSplit = D / 64;
-  static constexpr int kThreads = kBlockM * kSplit;
-  static constexpr int kSmem = 2 * kBlockN * D * 4;  // sK, sV (fp32)
+struct FwdF32Plan {
+  static constexpr int kBlockM = 128;                 // query rows a work tile, 64 a consumer
+  static constexpr int kBlockN = D == 64 ? 96 : 32;  // keys a K or V tile
+  static constexpr int kStages = 2;
+  static constexpr int kConsumers = kBlockM / 64;
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  static constexpr int kPanels = D / 64;
+  static constexpr int kPanelQ = kBlockM * 128;   // bytes of one panel of one part of the Q tile
+  static constexpr int kPanelKV = kBlockN * 128;  // of a K or V tile
+  static constexpr int kQPart = kPanels * kPanelQ;
+  static constexpr int kKVPart = kPanels * kPanelKV;
+  static constexpr int kQBytes = 3 * kQPart;
+  static constexpr int kTileBytes = 3 * kKVPart;
+  static constexpr int kBarriers = 2 + 4 * kStages;
+  static constexpr int kBarOffset = kQBytes + 2 * kStages * kTileBytes;
+  static constexpr int kSmem = kBarOffset + 8 * kBarriers + 1024;
+  static constexpr int kProducerRegs = 24, kConsumerRegs = 240;
 };
 
+// The fp32 forward on the split parts of q, k and v: three tensor maps over (D, T, H, 3B),
+// part p of batch b at p * B + b. fa_fwd_bf16's schedule, with each product as six passes
+// and each key tile's P V into a fresh accumulator added to O in fp32, and without the
+// ping-pong: the products take six times the exponentials' time here, and two consumers
+// that issue freely ran 0.98-1.00x (D = 64) and 0.93-0.99x (D = 128) the time of the
+// turn-taking.
 template <int D, bool kLse>
-__global__ void __launch_bounds__(FwdF32Tiles<D>::kThreads)
-    fa_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-               int Tq, int Tk, int H,
-               long long sqb, long long sqt, long long sqh, long long skb, long long skt,
-               long long skh, long long svb, long long svt, long long svh, float scale_log2) {
-  using Tl = FwdF32Tiles<D>;
-  constexpr int kBlockM = Tl::kBlockM, kBlockN = Tl::kBlockN, kSplit = Tl::kSplit;
-  constexpr int kPart = D / kSplit;  // head-dim elements a thread holds
-  static_assert(kBlockN == kBlockM, "each row slot stages one K/V row");
-  float(*sK)[D] = reinterpret_cast<float(*)[D]>(block_smem<Tl::kSmem>());
-  float(*sV)[D] = sK + kBlockN;
+__global__ void __launch_bounds__(FwdF32Plan<D>::kThreads, 1)
+    fa_fwd_f32(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v, float* __restrict__ o, float* __restrict__ lse, int B,
+               int Tq, int Tk, int H, int n_work, float scale_log2) {
+  static_assert(D == 64 || D == 128, "the tile plan covers D in {64, 128}");
+  using P = FwdF32Plan<D>;
+  constexpr int kBlockN = P::kBlockN, kStages = P::kStages, kF = kBlockN / 16;
+  extern __shared__ __align__(1024) unsigned char fwd_smem[];
+  const uint32_t base = (smem_u32(fwd_smem) + 1023) & ~1023u;
+  const uint32_t sQ = base, sK = base + P::kQBytes, sV = sK + kStages * P::kTileBytes;
+  const uint32_t full_q = base + P::kBarOffset, empty_q = full_q + 8;
+  auto full_k = [&](int s) { return full_q + 8 * (2 + s); };
+  auto empty_k = [&](int s) { return full_q + 8 * (2 + kStages + s); };
+  auto full_v = [&](int s) { return full_q + 8 * (2 + 2 * kStages + s); };
+  auto empty_v = [&](int s) { return full_q + 8 * (2 + 3 * kStages + s); };
 
-  const int tid = threadIdx.x, slot = tid / kSplit, hf = tid % kSplit;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int row = blockIdx.x * kBlockM + slot;
-  const bool live = row < Tq;
-  const float* qp = q + b * sqb + h * sqh + static_cast<long long>(live ? row : 0) * sqt;
-  const float* kbase = k + b * skb + h * skh;
-  const float* vbase = v + b * svb + h * svh;
-  // This thread's elements d .. d+3 (d a multiple of 4 below kPart) are head-dim columns
-  // col(d) .. col(d)+3: 16-byte chunks dealt round-robin to the kSplit threads of a row,
-  // so that the row's threads read neighbouring banks.
-  auto col = [hf](int d) { return 4 * (kSplit * (d / 4) + hf); };
+  const int m_blocks = (Tq + P::kBlockM - 1) / P::kBlockM;
+  const int n_tiles = (Tk + kBlockN - 1) / kBlockN;
+  const int wg = threadIdx.x / 128;
 
-  float qr[kPart], acc[kPart];
-#pragma unroll
-  for (int d = 0; d < kPart; d += 4) {
-    const float4 x = *reinterpret_cast<const float4*>(qp + col(d));
-    qr[d] = x.x * scale_log2;
-    qr[d + 1] = x.y * scale_log2;
-    qr[d + 2] = x.z * scale_log2;
-    qr[d + 3] = x.w * scale_log2;
-    acc[d] = acc[d + 1] = acc[d + 2] = acc[d + 3] = 0.f;
-  }
-  float m = -INFINITY, l = 0.f;
-
-  for (int kv0 = 0; kv0 < Tk; kv0 += kBlockN) {
-    const int r = kv0 + slot;
-    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-    const float* kr = kbase + static_cast<long long>(r < Tk ? r : 0) * skt;
-    const float* vr = vbase + static_cast<long long>(r < Tk ? r : 0) * svt;
-#pragma unroll
-    for (int d = 0; d < kPart; d += 4) {
-      *reinterpret_cast<float4*>(&sK[slot][col(d)]) =
-          r < Tk ? *reinterpret_cast<const float4*>(kr + col(d)) : zero;
-      *reinterpret_cast<float4*>(&sV[slot][col(d)]) =
-          r < Tk ? *reinterpret_cast<const float4*>(vr + col(d)) : zero;
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    mbar_init(empty_q, 4 * P::kConsumers);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty_k(s), 4 * P::kConsumers);
+      mbar_init(empty_v(s), 4 * P::kConsumers);
     }
-    __syncthreads();
-    const int n = min(kBlockN, Tk - kv0);
-    for (int j0 = 0; j0 < n; j0 += kF32SubTile) {
-      float s[kF32SubTile];
-      float mx = m;
-#pragma unroll
-      for (int jj = 0; jj < kF32SubTile; ++jj) {
-        float dot = 0.f;
-#pragma unroll
-        for (int d = 0; d < kPart; ++d) dot = fmaf(qr[d], sK[j0 + jj][col(d) + d % 4], dot);
-#pragma unroll
-        for (int lanes = 1; lanes < kSplit; lanes <<= 1)
-          dot += __shfl_xor_sync(0xffffffffu, dot, lanes);
-        s[jj] = (j0 + jj < n) ? dot : -INFINITY;
-        mx = fmaxf(mx, s[jj]);
-      }
-      const float alpha = ex2(m - mx);  // 0 on the first step
-      l *= alpha;
-#pragma unroll
-      for (int d = 0; d < kPart; ++d) acc[d] *= alpha;
-#pragma unroll
-      for (int jj = 0; jj < kF32SubTile; ++jj) {
-        const float p = ex2(s[jj] - mx);
-        l += p;
-#pragma unroll
-        for (int d = 0; d < kPart; ++d) acc[d] = fmaf(p, sV[j0 + jj][col(d) + d % 4], acc[d]);
-      }
-      m = mx;
-    }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  if (live) {
-    if constexpr (kLse)
-      if (hf == 0) lse[(static_cast<long long>(b) * H + h) * Tq + row] = (m + log2f(l)) * kLn2;
-    const float inv = 1.f / l;
-    float* op = o + ((static_cast<long long>(b) * Tq + row) * H + h) * D;
+  if (wg == 0) {
+    // Producer, as in fa_fwd_bf16; each tile is its three parts.
+    regs_dealloc<P::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      auto load = [&](const CUtensorMap* map, uint32_t ring, uint32_t full, uint32_t empty, int i, int j, int h,
+                      int b) {
+        mbar_wait(empty, ((i / kStages) & 1) ^ 1);
+        mbar_expect_tx(full, P::kTileBytes);
+        for (int part = 0; part < 3; ++part)
+          for (int p = 0; p < P::kPanels; ++p)
+            tma_load_4d(ring + part * P::kKVPart + p * P::kPanelKV, map, full, 64 * p, j * kBlockN, h, part * B + b);
+      };
+      int it = 0;
+      for (int w = blockIdx.x, round = 0; w < n_work; w += gridDim.x, ++round, it += n_tiles) {
+        const int m0 = (w % m_blocks) * P::kBlockM, h = (w / m_blocks) % H, b = w / (m_blocks * H);
+        mbar_wait(empty_q, (round & 1) ^ 1);
+        mbar_expect_tx(full_q, P::kQBytes);
+        for (int part = 0; part < 3; ++part)
+          for (int p = 0; p < P::kPanels; ++p)
+            tma_load_4d(sQ + part * P::kQPart + p * P::kPanelQ, &tm_q, full_q, 64 * p, m0, h, part * B + b);
+        for (int j = 0; j <= n_tiles; ++j) {
+          if (j < n_tiles) {
+            const int s = (it + j) % kStages;
+            load(&tm_k, sK + s * P::kTileBytes, full_k(s), empty_k(s), it + j, j, h, b);
+          }
+          if (j > 0) {
+            const int s = (it + j - 1) % kStages;
+            load(&tm_v, sV + s * P::kTileBytes, full_v(s), empty_v(s), it + j - 1, j - 1, h, b);
+          }
+        }
+      }
+    }
+  } else {
+    regs_alloc<P::kConsumerRegs>();
+    const int c = wg - 1;
+    const int tw = threadIdx.x % 128, warp = tw / 32, lane = tw % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const uint32_t q_rows = sQ + c * 64 * 128;
+
+    float acc[D / 2];          // O, 64 x D
+    float tile[D / 2];         // one key tile's P V
+    float s[kBlockN / 2];      // S, then P, 64 x kBlockN
+    uint32_t pa[3 * kF][4];    // P split: hi, mid and lo A fragments of P V
+    float m_run[2], l_run[2], alpha[2];
 #pragma unroll
-    for (int d = 0; d < kPart; d += 4)
-      *reinterpret_cast<float4*>(op + col(d)) =
-          make_float4(acc[d] * inv, acc[d + 1] * inv, acc[d + 2] * inv, acc[d + 3] * inv);
+    for (int i = 0; i < kBlockN / 2; ++i) s[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) tile[i] = 0.f;
+
+    auto issue_qk = [&](int stage) {  // S = Q K^T, six passes
+      const uint64_t qd = sw128_desc(q_rows, 16), kd = sw128_desc(sK + stage * P::kTileBytes, 16);
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int pass = 0; pass < kPasses; ++pass)
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t a = pass_a(pass) * P::kQPart + (kk / 4) * P::kPanelQ + (kk % 4) * 32;
+          const uint32_t bo = pass_b(pass) * P::kKVPart + (kk / 4) * P::kPanelKV + (kk % 4) * 32;
+          Wgmma<kBlockN>::ss(s, desc_at(qd, a), desc_at(kd, bo), pass > 0 || kk > 0);
+        }
+      wgmma_commit();
+    };
+    auto issue_pv = [&](int stage) {  // tile = P V, six passes into a fresh accumulator
+      const uint64_t vd = sw128_desc(sV + stage * P::kTileBytes, P::kPanelKV);
+      fence_regs(tile);
+      fence_regs(pa);
+      wgmma_fence();
+#pragma unroll
+      for (int pass = 0; pass < kPasses; ++pass)
+#pragma unroll
+        for (int kk = 0; kk < kF; ++kk)
+          Wgmma<D>::rs(tile, pa[pass_a(pass) * kF + kk], desc_at(vd, pass_b(pass) * P::kKVPart + kk * 2048),
+                       pass > 0 || kk > 0);
+      wgmma_commit();
+    };
+    auto rescale = [&]() {  // O *= alpha, row by row
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    };
+    auto add_tile = [&]() {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] += tile[i];
+    };
+    auto release = [&](uint32_t empty) {
+      if (lane == 0) mbar_arrive(empty);
+    };
+
+    int it = 0;
+    for (int w = blockIdx.x, round = 0; w < n_work; w += gridDim.x, ++round, it += n_tiles) {
+      const int m0 = (w % m_blocks) * P::kBlockM, h = (w / m_blocks) % H, b = w / (m_blocks * H);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      m_run[0] = m_run[1] = -INFINITY;
+      l_run[0] = l_run[1] = 0.f;
+      mbar_wait(full_q, round & 1);
+
+      // Tile 0: S_0 alone.
+      mbar_wait(full_k(it % kStages), (it / kStages) & 1);
+      issue_qk(it % kStages);
+      wgmma_wait<0>();
+      fence_regs(s);
+      release(empty_k(it % kStages));
+      if (n_tiles == 1) release(empty_q);
+      online_softmax<kBlockN>(s, m_run, l_run, alpha, 0, Tk, t, scale_log2);
+      split_fragments<kBlockN>(pa, s);
+
+      // Tile j: issue S_j and P_{j-1} V_{j-1}; the softmax of S_j runs under P V. O takes
+      // S_{j-1}'s alpha meanwhile (P V goes into `tile`, not into O).
+      for (int j = 1; j < n_tiles; ++j) {
+        const int sj = (it + j) % kStages, sp = (it + j - 1) % kStages;
+        mbar_wait(full_k(sj), ((it + j) / kStages) & 1);
+        issue_qk(sj);
+        mbar_wait(full_v(sp), ((it + j - 1) / kStages) & 1);
+        issue_pv(sp);
+        rescale();
+        wgmma_wait<1>();
+        fence_regs(s);
+        release(empty_k(sj));
+        if (j == n_tiles - 1) release(empty_q);
+        online_softmax<kBlockN>(s, m_run, l_run, alpha, j * kBlockN, Tk, t, scale_log2);
+        wgmma_wait<0>();
+        fence_regs(tile);
+        fence_regs(pa);
+        release(empty_v(sp));
+        add_tile();
+        split_fragments<kBlockN>(pa, s);
+      }
+
+      // The last tile's P V.
+      const int sl = (it + n_tiles - 1) % kStages;
+      mbar_wait(full_v(sl), ((it + n_tiles - 1) / kStages) & 1);
+      issue_pv(sl);
+      rescale();
+      wgmma_wait<0>();
+      fence_regs(tile);
+      release(empty_v(sl));
+      add_tile();
+
+      float inv[2];
+      const int row0 = m0 + c * 64 + warp * 16 + g;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float l = l_run[r];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        inv[r] = 1.f / l;
+        if constexpr (kLse) {
+          const int row = row0 + 8 * r;
+          if (t == 0 && row < Tq)
+            lse[(static_cast<long long>(b) * H + h) * Tq + row] = (m_run[r] + log2f(l)) * kLn2;
+        }
+      }
+      store_rows_f32<D>(o, [&](int i) { return acc[i] * inv[(i >> 1) & 1]; }, 1.f, b, h, row0, Tq, H, t);
+    }
   }
 }
 
 // ---- Host: launchers ----
 
-template <int D, bool kLse>
-int fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse, const long long* maps, int B, int Tq,
-             int Tk, int H, float scale_log2, cudaStream_t st) {
-  using P = FwdPlan<D>;
+// One launch of the bf16 (kF32 false) or fp32 instance: the tensor maps of q, k and v (in
+// fp32, of their split parts, 3B batches), boxed by the plan's rows, then a persistent
+// grid of one block an SM, each block walking the work tiles w = blockIdx.x + k * gridDim.x.
+template <int D, bool kLse, bool kF32>
+int fwd(const void* q, const void* k, const void* v, void* o, float* lse, const long long* maps, int B, int Tq,
+        int Tk, int H, float scale_log2, cudaStream_t st) {
+  using P = std::conditional_t<kF32, FwdF32Plan<D>, FwdPlan<D>>;
+  static_assert(P::kSmem > kStaticSmemLimit, "launch() sizes dynamic shared memory above 48 KB only");
+  const int batches = kF32 ? 3 * B : B;
   CUtensorMap tq, tk, tv;
-  int err = encode_map(&tq, q, maps, D, Tq, H, B, P::kBlockM);
-  if (!err) err = encode_map(&tk, k, maps + kMapLongs, D, Tk, H, B, P::kBlockN);
-  if (!err) err = encode_map(&tv, v, maps + 2 * kMapLongs, D, Tk, H, B, P::kBlockN);
+  int err = encode_map(&tq, q, maps, D, Tq, H, batches, P::kBlockM);
+  if (!err) err = encode_map(&tk, k, maps + kMapLongs, D, Tk, H, batches, P::kBlockN);
+  if (!err) err = encode_map(&tv, v, maps + 2 * kMapLongs, D, Tk, H, batches, P::kBlockN);
   if (err) return err;
   static SmemOptIn opt_in;
   int n_work = 0, blocks = 0;
   err = persistent_grid(static_cast<long long>((Tq + P::kBlockM - 1) / P::kBlockM) * H * B, n_work, blocks);
   if (err) return err;
-  // Each block walks the work tiles w = blockIdx.x + k * gridDim.x.
-  return launch(fa_fwd_bf16<D, kLse>, opt_in, dim3(blocks), P::kThreads, P::kSmem, st, tq, tk, tv,
-                static_cast<__nv_bfloat16*>(o), lse, Tq, Tk, H, n_work, scale_log2);
+  if constexpr (kF32)
+    return launch(fa_fwd_f32<D, kLse>, opt_in, dim3(blocks), P::kThreads, P::kSmem, st, tq, tk, tv,
+                  static_cast<float*>(o), lse, B, Tq, Tk, H, n_work, scale_log2);
+  else
+    return launch(fa_fwd_bf16<D, kLse>, opt_in, dim3(blocks), P::kThreads, P::kSmem, st, tq, tk, tv,
+                  static_cast<__nv_bfloat16*>(o), lse, Tq, Tk, H, n_work, scale_log2);
 }
 
-template <int D>
-int fwd_f32(const float* q, const float* k, const float* v, float* o, float* lse, int B, int Tq, int Tk, int H,
-            const long long* st, float scale_log2, cudaStream_t stream) {
-  using Tl = FwdF32Tiles<D>;
-  static SmemOptIn opt_in[2];
-  const dim3 grid((Tq + Tl::kBlockM - 1) / Tl::kBlockM, H, B);
-  if (lse == nullptr)
-    return launch(fa_fwd_f32<D, false>, opt_in[0], grid, Tl::kThreads, Tl::kSmem, stream, q, k, v, o, lse, Tq, Tk,
-                  H, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale_log2);
-  return launch(fa_fwd_f32<D, true>, opt_in[1], grid, Tl::kThreads, Tl::kSmem, stream, q, k, v, o, lse, Tq, Tk, H,
-                st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale_log2);
+template <bool kF32>
+int fwd_by_head_dim(const void* q, const void* k, const void* v, void* o, float* lse, const long long* maps, int B,
+                    int Tq, int Tk, int H, int D, float scale, void* stream) {
+  const float sl = scale * kLog2e;
+  const auto st = static_cast<cudaStream_t>(stream);
+  return by_head_dim(
+      D, B, Tq, Tk, H,
+      [&] {
+        return lse ? fwd<64, true, kF32>(q, k, v, o, lse, maps, B, Tq, Tk, H, sl, st)
+                   : fwd<64, false, kF32>(q, k, v, o, lse, maps, B, Tq, Tk, H, sl, st);
+      },
+      [&] {
+        return lse ? fwd<128, true, kF32>(q, k, v, o, lse, maps, B, Tq, Tk, H, sl, st)
+                   : fwd<128, false, kF32>(q, k, v, o, lse, maps, B, Tq, Tk, H, sl, st);
+      });
 }
 
 }  // namespace
@@ -496,37 +648,30 @@ int fwd_f32(const float* q, const float* k, const float* v, float* o, float* lse
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
                                         const long long* maps, int B, int Tq, int Tk, int H, int D, float scale,
                                         void* stream) {
-  const float sl = scale * kLog2e;
-  const auto st = static_cast<cudaStream_t>(stream);
-  return by_head_dim(
-      D, B, Tq, Tk, H,
-      [&] {
-        return lse ? fwd_bf16<64, true>(q, k, v, o, lse, maps, B, Tq, Tk, H, sl, st)
-                   : fwd_bf16<64, false>(q, k, v, o, lse, maps, B, Tq, Tk, H, sl, st);
-      },
-      [&] {
-        return lse ? fwd_bf16<128, true>(q, k, v, o, lse, maps, B, Tq, Tk, H, sl, st)
-                   : fwd_bf16<128, false>(q, k, v, o, lse, maps, B, Tq, Tk, H, sl, st);
-      });
+  return fwd_by_head_dim<false>(q, k, v, o, lse, maps, B, Tq, Tk, H, D, scale, stream);
 }
 
-// The fp32 forward. strides: q's, k's and v's batch, token and head strides in elements
-// (9 values). Returns as flash_attention_fwd_bf16, without the maps.
-extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                                       int Tq, int Tk, int H, int D, long long sqb, long long sqt, long long sqh,
-                                       long long skb, long long skt, long long skh, long long svb, long long svt,
-                                       long long svh, float scale, void* stream) {
-  const long long st[9] = {sqb, sqt, sqh, skb, skt, skh, svb, svt, svh};
-  const auto qf = static_cast<const float*>(q), kf = static_cast<const float*>(k), vf = static_cast<const float*>(v);
-  const auto of = static_cast<float*>(o);
-  const auto stream_ = static_cast<cudaStream_t>(stream);
-  return by_head_dim(
-      D, B, Tq, Tk, H, [&] { return fwd_f32<64>(qf, kf, vf, of, lse, B, Tq, Tk, H, st, scale * kLog2e, stream_); },
-      [&] { return fwd_f32<128>(qf, kf, vf, of, lse, B, Tq, Tk, H, st, scale * kLog2e, stream_); });
+// The fp32 forward on the split parts of q, k and v (flash_attention_split_f32), each a
+// contiguous bf16 (3, B, T, H, D); maps: their tensor maps' layout as (3B, T, H, D), boxed
+// by FWD_F32_TILES' rows. o is a contiguous fp32 (B, Tq, H, D). Returns as the bf16 forward.
+extern "C" int flash_attention_fwd_f32(const void* q_parts, const void* k_parts, const void* v_parts, void* o,
+                                       float* lse, const long long* maps, int B, int Tq, int Tk, int H, int D,
+                                       float scale, void* stream) {
+  return fwd_by_head_dim<true>(q_parts, k_parts, v_parts, o, lse, maps, B, Tq, Tk, H, D, scale, stream);
 }
 
-// Bytes of dynamic shared memory a block of the bf16 instance of head dim D takes (0 for
-// another D): printed beside each instance's registers in the build line.
-extern "C" int flash_attention_fwd_bf16_smem(int D) {
-  return D == 64 ? FwdPlan<64>::kSmem : D == 128 ? FwdPlan<128>::kSmem : 0;
+// Bytes of dynamic shared memory a block of the instance of head dim D takes (0 for
+// another D): kernel 0 the bf16 forward, 1 the fp32 forward. Printed beside each
+// instance's registers in the build line.
+extern "C" int flash_attention_fwd_smem(int kernel, int D) {
+  if (D != 64 && D != 128) return 0;
+  const bool d64 = D == 64;
+  switch (kernel) {
+    case 0:
+      return d64 ? FwdPlan<64>::kSmem : FwdPlan<128>::kSmem;
+    case 1:
+      return d64 ? FwdF32Plan<64>::kSmem : FwdF32Plan<128>::kSmem;
+    default:
+      return 0;
+  }
 }

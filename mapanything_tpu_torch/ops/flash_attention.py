@@ -18,12 +18,13 @@ backward's dO) in place through 4-D TMA tensor maps, whose layout (dims, byte
 strides, box) ``tensor_map`` computes from each tensor at each call; the C entry
 points encode them with the driver's ``cuTensorMapEncodeTiled``, found through
 the runtime. Their tile plans (``FWD_TILES``, ``BWD_TILES``) are the kernels',
-which refuse maps of another box. The fp32 backward is the same design on
+which refuse maps of another box. The fp32 kernels are the same design on
 split operands: a split pass (``flash_attention_split_f32``, one launch a
-backward) writes each of q, k, v and dO as three bf16 parts (hi, mid, lo:
-``split_bf16x3_reference``), and the dq and dk/dv kernels compute every
-product as six bf16 products of the parts, read through tensor maps of the
-parts (``BWD_F32_TILES``). The fp32 forward takes element strides.
+forward for q, k and v, one a backward for q, k, v and dO) writes each as
+three bf16 parts (hi, mid, lo: ``split_bf16x3_reference``), and the forward,
+dq and dk/dv kernels compute every product as six bf16 products of the
+parts, read through tensor maps of the parts (``FWD_F32_TILES``,
+``BWD_F32_TILES``).
 
 Routing. ``flash_attention`` runs the lse-free forward when no input needs a
 gradient (inference is unchanged); otherwise an autograd Function runs the
@@ -33,7 +34,7 @@ else: a CPU tensor goes to the plain PyTorch version beside each kernel; a
 CUDA tensor launches the kernel or raises. Each kernel has its own launch
 count (``flash_attention.launches``, ``flash_attention_lse.launches``,
 ``flash_attention_bwd_dq.launches``, ``flash_attention_bwd_dkv.launches`` and the
-fp32 backward's ``flash_attention_split_f32.launches``), so a run can show which
+fp32 kernels' ``flash_attention_split_f32.launches``), so a run can show which
 kernels it went through, and counts its launches by (key length,
 head dim) in ``launches_by_shape``: ``launch_lengths`` gives the lse-free
 forward's by key length, which tells its regimes apart, and ``launch_shapes``
@@ -56,12 +57,13 @@ KERNEL_STEM = "flash_attention_fwd"
 BWD_KERNEL_STEM = "flash_attention_bwd"
 KERNEL_STEMS = (KERNEL_STEM, BWD_KERNEL_STEM)
 HEAD_DIMS = (64, 128)  # head dims the kernels are instantiated for
-# The kernels' instances: bf16 (wgmma); fp32, the backward on wgmma over split bf16 parts,
-# the forward on SIMT fp32 FMA.
+# The kernels' instances: bf16 (wgmma) and fp32 (wgmma over split bf16 parts).
 _DTYPES = (torch.bfloat16, torch.float32)
 # The bf16 forward's tile plan by head dim, (query rows, key rows) a block: FwdPlan in
 # csrc/flash_attention_fwd.cu, which refuses maps whose boxes differ.
 FWD_TILES = {64: (128, 176), 128: (128, 176)}
+# The fp32 forward's, the same pair: FwdF32Plan, whose tiles hold three bf16 parts each.
+FWD_F32_TILES = {64: (128, 96), 128: (128, 32)}
 # The bf16 backward's plans by head dim: the dq kernel's (query rows a work tile, keys a
 # K or V tile) and the dk/dv kernel's (keys a work tile, query rows a stage): DqPlan and
 # DkvPlan in csrc/flash_attention_bwd.cu.
@@ -209,10 +211,16 @@ def _pack_maps(*maps: Tuple[torch.Tensor, int]) -> bytes:
     return struct.pack(f"{len(values)}q", *values)
 
 
-def _tensor_maps(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bytes:
-    """q's, k's and v's tensor maps for the bf16 forward."""
-    rows_q, rows_kv = FWD_TILES[q.shape[3]]
+def _tensor_maps(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tiles: dict = FWD_TILES) -> bytes:
+    """q's, k's and v's tensor maps for the forward of the plan ``tiles``."""
+    rows_q, rows_kv = tiles[q.shape[3]]
     return _pack_maps((q, rows_q), (k, rows_kv), (v, rows_kv))
+
+
+def _fwd_f32_tensor_maps(*parts: torch.Tensor) -> bytes:
+    """The tensor maps of the fp32 forward: each (3, B, T, H, D) part tensor of q, k and v
+    as one (3B, T, H, D) map (part p of batch b at p·B + b), boxed by ``FWD_F32_TILES``."""
+    return _tensor_maps(*(x.flatten(0, 1) for x in parts), tiles=FWD_F32_TILES)
 
 
 def _bwd_tensor_maps(kernel: str, q, k, v, do, tiles: dict = BWD_TILES) -> bytes:
@@ -274,22 +282,23 @@ def _raise_on(err: int, name: str) -> None:
 
 
 def _launch_fwd(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, with_lse: bool
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, with_lse: bool, parts=None
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The forward kernel on CUDA tensors; in fp32 on ``parts``, the split pass's parts of
+    q, k and v (one split pass first when not given)."""
     _check(q, k, v)
     b, tq, h, d = q.shape
+    if q.dtype == torch.bfloat16:
+        name, inputs, maps = "flash_attention_fwd_bf16", (q, k, v), _tensor_maps(q, k, v)
+    else:
+        parts = flash_attention_split_f32(q, k, v) if parts is None else parts
+        name, inputs, maps = "flash_attention_fwd_f32", parts, _fwd_f32_tensor_maps(*parts)
     o = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device) if with_lse else None
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None if lse is None else lse.data_ptr())
-    dims = (b, tq, k.shape[1], h, d)
+    ptrs = [x.data_ptr() for x in (*inputs, o)] + [None if lse is None else lse.data_ptr()]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if q.dtype == torch.bfloat16:
-            name = "flash_attention_fwd_bf16"
-            err = _bind(KERNEL_STEM, name, 6, 5, 0)(*ptrs, _tensor_maps(q, k, v), *dims, float(scale), stream)
-        else:
-            name = "flash_attention_fwd_f32"
-            err = _bind(KERNEL_STEM, name, 5, 5, 9)(*ptrs, *dims, *_strides(q, k, v), float(scale), stream)
+        err = _bind(KERNEL_STEM, name, 6, 5, 0)(*ptrs, maps, b, tq, k.shape[1], h, d, float(scale), stream)
     _raise_on(err, name)
     return o, lse
 
@@ -306,25 +315,29 @@ def _check_bwd(q, k, v, do, lse, delta) -> torch.Tensor:
     return _aligned(do.to(q.dtype))
 
 
-def flash_attention_split_f32(q, k, v, do) -> Tuple[torch.Tensor, ...]:
-    """The split pass of the fp32 backward: each of q, k, v and dO (fp32 (B, T, H, D))
-    as its three bf16 parts, a contiguous (3, B, T, H, D) tensor each (hi, mid, lo of
-    ``split_bf16x3_reference``). One launch of the split kernel for the four on CUDA
+def flash_attention_split_f32(q, k, v, do=None) -> Tuple[torch.Tensor, ...]:
+    """The split pass of the fp32 kernels: each of q, k, v and, where given (the
+    backward), dO (fp32 (B, T, H, D)) as its three bf16 parts, a contiguous
+    (3, B, T, H, D) tensor each (hi, mid, lo of ``split_bf16x3_reference``). One launch
+    of the split kernel (in the backward's source) for the three or four on CUDA
     tensors; the plain version on CPU tensors."""
+    xs = (q, k, v) if do is None else (q, k, v, do)
     if _device_of(q) == "cpu":
-        return tuple(split_bf16x3_reference(x) for x in (q, k, v, do))
+        return tuple(split_bf16x3_reference(x) for x in xs)
     _check(q, k, v)
-    if q.dtype != torch.float32 or do.dtype != torch.float32 or do.shape != q.shape:
-        raise TypeError(f"the split takes fp32 q, k, v and a dO of q's shape, got {q.dtype} and "
-                        f"{do.dtype} {tuple(do.shape)}")
-    do = _aligned(do)
-    parts = tuple(torch.empty((3, *x.shape), dtype=torch.bfloat16, device=q.device) for x in (q, k, v, do))
+    if q.dtype != torch.float32 or any(x.dtype != torch.float32 or x.shape != q.shape for x in xs[3:]):
+        raise TypeError(f"the split takes fp32 q, k, v and a dO of q's shape, got "
+                        f"{[(x.dtype, tuple(x.shape)) for x in xs]}")
+    xs = (q, k, v, *(_aligned(x) for x in xs[3:]))
+    parts = tuple(torch.empty((3, *x.shape), dtype=torch.bfloat16, device=q.device) for x in xs)
     b, tq, h, d = q.shape
-    ptrs = [x.data_ptr() for x in (q, k, v, do, *parts)]
+    absent = [None] * (4 - len(xs))  # no dO: null pointers, strides not read
+    ptrs = [x.data_ptr() for x in xs] + absent + [x.data_ptr() for x in parts] + absent
+    strides = _strides(*xs) + [0] * (3 * len(absent))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _bind(BWD_KERNEL_STEM, "flash_attention_split_f32", 8, 5, 12, scale=False)(
-            *ptrs, b, tq, k.shape[1], h, d, *_strides(q, k, v, do), stream)
+            *ptrs, b, tq, k.shape[1], h, d, *strides, stream)
     _raise_on(err, "flash_attention_split_f32")
     _count(flash_attention_split_f32, k)
     return parts

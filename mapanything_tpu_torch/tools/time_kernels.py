@@ -5,7 +5,8 @@
 Imports ``mapanything_tpu_torch`` from ``--root`` (default: the checkout this
 file is in), builds its kernels there and times each kernel with CUDA events:
 the lse-free forward at the flagship forward's encoder, frame and global
-shapes and one fp32 shape (``chip_smoke.py`` phase 3); the lse forward, dq,
+shapes in bf16 and fp32 (``chip_smoke.py`` phases 3 and 18; in fp32 the whole
+call, its split pass included); the lse forward, dq,
 dk/dv and the whole ``flash_attention_bwd_lse`` (delta, dq and dk/dv; in fp32
 its split pass too, and the split pass alone as ``split/<shape>``), with torch
 SDPA's backward beside them, at the 1 x 4 x 518 train step's shapes in bf16
@@ -19,9 +20,10 @@ that as ``--root`` (this file need not exist there). Compare two commits only wi
 turns: parent, change, change, parent. Prints one JSON line: the card, the
 root and ms per call of each kernel at each shape (``host_us/bwd/...``: the
 host's microseconds to enqueue one whole backward, in bf16). With ``--errors``,
-also each fp32 backward's max |error| against the same formulas in fp64 on the
-same inputs (o and lse the kernel's), beside the fp32 plain version's and
-1e-5 of the reference's magnitude (``chip_smoke.py``'s fp32 rule).
+also, at each fp32 training shape, the lse forward's o and lse and the
+backward's dq, dk and dv (from the kernel's o and lse): each one's max |error|
+against the same formulas in fp64 on the same inputs, beside the fp32 plain
+version's and 1e-5 of the reference's magnitude (``chip_smoke.py``'s fp32 rule).
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ from pathlib import Path
 # name -> (B, T, H, D, dtype): forward (phase 3) and training (phase 3b) shapes by head dim.
 FORWARD_SHAPES = {
     64: {"encoder": (8, 1370, 16, 64, "bfloat16"), "frame": (8, 1369, 12, 64, "bfloat16"),
-         "global": (1, 10953, 12, 64, "bfloat16"), "fp32_frame": (8, 1369, 12, 64, "float32")},
+         "global": (1, 10953, 12, 64, "bfloat16"), "fp32_encoder": (8, 1370, 16, 64, "float32"),
+         "fp32_frame": (8, 1369, 12, 64, "float32"), "fp32_global": (1, 10953, 12, 64, "float32")},
     128: {"frame_h128": (8, 1369, 6, 128, "bfloat16"), "global_h128": (1, 10953, 6, 128, "bfloat16"),
           "fp32_global_h128": (1, 5477, 6, 128, "float32")},
 }
@@ -120,13 +123,17 @@ def ring_block_times(fa, gen) -> dict:
 
 
 def fp32_errors(fa, q, k, v, o, lse, do, scale) -> dict:
-    """{output: [the backward's max |error| against fp64, the fp32 plain version's,
-    1e-5 max |fp64|]} for dq, dk and dv."""
-    got = fa.flash_attention_bwd_lse(q, k, v, o, lse, do, scale)
-    exact = fa.attention_bwd_reference(*(x.double() for x in (q, k, v, o, lse, do)), scale)
-    plain = fa.attention_bwd_reference(q, k, v, o, lse, do, scale)
+    """{output: [the kernel's max |error| against fp64, the fp32 plain version's,
+    1e-5 max |fp64|]} for the lse forward's o and lse (``o``, ``lse``) and the
+    backward's dq, dk and dv (from the kernel's o and lse)."""
+    names = ("o", "lse", "dq", "dk", "dv")
+    got = (o, lse, *fa.flash_attention_bwd_lse(q, k, v, o, lse, do, scale))
+    x64 = [x.double() for x in (q, k, v)]
+    exact = (*fa.attention_lse_reference(*x64, scale),
+             *fa.attention_bwd_reference(*x64, o.double(), lse.double(), do.double(), scale))
+    plain = (*fa.attention_lse_reference(q, k, v, scale), *fa.attention_bwd_reference(q, k, v, o, lse, do, scale))
     return {name: [(g.double() - e).abs().max().item(), (p.double() - e).abs().max().item(),
-                   1e-5 * e.abs().max().item()] for name, g, e, p in zip(("dq", "dk", "dv"), got, exact, plain)}
+                   1e-5 * e.abs().max().item()] for name, g, e, p in zip(names, got, exact, plain)}
 
 
 def main() -> int:
@@ -190,7 +197,7 @@ def main() -> int:
                     lambda: fwd(q, k, v, hd**-0.5), iters, warmup=1)
     line = {"card": torch.cuda.get_device_name(0), "root": str(args.root), "ms": times}
     if args.errors:
-        line["fp32_bwd_errors"] = errors
+        line["fp32_errors"] = errors
     print(json.dumps(line), flush=True)
     return 0
 
