@@ -6,6 +6,8 @@
     python3 chip_smoke.py --train-step-only --compute-dtype float32  # phases 1, 2 and 17 alone
     python3 chip_smoke.py --forward-edges-only # phases 1, 2 and 3f alone
     python3 chip_smoke.py --backward-edges-only  # phases 1, 2 and 3g alone
+    python3 chip_smoke.py --files-only         # phases 1, 2 and 19 alone
+    python3 chip_smoke.py --trainer-only       # phases 1, 2 and 20 alone
 
 Phases, each printing one JSON line:
   1. the card's name and power limit, as nvidia-smi reports them;
@@ -134,12 +136,31 @@ Phases, each printing one JSON line:
      its split pass launched 48 times each (24 at 1370, 12 at 1369, 12 at
      10953 tokens), ms per forward, views/s, peak memory, the output
      invariants and each fp32 kernel's time a forward (phase 3's per call x
-     launches) and share of it.
+     launches) and share of it;
+  19. from files to a scene: eight seeded 1024 x 768 PNGs (rows under every
+     scanline filter) and a reference-format checkpoint of the seeded
+     multimodal flagship (``module.`` prefix, ``dense_head.0/.1`` names), then
+     tools/demo_images_only_inference's path on the card in bf16: load_images
+     (518 x 392), the checkpoint loaded strictly (its weights held bitwise),
+     infer (48 lse-free launches, by key length), the four output files
+     parsed; the resize held to the same call on the CPU (one grey level),
+     the outputs' invariants; decode, resize, load, infer and export times and
+     peak memory; the kernel first against its plain version at the demo's
+     shapes, as in phase 3;
+  20. the Trainer: the flagship multimodal bf16 at 1 x 4 x 518 (phase 7's
+     model and batches as numpy), TrainLoopConfig(accum_iter=2): 4 train
+     batches (2 optimizer steps) and 1 eval batch, checkpoints and
+     checkpoint-best; then a second Trainer (epochs=2) on the directory
+     resumes at epoch 1 with the first one's parameters and moments bitwise
+     and trains it; launches per micro-batch and per eval forward, finite
+     parameters, an update for every one, ms per optimizer step, save and
+     restore times, the checkpoint's bytes, peak memory; the lse-free kernel
+     first against its plain version at the eval shapes.
 On a machine with more than one card, phases 9 and 10 then run again over
 NCCL with one rank a card (2 or 4 cards); rank 0 checks the gathered
 outputs against the unsharded forward. A machine with one card skips this.
 Phases 11-13 run after phase 5, before phase 6; phase 3e after 3d; phases
-14-18 after phase 7, before phase 8. Then the kernels' summary line and,
+14-20 after phase 7, before phase 8. Then the kernels' summary line and,
 last, {"ok": true, "device": {...}}.
 Phases 3f and 3g run right after the build. With --train-step-only, phase 7
 (phase 17 with --compute-dtype float32) runs after the build (without the SASS
@@ -147,7 +168,8 @@ check) and the script stops after its line, printing neither the summary nor
 the ok line; copied into another checkout's tree, it times that checkout's step
 the same way. With --forward-edges-only, phase
 3f runs after the build and the script stops there, the same way; with
---backward-edges-only, phase 3g.
+--backward-edges-only, phase 3g; with --files-only, phase 19; with
+--trainer-only, phase 20.
 Any failed check raises and the script exits non-zero. Without a CUDA device,
 or without the port beside it, it exits non-zero and prints no result.
 """
@@ -1436,6 +1458,322 @@ def many_view_infer(card):
     return line
 
 
+# Phase 19: the kernel at the demo's shapes, 8 views of 4:3 images in the 1.321
+# bucket, 518 x 392 (37 x 28 = 1036 patches): (name, shape, dtype, launches per
+# forward, the TPU kernel the JAX dispatch picks there: K1 up to 2048 tokens, K2 above).
+FILES_SHAPES = [
+    ("demo_encoder", (8, 1037, 16, 64), "bfloat16", 24, f"{FA}:395"),
+    ("demo_frame", (8, 1036, 12, 64), "bfloat16", 12, f"{FA}:395"),
+    ("demo_global", (1, 8 * 1036 + 1, 12, 64), "bfloat16", 12, f"{FA}:516"),
+]
+# Phase 20: the lse-free kernel at the Trainer's eval shapes (1 x 4 x 518), per eval forward.
+EVAL_SHAPES = [
+    ("eval_encoder", (4, 1370, 16, 64), "bfloat16", 24, f"{FA}:395"),
+    ("eval_frame", (4, 1369, 12, 64), "bfloat16", 12, f"{FA}:395"),
+    ("eval_global", (1, 5477, 12, 64), "bfloat16", 12, f"{FA}:516"),
+]
+FILES_VIEWS, FILES_HW = 8, (768, 1024)  # eight 1024 x 768 photographs
+
+
+def reference_format(state: dict) -> dict:
+    """A state dict as the reference's DDP training writes it: ``module.`` before every
+    key, the DPT heads under their ``dense_head.0/.1`` names."""
+    out = {}
+    for k, v in state.items():
+        for name, alias in (("dpt_feature_head.", "dense_head.0."), ("dpt_regressor_head.", "dense_head.1.")):
+            if k.startswith(name):
+                k = alias + k[len(name):]
+        out["module." + k] = v
+    return out
+
+
+def check_scene_files(out: Path, views: int) -> dict:
+    """The demo's four outputs exist and parse: the PLY's vertex count against its body,
+    the GLB's magic, the COLMAP model's image count, the viewer's title."""
+    from mapanything_tpu_torch.utils.colmap import read_model
+
+    ply = (out / "scene.ply").read_bytes()
+    head = ply[:ply.index(b"end_header\n") + len(b"end_header\n")]
+    n = int(head.split(b"element vertex ")[1].split(b"\n")[0])
+    if n == 0 or len(ply) - len(head) != 15 * n:
+        raise AssertionError(f"scene.ply: {n} vertices for a body of {len(ply) - len(head)} bytes")
+    glb = (out / "scene.glb").read_bytes()
+    if glb[:4] != b"glTF" or int.from_bytes(glb[8:12], "little") != len(glb):
+        raise AssertionError("scene.glb is not a glTF binary of its own length")
+    cameras, images, points = read_model(out / "sparse", ".bin")
+    if len(images) != views or len(cameras) != views or not points:
+        raise AssertionError(f"sparse/: {len(cameras)} cameras, {len(images)} images, {len(points)} points")
+    if f"{views}-view reconstruction".encode() not in (out / "viewer.html").read_bytes():
+        raise AssertionError("viewer.html lacks its title")
+    return {"ply_vertices": n, "glb_bytes": len(glb), "colmap_images": len(images), "colmap_points": len(points),
+            "viewer_bytes": (out / "viewer.html").stat().st_size}
+
+
+def files_to_scene(card):
+    """Phase 19: from files to a scene, the flagship bf16 at full width. Eight seeded
+    1024 x 768 PNGs (rows under every scanline filter) and a reference-format
+    checkpoint of the seeded multimodal flagship (``module.`` prefix, ``dense_head``
+    aliases), then the demo's path on the card: load_images (the 1.321 bucket,
+    518 x 392), the checkpoint loaded strictly, infer, and scene.glb, scene.ply,
+    sparse/ and viewer.html. Returns the kernel rows at its shapes and the lse-free
+    launches by shape."""
+    import torch
+
+    from mapanything_tpu_torch.data.cropping import crop_resize_if_necessary
+    from mapanything_tpu_torch.models.mapanything import MapAnything, Views
+    from mapanything_tpu_torch.ops.flash_attention import launch_counts, launch_shapes, reset_launch_counts
+    from mapanything_tpu_torch.tools import demo_images_only_inference as demo
+    from mapanything_tpu_torch.utils.checkpoint import (
+        canonical_keys, load_reference_checkpoint, load_reference_state_dict,
+    )
+    from mapanything_tpu_torch.utils.image import _fake_K, load_images, read_png, write_png
+    from mapanything_tpu_torch.utils.inference import PostprocessConfig
+
+    rows = kernel_checks(card, FILES_SHAPES, "19")
+    work = ROOT / "build" / "files_to_scene"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "images").mkdir(parents=True)
+    rng = np.random.default_rng(19)
+    h, w = FILES_HW
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    t0 = time.perf_counter()
+    for i in range(FILES_VIEWS):  # smooth structure plus noise, a new phase a view
+        base = 128 + 70 * np.sin(x / 37 + i)[..., None] * np.cos(y / 23 - i)[..., None]
+        img = np.clip(base + rng.normal(0, 10, (h, w, 3)), 0, 255).astype(np.uint8)
+        write_png(work / "images" / f"view_{i:02d}.png", img, filters=(0, 1, 2, 3, 4))
+    write_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    model = MapAnything(flagship_config(12), device="cpu", seed=0, geometric_inputs=True)
+    saved = reference_format(model.state_dict())
+    torch.save(saved, work / "flagship.pth")
+    del model
+    save_s = time.perf_counter() - t0
+    ckpt_bytes = (work / "flagship.pth").stat().st_size
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = demo.parse_args(["--images", str(work / "images"), "--out", str(work / "out"),
+                            "--checkpoint", str(work / "flagship.pth"), "--device", "cuda"])
+    reset_launch_counts()
+    result = demo.run(args)
+    torch.cuda.synchronize()
+    counts, shapes = launch_counts(), launch_shapes()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    want = {"flash_attention_fwd": 48, "flash_attention_fwd_lse": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0, "flash_attention_split_f32": 0}
+    t = FILES_VIEWS * 1036 + 1
+    want_shapes = {(1037, 64): 24, (1036, 64): 12, (t, 64): 12}
+    if counts != {k: want[k] for k in counts} or shapes["flash_attention_fwd"] != want_shapes:
+        raise AssertionError(f"the demo launched {counts}, by (Tk, D) {shapes['flash_attention_fwd']}, "
+                             f"not {want} and {want_shapes}")
+
+    model, loaded, outputs = result["model"], result["loaded"], result["outputs"]
+    shape = (1, FILES_VIEWS, 392, 518)
+    if tuple(loaded["images"].shape) != shape[1:] + (3,) or loaded["true_shape"].tolist() != [[h, w]] * FILES_VIEWS:
+        raise AssertionError(f"load_images gave {tuple(loaded['images'].shape)}, {loaded['true_shape'].tolist()}")
+    # The weights are the file's, bitwise.
+    own = model.state_dict()
+    want_sd = canonical_keys(saved)
+    if sorted(own) != sorted(want_sd) or not all(torch.equal(own[k].cpu(), want_sd[k]) for k in want_sd):
+        raise AssertionError("the demo's model does not hold the checkpoint's weights bitwise")
+    # The resize on the card against the same call on the CPU.
+    on_cpu = load_images(str(work / "images"), device="cpu")
+    levels = int(((loaded["images_no_norm"].cpu() - on_cpu["images_no_norm"]).abs() * 255).round().max())
+    if levels > 1:
+        raise AssertionError(f"the resize on the card is {levels} grey levels from the CPU's")
+    infer_checks = check_infer_outputs(outputs, shape)
+    files = check_scene_files(result["out"], FILES_VIEWS)
+    with torch.inference_mode():  # the raw forward's invariants (not counted: read above)
+        ray_norm_err = check_invariants(model(Views(img=loaded["images"][None])), shape)
+
+    # Stage times, each on its own.
+    paths = sorted((work / "images").iterdir())
+    t0 = time.perf_counter()
+    decoded = [read_png(p) for p in paths]
+    decode_ms = 1e3 * (time.perf_counter() - t0) / len(paths)
+    resize = lambda: [crop_resize_if_necessary(torch.from_numpy(d).cuda(), (518, 392), None, _fake_K(h, w))  # noqa
+                      for d in decoded]
+    resize()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resize()
+    torch.cuda.synchronize()
+    resize_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    load_reference_checkpoint(model, load_reference_state_dict(work / "flagship.pth"))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    _, infer_ms, infer_each, _ = time_infer(model, loaded["images_no_norm"][None],
+                                            PostprocessConfig(), warmup=1, iters=3)
+    emit({
+        "phase": "files_to_scene",
+        "config": "MapAnythingConfig(compute_dtype='bfloat16'), geometric_inputs=True checkpoint (563.3M "
+                  "parameters, reference format), 8 PNGs of 1024x768 -> 518x392, demo_images_only_inference",
+        "write_pngs_s": write_s, "save_checkpoint_s": save_s, "checkpoint_bytes": ckpt_bytes,
+        "decode_ms_per_view": decode_ms, "resize_ms_8_views": resize_ms, "checkpoint_load_s": load_s,
+        "demo_stage_s": result["seconds"], "infer_ms": infer_ms, "infer_ms_each": infer_each,
+        "export_ms": 1e3 * result["seconds"]["export"], "peak_mem_gib": peak_gib,
+        "launches": counts, "launches_by_shape": shape_counts(shapes)["flash_attention_fwd"],
+        "resize_card_vs_cpu_grey_levels": levels, "ray_norm_err": ray_norm_err, **infer_checks, **files,
+        "card": card["name"], "power_limit": card["power_limit"],
+    })
+    del model, result, loaded, outputs, own, saved, want_sd
+    shutil.rmtree(work, ignore_errors=True)
+    by_shape = shapes["flash_attention_fwd"]
+    return rows, {r["shape"]: by_shape[(r["b_t_h_d"][1], 64)] for r in rows}
+
+
+def numpy_batch(B, V, H, W, seed) -> dict:
+    """Phase 7's batch (bench.py's LossBatch and images) as a collated numpy batch."""
+    from mapanything_tpu_torch.train.losses import synthetic_loss_batch
+
+    b = synthetic_loss_batch(B, V, H, W, seed=seed)
+    names = {"ray_directions": "ray_directions_cam"}
+    out = {names.get(f.name, f.name): getattr(b, f.name).numpy() for f in dataclasses.fields(b)}
+    out["img"] = np.random.RandomState(seed).randn(B, V, H, W, 3).astype(np.float32)
+    return out
+
+
+def trainer_run(trainer):
+    """``trainer.train()`` with the launch counts and each accumulation group's and
+    each save's time; returns the counts, the counts by shape and the times."""
+    import torch
+
+    from mapanything_tpu_torch.ops.flash_attention import launch_counts, launch_shapes, reset_launch_counts
+
+    times = {"group": [], "save": []}
+
+    def timed(fn, key):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            times[key].append(time.perf_counter() - t)
+            return out
+        return run
+
+    trainer._run_accum_group = timed(trainer._run_accum_group, "group")
+    trainer.ckpt.save = timed(trainer.ckpt.save, "save")
+    trainer.ckpt_best.save = timed(trainer.ckpt_best.save, "save")
+    reset_launch_counts()
+    trainer.train()
+    torch.cuda.synchronize()
+    return launch_counts(), launch_shapes(), times
+
+
+def trainer_phase(card):
+    """Phase 20: the Trainer on the flagship multimodal bf16 at 1 x 4 x 518 (phase 7's
+    model and batch recipe as collated numpy batches): one epoch of 4 train batches
+    under accum_iter=2 (2 optimizer steps) and 1 eval batch, then a second Trainer on
+    the same directory with epochs=2 that resumes at epoch 1, bitwise, and trains it.
+    Returns the training launches, the micro-batches, the eval rows and launches."""
+    import torch
+
+    from mapanything_tpu_torch.models.mapanything import GeometricInputConfig, MapAnything
+    from mapanything_tpu_torch.train.loop import Trainer, TrainLoopConfig
+
+    eval_rows = kernel_checks(card, EVAL_SHAPES, "20")
+    B, V, H, W = 1, 4, 518, 518
+    out = ROOT / "build" / "trainer"
+    shutil.rmtree(out, ignore_errors=True)
+    train = [numpy_batch(B, V, H, W, seed) for seed in range(4)]
+    test = [numpy_batch(B, V, H, W, 100)]
+    # lr as phase 7's (a random init diverges at the production lr); seed 2 draws masks
+    # that reach every geometric encoder within the epoch's 4 micro-batches.
+    loop = dict(output_dir=str(out), accum_iter=2, lr=1e-7, min_lr=1e-8, warmup_epochs=0.0, print_freq=100, seed=2)
+    geo = GeometricInputConfig()
+    model = MapAnything(flagship_config(12), device="cuda", seed=0, geometric_inputs=True)
+    names = [n for n, _ in model.named_parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    first = Trainer(model, train, TrainLoopConfig(epochs=1, **loop), test_loader=test, geo_cfg=geo)
+    counts1, shapes1, times1 = trainer_run(first)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    # Per micro-batch: 48 of each training kernel (24 at 1370 tokens, 12 at 1369, 12 at
+    # 4 * 1369 + 1); per eval forward: 48 lse-free at the same lengths.
+    micro = len(train)
+    lengths = {(1370, 64): 24, (1369, 64): 12, (5477, 64): 12}
+    want = {"flash_attention_fwd": 48 * len(test), "flash_attention_fwd_lse": 48 * micro,
+            "flash_attention_bwd_dq": 48 * micro, "flash_attention_bwd_dkv": 48 * micro,
+            "flash_attention_split_f32": 0}
+    want_shapes = {k: {s: n * want[k] // 48 for s, n in lengths.items()} for k in want if want[k]}
+
+    def check_counts(counts, shapes, run):
+        if counts != {k: want[k] for k in counts} or any(shapes[k] != v for k, v in want_shapes.items()):
+            raise AssertionError(f"Trainer run {run} launched {counts}, by shape {shape_counts(shapes)}, "
+                                 f"not {want}")
+
+    check_counts(counts1, shapes1, 1)
+    state = first.state
+    if state.step != 2 or state.opt_state.count != 2:
+        raise AssertionError(f"one epoch of 4 batches under accum_iter=2 took {state.step} steps")
+    norms = torch.stack(torch._foreach_norm([state.params[n].detach() for n in names]))
+    if not bool(torch.isfinite(norms).all()):
+        raise AssertionError("non-finite parameters after the first epoch")
+    no_update = [n for n in names if not bool(state.opt_state.mu[n].any())]
+    if no_update:  # the update before the add is lr·mu_hat/(sqrt(nu_hat)+eps): nonzero where mu is
+        raise AssertionError(f"parameters without an update: {no_update}")
+    if first.ckpt.all_steps() != [0] or first.ckpt_best.all_steps() != [0]:
+        raise AssertionError(f"checkpoints {first.ckpt.all_steps()}, best {first.ckpt_best.all_steps()}")
+    ckpt_bytes = (out / "checkpoints" / "0.pt").stat().st_size
+    end = {"params": {n: state.params[n].detach().cpu() for n in names},
+           "mu": {n: state.opt_state.mu[n].cpu() for n in names},
+           "nu": {n: state.opt_state.nu[n].cpu() for n in names}}
+    del first, state, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # A fresh model (other seed) and Trainer on the same directory: it resumes.
+    model = MapAnything(flagship_config(12), device="cuda", seed=1, geometric_inputs=True)
+    t0 = time.perf_counter()
+    second = Trainer(model, train, TrainLoopConfig(epochs=2, **loop), test_loader=test, geo_cfg=geo)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    s = second.state
+    same = (second.start_epoch == 1 and s.opt_state.count == 2 and s.step == 2
+            and all(torch.equal(s.params[n].detach().cpu(), end["params"][n]) for n in names)
+            and all(torch.equal(s.opt_state.mu[n].cpu(), end["mu"][n]) for n in names)
+            and all(torch.equal(s.opt_state.nu[n].cpu(), end["nu"][n]) for n in names))
+    if not same:
+        raise AssertionError(f"the resumed Trainer (start epoch {second.start_epoch}, count {s.opt_state.count}) "
+                             "does not hold the first one's end state bitwise")
+    del s, end
+    gc.collect()
+    counts2, shapes2, times2 = trainer_run(second)
+    check_counts(counts2, shapes2, 2)
+    if second.state.step != 4 or second.ckpt.all_steps() != [0, 1]:
+        raise AssertionError(f"the resumed epoch took the Trainer to step {second.state.step}, "
+                             f"checkpoints {second.ckpt.all_steps()}")
+    log = [json.loads(x) for x in (out / "log.txt").read_text().splitlines()]
+    if [x["epoch"] for x in log] != [0, 1] or not all(np.isfinite(x["train_loss"]) for x in log):
+        raise AssertionError(f"log.txt: {log}")
+    groups = times1["group"] + times2["group"]
+    emit({
+        "phase": "trainer",
+        "config": "MapAnythingConfig(compute_dtype='bfloat16'), geometric_inputs=True, 1x4x518x518 bench.py "
+                  "batches as numpy, TrainLoopConfig(accum_iter=2, lr 1e-7), 4 train + 1 eval batch an epoch; "
+                  "epoch 0, then a resumed Trainer for epoch 1",
+        "ms_per_optimizer_step": 1e3 * sum(groups[1:]) / len(groups[1:]),
+        "ms_each_optimizer_step": [1e3 * t for t in groups],
+        "save_s": times1["save"] + times2["save"], "resume_trainer_init_s": restore_s,
+        "checkpoint_bytes": ckpt_bytes, "peak_mem_gib": peak_gib,
+        "launches_run_1": counts1, "launches_run_2": counts2,
+        "launches_by_shape_run_1": shape_counts(shapes1), "log": log,
+        "card": card["name"], "power_limit": card["power_limit"],
+    })
+    launches = {k: counts1[k] + counts2[k] for k in counts1}
+    eval_launches = {r["shape"]: sum(sh["flash_attention_fwd"][(r["b_t_h_d"][1], 64)] for sh in (shapes1, shapes2))
+                     for r in eval_rows}
+    del second, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(out, ignore_errors=True)
+    return {"launches": launches, "micro_batches": 2 * micro, "eval_rows": eval_rows, "eval_launches": eval_launches}
+
+
 def rel_err(a, b, floor: float = 1e-12) -> float:
     """max |a - b| over b's magnitude max(|b|), floored at ``floor``."""
     a, b = a.detach().double().cpu(), b.detach().double().cpu()
@@ -1905,7 +2243,7 @@ def split_rows(rows) -> list:
 
 
 def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, inference_launches, train_launches,
-                 train_steps, vp_launches, many_view_line, h128, fp32_train, fp32_forward):
+                 train_steps, vp_launches, many_view_line, h128, fp32_train, fp32_forward, files, trainer):
     """The kernels line: each kernel, what it replaces, its launches on its path
     (one forward; all train steps, and per step), its max error and its times
     per forward (inference) or per train step. The phase-3c rows are the
@@ -1919,7 +2257,10 @@ def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, infe
     of phase 3b are the default-dtype train step's (phase 17: ``fp32_train``), the
     split pass among them (a layer's forward and backward splits); the fp32 rows of
     phase 3 the default-dtype forward's (phase 18: ``fp32_forward``, that run's counts),
-    its split pass beside it."""
+    its split pass beside it. The phase-19 rows are the demo's forward (``files``: its rows and
+    that run's launches by shape), times per scene; the Trainer's (phase 20, ``trainer``) are
+    phase 3b's bf16 rows (the same shapes as phase 7's step), times per micro-batch, and its eval
+    forward's rows, times per eval forward, each with that run's launches."""
     main_rows = [r for r in rows if r["per_forward"] and r["dtype"] == "bfloat16"]
     kernels = [path_entry("flash_attention_fwd", "mapanything_tpu/ops/flash_attention.py:395", main_rows,
                           {r["shape"]: r["per_forward"] for r in main_rows},
@@ -1975,7 +2316,29 @@ def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, infe
         kernels.append(path_entry(name, f"{FA}:114", entry_rows, f_launches, source=source, dtype="float32",
                                   path="flagship fp32 forward 1x8x518 (phase 18); times per forward"))
         kernels[-1]["launches"] = fp32_forward[name]  # the count of phase 18's run
+    kernels += files_trainer_entries(train_rows, files, trainer)
     emit({"kernels": kernels})
+
+
+def files_trainer_entries(train_rows, files, trainer) -> list:
+    """Phases 19-20 in the kernels line: the demo's forward and the Trainer's eval
+    forward, one entry per TPU kernel replaced (times per forward, launches of the run),
+    and the Trainer's training kernels (phase 3b's rows; times per micro-batch)."""
+    entries = []
+    for path, (path_rows, run_launches) in (
+            ("demo 8x1024x768 PNGs -> 518x392 (phase 19); times per scene", files),
+            ("Trainer eval 1x4x518, 2 eval forwards (phase 20); times per forward",
+             (trainer["eval_rows"], trainer["eval_launches"]))):
+        for replaces in dict.fromkeys(r["replaces"] for r in path_rows):
+            group = [r for r in path_rows if r["replaces"] == replaces]
+            entries.append(path_entry("flash_attention_fwd", replaces, group,
+                                      {r["shape"]: r["per_forward"] for r in group}, path=path))
+            entries[-1]["launches"] = sum(run_launches[r["shape"]] for r in group)
+    for name in TRAIN_KERNELS:
+        entries.append(train_entry(name, train_rows, TRAIN_REPLACES[name]["encoder"], trainer["launches"][name],
+                                   trainer["micro_batches"],
+                                   path="Trainer 1x4x518, accum_iter=2 (phase 20); times per micro-batch"))
+    return entries
 
 
 def multi_card_rank(rank: int, world_size: int, card: dict, unsharded_loss) -> None:
@@ -2011,6 +2374,10 @@ def main() -> int:
                         help="build the kernels, then run phase 3f alone and stop after its line")
     parser.add_argument("--backward-edges-only", action="store_true",
                         help="build the kernels, then run phase 3g alone and stop after its line")
+    parser.add_argument("--files-only", action="store_true",
+                        help="build the kernels, then run phase 19 (files to a scene) alone and stop after its line")
+    parser.add_argument("--trainer-only", action="store_true",
+                        help="build the kernels, then run phase 20 (the Trainer) alone and stop after its line")
     args = parser.parse_args()
     import torch
 
@@ -2048,6 +2415,13 @@ def main() -> int:
     if args.train_step_only:  # the build and the step alone (also when this script times another checkout)
         emit(build)
         flagship_train(card, compute_dtype=args.compute_dtype)
+        return 0
+    if args.files_only or args.trainer_only:
+        emit(build)
+        if args.files_only:
+            files_to_scene(card)
+        else:
+            trainer_phase(card)
         return 0
     fwd_smem = _build.load(KERNEL_STEMS[0]).flash_attention_fwd_smem
     bwd_smem = _build.load(KERNEL_STEMS[1]).flash_attention_bwd_smem
@@ -2114,6 +2488,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 19-20. From files to a scene (the demo), from batches to checkpoints (the Trainer).
+    files = files_to_scene(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = trainer_phase(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # 8-10. View parallelism on a process group of this process alone: NCCL at world size 1.
     from mapanything_tpu_torch.parallel.distributed import init_distributed_mode
     from mapanything_tpu_torch.parallel.mesh import make_view_group
@@ -2146,7 +2528,8 @@ def main() -> int:
     }
     summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, inference_launches, train_launches,
                  train_steps, vp_launches, many_view_line, h128,
-                 {"rows": fp32_train_rows, "launches": fp32_launches, "steps": fp32_steps}, fp32_forward)
+                 {"rows": fp32_train_rows, "launches": fp32_launches, "steps": fp32_steps}, fp32_forward, files,
+                 trainer)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -2,6 +2,7 @@
 conversions and the factored pointmap.
 
 Counterparts of ``mapanything_tpu/geometry/camera.py``: ``pixel_grid`` (:18),
+``depthmap_to_camera_frame`` (:25),
 ``rays_in_camera_frame`` (:98), ``recover_pinhole_intrinsics_from_ray_directions``
 (:155), ``convert_z_depth_to_depth_along_ray`` (:208),
 ``depth_along_ray_to_z_depth`` (:221) and ``pointmap_from_rays_depth_pose``
@@ -25,6 +26,17 @@ def pixel_grid(
     y = torch.arange(height, dtype=dtype, device=device)[:, None]
     x = torch.arange(width, dtype=dtype, device=device)[None, :]
     return x.expand(height, width), y.expand(height, width)
+
+
+def depthmap_to_camera_frame(depthmap: torch.Tensor, intrinsics: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Unproject z-depth (..., H, W) with pinhole ``intrinsics`` (..., 3, 3):
+    the camera-frame pointmap (..., H, W, 3) and where the depth is positive."""
+    h, w = depthmap.shape[-2:]
+    x_grid, y_grid = pixel_grid(h, w, depthmap.dtype, depthmap.device)
+    fx, fy, cx, cy = (intrinsics[..., i, j][..., None, None] for i, j in ((0, 0), (1, 1), (0, 2), (1, 2)))
+    xx = (x_grid - cx) * depthmap / fx
+    yy = (y_grid - cy) * depthmap / fy
+    return torch.stack([xx, yy, depthmap], dim=-1), depthmap > 0.0
 
 
 def rays_in_camera_frame(

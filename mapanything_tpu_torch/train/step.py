@@ -1,14 +1,15 @@
 """The train and eval steps of the port.
 
 Counterpart of ``mapanything_tpu/train/step.py``: ``TrainState`` (:31),
-``views_from_loss_batch`` (:38), ``make_train_step`` (:52-109) and
-``make_eval_step``. A step samples the modality masks and, where the model
-uses them, random view-PE indices; runs the differentiable forward with the
+``views_from_loss_batch`` (:38), ``make_train_step`` (:52-109),
+``make_accum_train_step`` (:112-163) and ``make_eval_step``. A step samples
+the modality masks and, where the model uses them, random view-PE indices;
+runs the differentiable forward with the
 ground-truth rays, depth and poses as inputs; takes the production loss
 scaled by 2 / V (training.py:475-478); back-propagates; and applies the
 optimizer. The parameters live in the model and are updated in place.
-Gradient accumulation, the trainer loop, checkpoints and the data loader
-wait for a later slice.
+The accumulating step runs its micro-batches in turn, summing their
+gradients in ``.grad``, and takes one update with their mean.
 
 Under a view group (view parallelism; the JAX package's view-sharded step,
 ``__graft_entry__.py:377-418``) each rank passes its block of the views.
@@ -104,6 +105,30 @@ def all_reduce_grads(params, view_group: ViewGroup) -> None:
         torch._foreach_copy_(grads, [x.view_as(g) for x, g in zip(flat.split([g.numel() for g in grads]), grads)])
 
 
+def draw_step_inputs(model: MapAnything, geo_cfg: GeometricInputConfig, generator: torch.Generator,
+                     batch_shape, masks: Optional[ModalityMasks] = None):
+    """``(masks, pe_indices)`` of one (micro-)batch of ``batch_shape`` = (B, V, H, W)
+    over all its views: the modality masks drawn from ``generator`` unless given,
+    then, where the model uses them, the random view-PE indices."""
+    B, V, H, W = batch_shape
+    if masks is None:
+        masks = sample_modality_masks(generator, B, V, (H, W), geo_cfg, device=model.device)
+    cfg = model.config
+    pe_indices = None
+    if cfg.use_pe_for_non_reference_views and cfg.use_rand_idx_pe_for_non_reference_views and V > 1:
+        pe_indices = torch.randint(1, cfg.max_num_views_for_pe, (V - 1,), generator=generator)
+    return masks, pe_indices
+
+
+def apply_grads(optimizer: AdamW, state: TrainState) -> TrainState:
+    """One optimizer update from the parameters' ``.grad``; ``state.opt_state.grad_norm``
+    of the new state is their norm before clipping."""
+    grads = {name: p.grad for name, p in state.params.items()}
+    updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
+    apply_updates(state.params, updates)
+    return TrainState(params=state.params, opt_state=opt_state, step=state.step + 1)
+
+
 def make_train_step(
     model: MapAnything,
     optimizer: AdamW,
@@ -121,18 +146,12 @@ def make_train_step(
     the step runs view-parallel under the ring (see the module's docstring).
     """
     loss_fn = make_loss_fn(model, loss_cfg, view_group)
-    cfg = model.config
     n = 1 if view_group is None else view_group.size
 
     def step(state: TrainState, img: torch.Tensor, batch: LossBatch, generator: torch.Generator,
              masks: Optional[ModalityMasks] = None):
         B, V_local, H, W = batch.valid_mask.shape
-        V = V_local * n
-        if masks is None:
-            masks = sample_modality_masks(generator, B, V, (H, W), geo_cfg, device=model.device)
-        pe_indices = None
-        if cfg.use_pe_for_non_reference_views and cfg.use_rand_idx_pe_for_non_reference_views and V > 1:
-            pe_indices = torch.randint(1, cfg.max_num_views_for_pe, (V - 1,), generator=generator)
+        masks, pe_indices = draw_step_inputs(model, geo_cfg, generator, (B, V_local * n, H, W), masks)
         if view_group is not None:
             masks = shard_views_pytree(masks.to(model.device), view_group)
         for p in state.params.values():
@@ -146,11 +165,52 @@ def make_train_step(
             names = list(metrics)
             sums = all_reduce(torch.stack([metrics[k].float() for k in names]), view_group)
             metrics = dict(zip(names, sums.unbind()))
-        grads = {name: p.grad for name, p in state.params.items()}
-        updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
-        apply_updates(state.params, updates)
-        metrics["grad_norm"] = opt_state.grad_norm
-        return TrainState(params=state.params, opt_state=opt_state, step=state.step + 1), metrics
+        state = apply_grads(optimizer, state)
+        metrics["grad_norm"] = state.opt_state.grad_norm
+        return state, metrics
+
+    return step
+
+
+def make_accum_train_step(
+    model: MapAnything,
+    optimizer: AdamW,
+    accum_iter: int,
+    loss_cfg: LossConfig = LossConfig(),
+    geo_cfg: GeometricInputConfig = GeometricInputConfig(),
+):
+    """``step(state, imgs, batches, generator, masks=None) -> (state, metrics)``:
+    one optimizer update from ``accum_iter`` micro-batches (the reference's
+    accum_iter loop, training.py:433,512-526; the JAX package scans them).
+
+    ``imgs`` and ``batches`` are sequences of ``accum_iter`` micro-batches. Each
+    runs forward and backward in turn, its loss scaled by 2 / V, and its
+    gradients add up in ``.grad``; the sum and the summed loss are then divided
+    by ``accum_iter`` (JAX :150-151), and the optimizer takes the mean gradients.
+    ``generator`` draws each micro-batch's modality masks, unless ``masks`` (one
+    ``ModalityMasks`` a micro-batch) are given, then its view-PE indices, micro-batch
+    by micro-batch. ``metrics`` holds ``loss`` and ``grad_norm`` (of the mean
+    gradients, before clipping) as 0-dim tensors.
+    """
+    loss_fn = make_loss_fn(model, loss_cfg)
+
+    def step(state: TrainState, imgs, batches, generator: torch.Generator, masks=None):
+        if len(imgs) != accum_iter or len(batches) != accum_iter or (masks is not None and len(masks) != accum_iter):
+            raise ValueError(f"the step accumulates {accum_iter} micro-batches")
+        for p in state.params.values():
+            p.grad = None
+        loss_sum = None
+        for i, (img, batch) in enumerate(zip(imgs, batches)):
+            m, pe_indices = draw_step_inputs(model, geo_cfg, generator, batch.valid_mask.shape,
+                                             None if masks is None else masks[i])
+            loss, _ = loss_fn(batch, img, m, pe_indices)
+            loss.backward()
+            loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
+        for p in state.params.values():
+            if p.grad is not None:
+                p.grad.div_(accum_iter)
+        state = apply_grads(optimizer, state)
+        return state, {"loss": loss_sum / accum_iter, "grad_norm": state.opt_state.grad_norm}
 
     return step
 

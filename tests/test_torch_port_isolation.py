@@ -8,6 +8,7 @@ points (the model and ``infer``) run on CUDA unless the caller asks for the
 CPU, and raise when there is no CUDA.
 """
 
+import json
 import re
 import subprocess
 import types
@@ -35,16 +36,20 @@ FORBIDDEN = ("jax", "flax", "mapanything_tpu")
 IMPORT_RE = re.compile(r"^\s*(?:import|from)\s+(jax|flax|mapanything_tpu)\b", re.M)
 
 IMPORT_ALL = """
-import importlib, pkgutil, sys
+import importlib, json, pkgutil, sys
+import numpy, torch
+base = {{m.split(".")[0] for m in sys.modules}}
 import mapanything_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r})
-print(len(names), bad, " ".join(names))
+# anything beyond torch, numpy (and what they load) and the standard library
+extra = sorted({{m.split(".")[0] for m in sys.modules}} - base - set(sys.stdlib_module_names) - {{pkg.__name__}})
+print(json.dumps({{"names": names, "bad": bad, "extra": extra}}))
 """
 
-# Modules of the training, view-parallel and inference slices that the fresh-process import must reach.
+# Modules of the training, view-parallel, inference and files/trainer slices that the fresh-process import must reach.
 SLICE_MODULES = (
     "mapanything_tpu_torch.train.losses",
     "mapanything_tpu_torch.train.optim",
@@ -64,19 +69,36 @@ SLICE_MODULES = (
     "mapanything_tpu_torch.utils.inference",
     "mapanything_tpu_torch.utils.viz",
     "mapanything_tpu_torch.utils.colmap",
+    # files to a scene, batches to checkpoints
+    "mapanything_tpu_torch.utils.checkpoint",
+    "mapanything_tpu_torch.utils.hub",
+    "mapanything_tpu_torch.data.cropping",
+    "mapanything_tpu_torch.utils.image",
+    "mapanything_tpu_torch.utils.viewer",
+    "mapanything_tpu_torch.tools.load_model",
+    "mapanything_tpu_torch.tools.demo_images_only_inference",
+    "mapanything_tpu_torch.geometry.transforms",
+    "mapanything_tpu_torch.geometry.frustum",
+    "mapanything_tpu_torch.train.masks",
+    "mapanything_tpu_torch.train.checkpointing",
+    "mapanything_tpu_torch.utils.logging",
+    "mapanything_tpu_torch.train.loop",
 )
+# Optional decoders that the port imports only when a file needs them.
+LAZY = ("cv2", "PIL", "pillow_heif")
 
 
 def test_port_imports_no_jax_in_a_fresh_process():
     proc = subprocess.run(
-        [sys.executable, "-c", IMPORT_ALL.format(forbidden=set(FORBIDDEN))],
+        [sys.executable, "-c", IMPORT_ALL.format(forbidden=set(FORBIDDEN + LAZY))],
         cwd=ROOT, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    n_modules, bad, names = proc.stdout.strip().split(" ", 2)
-    assert int(n_modules) >= 31, proc.stdout  # every module of the port was imported
-    assert set(SLICE_MODULES) <= set(names.split()), names
-    assert bad == "[]", f"the port pulled in {bad}"
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert len(got["names"]) >= 45, got["names"]  # every module of the port was imported
+    assert set(SLICE_MODULES) <= set(got["names"]), got["names"]
+    assert got["bad"] == [], f"the port pulled in {got['bad']}"
+    assert got["extra"] == [], f"the port imports beyond torch, numpy and the standard library: {got['extra']}"
 
 
 def test_rank_processes_import_no_jax(tmp_path):
@@ -113,6 +135,22 @@ def test_entry_point_defaults_to_cuda_and_raises_without_it(monkeypatch):
     on_card = types.SimpleNamespace(device=torch.device("cuda", 0))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         infer(on_card, torch.zeros(1, 1, 14, 14, 3))
+    # The files and trainer slice: images, batches, the demo and the model tool.
+    import numpy as np
+
+    from mapanything_tpu_torch.tools import demo_images_only_inference, load_model
+    from mapanything_tpu_torch.train.loop import loss_batch_from_numpy
+    from mapanything_tpu_torch.utils.image import load_images
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_images([np.zeros((28, 28, 3), np.uint8)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loss_batch_from_numpy({})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        demo_images_only_inference.main(["--images", str(ROOT)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_model.main(["--small", "--save", str(ROOT / "unused")])
+    assert not (ROOT / "unused").exists()
 
 
 def test_unported_options_raise():
