@@ -8,6 +8,7 @@
     python3 chip_smoke.py --backward-edges-only  # phases 1, 2 and 3g alone
     python3 chip_smoke.py --files-only         # phases 1, 2 and 19 alone
     python3 chip_smoke.py --trainer-only       # phases 1, 2 and 20 alone
+    python3 chip_smoke.py --data-only          # phases 1, 2 and 21 alone
 
 Phases, each printing one JSON line:
   1. the card's name and power limit, as nvidia-smi reports them;
@@ -155,12 +156,25 @@ Phases, each printing one JSON line:
      and trains it; launches per micro-batch and per eval forward, finite
      parameters, an update for every one, ms per optimizer step, save and
      restore times, the checkpoint's bytes, peak memory; the lse-free kernel
-     first against its plain version at the eval shapes.
+     first against its plain version at the eval shapes;
+  21. from disk to a trained step: two synthetic WAI scenes of 24 frames of
+     1024 x 768 written with the port's writers (PNG frames with 16-bit PNG
+     depth; the committed JPEG fixtures of tests/data/jpeg with EXR depth),
+     then tools/train.main on configs/train.yaml with the ETH3D train
+     dataset's DSL (518_many_ar, 4 views, colorjitter+grayscale+gaublur,
+     aug_crop 16), 1 x 4 views a batch, one epoch of 16 samples, the flagship
+     in bf16, loader worker processes (host cores, at most 8): decode ms per
+     view of each format, ms per sample in a worker, the loader alone, ms per
+     optimizer step with each step's wait on the loader, launches per
+     micro-batch by kernel and key length, finite parameters, peak memory;
+     the training kernels first against their plain versions at the extreme
+     aspect ratios' shapes (global 1 x 5477 and 1 x 1777, frame 4 x 1369 and
+     4 x 444), as in phase 3b.
 On a machine with more than one card, phases 9 and 10 then run again over
 NCCL with one rank a card (2 or 4 cards); rank 0 checks the gathered
 outputs against the unsharded forward. A machine with one card skips this.
 Phases 11-13 run after phase 5, before phase 6; phase 3e after 3d; phases
-14-20 after phase 7, before phase 8. Then the kernels' summary line and,
+14-21 after phase 7, before phase 8. Then the kernels' summary line and,
 last, {"ok": true, "device": {...}}.
 Phases 3f and 3g run right after the build. With --train-step-only, phase 7
 (phase 17 with --compute-dtype float32) runs after the build (without the SASS
@@ -169,7 +183,7 @@ the ok line; copied into another checkout's tree, it times that checkout's step
 the same way. With --forward-edges-only, phase
 3f runs after the build and the script stops there, the same way; with
 --backward-edges-only, phase 3g; with --files-only, phase 19; with
---trainer-only, phase 20.
+--trainer-only, phase 20; with --data-only, phase 21.
 Any failed check raises and the script exits non-zero. Without a CUDA device,
 or without the port beside it, it exits non-zero and prints no result.
 """
@@ -1774,6 +1788,315 @@ def trainer_phase(card):
     return {"launches": launches, "micro_batches": 2 * micro, "eval_rows": eval_rows, "eval_launches": eval_launches}
 
 
+# Phase 21: from disk to a trained step. The training kernels at the two extreme aspect
+# ratios of 518_many_ar at 4 views (518 x 518 and 518 x 168: global 1 x 5477 and 1 x 1777,
+# frame 4 x 1369 and 4 x 444); launches per micro-batch at each come from the run.
+DATA_SHAPES = [
+    ("data_global_5477", (1, 5477, 12, 64), "bfloat16", 0),
+    ("data_global_1777", (1, 1777, 12, 64), "bfloat16", 0),
+    ("data_frame_1369", (4, 1369, 12, 64), "bfloat16", 0),
+    ("data_frame_444", (4, 444, 12, 64), "bfloat16", 0),
+]
+PAIR_MAX_TK = 12288  # the JAX dispatch's head-pair regime: 2048 < pad512(Tk) <= 12288 at D = 64 (bf16)
+
+
+def jax_regime(t: int) -> str:
+    """The TPU kernels the JAX dispatch takes for a bf16 D = 64 training layer of ``t`` keys."""
+    return "pair" if 2048 < -(-t // 512) * 512 <= PAIR_MAX_TK else "single"
+
+
+REGIME_REPLACES = {"pair": {"flash_attention_fwd_lse": f"{FA}:600", "flash_attention_bwd_dq": f"{FA}:715",
+                            "flash_attention_bwd_dkv": f"{FA}:753"},
+                   "single": {"flash_attention_fwd_lse": f"{FA}:118", "flash_attention_bwd_dq": f"{FA}:227",
+                              "flash_attention_bwd_dkv": f"{FA}:262"}}
+DATA_REPLACES = {name: {s[0]: REGIME_REPLACES[jax_regime(s[1][1])][name] for s in DATA_SHAPES}
+                 for name in REGIME_REPLACES["pair"]}
+DATA_FRAMES, DATA_HW, DATA_SAMPLES = 24, (768, 1024), 16
+JPEG_FIXTURES = ROOT / "tests" / "data" / "jpeg"  # 1024 x 768, written by cv2 (the card's machine has none)
+
+
+def write_wai_scenes(root: Path) -> dict:
+    """Two synthetic ETH3D scenes of DATA_FRAMES 1024 x 768 frames with the port's writers:
+    "scene_png" (PNG frames, 16-bit millimetre PNG depth) and "scene_jpg" (the committed
+    JPEG fixtures, EXR depth); covisibility, scene_meta.json and the scene list. Returns
+    a frame path of each format, for the decode timings."""
+    from mapanything_tpu_torch.utils.exr import write_depth_exr
+    from mapanything_tpu_torch.utils.image import write_png
+
+    fixtures = sorted(JPEG_FIXTURES.glob("*.jpg"))
+    if not fixtures:
+        raise FileNotFoundError(f"no JPEG fixtures under {JPEG_FIXTURES}")
+    rng = np.random.default_rng(21)
+    h, w = DATA_HW
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    samples = {}
+    for name, image_ext, depth_ext in (("scene_png", "png", "png"), ("scene_jpg", "jpg", "exr")):
+        scene = root / "eth3d" / name
+        for sub in ("images", "depth", "covisibility/v0"):
+            (scene / sub).mkdir(parents=True)
+        frames = []
+        for i in range(DATA_FRAMES):
+            image, depth_path = f"images/{i:04d}.{image_ext}", f"depth/{i:04d}.{depth_ext}"
+            if image_ext == "png":
+                base = 128 + 70 * np.sin(x / 37 + i)[..., None] * np.cos(y / 23 - i)[..., None]
+                write_png(scene / image, np.clip(base + rng.normal(0, 10, (h, w, 3)), 0, 255).astype(np.uint8))
+            else:
+                shutil.copyfile(fixtures[i % len(fixtures)], scene / image)
+            depth = (2.5 + 0.8 * np.sin(x / 90 + 0.3 * i) * np.cos(y / 70) + 0.002 * y).astype(np.float32)
+            if depth_ext == "png":
+                write_png(scene / depth_path, np.round(depth * 1000).astype(np.uint16))
+            else:
+                write_depth_exr(scene / depth_path, depth)
+            pose = np.eye(4)
+            angle = 0.03 * i
+            pose[:3, :3] = [[np.cos(angle), 0, np.sin(angle)], [0, 1, 0], [-np.sin(angle), 0, np.cos(angle)]]
+            pose[:3, 3] = [0.05 * i, 0.0, 0.01 * i]
+            frames.append(dict(frame_name=f"{i:04d}", image=image, depth=depth_path, transform_matrix=pose.tolist()))
+        meta = dict(frames=frames, fl_x=0.8 * w, fl_y=0.8 * w, cx=w / 2 - 0.5, cy=h / 2 - 0.5)
+        (scene / "scene_meta.json").write_text(json.dumps(meta))
+        covis = np.zeros((DATA_FRAMES, DATA_FRAMES), np.float32)
+        for i in range(DATA_FRAMES):
+            for j in range(max(0, i - 4), min(DATA_FRAMES, i + 5)):
+                covis[i, j] = 1.0 if i == j else 1.0 - 0.15 * abs(i - j)
+        np.save(scene / "covisibility" / "v0" / "pairwise.npy", covis)
+        samples[image_ext] = [scene / f["image"] for f in frames[:4]]
+        samples[depth_ext + "_depth"] = [scene / f["depth"] for f in frames[:4]]
+    (root / "meta" / "train").mkdir(parents=True)
+    np.save(root / "meta" / "train" / "eth3d_scene_list_train.npy", np.array(["scene_png", "scene_jpg"]))
+    return samples
+
+
+def host_stage_ms(samples: dict) -> dict:
+    """A view's host stages after its decode, on one intra-op thread as in a loader
+    worker, on a PNG frame and its depth: the crop/resize to 518 x 518 (aug_crop's
+    largest draw), the colour augmentation with each op applied, the pointmaps and
+    rays; ms, the mean of 3 after one warm-up."""
+    import torch
+
+    from mapanything_tpu_torch.data import transforms
+    from mapanything_tpu_torch.data.base_dataset import BaseDataset, pointmaps_and_rays_from_depth
+    from mapanything_tpu_torch.utils.image import read_png
+
+    img, depth = read_png(samples["png"][0]), read_png(samples["png_depth"][0], unchanged=True) / 1000.0
+    h, w = DATA_HW
+    K = np.array([[0.8 * w, 0, w / 2 - 0.5], [0, 0.8 * w, h / 2 - 0.5], [0, 0, 1]], np.float32)
+    ds = BaseDataset.__new__(BaseDataset)
+    ds.principal_point_centered, ds.aug_crop = False, 0
+    rgb = np.asarray(img, np.float32) / 255.0
+    stages = {
+        "crop_resize": lambda: ds._crop_resize_if_necessary(img, (518 + 15, 518 + 15), depth.astype(np.float32), K),
+        "colour_jitter_all_ops": lambda: transforms.color_jitter(rgb[:518, :518], np.random.default_rng(0),
+                                                                 0.3, 0.4, 0.2, 0.1),
+        "pointmaps_and_rays": lambda: pointmaps_and_rays_from_depth(depth[:518, :518].astype(np.float32), K,
+                                                                    np.eye(4, dtype=np.float32)),
+    }
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = {}
+        for name, fn in stages.items():
+            fn()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                fn()
+            out[name] = 1e3 * (time.perf_counter() - t0) / 3
+    finally:
+        torch.set_num_threads(threads)
+    return out
+
+
+def data_path_phase(card):
+    """Phase 21: from disk to a trained step. Two WAI scenes written to a temporary
+    directory (write_wai_scenes), then tools/train.main on configs/train.yaml with the
+    ETH3D train dataset of configs/dataset/eth3d_wai/train/default.yaml: 518_many_ar,
+    4 views, colorjitter+grayscale+gaublur and aug_crop 16 as configured, 1 x 4 views a
+    batch, one epoch of 16 samples, the flagship in bf16, host cores (at most 8) loader
+    workers. Decode times by format, ms per sample in a worker, the loader alone, the
+    Trainer's ms per optimizer step with its wait on the loader, launches per micro-batch
+    by kernel and key length. The training kernels first against their plain versions at
+    the extreme aspect ratios' shapes. Returns the rows and the run's launches by shape."""
+    import os
+
+    import torch
+
+    from mapanything_tpu_torch.data import loader as loader_mod
+    from mapanything_tpu_torch.ops.flash_attention import launch_counts, launch_shapes, reset_launch_counts
+    from mapanything_tpu_torch.tools import train as train_tool
+    from mapanything_tpu_torch.train.loop import Trainer
+    from mapanything_tpu_torch.utils.config import load_config
+    from mapanything_tpu_torch.utils.exr import read_depth_exr
+    from mapanything_tpu_torch.utils.image import read_png
+    from mapanything_tpu_torch.utils.jpeg import read_jpeg
+
+    rows = train_kernel_checks(card, DATA_SHAPES, DATA_REPLACES, "21")
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="data_path_", dir=ROOT / "build"))
+    try:
+        t0 = time.perf_counter()
+        samples = write_wai_scenes(work)
+        write_s = time.perf_counter() - t0
+        decoders = {"png_rgb": (read_png, samples["png"]), "jpeg": (read_jpeg, samples["jpg"]),
+                    "png_16bit_depth": (lambda p: read_png(p, unchanged=True), samples["png_depth"]),
+                    "exr_depth": (read_depth_exr, samples["exr_depth"])}
+        decode_ms = {}
+        for fmt, (read, paths) in decoders.items():
+            times = []
+            for path in paths:
+                t0 = time.perf_counter()
+                out = read(path)
+                times.append(1e3 * (time.perf_counter() - t0))
+                if out.shape[:2] != DATA_HW or not np.isfinite(out.astype(np.float32)).all():
+                    raise AssertionError(f"{fmt}: {path} decoded to {out.shape} {out.dtype}")
+            decode_ms[fmt] = times
+        stage_ms = host_stage_ms(samples)
+
+        workers = min(os.cpu_count() or 1, 8)
+        overrides = [f"machine.root_data_dir={work}", f"machine.mapanything_dataset_metadata_dir={work / 'meta'}",
+                     f"machine.root_experiments_dir={work / 'experiments'}",
+                     "dataset.resolution_train=${dataset.resolution_options.518_many_ar}", "dataset.num_views=4",
+                     "dataset.train.variable_num_views=false",
+                     f"dataset.train_dataset={DATA_SAMPLES} @ ${{dataset.eth3d_wai.train.dataset_str}}",
+                     "images_per_batch=4", f"num_workers={workers}", "model.compute_dtype=bfloat16",
+                     "train_params.epochs=1", "train_params.warmup_epochs=0", "train_params.lr=1e-7",
+                     "train_params.min_lr=1e-8"]  # phase 20's lr: a random init diverges at the production lr
+        argv = ["--config", str(ROOT / "configs" / "train.yaml"), "--device", "cuda"]
+        for o in overrides:
+            argv += ["--override", o]
+        cfg = load_config(ROOT / "configs" / "train.yaml", overrides=overrides)
+        dsl = cfg["dataset"]["train_dataset"]
+        if not dsl.startswith(f"{DATA_SAMPLES} @ ETH3DWAI(") or "transform='colorjitter+grayscale+gaublur'" not in dsl:
+            raise AssertionError(f"the composed dataset DSL: {dsl}")
+
+        # The loader alone, its workers timing each sample they load.
+        timing = work / "worker_ms"
+        timing.mkdir()
+        get_item = loader_mod._Items.__getitem__
+
+        def timed_item(self, tup):
+            t = time.perf_counter()
+            out = get_item(self, tup)
+            with open(timing / f"{os.getpid()}.txt", "a") as f:
+                f.write(f"{1e3 * (time.perf_counter() - t)}\n")
+            return out
+
+        loader = loader_mod.MultiViewDataLoader(train_tool.build_dataset(dsl), images_per_batch=4,
+                                                num_workers=workers)
+        loader.set_epoch(0)
+        loader_mod._Items.__getitem__ = timed_item
+        try:
+            t0 = time.perf_counter()
+            shapes_seen, first_s = [], None
+            for batch in loader:
+                first_s = first_s if first_s is not None else time.perf_counter() - t0
+                shapes_seen.append(list(batch["img"].shape))
+            loader_s = time.perf_counter() - t0
+        finally:
+            loader_mod._Items.__getitem__ = get_item
+        sample_ms = [float(v) for f in timing.glob("*.txt") for v in f.read_text().split()]
+        if len(shapes_seen) != DATA_SAMPLES or any(s[:2] != [1, 4] for s in shapes_seen) or len(sample_ms) != DATA_SAMPLES:
+            raise AssertionError(f"the loader gave batches {shapes_seen}, {len(sample_ms)} timed samples")
+
+        # The Trainer through the tool: each optimizer step and each wait on the loader timed.
+        waits, steps = [], []
+        run_group, loader_iter = Trainer._run_accum_group, loader_mod.MultiViewDataLoader.__iter__
+
+        def timed_group(self, group):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = run_group(self, group)
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t)
+            return out
+
+        def timed_iter(self):
+            it = loader_iter(self)
+            while True:
+                t = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                waits.append(time.perf_counter() - t)
+                yield batch
+
+        Trainer._run_accum_group, loader_mod.MultiViewDataLoader.__iter__ = timed_group, timed_iter
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        try:
+            t0 = time.perf_counter()
+            trainer = train_tool.main(argv)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+        finally:
+            Trainer._run_accum_group, loader_mod.MultiViewDataLoader.__iter__ = run_group, loader_iter
+        counts, shapes = launch_counts(), launch_shapes()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+        state = trainer.state
+        micro = DATA_SAMPLES
+        if state.step != micro or len(steps) != micro:
+            raise AssertionError(f"one epoch of {micro} batches took {state.step} optimizer steps")
+        params = [p.detach() for p in state.params.values()]
+        finite = bool(torch.isfinite(torch.stack(torch._foreach_norm(params))).all())
+        if not finite:
+            raise AssertionError("non-finite parameters after the epoch")
+        want = {"flash_attention_fwd": 0, "flash_attention_fwd_lse": 48 * micro, "flash_attention_bwd_dq": 48 * micro,
+                "flash_attention_bwd_dkv": 48 * micro, "flash_attention_split_f32": 0}
+        if counts != {k: want[k] for k in counts}:
+            raise AssertionError(f"the epoch launched {counts}, not {want}")
+        by_length = {name: {f"{t}": n / micro for (t, d), n in sorted(per.items())} for name, per in shapes.items()}
+        for r in rows:  # the checked shapes' launches in this run, per micro-batch
+            b, t = r["b_t_h_d"][:2]
+            r["per_step"] = shapes["flash_attention_fwd_lse"].get((t, 64), 0) / micro
+            if not r["per_step"]:
+                raise AssertionError(f"the epoch launched nothing at {r['shape']}")
+        log = [json.loads(x) for x in (work / "experiments" / "train" / "log.txt").read_text().splitlines()]
+        if [x["epoch"] for x in log] != [0] or not np.isfinite(log[0]["train_loss"]):
+            raise AssertionError(f"log.txt: {log}")
+        emit({
+            "phase": "data_path",
+            "config": "configs/train.yaml via tools/train.main: the flagship (configs/model/mapanything.yaml) in "
+                      f"bf16, {DATA_SAMPLES} @ ETH3DWAI (configs/dataset/eth3d_wai/train/default.yaml): 518_many_ar, "
+                      "4 views, colorjitter+grayscale+gaublur, aug_crop 16, 1 x 4 views a batch, lr 1e-7",
+            "scenes": f"2 x {DATA_FRAMES} frames of {DATA_HW[1]} x {DATA_HW[0]}: PNG + 16-bit PNG depth, "
+                      "JPEG + EXR depth",
+            "write_scenes_s": write_s, "decode_ms_per_view": {k: float(np.mean(v)) for k, v in decode_ms.items()},
+            "decode_ms_each": decode_ms, "host_ms_per_view_by_stage": stage_ms, "loader_workers": workers,
+            "worker_ms_per_sample": float(np.mean(sample_ms)), "worker_ms_each_sample": sample_ms,
+            "loader_alone_s": loader_s, "loader_alone_batches_per_s": DATA_SAMPLES / loader_s,
+            "loader_alone_first_batch_s": first_s, "batch_shapes": shapes_seen,
+            "train_main_s": train_s, "ms_per_optimizer_step": 1e3 * float(np.mean(steps[1:])),
+            "ms_each_optimizer_step": [1e3 * x for x in steps], "loader_wait_ms_each_step": [1e3 * x for x in waits],
+            "loader_wait_ms_mean_after_first": 1e3 * float(np.mean(waits[1:])),
+            "launches": counts, "launches_per_micro_batch_by_key_length": by_length,
+            "finite_parameters": finite, "peak_mem_gib": peak_gib, "log": log,
+            "card": card["name"], "power_limit": card["power_limit"],
+        })
+        del trainer, state, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"rows": rows, "launches": counts, "shapes": shapes, "micro_batches": micro}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def data_path_entries(data) -> list:
+    """Phase 21 in the kernels line: each training kernel on the data path's epoch, one
+    entry per TPU kernel the JAX dispatch takes at those lengths (the head-pair kernels
+    above 2048 padded keys, the single-pass ones below): the run's launches in that
+    regime, and times per micro-batch at the checked shapes (each shape's per-call times
+    by its launches per micro-batch in the run)."""
+    entries = []
+    for name in TRAIN_KERNELS:
+        for regime, replaces in ((r, REGIME_REPLACES[r][name]) for r in ("pair", "single")):
+            regime_rows = [r for r in data["rows"] if jax_regime(r["b_t_h_d"][1]) == regime]
+            launches = sum(n for (t, _), n in data["shapes"][name].items() if jax_regime(t) == regime)
+            entries.append(train_entry(name, regime_rows, replaces, launches, data["micro_batches"],
+                                       path="data path: tools/train.main, 16 micro-batches of 1x4 views over "
+                                            "518_many_ar (phase 21); times per micro-batch at the checked shapes"))
+    return entries
+
+
 def rel_err(a, b, floor: float = 1e-12) -> float:
     """max |a - b| over b's magnitude max(|b|), floored at ``floor``."""
     a, b = a.detach().double().cpu(), b.detach().double().cpu()
@@ -2243,7 +2566,7 @@ def split_rows(rows) -> list:
 
 
 def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, inference_launches, train_launches,
-                 train_steps, vp_launches, many_view_line, h128, fp32_train, fp32_forward, files, trainer):
+                 train_steps, vp_launches, many_view_line, h128, fp32_train, fp32_forward, files, trainer, data):
     """The kernels line: each kernel, what it replaces, its launches on its path
     (one forward; all train steps, and per step), its max error and its times
     per forward (inference) or per train step. The phase-3c rows are the
@@ -2260,7 +2583,9 @@ def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, infe
     its split pass beside it. The phase-19 rows are the demo's forward (``files``: its rows and
     that run's launches by shape), times per scene; the Trainer's (phase 20, ``trainer``) are
     phase 3b's bf16 rows (the same shapes as phase 7's step), times per micro-batch, and its eval
-    forward's rows, times per eval forward, each with that run's launches."""
+    forward's rows, times per eval forward, each with that run's launches. The phase-21 rows
+    are the data path's training kernels (``data``) by the TPU kernels that the JAX dispatch
+    takes at its lengths, with that epoch's launches; times per micro-batch."""
     main_rows = [r for r in rows if r["per_forward"] and r["dtype"] == "bfloat16"]
     kernels = [path_entry("flash_attention_fwd", "mapanything_tpu/ops/flash_attention.py:395", main_rows,
                           {r["shape"]: r["per_forward"] for r in main_rows},
@@ -2317,6 +2642,7 @@ def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, infe
                                   path="flagship fp32 forward 1x8x518 (phase 18); times per forward"))
         kernels[-1]["launches"] = fp32_forward[name]  # the count of phase 18's run
     kernels += files_trainer_entries(train_rows, files, trainer)
+    kernels += data_path_entries(data)
     emit({"kernels": kernels})
 
 
@@ -2378,6 +2704,9 @@ def main() -> int:
                         help="build the kernels, then run phase 19 (files to a scene) alone and stop after its line")
     parser.add_argument("--trainer-only", action="store_true",
                         help="build the kernels, then run phase 20 (the Trainer) alone and stop after its line")
+    parser.add_argument("--data-only", action="store_true",
+                        help="build the kernels, then run phase 21 (from disk to a trained step) alone and stop "
+                             "after its line")
     args = parser.parse_args()
     import torch
 
@@ -2416,12 +2745,14 @@ def main() -> int:
         emit(build)
         flagship_train(card, compute_dtype=args.compute_dtype)
         return 0
-    if args.files_only or args.trainer_only:
+    if args.files_only or args.trainer_only or args.data_only:
         emit(build)
         if args.files_only:
             files_to_scene(card)
-        else:
+        elif args.trainer_only:
             trainer_phase(card)
+        else:
+            data_path_phase(card)
         return 0
     fwd_smem = _build.load(KERNEL_STEMS[0]).flash_attention_fwd_smem
     bwd_smem = _build.load(KERNEL_STEMS[1]).flash_attention_bwd_smem
@@ -2496,6 +2827,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 21. From disk to a trained step: the data path into the Trainer through the train tool.
+    data = data_path_phase(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # 8-10. View parallelism on a process group of this process alone: NCCL at world size 1.
     from mapanything_tpu_torch.parallel.distributed import init_distributed_mode
     from mapanything_tpu_torch.parallel.mesh import make_view_group
@@ -2529,7 +2865,7 @@ def main() -> int:
     summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, inference_launches, train_launches,
                  train_steps, vp_launches, many_view_line, h128,
                  {"rows": fp32_train_rows, "launches": fp32_launches, "steps": fp32_steps}, fp32_forward, files,
-                 trainer)
+                 trainer, data)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

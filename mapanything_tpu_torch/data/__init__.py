@@ -1,1 +1,1 @@
-"""Data of the port: image crop and resize with intrinsics bookkeeping."""
+"""Data of the port: datasets, samplers, the loader, WAI scene IO, splits, transforms, crop and resize."""

@@ -5,7 +5,9 @@ Counterparts of ``mapanything_tpu/geometry/quaternion.py``: ``quat_normalize``
 ``rotmat_to_quat`` (:56), ``quat_standardize`` (:101), ``quat_inverse``
 (:106), ``quat_multiply`` (:113), ``quat_rotate`` (:124),
 ``relative_pose_quats_trans`` (:137), ``quats_trans_to_pose_matrix`` (:161)
-and ``pose_matrix_to_quats_trans`` (:172). Every function broadcasts over
+and ``pose_matrix_to_quats_trans`` (:172); and ``rotmat_to_quat_markley``, the
+quaternion SciPy's ``Rotation.from_matrix(...).as_quat()`` gives (the JAX
+package's datasets and COLMAP export use SciPy). Every function broadcasts over
 leading dimensions.
 """
 
@@ -80,6 +82,25 @@ def rotmat_to_quat(matrix: torch.Tensor) -> torch.Tensor:
     onehot = torch.eye(4, dtype=matrix.dtype, device=matrix.device)[torch.argmax(q_abs, dim=-1)]
     wxyz = torch.sum(candidates * onehot[..., None], dim=-2)
     return quat_standardize(wxyz[..., [1, 2, 3, 0]])
+
+
+def rotmat_to_quat_markley(matrix: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices (..., 3, 3) to unit XYZW quaternions by Markley's method
+    (2008), as SciPy's ``Rotation.from_matrix`` then ``as_quat()`` gives them, sign
+    included (w may be negative): built from the largest of the diagonal and the
+    trace (the first on a tie), then normalised. Run it in float64 to match SciPy to
+    ~1e-8 (SciPy orthogonalises the matrix first)."""
+    m00, m01, m02, m10, m11, m12, m20, m21, m22 = matrix.reshape(matrix.shape[:-2] + (9,)).unbind(-1)
+    trace = m00 + m11 + m22
+    candidates = torch.stack([
+        torch.stack([1 - trace + 2 * m00, m10 + m01, m20 + m02, m21 - m12], dim=-1),
+        torch.stack([m01 + m10, 1 - trace + 2 * m11, m21 + m12, m02 - m20], dim=-1),
+        torch.stack([m02 + m20, m12 + m21, 1 - trace + 2 * m22, m10 - m01], dim=-1),
+        torch.stack([m21 - m12, m02 - m20, m10 - m01, 1 + trace], dim=-1),
+    ], dim=-2)
+    choice = torch.argmax(torch.stack([m00, m11, m22, trace], dim=-1), dim=-1)
+    quat = torch.gather(candidates, -2, choice[..., None, None].expand(choice.shape + (1, 4)))[..., 0, :]
+    return quat / torch.linalg.norm(quat, dim=-1, keepdim=True)
 
 
 def quat_standardize(quat: torch.Tensor) -> torch.Tensor:

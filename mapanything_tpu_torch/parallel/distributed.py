@@ -99,8 +99,9 @@ def run_ranks(fn: Callable, world_size: int, device: str, init_file: Union[str, 
     ``device="cpu"``, NCCL with one card a rank for ``device="cuda"``. ``fn``
     must be importable by its module path (``spawn`` unpickles it by
     importing its module), and its module should import no more than the
-    ranks need. Returns each rank's return value, by rank; a rank that raises
-    ends the others and the call raises.
+    ranks need. Returns each rank's return value, by rank (each read from the
+    rank's result file, which is then deleted); a rank that raises ends the
+    others and the call raises.
     """
     backend_for(device)
     init_file = str(init_file)
@@ -114,4 +115,5 @@ def run_ranks(fn: Callable, world_size: int, device: str, init_file: Union[str, 
     for rank in range(world_size):
         with open(f"{init_file}.rank{rank}", "rb") as f:
             results.append(pickle.load(f))  # written by the ranks above
+        os.remove(f"{init_file}.rank{rank}")  # read once: a small model's ranks leave 0.5 GB each
     return results

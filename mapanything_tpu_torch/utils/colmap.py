@@ -3,9 +3,10 @@
 A copy of ``mapanything_tpu/utils/colmap.py`` (:67-314): cameras, images and
 points3D in COLMAP's binary and text layouts, and ``predictions_to_colmap``,
 which builds a model from ``InferenceOutputs`` fields given as numpy arrays.
-The pose conversions use numpy alone: Markley's rotation-to-quaternion
-method (the one SciPy's ``Rotation.from_matrix`` applies to a rotation) and
-the quaternion's rotation matrix.
+The pose conversions: Markley's rotation-to-quaternion method in float64
+(``geometry.quaternion.rotmat_to_quat_markley``, the one SciPy's
+``Rotation.from_matrix`` applies to a rotation) and the quaternion's rotation
+matrix in numpy.
 
 Conventions: COLMAP stores world2cam with WXYZ quaternions; the port's poses
 are cam2world with XYZW quaternions.
@@ -19,6 +20,9 @@ from pathlib import Path
 from typing import Dict, List, Tuple
 
 import numpy as np
+import torch
+
+from mapanything_tpu_torch.geometry.quaternion import rotmat_to_quat_markley
 
 CAMERA_MODELS = {
     "SIMPLE_PINHOLE": (0, 3),
@@ -65,26 +69,6 @@ class Point3D:
 # --------------------------------------------------------------------------
 
 
-def _rotmat_to_quat_xyzw(rot: np.ndarray) -> np.ndarray:
-    """A rotation matrix (3, 3) to its unit XYZW quaternion (Markley 2008):
-    built from the largest of the diagonal and the trace, then normalised."""
-    decision = np.array([rot[0, 0], rot[1, 1], rot[2, 2], np.trace(rot)])
-    choice = int(np.argmax(decision))
-    quat = np.empty(4)
-    if choice != 3:
-        i, j, k = choice, (choice + 1) % 3, (choice + 2) % 3
-        quat[i] = 1 - decision[3] + 2 * rot[i, i]
-        quat[j] = rot[j, i] + rot[i, j]
-        quat[k] = rot[k, i] + rot[i, k]
-        quat[3] = rot[k, j] - rot[j, k]
-    else:
-        quat[0] = rot[2, 1] - rot[1, 2]
-        quat[1] = rot[0, 2] - rot[2, 0]
-        quat[2] = rot[1, 0] - rot[0, 1]
-        quat[3] = 1 + decision[3]
-    return quat / np.linalg.norm(quat)
-
-
 def _quat_xyzw_to_rotmat(quat) -> np.ndarray:
     x, y, z, w = np.asarray(quat, np.float64) / np.linalg.norm(quat)
     return np.array([
@@ -98,7 +82,7 @@ def c2w_to_colmap_qt(pose_c2w: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """4x4 cam2world -> (qvec WXYZ, tvec) of the world2cam transform."""
     r_w2c = pose_c2w[:3, :3].T
     t_w2c = -r_w2c @ pose_c2w[:3, 3]
-    q_xyzw = _rotmat_to_quat_xyzw(r_w2c)
+    q_xyzw = rotmat_to_quat_markley(torch.from_numpy(np.asarray(r_w2c, np.float64))).numpy()
     return np.array([q_xyzw[3], q_xyzw[0], q_xyzw[1], q_xyzw[2]]), t_w2c
 
 

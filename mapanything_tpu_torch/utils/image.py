@@ -7,13 +7,16 @@ decoded on the host, then cropped and resized (``data.cropping``) and
 normalised on ``device``: CUDA unless the caller passes another.
 
 The JAX package decodes with cv2. The port reads PNG itself, with ``zlib`` and
-numpy (``read_png``), and gives what ``cv2.imread(path, IMREAD_COLOR)`` then
-BGR -> RGB gives: alpha dropped (not composited), 16-bit samples cut to their
-high byte, grey and palette images expanded to three channels. Every other
-format (JPEG, BMP, WebP, TIFF, Bayer captures, HEIF) imports cv2 (HEIF:
-pillow-heif) only when such a file is given, and raises ``ImportError`` without
-it; ``load_images`` also takes decoded uint8 (H, W, 3) arrays. ``write_png``
-writes the files that the tests and the smoke script read.
+numpy (``read_png``), and JPEG with ``utils/jpeg.py``, and gives what
+``cv2.imread(path, IMREAD_COLOR)`` then BGR -> RGB gives: alpha dropped (not
+composited), 16-bit samples cut to their high byte, grey and palette images
+expanded to three channels. ``read_png(path, unchanged=True)`` keeps the
+samples as stored (16-bit grey depth maps as uint16), as ``IMREAD_UNCHANGED``.
+The formats left (BMP, WebP, TIFF, Bayer captures, HEIF) import cv2 (HEIF:
+pillow-heif) only when such a file is given, and raise ``ImportError``
+without it; ``load_images`` also takes decoded uint8 (H, W, 3) arrays.
+``write_png`` writes the files that the tests and the smoke script read,
+8-bit, or 16-bit grey.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch
 from mapanything_tpu_torch.data.cropping import crop_resize_if_necessary
 from mapanything_tpu_torch.models.encoders.normalizations import IMAGE_NORMALIZATION_DICT
 from mapanything_tpu_torch.models.mapanything import resolve_device
+from mapanything_tpu_torch.utils.jpeg import read_jpeg
 
 RESOLUTION_MAPPINGS = {
     518: {
@@ -138,10 +142,15 @@ def _unfilter(types: np.ndarray, rows: np.ndarray, bpp: int) -> np.ndarray:
     return x[r_idx + c_idx + 2, r_idx + 1].astype(np.uint8).reshape(h, n)
 
 
-def read_png(path) -> np.ndarray:
+def read_png(path, unchanged: bool = False) -> np.ndarray:
     """A PNG file as uint8 (H, W, 3) RGB, as cv2.imread(IMREAD_COLOR) + BGR2RGB
     gives it: 1-16 bit grey, grey + alpha, RGB, RGBA and palette images, every
-    scanline filter; interlaced files raise."""
+    scanline filter; interlaced files raise.
+
+    ``unchanged``: the samples as stored, as cv2.imread(IMREAD_UNCHANGED) keeps
+    them: grey as (H, W) uint8 or uint16 (1, 2 and 4-bit grey scaled to 8 bits),
+    other colour types as (H, W, C) uint8 or uint16, the channels in the file's
+    RGB(A) order (cv2 gives BGR(A)), palette images expanded to RGB."""
     data = Path(path).read_bytes()
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
@@ -177,7 +186,9 @@ def read_png(path) -> np.ndarray:
     raw = raw[:height * (row_bytes + 1)].reshape(height, row_bytes + 1)
     rows = _unfilter(raw[:, 0], raw[:, 1:], max(1, bits // 8))
 
-    if depth == 16:  # cv2 (libpng's strip_16) keeps the high byte
+    if depth == 16 and unchanged:
+        samples = rows.view(">u2").astype(np.uint16)
+    elif depth == 16:  # cv2 (libpng's strip_16) keeps the high byte
         samples = rows[:, 0::2]
     elif depth < 8:
         samples = np.unpackbits(rows, axis=1).reshape(height, -1, depth)
@@ -193,18 +204,27 @@ def read_png(path) -> np.ndarray:
         grey = samples[..., 0]
         if depth < 8:  # libpng scales 1, 2 and 4-bit grey to 8 bits
             grey = grey * np.uint8(255 // ((1 << depth) - 1))
+        if unchanged:
+            return np.ascontiguousarray(grey) if color == 0 else np.stack([grey, samples[..., 1]], axis=-1)
         return np.repeat(grey[..., None], 3, axis=-1)
-    return np.ascontiguousarray(samples[..., :3])
+    return np.ascontiguousarray(samples if unchanged else samples[..., :3])
 
 
 def write_png(path, image: np.ndarray, filters: Sequence[int] = (0, 1, 2, 3, 4), level: int = 6) -> Path:
-    """Write uint8 (H, W), (H, W, 3) or (H, W, 4) as an 8-bit PNG; row r takes
-    scanline filter ``filters[r % len(filters)]`` (0 None, 1 Sub, 2 Up, 3
-    Average, 4 Paeth)."""
-    img = np.ascontiguousarray(image, np.uint8)
-    color = {2: 0, 3: {1: 0, 3: 2, 4: 6}[img.shape[-1]] if img.ndim == 3 else 0}[img.ndim]
-    h, w = img.shape[:2]
-    bpp = 1 if img.ndim == 2 else img.shape[2]
+    """Write uint8 (H, W), (H, W, 3) or (H, W, 4) as an 8-bit PNG, or uint16 (H, W)
+    as 16-bit grey (depth in millimetres, as WAI stores it); row r takes scanline
+    filter ``filters[r % len(filters)]`` (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth)."""
+    image = np.asarray(image)
+    if image.dtype == np.uint16:
+        if image.ndim != 2:
+            raise ValueError(f"16-bit PNG: expected (H, W) grey, got {image.shape}")
+        img, depth, color = np.ascontiguousarray(image, ">u2").view(np.uint8), 16, 0  # (H, 2W) big-endian bytes
+        bpp = 2
+    else:
+        img, depth = np.ascontiguousarray(image, np.uint8), 8
+        color = {2: 0, 3: {1: 0, 3: 2, 4: 6}[img.shape[-1]] if img.ndim == 3 else 0}[img.ndim]
+        bpp = 1 if img.ndim == 2 else img.shape[2]
+    h, w = image.shape[:2]
     x = img.reshape(h, w * bpp).astype(np.int16)
     left = np.zeros_like(x)
     left[:, bpp:] = x[:, :-bpp]
@@ -224,7 +244,7 @@ def write_png(path, image: np.ndarray, filters: Sequence[int] = (0, 1, 2, 3, 4),
         return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
 
     path = Path(path)
-    path.write_bytes(_PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
+    path.write_bytes(_PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, 0))
                      + chunk(b"IDAT", zlib.compress(out.tobytes(), level)) + chunk(b"IEND", b""))
     return path
 
@@ -241,8 +261,8 @@ def _needs(module: str, what: str):
     except ImportError as e:
         raise ImportError(
             f"{what} needs the {module!r} package, which is not installed here; the port reads PNG "
-            "itself: convert the images to PNG, or decode them elsewhere and pass the uint8 "
-            "(H, W, 3) arrays to load_images"
+            "and JPEG itself, not BMP, WebP, TIFF, Bayer captures or HEIF: convert the images to PNG, "
+            "or decode them elsewhere and pass the uint8 (H, W, 3) arrays to load_images"
         ) from e
 
 
@@ -258,6 +278,8 @@ def _read_image(path, bayer_format: bool = False) -> np.ndarray:
         return np.asarray(ImageOps.exif_transpose(Image.open(path)).convert("RGB"))
     if suffix == ".png" and not bayer_format:
         return read_png(path)
+    if suffix in (".jpg", ".jpeg") and not bayer_format:
+        return read_jpeg(path)
     cv2 = _needs("cv2", f"{path}: {'a Bayer capture' if bayer_format else suffix.lstrip('.').upper()}")
     if bayer_format:
         raw = cv2.imread(path, cv2.IMREAD_UNCHANGED)

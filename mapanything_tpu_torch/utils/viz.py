@@ -1,8 +1,9 @@
 """Point-cloud export of the port: binary PLY and glTF 2.0 binary (GLB).
 
-A copy of ``write_ply_pointcloud``, ``write_glb_pointcloud`` and
-``predictions_to_glb`` of ``mapanything_tpu/utils/viz.py`` (:19-120), numpy
-only. They take ``InferenceOutputs`` fields as numpy arrays (``.cpu().numpy()``
+A copy of ``write_ply_pointcloud``, ``write_glb_pointcloud``,
+``predictions_to_glb`` and ``save_views_as_image`` of
+``mapanything_tpu/utils/viz.py`` (:19-136), numpy only (the image grid is
+written by the port's PNG writer, where the JAX package calls cv2). They take ``InferenceOutputs`` fields as numpy arrays (``.cpu().numpy()``
 of the tensors ``infer`` returns) and write the same bytes as the JAX package.
 """
 
@@ -10,9 +11,12 @@ from __future__ import annotations
 
 import json
 import struct
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
+
+from mapanything_tpu_torch.utils.image import write_png
 
 
 def write_ply_pointcloud(path, points: np.ndarray, colors: Optional[np.ndarray] = None):
@@ -115,3 +119,22 @@ def predictions_to_glb(
         sel = np.random.default_rng(0).choice(len(pts), max_points, replace=False)
         pts, col = pts[sel], col[sel]
     write_glb_pointcloud(path, pts, col)
+
+
+def save_views_as_image(views_imgs, path, ncols: Optional[int] = None):
+    """Tile (V, H, W, 3) images (uint8, or float in [0, 1], truncated to uint8) into
+    one grid, ``ncols`` wide (default ceil(sqrt(V))), saved as a PNG."""
+    if Path(path).suffix.lower() != ".png":
+        raise ValueError(f"{path}: the port writes the grid as PNG only")
+    imgs = np.asarray(views_imgs)
+    if imgs.dtype != np.uint8:
+        imgs = (np.clip(imgs, 0, 1) * 255).astype(np.uint8)
+    v, h, w, c = imgs.shape
+    ncols = ncols or int(np.ceil(np.sqrt(v)))
+    nrows = int(np.ceil(v / ncols))
+    grid = np.zeros((nrows * h, ncols * w, c), np.uint8)
+    for i in range(v):
+        r, cc = divmod(i, ncols)
+        grid[r * h : (r + 1) * h, cc * w : (cc + 1) * w] = imgs[i]
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    write_png(path, grid)

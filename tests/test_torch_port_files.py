@@ -12,6 +12,7 @@ fixed seeds.
 
 import dataclasses
 import json
+import shutil
 import struct
 import sys
 import zlib
@@ -131,14 +132,19 @@ def test_png_reader_refuses_interlaced_and_corrupt_files(tmp_path):
 
 
 def test_other_formats_decode_through_cv2_or_name_the_format(tmp_path, monkeypatch):
-    """A JPEG goes through cv2 when it is installed (as the JAX package reads it);
-    without cv2, the error names the format and the way around it."""
+    """A JPEG goes through the port's own decoder, with or without cv2, and gives what
+    the JAX package reads with cv2; the formats left (BMP here) go through cv2 when it
+    is installed, and without it the error names the format and the way around it."""
     img = smooth_image(np.random.default_rng(5), 40, 60)
     assert cv2.imwrite(str(tmp_path / "a.jpg"), img[..., ::-1])
+    assert cv2.imwrite(str(tmp_path / "a.bmp"), img[..., ::-1])
     assert np.array_equal(port_image._read_image(tmp_path / "a.jpg"), jax_image._read_image(tmp_path / "a.jpg"))
+    assert np.array_equal(port_image._read_image(tmp_path / "a.bmp"), jax_image._read_image(tmp_path / "a.bmp"))
     monkeypatch.setitem(sys.modules, "cv2", None)  # import cv2 now raises ImportError
-    with pytest.raises(ImportError, match="JPG.*cv2.*PNG"):
-        port_image.load_images([tmp_path / "a.jpg"], device="cpu")
+    loaded = port_image.load_images([tmp_path / "a.jpg"], device="cpu")
+    assert loaded["images"].shape[0] == 1 and loaded["true_shape"].tolist() == [[40, 60]]
+    with pytest.raises(ImportError, match="BMP.*cv2.*PNG"):
+        port_image.load_images([tmp_path / "a.bmp"], device="cpu")
     with pytest.raises(ImportError, match="Bayer"):
         port_image.load_images([tmp_path / "a.jpg"], bayer_format=True, device="cpu")
     port_image.write_png(tmp_path / "b.png", img)  # PNG needs no cv2
@@ -321,6 +327,7 @@ def test_reference_checkpoint_round_trips_through_the_jax_converter(multimodal, 
     fresh = port_ma.MapAnything(port_ma.MapAnythingConfig.small(**STEP_CFG), device="cpu", seed=9,
                                 geometric_inputs=True)
     port_checkpoint.load_reference_checkpoint(fresh, path)
+    path.unlink()  # 0.25 GB, read: no test run leaves it behind
     want = port.state_dict()
     got = fresh.state_dict()
     assert sorted(got) == sorted(want)
@@ -410,6 +417,7 @@ def test_hub_round_trip_and_load_model_tool(multimodal, tmp_path, capsys):
     assert all(torch.equal(v, want[k]) for k, v in back.state_dict().items())
     model, source = port_load_model.load_model(str(tmp_path / "hub"), device="cpu", compute_dtype="bfloat16")
     assert source == "hub" and model.config.compute_dtype == "bfloat16"
+    shutil.rmtree(tmp_path / "hub")  # 0.25 GB, read
     port_load_model.main([])
     assert "500.05M parameters" in capsys.readouterr().out
 
@@ -435,6 +443,7 @@ def test_demo_writes_the_four_outputs(tmp_path, weights):
     assert result["source"] == weights
     assert result["model"].config.compute_dtype == "bfloat16"
     if weights == "checkpoint":
+        (tmp_path / "small.pth").unlink()  # read
         want = saved.state_dict()
         assert all(torch.equal(v, want[k]) for k, v in result["model"].state_dict().items())
     out = tmp_path / "out"

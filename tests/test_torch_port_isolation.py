@@ -49,7 +49,8 @@ extra = sorted({{m.split(".")[0] for m in sys.modules}} - base - set(sys.stdlib_
 print(json.dumps({{"names": names, "bad": bad, "extra": extra}}))
 """
 
-# Modules of the training, view-parallel, inference and files/trainer slices that the fresh-process import must reach.
+# Modules of the training, view-parallel, inference, files/trainer and data slices that the fresh-process
+# import must reach.
 SLICE_MODULES = (
     "mapanything_tpu_torch.train.losses",
     "mapanything_tpu_torch.train.optim",
@@ -83,9 +84,25 @@ SLICE_MODULES = (
     "mapanything_tpu_torch.train.checkpointing",
     "mapanything_tpu_torch.utils.logging",
     "mapanything_tpu_torch.train.loop",
+    # the data path: WAI scenes from disk through datasets, samplers and the loader to the train tool
+    "mapanything_tpu_torch.utils.exr",
+    "mapanything_tpu_torch.utils.jpeg",
+    "mapanything_tpu_torch.utils.yaml_subset",
+    "mapanything_tpu_torch.utils.config",
+    "mapanything_tpu_torch.data.transforms",
+    "mapanything_tpu_torch.data.easy_dataset",
+    "mapanything_tpu_torch.data.splits",
+    "mapanything_tpu_torch.native",
+    "mapanything_tpu_torch.data.base_dataset",
+    "mapanything_tpu_torch.data.samplers",
+    "mapanything_tpu_torch.data.loader",
+    "mapanything_tpu_torch.data.wai",
+    "mapanything_tpu_torch.data.datasets.wai_datasets",
+    "mapanything_tpu_torch.tools.train",
 )
-# Optional decoders that the port imports only when a file needs them.
-LAZY = ("cv2", "PIL", "pillow_heif")
+# Optional decoders that the port imports only when a file needs them, and what the JAX data path
+# uses that the port must not (PyYAML, SciPy).
+LAZY = ("cv2", "PIL", "pillow_heif", "yaml", "scipy")
 
 
 def test_port_imports_no_jax_in_a_fresh_process():
