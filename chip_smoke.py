@@ -9,6 +9,7 @@
     python3 chip_smoke.py --files-only         # phases 1, 2 and 19 alone
     python3 chip_smoke.py --trainer-only       # phases 1, 2 and 20 alone
     python3 chip_smoke.py --data-only          # phases 1, 2 and 21 alone
+    python3 chip_smoke.py --rgb-only           # phases 1, 2, the D = 32 rows of 3 and 3b, 22-25
 
 Phases, each printing one JSON line:
   1. the card's name and power limit, as nvidia-smi reports them;
@@ -20,25 +21,30 @@ Phases, each printing one JSON line:
      forward and backward instance, bf16 and fp32 (fa_fwd_bf16, fa_fwd_f32,
      fa_bwd_dq_bf16, fa_bwd_dkv_bf16, fa_bwd_dq_f32, fa_bwd_dkv_f32);
   3f. the forward's edges, bf16 and fp32: both forms (lse-free and lse) at
-     D = 64 and 128 against their plain versions under phase 3's rule (fp32
+     D = 64 and 128 (and 32 in fp32) against their plain versions under phase 3's rule (fp32
      also under the fp32 rule, below), at
      T = 1, 7, 64, 65, 127, 129 and 1370 and at Tq != Tk (129 against
      4000, 5476 against 1), and at 320 and 384 work tiles (every block of
      the persistent grid walks several), on contiguous tensors and on
      views of fused qkv (and kv) tensors with a non-default scale, the lse
-     on every row;
+     on every row; then the canary cases (CANARY_CASES): the fp32 forward at
+     D = 32, 64 and 128 writing o and the lse inside buffers whose canary
+     bytes before and after must survive bit for bit;
   3g. the backward's edges: dq and dk/dv, bf16 and fp32, at D = 64 and 128
-     against their plain versions under phase 3's rule (fp32 also under the
+     (and 32 in fp32) against their plain versions under phase 3's rule (fp32 also under the
      fp32 rule, below) at phase 3f's shapes and layouts (dO a view of a wider
      tensor in the fused layout), fed the statistics of the plain forward (of
      a merged softmax where there is one key, and in one more case, as the
      ring feeds them); each kernel called twice, the outputs bitwise equal;
+     then the canary cases: dq, dk and dv written inside canary buffers;
   3. inference kernel checks: the lse-free attention forward against its
      plain PyTorch version at the inference shapes (encoder, frame and
      global layers in bf16, and in fp32: phase 18's), with kernel, plain and
      torch-SDPA times and the bound; the fp32 rows also under the fp32 rule,
      with the kernel timed alone on one split pass's parts, the split pass
      (held bitwise to its plain version) and the whole call timed apart;
+     and the fp32 D = 32 instance at the RGB models' MAE decoder, 8 x 1369 x 16 x 32
+     (8 launches a 1 x 8 x 518 forward, phase 22's);
   3b. training kernel checks: the forward with lse, the dq and the dk/dv
      kernels against their plain versions at the 1 x 4 x 518 training
      shapes in bf16 (phase 7's) and in fp32 (phase 17's), with kernel, plain
@@ -49,7 +55,9 @@ Phases, each printing one JSON line:
      fp64, or 1e-5 of the magnitude (phase 3's 1e-2 would pass a single bf16
      pass); the fp32 kernels are timed alone on split parts, and the split
      passes (the forward's of q, k, v and the backward's of q, k, v, dO) are
-     held bitwise to their plain version and timed;
+     held bitwise to their plain version and timed; and the fp32 D = 32
+     instances at the MAE decoder's 4 x 1369 x 16 x 32 (8 each a 1 x 4 x 518
+     step, phase 23's);
   4. slice check: MapAnythingConfig.small(), 2 views at 56 px in fp32, the same
      seeded weights on cuda and on cpu, every prediction compared;
   5. inference: the flagship MapAnythingConfig(compute_dtype="bfloat16")
@@ -169,12 +177,28 @@ Phases, each printing one JSON line:
      micro-batch by kernel and key length, finite parameters, peak memory;
      the training kernels first against their plain versions at the extreme
      aspect ratios' shapes (global 1 x 5477 and 1 x 1777, frame 4 x 1369 and
-     4 x 444), as in phase 3b.
+     4 x 444), as in phase 3b;
+  22. the RGB models' flagships (configs/model/mapanything_{mae,moge}_rgb.yaml
+     widths: bf16 trunk, fp32 head, raydirs+depth+rgb+pose) through ``infer``
+     on 1 x 8 x 518: launches by key length and head dim (the MAE decoder's 8
+     fp32 D = 32 forwards and their split passes beside the 48 bf16 D = 64
+     ones), ms, views/s, peak memory, the output invariants, colours in [0, 1];
+  23. the MAE flagship's train step on 1 x 4 x 518 with a seeded target_rgb:
+     launches by head dim (8 of each training kernel at D = 32, 16 split
+     passes), finite loss, RGB term, gradient norm and gradients, a nonzero
+     gradient for every parameter, ms per step, views/s, peak memory;
+  24. the RGB perception loss (VGG19 on seeded weights, 1 x 2 x 64), the
+     disentangled loss and the DUSt3R loss on the card against the CPU, each
+     value and gradient within 1e-4 of its magnitude (TF32 off);
+  25. the Trainer on a one-rank data x view mesh (NCCL, after phase 10, in
+     the same group): the small fp32 multimodal model on one batch
+     against the Trainer without a mesh.
 On a machine with more than one card, phases 9 and 10 then run again over
 NCCL with one rank a card (2 or 4 cards); rank 0 checks the gathered
 outputs against the unsharded forward. A machine with one card skips this.
 Phases 11-13 run after phase 5, before phase 6; phase 3e after 3d; phases
-14-21 after phase 7, before phase 8. Then the kernels' summary line and,
+14-24 after phase 7, before phase 8 (the D = 32 rows with phases 3 and 3b);
+phase 25 after phase 10. Then the kernels' summary line and,
 last, {"ok": true, "device": {...}}.
 Phases 3f and 3g run right after the build. With --train-step-only, phase 7
 (phase 17 with --compute-dtype float32) runs after the build (without the SASS
@@ -183,7 +207,8 @@ the ok line; copied into another checkout's tree, it times that checkout's step
 the same way. With --forward-edges-only, phase
 3f runs after the build and the script stops there, the same way; with
 --backward-edges-only, phase 3g; with --files-only, phase 19; with
---trainer-only, phase 20; with --data-only, phase 21.
+--trainer-only, phase 20; with --data-only, phase 21; with --rgb-only, the
+D = 32 rows of phases 3 and 3b, phases 22-24, and 25 on a one-rank group of its own.
 Any failed check raises and the script exits non-zero. Without a CUDA device,
 or without the port beside it, it exits non-zero and prints no result.
 """
@@ -194,6 +219,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -379,11 +405,12 @@ def kernel_checks(card, shapes, phase_id: str):
 
         if fp32:  # the kernel alone on one split's parts; the split and the whole call apart
             parts = fa.flash_attention_split_f32(q, k, v)
-            split_bitwise = all(torch.equal(got, fa.split_bf16x3_reference(x)) for got, x in zip(parts, (q, k, v)))
+            split_bitwise = all(torch.equal(got, fa.split_bf16x3_reference(x, fa.part_cols(d)))
+                                for got, x in zip(parts, (q, k, v)))
             ms = cuda_time_ms(lambda: fa._launch_fwd(q, k, v, scale, False, parts), iters=20)
             extra = {"split_ms": cuda_time_ms(lambda: fa.flash_attention_split_f32(q, k, v), iters=20),
-                     "split_plain_ms": cuda_time_ms(lambda: [fa.split_bf16x3_reference(x) for x in (q, k, v)],
-                                                    iters=5, warmup=1),
+                     "split_plain_ms": cuda_time_ms(
+                         lambda: [fa.split_bf16x3_reference(x, fa.part_cols(d)) for x in (q, k, v)], iters=5, warmup=1),
                      "split_bound_ms": split_bound_ms(card, 3 * b * t * h * d),
                      "split_bitwise": split_bitwise,
                      "call_ms": cuda_time_ms(lambda: fa.flash_attention(q, k, v, scale), iters=20),
@@ -490,11 +517,26 @@ def ptxas_report(log: str) -> dict:
 # forward's, bf16 and fp32, by (dtype, D, lse) in the forward library; the backward's by
 # (kernel, dtype, D) in the backward library; with the index of each in its library's
 # flash_attention_fwd_smem or flash_attention_bwd_smem.
-FWD_INSTANCES = {(dtype, d, lse): f"fa_fwd_{dtype}ILi{d}ELb{int(lse)}E"
-                 for dtype in ("bf16", "f32") for d in (64, 128) for lse in (False, True)}
+def instance_dims() -> dict:
+    """The head dims of each dtype's instances, as ``ops/flash_attention.py`` lists them."""
+    import torch
+
+    from mapanything_tpu_torch.ops import flash_attention as fa
+
+    return {"bf16": fa.head_dims(torch.bfloat16), "f32": fa.head_dims(torch.float32)}
+
+
+def fwd_instances() -> dict:
+    return {(dtype, d, lse): f"fa_fwd_{dtype}ILi{d}ELb{int(lse)}E"
+            for dtype, dims in instance_dims().items() for d in dims for lse in (False, True)}
+
+
+def bwd_instances() -> dict:
+    return {(kernel, dtype, d): f"fa_bwd_{kernel}_{dtype}ILi{d}E"
+            for kernel in ("dq", "dkv") for dtype, dims in instance_dims().items() for d in dims}
+
+
 FWD_SMEM_INDEX = {"bf16": 0, "f32": 1}
-BWD_INSTANCES = {(kernel, dtype, d): f"fa_bwd_{kernel}_{dtype}ILi{d}E"
-                 for kernel in ("dq", "dkv") for dtype in ("bf16", "f32") for d in (64, 128)}
 BWD_SMEM_INDEX = {("dq", "bf16"): 0, ("dkv", "bf16"): 1, ("dq", "f32"): 2, ("dkv", "f32"): 3}
 TENSOR_CORE_SASS = ("HGMMA", "UTMALDG")
 
@@ -538,7 +580,7 @@ def forward_edge_checks(card) -> list:
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
         dname, fp32 = str(dtype).split(".")[-1], dtype == torch.float32
-        for d in fa.HEAD_DIMS:
+        for d in fa.head_dims(dtype):
             for tq, tk, b, h in EDGE_CASES:
                 for layout in ("contiguous", "fused"):
                     gen = torch.Generator(device="cuda").manual_seed(tq * 7919 + tk + d)
@@ -569,14 +611,66 @@ def forward_edge_checks(card) -> list:
                         if fp32:
                             row["fp32_tol"] = fp32_tolerance(plain_err, exact)
                         cases.append(row)
-    bad = [c for c in cases if not (c["finite"] and c["err"] <= c["tol"] and c["err"] <= c.get("fp32_tol", c["tol"]))]
+    cases += forward_canary_checks()
+    bad = [c for c in cases if not (c["finite"] and c["err"] <= c["tol"] and c["err"] <= c.get("fp32_tol", c["tol"])
+                                    and c.get("canaries_intact", True))]
     worst = {dname: max((c for c in cases if c["dtype"] == dname),
                         key=lambda c: c["err"] / max(min(c["tol"], c.get("fp32_tol", c["tol"])), 1e-30))
              for dname in ("bfloat16", "float32")}
     emit({"phase": "forward_edge_check", "phase_id": "3f", "cases": len(cases), "worst": worst, "failed": bad,
+          "canary_cases": sum("canaries_intact" in c for c in cases),
           "card": card["name"], "power_limit": card["power_limit"]})
     if bad:
         raise AssertionError(f"the forward disagrees with its plain version at {len(bad)} edge cases: {bad[:4]}")
+    return cases
+
+
+# The canary cases of phases 3f and 3g: the fp32 kernels at every instantiated head dim
+# write into tensors cut out of a larger buffer whose bytes before and after them hold a
+# canary, which must survive bit for bit (a store past a row of D, or past the last row,
+# would overwrite it). (Tq, Tk, B, H): lengths that no tile divides, H >= 3, q, k, v as
+# views of a fused qkv (or q and kv) tensor.
+CANARY_CASES = [(65, 65, 2, 3), (129, 4000, 2, 3), (1370, 1370, 1, 16), (1369, 1369, 3, 5)]
+CANARY = 1234.5678
+CANARY_PAD = 4096  # elements of canary before and after each output
+
+
+def canary_buffer(shape, dtype=None):
+    """A tensor of ``shape`` inside a buffer padded with CANARY_PAD canary elements on
+    each side, and a check that returns whether the canaries survived."""
+    import torch
+
+    n = math.prod(shape)
+    buf = torch.full((n + 2 * CANARY_PAD,), CANARY, dtype=dtype or torch.float32, device="cuda")
+    inner = buf[CANARY_PAD:CANARY_PAD + n].view(shape)
+    inner.fill_(float("nan"))
+    return inner, lambda: bool((buf[:CANARY_PAD] == CANARY).all() and (buf[CANARY_PAD + n:] == CANARY).all())
+
+
+def forward_canary_checks() -> list:
+    """Phase 3f's canary cases: the fp32 forward with lse into canary buffers."""
+    import torch
+
+    from mapanything_tpu_torch.ops import flash_attention as fa
+
+    cases = []
+    for d in fa.F32_HEAD_DIMS:
+        for tq, tk, b, h in CANARY_CASES:
+            gen = torch.Generator(device="cuda").manual_seed(tq * 31 + tk + d)
+            q, k, v, _, scale = backward_edge_inputs(d, tq, tk, b, h, "fused", gen, torch.float32)
+            o, o_ok = canary_buffer((b, tq, h, d))
+            lse, lse_ok = canary_buffer((b, h, tq))
+            fa._launch_fwd(q, k, v, scale, True, out=(o, lse))
+            torch.cuda.synchronize()
+            o_exact, lse_exact = fa.attention_lse_reference(*(x.double() for x in (q, k, v)), scale)
+            o_plain, lse_plain = fa.attention_lse_reference(q, k, v, scale)
+            intact = o_ok() and lse_ok()
+            for form, out, exact, plain in (("o", o, o_exact, o_plain), ("lse", lse, lse_exact, lse_plain)):
+                plain_err = max_err(plain, exact)
+                cases.append({"dtype": "float32", "d": d, "tq": tq, "tk": tk, "b": b, "h": h, "layout": "fused",
+                              "out": form, "err": max_err(out, exact), "tol": tolerance(plain_err, exact),
+                              "fp32_tol": fp32_tolerance(plain_err, exact),
+                              "finite": bool(torch.isfinite(out).all()), "canaries_intact": intact})
     return cases
 
 
@@ -645,7 +739,7 @@ def backward_edge_checks(card) -> list:
 
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
-        for d in fa.HEAD_DIMS:
+        for d in fa.head_dims(dtype):
             for tq, tk, b, h in EDGE_CASES:
                 for layout in ("contiguous", "fused"):
                     gen = torch.Generator(device="cuda").manual_seed(tq * 7919 + tk + d + 1)
@@ -659,12 +753,36 @@ def backward_edge_checks(card) -> list:
             lse, delta = statistics(q, k, v, do, d**-0.5, gen)
             check({"dtype": dname, "d": d, "tq": 1370, "tk": 1370, "b": 1, "h": 4, "layout": "contiguous",
                    "merged_lse": True}, q, k, v, do, lse, delta, d**-0.5)
+    for d in fa.F32_HEAD_DIMS:  # the canary cases (CANARY_CASES)
+        for tq, tk, b, h in CANARY_CASES:
+            gen = torch.Generator(device="cuda").manual_seed(tq * 31 + tk + d + 1)
+            q, k, v, do, scale = backward_edge_inputs(d, tq, tk, b, h, "fused", gen, torch.float32)
+            lse, delta = statistics(q, k, v, do, scale, None)
+            parts = fa.flash_attention_split_f32(q, k, v, fa._check_bwd(q, k, v, do, lse, delta))
+            (dq, dq_ok), (dk, dk_ok), (dv, dv_ok) = (canary_buffer(x.shape) for x in (q, k, v))
+            fa._launch_bwd("dq", q, k, v, do, lse, delta, scale, (dq,), parts)
+            fa._launch_bwd("dkv", q, k, v, do, lse, delta, scale, (dk, dv), parts)
+            torch.cuda.synchronize()
+            intact = dq_ok() and dk_ok() and dv_ok()
+            xe = [x.double() for x in (q, k, v, do, lse, delta)]
+            exact = {"dq": fa.attention_bwd_dq_reference(*xe, scale)}
+            exact["dk"], exact["dv"] = fa.attention_bwd_dkv_reference(*xe, scale)
+            plain = {"dq": fa.attention_bwd_dq_reference(q, k, v, do, lse, delta, scale)}
+            plain["dk"], plain["dv"] = fa.attention_bwd_dkv_reference(q, k, v, do, lse, delta, scale)
+            for out, got in (("dq", dq), ("dk", dk), ("dv", dv)):
+                plain_err = max_err(plain[out], exact[out])
+                cases.append({"dtype": "float32", "d": d, "tq": tq, "tk": tk, "b": b, "h": h, "layout": "fused",
+                              "merged_lse": False, "out": out, "err": max_err(got, exact[out]),
+                              "tol": tolerance(plain_err, exact[out]), "fp32_tol": fp32_tolerance(plain_err, exact[out]),
+                              "finite": bool(torch.isfinite(got).all()), "repeatable": True,
+                              "canaries_intact": intact})
     bad = [c for c in cases if not (c["finite"] and c["repeatable"] and c["err"] <= c["tol"]
-                                    and c["err"] <= c.get("fp32_tol", c["tol"]))]
+                                    and c["err"] <= c.get("fp32_tol", c["tol"]) and c.get("canaries_intact", True))]
     worst = {dname: max((c for c in cases if c["dtype"] == dname),
                         key=lambda c: c["err"] / max(min(c["tol"], c.get("fp32_tol", c["tol"])), 1e-30))
              for dname in ("bfloat16", "float32")}
     emit({"phase": "backward_edge_check", "phase_id": "3g", "cases": len(cases), "worst": worst, "failed": bad,
+          "canary_cases": sum("canaries_intact" in c for c in cases),
           "card": card["name"], "power_limit": card["power_limit"]})
     if bad:
         raise AssertionError(f"the backward disagrees with its plain version or itself at {len(bad)} edge "
@@ -738,7 +856,7 @@ def train_kernel_checks(card, shapes=TRAIN_SHAPES, replaces=TRAIN_REPLACES, phas
         split_bitwise = None
         if fp32:  # the split passes against their plain version, bitwise
             parts, fwd_parts = fa.flash_attention_split_f32(q, k, v, do), fa.flash_attention_split_f32(q, k, v)
-            split_bitwise = all(torch.equal(got, fa.split_bf16x3_reference(x))
+            split_bitwise = all(torch.equal(got, fa.split_bf16x3_reference(x, fa.part_cols(d)))
                                 for got, x in zip(parts + fwd_parts, (q, k, v, do, q, k, v)))
 
         plain_delta = fa.attention_bwd_delta(o, do)
@@ -773,7 +891,8 @@ def train_kernel_checks(card, shapes=TRAIN_SHAPES, replaces=TRAIN_REPLACES, phas
                         "bwd_split_ms": cuda_time_ms(lambda: fa.flash_attention_split_f32(q, k, v, do), iters=20)}
             times["flash_attention_split_f32"] = (
                 split_ms["fwd_split_ms"] + split_ms["bwd_split_ms"],
-                cuda_time_ms(lambda: [fa.split_bf16x3_reference(x) for x in (q, k, v, do, q, k, v)], iters=5,
+                cuda_time_ms(lambda: [fa.split_bf16x3_reference(x, fa.part_cols(d)) for x in (q, k, v, do, q, k, v)],
+                             iters=5,
                              warmup=1),
             )
         # The library yardstick: torch SDPA forward with autograd on, and its backward alone.
@@ -1645,7 +1764,8 @@ def numpy_batch(B, V, H, W, seed) -> dict:
 
     b = synthetic_loss_batch(B, V, H, W, seed=seed)
     names = {"ray_directions": "ray_directions_cam"}
-    out = {names.get(f.name, f.name): getattr(b, f.name).numpy() for f in dataclasses.fields(b)}
+    out = {names.get(f.name, f.name): getattr(b, f.name).numpy() for f in dataclasses.fields(b)
+           if getattr(b, f.name) is not None}
     out["img"] = np.random.RandomState(seed).randn(B, V, H, W, 3).astype(np.float32)
     return out
 
@@ -2492,6 +2612,301 @@ def flagship_view_parallel(card, group):
     return line
 
 
+# Phases 3 and 3b at the RGB models' MAE decoder (8 ViT blocks of 16 heads of 32, fp32
+# whatever the model's dtype; 1369 tokens a view at 518 px): (name, shape, dtype,
+# launches per MAE flagship forward, the TPU kernel: at 1369 keys the JAX dispatch takes
+# one key block of 1536, the single-pass kernel, fp32 and d % 128 != 0).
+RGB_SHAPES = [("mae_decoder", (8, 1369, 16, 32), "float32", 8, f"{FA}:114")]
+RGB_TRAIN_SHAPES = [("mae_decoder", (4, 1369, 16, 32), "float32", 8)]
+RGB_TRAIN_REPLACES = {"flash_attention_fwd_lse": {"mae_decoder": f"{FA}:118"},
+                      "flash_attention_bwd_dq": {"mae_decoder": f"{FA}:227"},
+                      "flash_attention_bwd_dkv": {"mae_decoder": f"{FA}:262"},
+                      "flash_attention_split_f32": {"mae_decoder": f"{FA}:227"}}
+RGB_HEADS = ("mae", "moge")
+
+
+def rgb_config(head: str, compute_dtype: str = "bfloat16"):
+    """The flagship widths of configs/model/mapanything_{mae,moge}_rgb.yaml: the DINOv2
+    large encoder and the 24-layer trunk in ``compute_dtype``, the ``head`` dense head
+    (fp32 whatever the dtype) with the ``raydirs+depth+rgb+pose`` scene representation."""
+    from mapanything_tpu_torch.models.heads.adaptors import DenseAdaptorConfig
+    from mapanything_tpu_torch.models.mapanything import MapAnythingConfig
+
+    return MapAnythingConfig(
+        compute_dtype=compute_dtype, dense_head_type=head, scene_rep_type="raydirs+depth+rgb+pose",
+        dense_adaptor=DenseAdaptorConfig(components=("ray_directions", "depth", "rgb"), with_confidence=True,
+                                         with_mask=True))
+
+
+def rgb_flagship_infer(card) -> dict:
+    """Phase 22: the RGB models' flagship, bf16 trunk and fp32 MAE or MoGe head, through
+    ``infer`` on 1 x 8 x 518: launches by head dim and key length (the MAE decoder's 8
+    fp32 D = 32 forwards, each after its split pass, beside the 48 bf16 D = 64 ones), ms
+    per infer, views/s, peak memory, the output invariants and predicted colours in
+    [0, 1]. Returns {head: line}."""
+    import torch
+
+    from mapanything_tpu_torch.models.mapanything import MapAnything
+    from mapanything_tpu_torch.ops.flash_attention import launch_counts, launch_shapes, reset_launch_counts
+    from mapanything_tpu_torch.utils.inference import PostprocessConfig, infer
+
+    B, V, H, W = 1, 8, 518, 518
+    images = torch.from_numpy(np.random.RandomState(22).uniform(0, 1, (B, V, H, W, 3)).astype(np.float32)).cuda()
+    lines = {}
+    for head in RGB_HEADS:
+        t0 = time.perf_counter()
+        model = MapAnything(rgb_config(head), device="cuda", seed=0)
+        setup_s = time.perf_counter() - t0
+        reset_launch_counts()
+        out = infer(model, images)
+        torch.cuda.synchronize()
+        counts, shapes = launch_counts(), launch_shapes()
+        mae = head == "mae"
+        want = {"flash_attention_fwd": 56 if mae else 48, "flash_attention_fwd_lse": 0, "flash_attention_bwd_dq": 0,
+                "flash_attention_bwd_dkv": 0, "flash_attention_split_f32": 8 if mae else 0}
+        want_shapes = {(1370, 64): 24, (1369, 64): 12, (V * 1369 + 1, 64): 12, **({(1369, 32): 8} if mae else {})}
+        if counts != want or shapes["flash_attention_fwd"] != want_shapes:
+            raise AssertionError(f"one {head} infer launched {counts} ({shapes['flash_attention_fwd']}), not {want} "
+                                 f"({want_shapes})")
+        if mae and shapes["flash_attention_split_f32"] != {(1369, 32): 8}:
+            raise AssertionError(f"the MAE decoder's split passes: {shapes['flash_attention_split_f32']}")
+        checks = check_infer_outputs(out, (B, V, H, W))
+        rgb = out.img_no_norm
+        if not (0.0 <= rgb.min().item() and rgb.max().item() <= 1.0):
+            raise AssertionError(f"{head}: predicted colours outside [0, 1]")
+        out, ms, each, peak = time_infer(model, images, PostprocessConfig(), warmup=2, iters=3)
+        lines[head] = {
+            "phase": "rgb_flagship_infer", "phase_id": "22", "head": head,
+            "config": f"configs/model/mapanything_{head}_rgb.yaml widths: MapAnythingConfig(compute_dtype='bfloat16', "
+                      f"dense_head_type={head!r}, scene_rep_type='raydirs+depth+rgb+pose'), fp32 head, 1x8x518x518, "
+                      "seeded random weights",
+            "setup_s": setup_s, "ms_per_infer": ms, "ms_each": each, "views_per_s": B * V / (ms / 1e3),
+            "peak_mem_gib": peak, "launches_per_infer": counts,
+            "launches_by_shape": shape_counts(shapes), "launches_by_head_dim": by_head_dim(shapes),
+            "rgb_range": [rgb.min().item(), rgb.max().item()], **checks,
+            "card": card["name"], "power_limit": card["power_limit"],
+        }
+        emit(lines[head])
+        del model, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    return lines
+
+
+def rgb_flagship_train(card) -> dict:
+    """Phase 23: the MAE flagship's train step (bf16 trunk, fp32 MAE head) on 1 x 4 x 518
+    with bench.py's LossBatch and a seeded target_rgb (the RGB L1 term on): 2 warm-up and
+    5 timed steps, launches per step by head dim (the MAE decoder's 8 fp32 D = 32 lse
+    forwards, dq and dk/dv, and 16 split passes, beside 48 bf16 D = 64 ones), finite loss,
+    gradient norm and gradients, a nonzero gradient reaching every parameter, the RGB
+    term in every step's loss, ms per step, views/s and peak memory."""
+    import torch
+
+    from mapanything_tpu_torch.models.mapanything import GeometricInputConfig, MapAnything
+    from mapanything_tpu_torch.ops.flash_attention import launch_counts, launch_shapes, reset_launch_counts
+    from mapanything_tpu_torch.train.losses import LossConfig, synthetic_loss_batch
+    from mapanything_tpu_torch.train.optim import OptimConfig, build_optimizer
+    from mapanything_tpu_torch.train.step import init_train_state, make_train_step
+
+    B, V, H, W = 1, 4, 518, 518
+    warmup, iters = 2, 5
+    t0 = time.perf_counter()
+    model = MapAnything(rgb_config("mae"), device="cuda", seed=0, geometric_inputs=True)
+    opt = build_optimizer(OptimConfig(lr=1e-7, min_lr=1e-8, epoch_len=100, total_epochs=1.0), model)
+    state = init_train_state(model, opt)
+    step = make_train_step(model, opt, LossConfig(), GeometricInputConfig())
+    batch = dataclasses.replace(
+        synthetic_loss_batch(B, V, H, W, seed=0),
+        target_rgb=torch.from_numpy(np.random.RandomState(23).uniform(0, 1, (B, V, H, W, 3)).astype(np.float32)),
+    ).to("cuda")
+    img = torch.from_numpy(np.random.RandomState(0).randn(B, V, H, W, 3).astype(np.float32)).cuda()
+    gen = torch.Generator().manual_seed(0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    training = ("flash_attention_fwd_lse", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    want = {"flash_attention_fwd": 0, **dict.fromkeys(training, 56), "flash_attention_split_f32": 16}
+    want_by_d = {**{k: {64: 48, 32: 8} for k in training}, "flash_attention_split_f32": {32: 16}}
+    totals_by_d = {k: {} for k in want_by_d}
+    names = list(state.params)
+    ever_nonzero = torch.zeros(len(names), dtype=torch.bool, device="cuda")
+    times, metrics = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(warmup + iters):
+        reset_launch_counts()
+        t = time.perf_counter()
+        state, m = step(state, img, batch, gen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        counts, by_d = launch_counts(), by_head_dim(launch_shapes())
+        if counts != want or any(by_d[k] != v for k, v in want_by_d.items()):
+            raise AssertionError(f"MAE train step {i} launched {counts} ({by_d}), not {want} ({want_by_d})")
+        for k in want_by_d:
+            for dim, n in by_d[k].items():
+                totals_by_d[k][dim] = totals_by_d[k].get(dim, 0) + n
+        m = {k: v.item() for k, v in m.items()}
+        if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) and m.get("rgb_loss", 0.0) > 0):
+            raise AssertionError(f"MAE train step {i}: {m}")
+        if any(state.params[n].grad is None for n in names):
+            raise AssertionError(f"MAE train step {i} left parameters without a gradient")
+        norms = torch.stack(torch._foreach_norm([state.params[n].grad for n in names]))
+        if not bool(torch.isfinite(norms).all()):
+            raise AssertionError(f"MAE train step {i}: non-finite gradients")
+        ever_nonzero |= norms > 0
+        metrics.append(m)
+        if i >= warmup:
+            times.append(dt)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    never = [n for n, x in zip(names, ever_nonzero.tolist()) if not x]
+    if never:
+        raise AssertionError(f"no gradient reached {never} in {warmup + iters} steps")
+    ms = 1e3 * sum(times) / iters
+    line = {
+        "phase": "rgb_flagship_train", "phase_id": "23",
+        "config": "configs/model/mapanything_mae_rgb.yaml widths, bf16 trunk, fp32 MAE head, 1x4x518x518 train step, "
+                  "seeded random weights, bench.py LossBatch + seeded target_rgb, GeometricInputConfig() masks, lr 1e-7",
+        "setup_s": setup_s, "warmup": warmup, "iters": iters, "ms_per_step": ms, "ms_each": [1e3 * t for t in times],
+        "views_per_s": B * V / (ms / 1e3), "peak_mem_gib": peak_gib, "launches_per_step": counts,
+        "launches_total_by_head_dim": totals_by_d, "steps": warmup + iters,
+        "loss": [m["loss"] for m in metrics], "rgb_loss": [m["rgb_loss"] for m in metrics],
+        "grad_norm": [m["grad_norm"] for m in metrics],
+        "params_with_gradient": [int(ever_nonzero.sum().item()), len(names)],
+        "card": card["name"], "power_limit": card["power_limit"],
+    }
+    emit(line)
+    return line
+
+
+def losses_phase(card) -> dict:
+    """Phase 24: the RGB perception loss (the VGG19 tower on seeded weights, 1 x 2 x 64 x
+    64), the disentangled loss and the DUSt3R loss on seeded inputs (2 x 2 x 32 x 40), on
+    the card against the CPU: each loss and its gradients with respect to the
+    predictions, fp32 with TF32 off, within 1e-4 of their magnitude."""
+    import torch
+
+    from mapanything_tpu_torch.models.mapanything import Predictions
+    from mapanything_tpu_torch.models.perceptual import VGG19Features
+    from mapanything_tpu_torch.train import losses as L
+
+    rtol = 1e-4
+    rng = np.random.RandomState(24)
+    f32 = lambda *shape: rng.standard_normal(shape).astype(np.float32)  # noqa: E731
+    unit = lambda x: x / np.linalg.norm(x, axis=-1, keepdims=True)  # noqa: E731
+
+    def run(device):
+        """Each loss and its gradients on ``device``, from the same numpy inputs."""
+        t = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
+        out = {}
+        vgg = VGG19Features(device=device, seed=0)
+        pred = t(inputs["pred_rgb"]).requires_grad_()
+        loss, _ = L.rgb_perception_loss(vgg, pred, t(inputs["gt_rgb"]), t(inputs["rgb_valid"]))
+        out["rgb_perception"] = (loss.item(), torch.autograd.grad(loss, pred)[0].cpu())
+        preds = {k: t(v).requires_grad_() for k, v in inputs["preds"].items()}
+        batch = L.LossBatch(**{k: t(v) for k, v in inputs["batch"].items()})
+        loss, _ = L.factored_geometry_scale_loss(batch, Predictions(**preds), L.LossConfig(disentangled=True))
+        grads = torch.autograd.grad(loss, [preds[k] for k in ("depth_along_ray", "ray_directions", "cam_quats")])
+        out["disentangled"] = (loss.item(), torch.cat([g.flatten() for g in grads]).cpu())
+        p, c = t(inputs["preds"]["pts3d"]).requires_grad_(), t(inputs["preds"]["conf"]).requires_grad_()
+        loss, _ = L.dust3r_regr3d_conf_loss(batch.pts3d, batch.valid_mask,
+                                            (batch.camera_pose_quats[:, 0], batch.camera_pose_trans[:, 0]), p, c)
+        grads = torch.autograd.grad(loss, (p, c))
+        out["dust3r_regr3d_conf"] = (loss.item(), torch.cat([g.flatten() for g in grads]).cpu())
+        return out
+
+    B, V, H, W = 2, 2, 32, 40
+    inputs = {
+        "pred_rgb": rng.uniform(0, 1, (1, 2, 64, 64, 3)).astype(np.float32),
+        "gt_rgb": rng.uniform(0, 1, (1, 2, 64, 64, 3)).astype(np.float32),
+        "rgb_valid": rng.uniform(size=(1, 2, 64, 64)) < 0.7,
+        "preds": dict(pts3d=f32(B, V, H, W, 3), pts3d_cam=f32(B, V, H, W, 3), ray_directions=unit(f32(B, V, H, W, 3)),
+                      depth_along_ray=rng.uniform(0.5, 4, (B, V, H, W, 1)).astype(np.float32), cam_trans=f32(B, V, 3),
+                      cam_quats=unit(f32(B, V, 4)), metric_scaling_factor=rng.uniform(0.5, 2, (B,)).astype(np.float32),
+                      conf=rng.uniform(1, 3, (B, V, H, W)).astype(np.float32),
+                      non_ambiguous_mask_logits=f32(B, V, H, W)),
+        "batch": dict(pts3d=f32(B, V, H, W, 3), pts3d_cam=f32(B, V, H, W, 3),
+                      depth_along_ray=rng.uniform(1, 5, (B, V, H, W, 1)).astype(np.float32),
+                      ray_directions=unit(f32(B, V, H, W, 3)), camera_pose_quats=unit(f32(B, V, 4)),
+                      camera_pose_trans=f32(B, V, 3), valid_mask=rng.uniform(size=(B, V, H, W)) < 0.8,
+                      non_ambiguous_mask=rng.uniform(size=(B, V, H, W)) < 0.7,
+                      valid_non_ambiguous_mask=rng.uniform(size=(B, V, H, W)) < 0.7,
+                      is_metric_scale=np.array([True, False]), is_synthetic=np.array([True, False])),
+    }
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        gpu, cpu = run("cuda"), run("cpu")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    errs = {}
+    for name, (loss, grad) in cpu.items():
+        g_loss, g_grad = gpu[name]
+        errs[name] = {"loss": abs(g_loss - loss) / max(abs(loss), 1e-12),
+                      "grad": (g_grad - grad).abs().max().item() / max(grad.abs().max().item(), 1e-12),
+                      "value": loss}
+    line = {"phase": "losses_check", "phase_id": "24", "rel_err": errs, "rtol": rtol,
+            "card": card["name"], "power_limit": card["power_limit"]}
+    emit(line)
+    bad = {k: e for k, e in errs.items() if not (e["loss"] <= rtol and e["grad"] <= rtol)}
+    if bad:
+        raise AssertionError(f"the losses on the card disagree with the CPU beyond {rtol}: {bad}")
+    return line
+
+
+def mesh_trainer_phase(card) -> dict:
+    """Phase 25: the Trainer on the data x view mesh of this process alone (NCCL, world
+    size 1: one data rank, one view rank; the view axis under the ring): the small fp32
+    multimodal model, one epoch of one 1 x 2 x 56 batch, against the Trainer without a
+    mesh on the same batch, TF32 off: the logged loss and gradient norm within 1e-5 of
+    their magnitude, each gradient leaf within ``rel_err`` 2e-5 (the ring at one rank
+    against the unsharded attention; 3.4e-6 and 4.5e-6 on an H100 80GB HBM3). At world size 1 every
+    data-group sum is the identity: this phase checks the mesh's NCCL plumbing, and the
+    data axis's parity rests on the 2 x 2 gloo tests. Adam's first step moves a
+    parameter by lr·sign(g), so the parameters after differ where a tiny gradient's
+    sign does (and a second step's gradients with them): their gap is reported."""
+    import torch
+
+    from mapanything_tpu_torch.models.mapanything import MapAnything
+    from mapanything_tpu_torch.parallel.mesh import make_mesh
+    from mapanything_tpu_torch.train.loop import Trainer, TrainLoopConfig
+
+    mesh = make_mesh(view_parallelism=1)
+    batches = [numpy_batch(1, 2, 56, 56, 25)]
+    rtol, grad_rtol = 1e-5, 2e-5
+    runs = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    try:
+        for name, m in (("unsharded", None), ("mesh", mesh)):
+            model = MapAnything(small_config(), device="cuda", seed=0, geometric_inputs=True)
+            cfg = TrainLoopConfig(output_dir=str(out / name), epochs=1, warmup_epochs=0.5, lr=1e-4, min_lr=1e-4,
+                                  print_freq=100, seed=2)
+            trainer = Trainer(model, batches, cfg, mesh=m)
+            t = time.perf_counter()
+            stats = trainer.train_one_epoch(0)
+            torch.cuda.synchronize()
+            runs[name] = dict(stats=stats, s=time.perf_counter() - t,
+                              grads=[p.grad.clone() for p in model.parameters()],
+                              params=torch.cat([p.detach().flatten() for p in model.parameters()]))
+            del trainer, model
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        shutil.rmtree(out, ignore_errors=True)
+    a, b = runs["unsharded"], runs["mesh"]
+    gaps = {k: abs(b["stats"][k] - a["stats"][k]) / abs(a["stats"][k]) for k in ("train_loss", "train_grad_norm")}
+    grad_gap = max(rel_err(gb, ga) for ga, gb in zip(a["grads"], b["grads"]))
+    param_gap = (b["params"] - a["params"]).abs().max().item() / a["params"].abs().max().item()
+    line = {"phase": "mesh_trainer", "phase_id": "25", "mesh": {"data": mesh.data.size, "view": mesh.view.size},
+            "backend": str(torch.distributed.get_backend()), "stats": {k: r["stats"] for k, r in runs.items()},
+            "seconds": {k: r["s"] for k, r in runs.items()}, "rel_gap": gaps, "rtol": rtol,
+            "grad_rel_err": grad_gap, "grad_rtol": grad_rtol, "param_gap_over_magnitude": param_gap,
+            "card": card["name"], "power_limit": card["power_limit"]}
+    emit(line)
+    if not (all(g <= rtol for g in gaps.values()) and grad_gap <= grad_rtol):
+        raise AssertionError(f"the one-rank mesh Trainer departs from the Trainer without one: {gaps}, "
+                             f"gradients {grad_gap}")
+    return line
+
+
 def worst_err(row) -> float:
     err = row["max_abs_err"]
     return max(err.values()) if isinstance(err, dict) else err
@@ -2566,7 +2981,7 @@ def split_rows(rows) -> list:
 
 
 def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, inference_launches, train_launches,
-                 train_steps, vp_launches, many_view_line, h128, fp32_train, fp32_forward, files, trainer, data):
+                 train_steps, vp_launches, many_view_line, h128, fp32_train, fp32_forward, files, trainer, data, rgb):
     """The kernels line: each kernel, what it replaces, its launches on its path
     (one forward; all train steps, and per step), its max error and its times
     per forward (inference) or per train step. The phase-3c rows are the
@@ -2585,7 +3000,9 @@ def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, infe
     phase 3b's bf16 rows (the same shapes as phase 7's step), times per micro-batch, and its eval
     forward's rows, times per eval forward, each with that run's launches. The phase-21 rows
     are the data path's training kernels (``data``) by the TPU kernels that the JAX dispatch
-    takes at its lengths, with that epoch's launches; times per micro-batch."""
+    takes at its lengths, with that epoch's launches; times per micro-batch. The RGB rows
+    of phases 3 and 3b (``rgb``) are the fp32 D = 32 instances on the MAE flagship's infer
+    (phase 22) and train step (phase 23), with those runs' D = 32 launches."""
     main_rows = [r for r in rows if r["per_forward"] and r["dtype"] == "bfloat16"]
     kernels = [path_entry("flash_attention_fwd", "mapanything_tpu/ops/flash_attention.py:395", main_rows,
                           {r["shape"]: r["per_forward"] for r in main_rows},
@@ -2643,7 +3060,29 @@ def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, infe
         kernels[-1]["launches"] = fp32_forward[name]  # the count of phase 18's run
     kernels += files_trainer_entries(train_rows, files, trainer)
     kernels += data_path_entries(data)
+    kernels += rgb_entries(rgb)
     emit({"kernels": kernels})
+
+
+def rgb_entries(rgb) -> list:
+    """Phases 22-23 in the kernels line: the fp32 D = 32 forward and its split pass on the
+    MAE flagship's infer (times per forward), the training kernels on its train step
+    (times per step), each with that run's D = 32 launches."""
+    r_rows = rgb["rows"]
+    d32 = rgb["infer"]["mae"]["launches_by_head_dim"]
+    entries = []
+    for name, entry_rows, source in (("flash_attention_fwd", r_rows, KERNEL_SOURCE),
+                                     ("flash_attention_split_f32", split_rows(r_rows), BWD_KERNEL_SOURCE)):
+        entries.append(path_entry(name, f"{FA}:114", entry_rows, {r["shape"]: r["per_forward"] for r in r_rows},
+                                  source=source, dtype="float32", head_dim=32,
+                                  path="MAE flagship infer 1x8x518 (phase 22); times per forward"))
+        entries[-1]["launches"] = d32[name][32]
+    train = rgb["train"]
+    for name in TRAIN_OUTPUTS:
+        entries.append(train_entry(name, rgb["train_rows"], RGB_TRAIN_REPLACES[name]["mae_decoder"],
+                                   train["launches_total_by_head_dim"][name][32], train["steps"], dtype="float32",
+                                   head_dim=32, path="MAE flagship train step 1x4x518 (phase 23); times per step"))
+    return entries
 
 
 def files_trainer_entries(train_rows, files, trainer) -> list:
@@ -2690,6 +3129,39 @@ def multi_card(card, rendezvous: Path, unsharded_loss) -> None:
     run_ranks(multi_card_rank, 4 if cards >= 4 else 2, "cuda", rendezvous / "cards", card, unsharded_loss)
 
 
+def rgb_phases(card, kernel_rows: bool = True) -> dict:
+    """The RGB models' phases: (with ``kernel_rows``) the D = 32 rows of phases 3 and 3b,
+    then phases 22, 23 and 24, with the memory freed between them."""
+    import torch
+
+    out = {}
+    if kernel_rows:
+        out["rows"] = kernel_checks(card, RGB_SHAPES, "3")
+        out["train_rows"] = train_kernel_checks(card, RGB_TRAIN_SHAPES, RGB_TRAIN_REPLACES)
+    for key, phase in (("infer", rgb_flagship_infer), ("train", rgb_flagship_train), ("losses", losses_phase)):
+        out[key] = phase(card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def one_rank_group(fn, card):
+    """``fn(card)`` inside a process group of this process alone (NCCL, world size 1)."""
+    import torch
+
+    from mapanything_tpu_torch.parallel.distributed import init_distributed_mode
+
+    rendezvous = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        init_distributed_mode("cuda", f"file://{rendezvous / 'one_rank'}", 0, 1)
+        try:
+            return fn(card)
+        finally:
+            torch.distributed.destroy_process_group()
+    finally:
+        shutil.rmtree(rendezvous, ignore_errors=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the PyTorch port on one NVIDIA GPU.")
     parser.add_argument("--train-step-only", action="store_true",
@@ -2707,6 +3179,9 @@ def main() -> int:
     parser.add_argument("--data-only", action="store_true",
                         help="build the kernels, then run phase 21 (from disk to a trained step) alone and stop "
                              "after its line")
+    parser.add_argument("--rgb-only", action="store_true",
+                        help="build the kernels, then run the RGB models' phases alone (the D = 32 rows of phases 3 "
+                             "and 3b, phases 22-24, and 25 on its one-rank group) and stop after their lines")
     args = parser.parse_args()
     import torch
 
@@ -2745,6 +3220,11 @@ def main() -> int:
         emit(build)
         flagship_train(card, compute_dtype=args.compute_dtype)
         return 0
+    if args.rgb_only:
+        emit(build)
+        rgb_phases(card)
+        one_rank_group(mesh_trainer_phase, card)
+        return 0
     if args.files_only or args.trainer_only or args.data_only:
         emit(build)
         if args.files_only:
@@ -2756,15 +3236,14 @@ def main() -> int:
         return 0
     fwd_smem = _build.load(KERNEL_STEMS[0]).flash_attention_fwd_smem
     bwd_smem = _build.load(KERNEL_STEMS[1]).flash_attention_bwd_smem
-    dynamic = {key: fwd_smem(FWD_SMEM_INDEX[dtype], d) for (dtype, d, _), key in FWD_INSTANCES.items()}
-    dynamic.update({key: bwd_smem(BWD_SMEM_INDEX[kernel, dtype], d)
-                    for (kernel, dtype, d), key in BWD_INSTANCES.items()})
+    fwd, bwd = fwd_instances(), bwd_instances()
+    dynamic = {key: fwd_smem(FWD_SMEM_INDEX[dtype], d) for (dtype, d, _), key in fwd.items()}
+    dynamic.update({key: bwd_smem(BWD_SMEM_INDEX[kernel, dtype], d) for (kernel, dtype, d), key in bwd.items()})
     for key, nbytes in dynamic.items():
         for name, report in instances.items():
             if key in name:
                 report["dynamic_smem"] = nbytes
-    emit({**build, "fwd_sass": sass_check(libs[0], FWD_INSTANCES),
-          "bwd_sass": sass_check(libs[1], BWD_INSTANCES)})
+    emit({**build, "fwd_sass": sass_check(libs[0], fwd), "bwd_sass": sass_check(libs[1], bwd)})
     if not args.backward_edges_only:
         forward_edge_checks(card)
     if args.forward_edges_only:
@@ -2773,7 +3252,9 @@ def main() -> int:
     if args.backward_edges_only:
         return 0
     rows = kernel_checks(card, ATTENTION_SHAPES, "3")
+    rgb = {"rows": kernel_checks(card, RGB_SHAPES, "3")}
     train_rows = train_kernel_checks(card)
+    rgb["train_rows"] = train_kernel_checks(card, RGB_TRAIN_SHAPES, RGB_TRAIN_REPLACES)
     fp32_train_rows = train_kernel_checks(card, FP32_TRAIN_SHAPES)
     long_rows, ring_bwd_row = long_kernel_checks(card)
     many_view_rows = kernel_checks(card, MANY_VIEW_SHAPES, "3d")
@@ -2832,6 +3313,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 22-24. The RGB models: the MAE and MoGe flagships' infer, the MAE train step, the losses.
+    rgb.update(rgb_phases(card, kernel_rows=False))
+
     # 8-10. View parallelism on a process group of this process alone: NCCL at world size 1.
     from mapanything_tpu_torch.parallel.distributed import init_distributed_mode
     from mapanything_tpu_torch.parallel.mesh import make_view_group
@@ -2848,6 +3332,9 @@ def main() -> int:
             gc.collect()
             torch.cuda.empty_cache()
             _, _, vp_train = flagship_train(card, group, train_line["loss"])
+            gc.collect()
+            torch.cuda.empty_cache()
+            mesh_trainer_phase(card)  # 25
         finally:
             torch.distributed.destroy_process_group()
         gc.collect()
@@ -2865,7 +3352,7 @@ def main() -> int:
     summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, inference_launches, train_launches,
                  train_steps, vp_launches, many_view_line, h128,
                  {"rows": fp32_train_rows, "launches": fp32_launches, "steps": fp32_steps}, fp32_forward, files,
-                 trainer, data)
+                 trainer, data, rgb)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

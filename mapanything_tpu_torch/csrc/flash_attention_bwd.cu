@@ -66,10 +66,11 @@
 //   consume them, as FlashAttention-2 does. Shared memory (dynamic, raised once per
 //   instance and device): dq 129.1 KB at D = 64 and 161.1 KB at D = 128, dk/dv 107.3 KB
 //   and 113.8 KB.
-// fa_bwd_dq_f32<D> / fa_bwd_dkv_f32<D>, D = 64 and 128: the fp32 model's instances
-//   (compute_dtype="float32", the model's default), in the same design on the tensor
-//   cores. Single-pass bf16 or TF32 products would keep about 8 or 11 of fp32's 24
-//   significand bits; instead each fp32 operand x is split into three bf16 parts, hi =
+// fa_bwd_dq_f32<D> / fa_bwd_dkv_f32<D>, D = 32, 64 and 128: the fp32 model's instances
+//   (compute_dtype="float32", the model's default; D = 32 the RGB models' MAE decoder,
+//   trained in fp32 whatever the model's dtype, _dq_aug_kernel (:227) and _dkv_aug_kernel
+//   (:262) on the TPU), in the same design on the tensor cores. Single-pass bf16 or TF32
+//   products would keep about 8 or 11 of fp32's 24 significand bits; instead each fp32 operand x is split into three bf16 parts, hi =
 //   bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), which carry its 24 bits, and a
 //   product A B becomes six bf16 wgmma products into one fp32 accumulator (lo.hi,
 //   mid.mid, hi.lo, mid.hi, hi.mid, hi.hi: only terms of order 2^-24 and below are
@@ -90,7 +91,10 @@
 //   227 KB a block), and the fragments 3x its registers: dq takes 64-key tiles (D = 64)
 //   or one consumer of 64 query rows and 32-key tiles (D = 128); dk/dv 32-row query
 //   stages, and one consumer of 64 keys at D = 128 with dV's running sum in shared
-//   memory. Plans: DqF32Plan and DkvF32Plan below.
+//   memory. Plans: DqF32Plan and DkvF32Plan below. D = 32 runs the D = 64 plans on parts
+//   the split pass zero-pads to 64 columns (f32_part_cols): the zero columns add nothing
+//   to any product, dq's, dk's and dv's rows are stored 32 wide, and delta (computed
+//   outside, from o and dO) is D = 32's own.
 
 #include "flash_attention_common.cuh"
 
@@ -105,6 +109,7 @@ namespace {
 // ran 1.1x faster than 64.
 template <int D>
 struct DqPlan {
+  static_assert(D == 64 || D == 128, "the bf16 dq plans: D = 64 and 128");
   static constexpr int kBlockM = 128;              // query rows a work tile
   static constexpr int kBlockN = D == 64 ? 128 : 64;  // keys a K or V tile
   static constexpr int kStages = 3;
@@ -122,6 +127,7 @@ struct DqPlan {
 
 template <int D>
 struct DkvPlan {
+  static_assert(D == 64 || D == 128, "the bf16 dk/dv plans: D = 64 and 128");
   static constexpr int kBlockN = 128;  // keys a work tile
   static constexpr int kBlockM = D == 64 ? 96 : 32;  // query rows a stage
   static constexpr int kStatThreads = 96;  // the producer's warps 1-3 fill the statistics
@@ -183,7 +189,6 @@ __global__ void __launch_bounds__(DqPlan<D>::kThreads, 1)
                    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                    const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
                    int Tq, int Tk, int H, int n_work, float scale, float scale_log2) {
-  static_assert(D == 64 || D == 128, "the tile plan covers D in {64, 128}");
   using P = DqPlan<D>;
   constexpr int kBlockN = P::kBlockN, kStages = P::kStages;
   extern __shared__ __align__(1024) unsigned char dq_smem[];
@@ -376,7 +381,6 @@ __global__ void __launch_bounds__(DkvPlan<D>::kThreads, 1)
                     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                     const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
                     __nv_bfloat16* __restrict__ dv, int Tq, int Tk, int H, int n_work, float scale, float scale_log2) {
-  static_assert(D == 64 || D == 128, "the tile plan covers D in {64, 128}");
   using P = DkvPlan<D>;
   constexpr int kBlockM = P::kBlockM, kStages = P::kStages;
   extern __shared__ __align__(1024) unsigned char dkv_smem[];
@@ -591,21 +595,22 @@ __global__ void __launch_bounds__(DkvPlan<D>::kThreads, 1)
 
 // The split pass of the fp32 forward and backward: q, k, v and, for the backward, dO
 // (blockIdx.y picks one), fp32 (B, T, H, D) in any batch, token and head strides with a
-// unit head-dim stride, into contiguous bf16 parts (3, B, T, H, D): hi, mid, lo (split3).
-// Each thread splits 8 elements a step (two 16-byte loads, three 16-byte stores).
+// unit head-dim stride, into contiguous bf16 parts (3, B, T, H, Dp): hi, mid, lo (split3),
+// Dp = f32_part_cols(D), the columns past D zero. Each thread writes 8 columns a step (two
+// 16-byte loads, three 16-byte stores; zeros past D, where nothing is read).
 struct SplitArgs {
   const float* x[4];
   __nv_bfloat16* parts[4];
   long long stride[4][3];  // batch, token, head, in elements
   int T[4];
-  int B, H, D;
+  int B, H, D, Dp;
 };
 
 constexpr int kSplitThreads = 256;
 
 __global__ void __launch_bounds__(kSplitThreads) fa_split_f32(const __grid_constant__ SplitArgs a) {
   const int which = blockIdx.y;
-  const int T = a.T[which], H = a.H, chunks = a.D / 8;
+  const int T = a.T[which], H = a.H, chunks = a.Dp / 8, read = a.D / 8;
   const long long n = static_cast<long long>(a.B) * T * H * chunks;
   const long long part = 8 * n;  // elements of one part
   const float* const x = a.x[which];
@@ -619,14 +624,16 @@ __global__ void __launch_bounds__(kSplitThreads) fa_split_f32(const __grid_const
     r /= H;
     const int t = static_cast<int>(r % T);
     const long long b = r / T;
-    const float* src = x + b * sb + t * st + h * sh + 8 * c;
-    const float4 u = *reinterpret_cast<const float4*>(src), w = *reinterpret_cast<const float4*>(src + 4);
-    uint4 hi, mid, lo;
-    split3(u.x, u.y, hi.x, mid.x, lo.x);
-    split3(u.z, u.w, hi.y, mid.y, lo.y);
-    split3(w.x, w.y, hi.z, mid.z, lo.z);
-    split3(w.z, w.w, hi.w, mid.w, lo.w);
-    // Element 8i of a contiguous (B, T, H, D) part is row (b, t, h), column 8c.
+    uint4 hi = {0, 0, 0, 0}, mid = hi, lo = hi;
+    if (c < read) {
+      const float* src = x + b * sb + t * st + h * sh + 8 * c;
+      const float4 u = *reinterpret_cast<const float4*>(src), w = *reinterpret_cast<const float4*>(src + 4);
+      split3(u.x, u.y, hi.x, mid.x, lo.x);
+      split3(u.z, u.w, hi.y, mid.y, lo.y);
+      split3(w.x, w.y, hi.z, mid.z, lo.z);
+      split3(w.z, w.w, hi.w, mid.w, lo.w);
+    }
+    // Element 8i of a contiguous (B, T, H, Dp) part is row (b, t, h), column 8c.
     *reinterpret_cast<uint4*>(out + 8 * i) = hi;
     *reinterpret_cast<uint4*>(out + part + 8 * i) = mid;
     *reinterpret_cast<uint4*>(out + 2 * part + 8 * i) = lo;
@@ -645,12 +652,14 @@ __global__ void __launch_bounds__(kSplitThreads) fa_split_f32(const __grid_const
 // 32-key tiles, for the same 192 KB.
 template <int D>
 struct DqF32Plan {
-  static constexpr int kBlockM = D == 64 ? 128 : 64;  // query rows a work tile
-  static constexpr int kBlockN = D == 64 ? 64 : 32;   // keys a K or V tile
+  static_assert(D == 32 || D == 64 || D == 128, "the fp32 dq plans: D = 32, 64 and 128");
+  static constexpr int kCols = f32_part_cols(D);         // columns of the staged parts
+  static constexpr int kBlockM = kCols == 64 ? 128 : 64;  // query rows a work tile
+  static constexpr int kBlockN = kCols == 64 ? 64 : 32;   // keys a K or V tile
   static constexpr int kStages = 2;
   static constexpr int kConsumers = kBlockM / 64;
   static constexpr int kThreads = 128 * (kConsumers + 1);
-  static constexpr int kPanels = D / 64;
+  static constexpr int kPanels = kCols / 64;
   static constexpr int kPanelQ = kBlockM * 128;  // bytes of one panel of one part of the Q (or dO) tile
   static constexpr int kPanelKV = kBlockN * 128;  // of a K or V tile
   static constexpr int kQPart = kPanels * kPanelQ;
@@ -660,7 +669,7 @@ struct DqF32Plan {
   static constexpr int kBarriers = 2 + 4 * kStages;
   static constexpr int kBarOffset = 2 * kQBytes + 2 * kStages * kTileBytes;
   static constexpr int kSmem = kBarOffset + 8 * kBarriers + 1024;
-  static constexpr bool kReloadBases = D == 128;  // reloaded_zero on Q's and dO's bases (1.04x the time)
+  static constexpr bool kReloadBases = kCols == 128;  // reloaded_zero on Q's and dO's bases (1.04x the time)
 };
 
 // dk/dv: D = 64, two consumers of 64 keys and query stages of 64 rows in two stages; a
@@ -670,14 +679,16 @@ struct DqF32Plan {
 // memory (dK, dV and the tile would take 192 registers).
 template <int D>
 struct DkvF32Plan {
-  static constexpr int kBlockN = D == 64 ? 128 : 64;  // keys a work tile
-  static constexpr int kBlockM = D == 64 ? 64 : 32;  // query rows a stage
+  static_assert(D == 32 || D == 64 || D == 128, "the fp32 dk/dv plans: D = 32, 64 and 128");
+  static constexpr int kCols = f32_part_cols(D);         // columns of the staged parts
+  static constexpr int kBlockN = kCols == 64 ? 128 : 64;  // keys a work tile
+  static constexpr int kBlockM = kCols == 64 ? 64 : 32;   // query rows a stage
   static constexpr int kStatThreads = 96;
   static constexpr int kStages = 2;
-  static constexpr bool kSmemDv = D == 128;
+  static constexpr bool kSmemDv = kCols == 128;
   static constexpr int kConsumers = kBlockN / 64;
   static constexpr int kThreads = 128 * (kConsumers + 1);
-  static constexpr int kPanels = D / 64;
+  static constexpr int kPanels = kCols / 64;
   static constexpr int kPanelKV = kBlockN * 128;
   static constexpr int kPanelQ = kBlockM * 128;
   static constexpr int kKVPart = kPanels * kPanelKV;
@@ -686,13 +697,13 @@ struct DkvF32Plan {
   static constexpr int kStageBytes = 3 * kQPart;
   static constexpr int kStatOffset = 2 * kKVBytes + 2 * kStages * kStageBytes;
   static constexpr int kDvOffset = kStatOffset + kStages * 2 * kBlockM * 4;
-  static constexpr int kBarOffset = kDvOffset + (kSmemDv ? kConsumers * 64 * D * 4 : 0);
+  static constexpr int kBarOffset = kDvOffset + (kSmemDv ? kConsumers * 64 * kCols * 4 : 0);
   static constexpr int kBarriers = 2 + 2 * kStages;
   static constexpr int kSmem = kBarOffset + 8 * kBarriers + 1024;
-  static constexpr bool kReloadBases = D == 128;  // reloaded_zero on K's and V's bases
+  static constexpr bool kReloadBases = kCols == 128;  // reloaded_zero on K's and V's bases
   // S^T's and dP^T's passes unrolled two at a time at D = 64: all six spilled 16 bytes
   // there (0.97x the time); at D = 128 fewer than six took 2x the time.
-  static constexpr int kPassUnroll = D == 64 ? 2 : kPasses;
+  static constexpr int kPassUnroll = kCols == 64 ? 2 : kPasses;
 };
 
 // dQ for work tiles of kBlockM query rows of one (batch, head), from the split parts of
@@ -703,8 +714,8 @@ __global__ void __launch_bounds__(DqF32Plan<D>::kThreads, 1)
                   const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                   const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dq, int B,
                   int Tq, int Tk, int H, int n_work, float scale, float scale_log2) {
-  static_assert(D == 64 || D == 128, "the tile plan covers D in {64, 128}");
   using P = DqF32Plan<D>;
+  constexpr int kC = P::kCols;  // the products' width; dq's rows are D wide
   constexpr int kBlockN = P::kBlockN, kStages = P::kStages, kF = kBlockN / 16;
   constexpr bool kPingPong = P::kConsumers == 2;
   extern __shared__ __align__(1024) unsigned char dq_smem[];
@@ -772,8 +783,8 @@ __global__ void __launch_bounds__(DqF32Plan<D>::kThreads, 1)
     const int g = lane >> 2, t = lane & 3;
     const uint32_t q_rows = sQ + c * 64 * 128, do_rows = sdO + c * 64 * 128;
 
-    float acc[D / 2];           // dQ, 64 x D
-    float tile[D / 2];          // one key tile's dS K
+    float acc[kC / 2];           // dQ, 64 x kC
+    float tile[kC / 2];          // one key tile's dS K
     float s[kBlockN / 2];       // S, then dS
     float dp[kBlockN / 2];      // dP
     uint32_t pa[3 * kF][4];     // dS split: hi, mid and lo A fragments of dS K
@@ -781,7 +792,7 @@ __global__ void __launch_bounds__(DqF32Plan<D>::kThreads, 1)
 #pragma unroll
     for (int i = 0; i < kBlockN / 2; ++i) s[i] = dp[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) tile[i] = 0.f;
+    for (int i = 0; i < kC / 2; ++i) tile[i] = 0.f;
 
     auto issue_sdp = [&](int stage) {  // S = Q K^T, dP = dO V^T, six passes each
       const uint32_t z = P::kReloadBases ? reloaded_zero(&zero) : 0;
@@ -793,7 +804,7 @@ __global__ void __launch_bounds__(DqF32Plan<D>::kThreads, 1)
 #pragma unroll
       for (int pass = 0; pass < kPasses; ++pass)
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
+        for (int kk = 0; kk < kC / 16; ++kk) {
           const uint32_t a = pass_a(pass) * P::kQPart + (kk / 4) * P::kPanelQ + (kk % 4) * 32;
           const uint32_t bo = pass_b(pass) * P::kKVPart + (kk / 4) * P::kPanelKV + (kk % 4) * 32;
           const int accumulate = pass > 0 || kk > 0;
@@ -811,7 +822,7 @@ __global__ void __launch_bounds__(DqF32Plan<D>::kThreads, 1)
       for (int pass = 0; pass < kPasses; ++pass)
 #pragma unroll
         for (int kk = 0; kk < kF; ++kk)
-          Wgmma<D>::rs(tile, pa[pass_a(pass) * kF + kk], desc_at(kd, pass_b(pass) * P::kKVPart + kk * 2048),
+          Wgmma<kC>::rs(tile, pa[pass_a(pass) * kF + kk], desc_at(kd, pass_b(pass) * P::kKVPart + kk * 2048),
                        pass > 0 || kk > 0);
       wgmma_commit();
     };
@@ -833,7 +844,7 @@ __global__ void __launch_bounds__(DqF32Plan<D>::kThreads, 1)
     };
     auto add_tile = [&]() {
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] += tile[i];
+      for (int i = 0; i < kC / 2; ++i) acc[i] += tile[i];
     };
     auto release = [&](uint32_t empty) {
       if (lane == 0) mbar_arrive(empty);
@@ -861,7 +872,7 @@ __global__ void __launch_bounds__(DqF32Plan<D>::kThreads, 1)
         dlt[r] = row < Tq ? delta[i] : 0.f;
       }
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < kC / 2; ++i) acc[i] = 0.f;
       mbar_wait(full_q, round & 1);
 
       const int s0 = it % kStages;
@@ -908,7 +919,7 @@ __global__ void __launch_bounds__(DqF32Plan<D>::kThreads, 1)
       fence_regs(tile);
       release(empty_k(sl));
       add_tile();
-      store_rows_f32<D>(dq, [&](int i) { return acc[i]; }, scale, b, h, row0, Tq, H, t);
+      store_rows_f32<kC, D>(dq, [&](int i) { return acc[i]; }, scale, b, h, row0, Tq, H, t);
     }
   }
 }
@@ -920,8 +931,8 @@ __global__ void __launch_bounds__(DkvF32Plan<D>::kThreads, 1)
                    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                    const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dk,
                    float* __restrict__ dv, int B, int Tq, int Tk, int H, int n_work, float scale, float scale_log2) {
-  static_assert(D == 64 || D == 128, "the tile plan covers D in {64, 128}");
   using P = DkvF32Plan<D>;
+  constexpr int kC = P::kCols;  // the products' width; dk's and dv's rows are D wide
   constexpr int kBlockM = P::kBlockM, kStages = P::kStages, kF = kBlockM / 16;
   constexpr bool kTwoConsumers = P::kConsumers == 2;
   extern __shared__ __align__(1024) unsigned char dkv_smem[];
@@ -1004,17 +1015,17 @@ __global__ void __launch_bounds__(DkvF32Plan<D>::kThreads, 1)
     const uint32_t k_rows = sK + c * 64 * 128, v_rows = sV + c * 64 * 128;
     // dV's running sum in shared memory where the plan says so: element i of thread tw at
     // [i][tw], so a warp's accesses fall on 32 banks.
-    float* const dv_smem = reinterpret_cast<float*>(dkv_smem + pad + P::kDvOffset) + c * 64 * D;
+    float* const dv_smem = reinterpret_cast<float*>(dkv_smem + pad + P::kDvOffset) + c * 64 * kC;
 
-    float dk_acc[D / 2], dv_acc[P::kSmemDv ? 1 : D / 2];  // dK; dV unless kSmemDv
-    float tile[D / 2];                   // one stage's P^T dO or dS^T Q
+    float dk_acc[kC / 2], dv_acc[P::kSmemDv ? 1 : kC / 2];  // dK; dV unless kSmemDv
+    float tile[kC / 2];                   // one stage's P^T dO or dS^T Q
     float s[kBlockM / 2];                // S^T, then P^T
     float dp[kBlockM / 2];               // dP^T, then dS^T
     uint32_t pa[3 * kF][4];              // P^T, then dS^T, split into A fragments
 #pragma unroll
     for (int i = 0; i < kBlockM / 2; ++i) s[i] = dp[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) tile[i] = 0.f;
+    for (int i = 0; i < kC / 2; ++i) tile[i] = 0.f;
 
     auto issue_sdp = [&](int st) {  // S^T = K Q^T, dP^T = V dO^T, six passes each
       const uint32_t z = P::kReloadBases ? reloaded_zero(&zero) : 0;
@@ -1028,7 +1039,7 @@ __global__ void __launch_bounds__(DkvF32Plan<D>::kThreads, 1)
 #pragma unroll (P::kPassUnroll)
       for (int pass = 0; pass < kPasses; ++pass)
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
+        for (int kk = 0; kk < kC / 16; ++kk) {
           const uint32_t col = (kk % 4) * 32;
           const uint32_t a = pass_a(pass) * P::kKVPart + (kk / 4) * P::kPanelKV + col;
           const uint32_t bo = pass_b(pass) * P::kQPart + (kk / 4) * P::kPanelQ + col;
@@ -1048,7 +1059,7 @@ __global__ void __launch_bounds__(DkvF32Plan<D>::kThreads, 1)
       for (int pass = 0; pass < kPasses; ++pass)
 #pragma unroll
         for (int kk = 0; kk < kF; ++kk)
-          Wgmma<D>::rs(tile, pa[pass_a(pass) * kF + kk], desc_at(td, pass_b(pass) * P::kQPart + kk * 2048),
+          Wgmma<kC>::rs(tile, pa[pass_a(pass) * kF + kk], desc_at(td, pass_b(pass) * P::kQPart + kk * 2048),
                        pass > 0 || kk > 0);
       wgmma_commit();
     };
@@ -1076,11 +1087,11 @@ __global__ void __launch_bounds__(DkvF32Plan<D>::kThreads, 1)
     };
     auto add_dk = [&]() {
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) dk_acc[i] += tile[i];
+      for (int i = 0; i < kC / 2; ++i) dk_acc[i] += tile[i];
     };
     auto add_dv = [&]() {
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) {
+      for (int i = 0; i < kC / 2; ++i) {
         if constexpr (P::kSmemDv)
           dv_smem[i * 128 + tw] += tile[i];
         else
@@ -1095,7 +1106,7 @@ __global__ void __launch_bounds__(DkvF32Plan<D>::kThreads, 1)
     for (int w = blockIdx.x, round = 0; w < n_work; w += gridDim.x, ++round, it += n_stages) {
       const int n0 = (w % n_blocks) * P::kBlockN, h = (w / n_blocks) % H, b = w / (n_blocks * H);
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) {
+      for (int i = 0; i < kC / 2; ++i) {
         dk_acc[i] = 0.f;
         if constexpr (P::kSmemDv)
           dv_smem[i * 128 + tw] = 0.f;
@@ -1150,11 +1161,11 @@ __global__ void __launch_bounds__(DkvF32Plan<D>::kThreads, 1)
       release(empty_s((it + n_stages - 1) % kStages));
       add_dk();
       const int key0 = n0 + c * 64 + warp * 16 + g;
-      store_rows_f32<D>(dk, [&](int i) { return dk_acc[i]; }, scale, b, h, key0, Tk, H, t);
+      store_rows_f32<kC, D>(dk, [&](int i) { return dk_acc[i]; }, scale, b, h, key0, Tk, H, t);
       if constexpr (P::kSmemDv)
-        store_rows_f32<D>(dv, [&](int i) { return dv_smem[i * 128 + tw]; }, 1.f, b, h, key0, Tk, H, t);
+        store_rows_f32<kC, D>(dv, [&](int i) { return dv_smem[i * 128 + tw]; }, 1.f, b, h, key0, Tk, H, t);
       else
-        store_rows_f32<D>(dv, [&](int i) { return dv_acc[i]; }, 1.f, b, h, key0, Tk, H, t);
+        store_rows_f32<kC, D>(dv, [&](int i) { return dv_acc[i]; }, 1.f, b, h, key0, Tk, H, t);
     }
   }
 }
@@ -1174,13 +1185,13 @@ struct BwdArgs {
   cudaStream_t st;
 };
 
-// `batches`: B, or 3B for the fp32 parts' maps (part p of batch b at p * B + b).
-template <int D>
-int encode_bwd_maps(CUtensorMap (&tm)[4], const BwdArgs& a, int batches, int q_rows, int kv_rows) {
-  int err = encode_map(&tm[0], a.q, a.maps, D, a.Tq, a.H, batches, q_rows);
-  if (!err) err = encode_map(&tm[1], a.k, a.maps + kMapLongs, D, a.Tk, a.H, batches, kv_rows);
-  if (!err) err = encode_map(&tm[2], a.v, a.maps + 2 * kMapLongs, D, a.Tk, a.H, batches, kv_rows);
-  if (!err) err = encode_map(&tm[3], a.dout, a.maps + 3 * kMapLongs, D, a.Tq, a.H, batches, q_rows);
+// `cols`: the maps' width (D, or the fp32 parts' f32_part_cols(D)); `batches`: B, or 3B
+// for the fp32 parts' maps (part p of batch b at p * B + b).
+int encode_bwd_maps(CUtensorMap (&tm)[4], const BwdArgs& a, int cols, int batches, int q_rows, int kv_rows) {
+  int err = encode_map(&tm[0], a.q, a.maps, cols, a.Tq, a.H, batches, q_rows);
+  if (!err) err = encode_map(&tm[1], a.k, a.maps + kMapLongs, cols, a.Tk, a.H, batches, kv_rows);
+  if (!err) err = encode_map(&tm[2], a.v, a.maps + 2 * kMapLongs, cols, a.Tk, a.H, batches, kv_rows);
+  if (!err) err = encode_map(&tm[3], a.dout, a.maps + 3 * kMapLongs, cols, a.Tq, a.H, batches, q_rows);
   return err;
 }
 
@@ -1190,7 +1201,7 @@ int bwd_dq_bf16(const BwdArgs& a) {
   static_assert(P::kSmem > kStaticSmemLimit, "launch() sizes dynamic shared memory above 48 KB only");
   CUtensorMap tm[4];
   int n_work = 0, blocks = 0;
-  int err = encode_bwd_maps<D>(tm, a, a.B, P::kBlockM, P::kBlockN);
+  int err = encode_bwd_maps(tm, a, D, a.B, P::kBlockM, P::kBlockN);
   if (!err) err = persistent_grid(static_cast<long long>((a.Tq + P::kBlockM - 1) / P::kBlockM) * a.H * a.B, n_work, blocks);
   if (err) return err;
   static SmemOptIn opt_in;
@@ -1205,7 +1216,7 @@ int bwd_dkv_bf16(const BwdArgs& a) {
   static_assert(P::kSmem > kStaticSmemLimit, "launch() sizes dynamic shared memory above 48 KB only");
   CUtensorMap tm[4];
   int n_work = 0, blocks = 0;
-  int err = encode_bwd_maps<D>(tm, a, a.B, P::kBlockM, P::kBlockN);
+  int err = encode_bwd_maps(tm, a, D, a.B, P::kBlockM, P::kBlockN);
   if (!err) err = persistent_grid(static_cast<long long>((a.Tk + P::kBlockN - 1) / P::kBlockN) * a.H * a.B, n_work, blocks);
   if (err) return err;
   static SmemOptIn opt_in;
@@ -1220,7 +1231,7 @@ int bwd_dq_f32(const BwdArgs& a) {
   static_assert(P::kSmem > kStaticSmemLimit, "launch() sizes dynamic shared memory above 48 KB only");
   CUtensorMap tm[4];
   int n_work = 0, blocks = 0;
-  int err = encode_bwd_maps<D>(tm, a, 3 * a.B, P::kBlockM, P::kBlockN);
+  int err = encode_bwd_maps(tm, a, P::kCols, 3 * a.B, P::kBlockM, P::kBlockN);
   if (!err) err = persistent_grid(static_cast<long long>((a.Tq + P::kBlockM - 1) / P::kBlockM) * a.H * a.B, n_work, blocks);
   if (err) return err;
   static SmemOptIn opt_in;
@@ -1234,7 +1245,7 @@ int bwd_dkv_f32(const BwdArgs& a) {
   static_assert(P::kSmem > kStaticSmemLimit, "launch() sizes dynamic shared memory above 48 KB only");
   CUtensorMap tm[4];
   int n_work = 0, blocks = 0;
-  int err = encode_bwd_maps<D>(tm, a, 3 * a.B, P::kBlockM, P::kBlockN);
+  int err = encode_bwd_maps(tm, a, P::kCols, 3 * a.B, P::kBlockM, P::kBlockN);
   if (!err) err = persistent_grid(static_cast<long long>((a.Tk + P::kBlockN - 1) / P::kBlockN) * a.H * a.B, n_work, blocks);
   if (err) return err;
   static SmemOptIn opt_in;
@@ -1247,10 +1258,10 @@ int bwd_dkv_f32(const BwdArgs& a) {
 
 // The backward. maps: the tensor maps' layout of q, k, v and dO, 11 values each
 // (encode_map), with boxes of BWD_TILES' rows in bf16 and BWD_F32_TILES' in fp32
-// (ops/flash_attention.py); D: 64 or 128. The bf16 entry points take q, k, v and dO
-// themselves, the fp32 ones their split parts (flash_attention_split_f32), each a
-// contiguous bf16 (3, B, T, H, D). lse and delta are contiguous fp32 (B, H, Tq); outputs
-// are contiguous (B, T, H, D) in the inputs' dtype. Each returns cudaErrorInvalidValue for
+// (ops/flash_attention.py); D: 64 or 128 in bf16, 32, 64 or 128 in fp32. The bf16 entry
+// points take q, k, v and dO themselves, the fp32 ones their split parts
+// (flash_attention_split_f32), each a contiguous bf16 (3, B, T, H, f32_part_cols(D)). lse
+// and delta are contiguous fp32 (B, H, Tq); outputs are contiguous (B, T, H, D) in the inputs' dtype. Each returns cudaErrorInvalidValue for
 // arguments no instance takes or a map the driver refuses, cudaErrorNotSupported if the
 // driver has no cuTensorMapEncodeTiled, else the shared memory attribute call's error or
 // cudaGetLastError() after its launch.
@@ -1260,13 +1271,13 @@ int bwd_dkv_f32(const BwdArgs& a) {
 extern "C" int flash_attention_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
                                            const float* lse, const float* delta, void* dq, FA_BWD_ARGS) {
   const BwdArgs a{q, k, v, dout, lse, delta, dq, nullptr, maps, B, Tq, Tk, H, scale, static_cast<cudaStream_t>(stream)};
-  return by_head_dim(D, B, Tq, Tk, H, [&] { return bwd_dq_bf16<64>(a); }, [&] { return bwd_dq_bf16<128>(a); });
+  return by_head_dim<64, 128>(D, B, Tq, Tk, H, [&](auto d) { return bwd_dq_bf16<decltype(d)::value>(a); });
 }
 
 extern "C" int flash_attention_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
                                             const float* lse, const float* delta, void* dk, void* dv, FA_BWD_ARGS) {
   const BwdArgs a{q, k, v, dout, lse, delta, dk, dv, maps, B, Tq, Tk, H, scale, static_cast<cudaStream_t>(stream)};
-  return by_head_dim(D, B, Tq, Tk, H, [&] { return bwd_dkv_bf16<64>(a); }, [&] { return bwd_dkv_bf16<128>(a); });
+  return by_head_dim<64, 128>(D, B, Tq, Tk, H, [&](auto d) { return bwd_dkv_bf16<decltype(d)::value>(a); });
 }
 
 extern "C" int flash_attention_bwd_dq_f32(const void* q_parts, const void* k_parts, const void* v_parts,
@@ -1274,7 +1285,7 @@ extern "C" int flash_attention_bwd_dq_f32(const void* q_parts, const void* k_par
                                           FA_BWD_ARGS) {
   const BwdArgs a{q_parts, k_parts, v_parts, dout_parts, lse, delta, dq, nullptr, maps, B, Tq, Tk, H, scale,
                   static_cast<cudaStream_t>(stream)};
-  return by_head_dim(D, B, Tq, Tk, H, [&] { return bwd_dq_f32<64>(a); }, [&] { return bwd_dq_f32<128>(a); });
+  return by_head_dim<32, 64, 128>(D, B, Tq, Tk, H, [&](auto d) { return bwd_dq_f32<decltype(d)::value>(a); });
 }
 
 extern "C" int flash_attention_bwd_dkv_f32(const void* q_parts, const void* k_parts, const void* v_parts,
@@ -1282,21 +1293,23 @@ extern "C" int flash_attention_bwd_dkv_f32(const void* q_parts, const void* k_pa
                                            void* dv, FA_BWD_ARGS) {
   const BwdArgs a{q_parts, k_parts, v_parts, dout_parts, lse, delta, dk, dv, maps, B, Tq, Tk, H, scale,
                   static_cast<cudaStream_t>(stream)};
-  return by_head_dim(D, B, Tq, Tk, H, [&] { return bwd_dkv_f32<64>(a); }, [&] { return bwd_dkv_f32<128>(a); });
+  return by_head_dim<32, 64, 128>(D, B, Tq, Tk, H, [&](auto d) { return bwd_dkv_f32<decltype(d)::value>(a); });
 }
 
 // The split pass of the fp32 forward (dout null: q, k and v) and backward (q, k, v and
 // dout): fp32 (B, T, H, D) (Tq rows for q and dout, Tk for k and v) with their batch,
 // token and head strides in elements (the head-dim stride is 1; rows 16-byte aligned;
 // dout's strides are not read without it), into the contiguous bf16 parts q_parts ..
-// dout_parts, (3, B, T, H, D) each. One launch. Returns cudaErrorInvalidValue for a D
-// other than 64 or 128 or empty shapes, else cudaGetLastError() after the launch.
+// dout_parts, (3, B, T, H, f32_part_cols(D)) each. One launch. Returns
+// cudaErrorInvalidValue for a D other than 32, 64 or 128 or empty shapes, else
+// cudaGetLastError() after the launch.
 extern "C" int flash_attention_split_f32(const void* q, const void* k, const void* v, const void* dout, void* q_parts,
                                          void* k_parts, void* v_parts, void* dout_parts, int B, int Tq, int Tk, int H,
                                          int D, long long sqb, long long sqt, long long sqh, long long skb,
                                          long long skt, long long skh, long long svb, long long svt, long long svh,
                                          long long sdb, long long sdt, long long sdh, void* stream) {
-  if (by_head_dim(D, B, Tq, Tk, H, [] { return 0; }, [] { return 0; })) return static_cast<int>(cudaErrorInvalidValue);
+  if (by_head_dim<32, 64, 128>(D, B, Tq, Tk, H, [](auto) { return 0; })) return static_cast<int>(cudaErrorInvalidValue);
+  const int Dp = f32_part_cols(D);
   const SplitArgs a{{static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
                      static_cast<const float*>(dout)},
                     {static_cast<__nv_bfloat16*>(q_parts), static_cast<__nv_bfloat16*>(k_parts),
@@ -1305,8 +1318,9 @@ extern "C" int flash_attention_split_f32(const void* q, const void* k, const voi
                     {Tq, Tk, Tk, Tq},
                     B,
                     H,
-                    D};
-  const long long chunks = static_cast<long long>(B) * std::max(Tq, Tk) * H * (D / 8);
+                    D,
+                    Dp};
+  const long long chunks = static_cast<long long>(B) * std::max(Tq, Tk) * H * (Dp / 8);
   const int blocks = static_cast<int>(std::min<long long>((chunks + kSplitThreads - 1) / kSplitThreads, 4096));
   fa_split_f32<<<dim3(blocks, dout ? 4 : 3), kSplitThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
@@ -1316,17 +1330,15 @@ extern "C" int flash_attention_split_f32(const void* q, const void* k, const voi
 // another D): kernel 0 the bf16 dq, 1 the bf16 dk/dv, 2 the fp32 dq, 3 the fp32 dk/dv.
 // Printed in the build line.
 extern "C" int flash_attention_bwd_smem(int kernel, int D) {
-  if (D != 64 && D != 128) return 0;
-  const bool d64 = D == 64;
   switch (kernel) {
     case 0:
-      return d64 ? DqPlan<64>::kSmem : DqPlan<128>::kSmem;
+      return D == 64 ? DqPlan<64>::kSmem : D == 128 ? DqPlan<128>::kSmem : 0;
     case 1:
-      return d64 ? DkvPlan<64>::kSmem : DkvPlan<128>::kSmem;
+      return D == 64 ? DkvPlan<64>::kSmem : D == 128 ? DkvPlan<128>::kSmem : 0;
     case 2:
-      return d64 ? DqF32Plan<64>::kSmem : DqF32Plan<128>::kSmem;
+      return D == 32 ? DqF32Plan<32>::kSmem : D == 64 ? DqF32Plan<64>::kSmem : D == 128 ? DqF32Plan<128>::kSmem : 0;
     case 3:
-      return d64 ? DkvF32Plan<64>::kSmem : DkvF32Plan<128>::kSmem;
+      return D == 32 ? DkvF32Plan<32>::kSmem : D == 64 ? DkvF32Plan<64>::kSmem : D == 128 ? DkvF32Plan<128>::kSmem : 0;
     default:
       return 0;
   }

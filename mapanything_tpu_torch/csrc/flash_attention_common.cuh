@@ -16,6 +16,7 @@
 #include <atomic>
 #include <climits>
 #include <cmath>
+#include <type_traits>
 
 namespace {
 
@@ -314,19 +315,15 @@ int launch(Kernel kernel, SmemOptIn& opt_in, dim3 grid, int threads, int smem, c
   return static_cast<int>(cudaGetLastError());
 }
 
-// Dispatch on the head dim: 64 and 128 are instantiated; any other D, and empty shapes,
-// are refused with cudaErrorInvalidValue.
-template <class Fn64, class Fn128>
-int by_head_dim(int D, int B, int Tq, int Tk, int H, Fn64 fn64, Fn128 fn128) {
+// Dispatch on the head dim: `fn` is called with std::integral_constant<int, D> for the D
+// among `Dims` (the instantiated head dims of the caller's instance family); any other D,
+// and empty shapes, are refused with cudaErrorInvalidValue.
+template <int... Dims, class Fn>
+int by_head_dim(int D, int B, int Tq, int Tk, int H, Fn fn) {
   if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  switch (D) {
-    case 64:
-      return fn64();
-    case 128:
-      return fn128();
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  ((D == Dims ? (err = fn(std::integral_constant<int, Dims>{}), true) : false) || ...);
+  return err;
 }
 
 // ---- The fp32 instances: each product as six bf16 products of split operands ----
@@ -386,11 +383,20 @@ __device__ __forceinline__ void split_fragments(uint32_t (&pa)[3 * N / 16][4], c
       split3(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1], pa[kk][i], pa[N / 16 + kk][i], pa[2 * N / 16 + kk][i]);
 }
 
-// Store a consumer's 64 x D fp32 accumulators (the wgmma fragment layout), times `mul`, as
-// rows row0 and row0 + 8 of a contiguous fp32 (B, T, H, D); rows at or past T are skipped.
-template <int D, class Acc>
+// The columns of an fp32 instance's split parts of head dim D: D = 32 runs the D = 64 tile
+// plans on parts zero-padded to 64 columns (one 128-byte swizzle row of bf16, the width the
+// tensor maps and the wgmma descriptors here are built for); the zero columns add nothing
+// to q.k or to P V, and every store clips at D.
+__host__ __device__ constexpr int f32_part_cols(int D) { return D < 64 ? 64 : D; }
+
+// Store a consumer's 64 x C fp32 accumulators (the wgmma fragment layout), times `mul`, as
+// rows row0 and row0 + 8 of a contiguous fp32 (B, T, H, D), D <= C: the first D columns
+// of each row (a row of the output is D wide, and the next head's begins right after it);
+// rows at or past T are skipped.
+template <int C, int D, class Acc>
 __device__ __forceinline__ void store_rows_f32(float* out, const Acc& acc, float mul, int b, int h, int row0, int T,
                                                int H, int t) {
+  static_assert(D % 8 == 0 && D <= C, "a row stores whole 8-column fragment groups of the accumulator");
   const int row1 = row0 + 8;
   float* o0 = out + ((static_cast<long long>(b) * T + row0) * H + h) * D;
   float* o1 = out + ((static_cast<long long>(b) * T + row1) * H + h) * D;

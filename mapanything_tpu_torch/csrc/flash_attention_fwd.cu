@@ -62,9 +62,12 @@
 //   consumers take turns to issue on two named barriers (ping-pong), so that one's
 //   softmax runs under the other's products. The last key tile's columns past Tk are
 //   masked to -inf; query rows past Tq are computed on zeros and not stored.
-// fa_fwd_f32<D, kLse>, D = 64 and 128: the fp32 model's instance (compute_dtype="float32",
+// fa_fwd_f32<D, kLse>, D = 32, 64 and 128: the fp32 model's instance (compute_dtype="float32",
 //   the model's default), which K3/K4/K7/K8 and _fwd_kernel_single (:114) served on the
-//   TPU in fp32. One bf16 or TF32 pass would keep 8 or 11 of fp32's 24 significand bits.
+//   TPU in fp32; at D = 32 the RGB models' MAE decoder (8 blocks of 16 heads of 32, fp32
+//   whatever the model's dtype), which _fwd_kernel_single(_lse) (:114, :118) and
+//   _fwd_stream_aug(_lse) (:164, :168) served there. One bf16 or TF32 pass would keep 8 or
+//   11 of fp32's 24 significand bits.
 //   As in the fp32 backward (csrc/flash_attention_bwd.cu), each fp32 operand x is split
 //   into three bf16 parts, hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), and
 //   each product becomes six bf16 wgmma products of the parts (lo.hi, mid.mid, hi.lo,
@@ -84,7 +87,9 @@
 //   tensor cores' accumulation is not IEEE round-to-nearest, and one sum over thousands of
 //   keys drifts (the fp32 backward's dq read 24x the plain version's error that way). The
 //   two consumers issue without taking turns. The plan (FwdF32Plan) takes smaller key
-//   tiles than the bf16 one: three parts a tile.
+//   tiles than the bf16 one: three parts a tile. D = 32 runs the D = 64 plan: its parts are
+//   written zero-padded to 64 columns (one 128-byte swizzle row), the zero columns add
+//   nothing to q.k or P V, and o's rows are stored 32 wide.
 
 #include "flash_attention_common.cuh"
 
@@ -101,6 +106,7 @@ namespace {
 // 24 a producer thread, 240 a consumer thread).
 template <int D>
 struct FwdPlan {
+  static_assert(D == 64 || D == 128, "the bf16 forward's plans: D = 64 and 128");
   static constexpr int kBlockM = 128, kBlockN = 176;
   static constexpr int kStages = D == 64 ? 3 : 2;
   static constexpr int kConsumers = kBlockM / 64;
@@ -374,14 +380,18 @@ __global__ void __launch_bounds__(FwdPlan<D>::kThreads, 1)
 // setmaxnreg's 240; none spilled. 96-key tiles ran 0.93-0.97x the time of 64-key ones at
 // D = 64, where 3 stages of 64 keys ran as 2 did (PERF.md, section 6). At D = 128 the Q
 // descriptors stay in registers: the backward's reloaded_zero cost 1.04-1.05x here.
+// D = 32 (the MAE decoder's heads) is the D = 64 plan on parts zero-padded to 64 columns
+// (f32_part_cols): twice the necessary products, every store clipped at D.
 template <int D>
 struct FwdF32Plan {
-  static constexpr int kBlockM = 128;                 // query rows a work tile, 64 a consumer
-  static constexpr int kBlockN = D == 64 ? 96 : 32;  // keys a K or V tile
+  static_assert(D == 32 || D == 64 || D == 128, "the fp32 forward's plans: D = 32, 64 and 128");
+  static constexpr int kCols = f32_part_cols(D);          // columns of the staged parts
+  static constexpr int kBlockM = 128;                     // query rows a work tile, 64 a consumer
+  static constexpr int kBlockN = kCols == 64 ? 96 : 32;  // keys a K or V tile
   static constexpr int kStages = 2;
   static constexpr int kConsumers = kBlockM / 64;
   static constexpr int kThreads = 128 * (kConsumers + 1);
-  static constexpr int kPanels = D / 64;
+  static constexpr int kPanels = kCols / 64;
   static constexpr int kPanelQ = kBlockM * 128;   // bytes of one panel of one part of the Q tile
   static constexpr int kPanelKV = kBlockN * 128;  // of a K or V tile
   static constexpr int kQPart = kPanels * kPanelQ;
@@ -405,8 +415,8 @@ __global__ void __launch_bounds__(FwdF32Plan<D>::kThreads, 1)
     fa_fwd_f32(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                const __grid_constant__ CUtensorMap tm_v, float* __restrict__ o, float* __restrict__ lse, int B,
                int Tq, int Tk, int H, int n_work, float scale_log2) {
-  static_assert(D == 64 || D == 128, "the tile plan covers D in {64, 128}");
   using P = FwdF32Plan<D>;
+  constexpr int kC = P::kCols;  // the products' width; o's rows are D wide
   constexpr int kBlockN = P::kBlockN, kStages = P::kStages, kF = kBlockN / 16;
   extern __shared__ __align__(1024) unsigned char fwd_smem[];
   const uint32_t base = (smem_u32(fwd_smem) + 1023) & ~1023u;
@@ -473,15 +483,15 @@ __global__ void __launch_bounds__(FwdF32Plan<D>::kThreads, 1)
     const int g = lane >> 2, t = lane & 3;
     const uint32_t q_rows = sQ + c * 64 * 128;
 
-    float acc[D / 2];          // O, 64 x D
-    float tile[D / 2];         // one key tile's P V
+    float acc[kC / 2];         // O, 64 x kC
+    float tile[kC / 2];        // one key tile's P V
     float s[kBlockN / 2];      // S, then P, 64 x kBlockN
     uint32_t pa[3 * kF][4];    // P split: hi, mid and lo A fragments of P V
     float m_run[2], l_run[2], alpha[2];
 #pragma unroll
     for (int i = 0; i < kBlockN / 2; ++i) s[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) tile[i] = 0.f;
+    for (int i = 0; i < kC / 2; ++i) tile[i] = 0.f;
 
     auto issue_qk = [&](int stage) {  // S = Q K^T, six passes
       const uint64_t qd = sw128_desc(q_rows, 16), kd = sw128_desc(sK + stage * P::kTileBytes, 16);
@@ -490,7 +500,7 @@ __global__ void __launch_bounds__(FwdF32Plan<D>::kThreads, 1)
 #pragma unroll
       for (int pass = 0; pass < kPasses; ++pass)
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
+        for (int kk = 0; kk < kC / 16; ++kk) {
           const uint32_t a = pass_a(pass) * P::kQPart + (kk / 4) * P::kPanelQ + (kk % 4) * 32;
           const uint32_t bo = pass_b(pass) * P::kKVPart + (kk / 4) * P::kPanelKV + (kk % 4) * 32;
           Wgmma<kBlockN>::ss(s, desc_at(qd, a), desc_at(kd, bo), pass > 0 || kk > 0);
@@ -506,17 +516,17 @@ __global__ void __launch_bounds__(FwdF32Plan<D>::kThreads, 1)
       for (int pass = 0; pass < kPasses; ++pass)
 #pragma unroll
         for (int kk = 0; kk < kF; ++kk)
-          Wgmma<D>::rs(tile, pa[pass_a(pass) * kF + kk], desc_at(vd, pass_b(pass) * P::kKVPart + kk * 2048),
+          Wgmma<kC>::rs(tile, pa[pass_a(pass) * kF + kk], desc_at(vd, pass_b(pass) * P::kKVPart + kk * 2048),
                        pass > 0 || kk > 0);
       wgmma_commit();
     };
     auto rescale = [&]() {  // O *= alpha, row by row
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < kC / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
     };
     auto add_tile = [&]() {
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] += tile[i];
+      for (int i = 0; i < kC / 2; ++i) acc[i] += tile[i];
     };
     auto release = [&](uint32_t empty) {
       if (lane == 0) mbar_arrive(empty);
@@ -526,7 +536,7 @@ __global__ void __launch_bounds__(FwdF32Plan<D>::kThreads, 1)
     for (int w = blockIdx.x, round = 0; w < n_work; w += gridDim.x, ++round, it += n_tiles) {
       const int m0 = (w % m_blocks) * P::kBlockM, h = (w / m_blocks) % H, b = w / (m_blocks * H);
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < kC / 2; ++i) acc[i] = 0.f;
       m_run[0] = m_run[1] = -INFINITY;
       l_run[0] = l_run[1] = 0.f;
       mbar_wait(full_q, round & 1);
@@ -587,7 +597,7 @@ __global__ void __launch_bounds__(FwdF32Plan<D>::kThreads, 1)
             lse[(static_cast<long long>(b) * H + h) * Tq + row] = (m_run[r] + log2f(l)) * kLn2;
         }
       }
-      store_rows_f32<D>(o, [&](int i) { return acc[i] * inv[(i >> 1) & 1]; }, 1.f, b, h, row0, Tq, H, t);
+      store_rows_f32<kC, D>(o, [&](int i) { return acc[i] * inv[(i >> 1) & 1]; }, 1.f, b, h, row0, Tq, H, t);
     }
   }
 }
@@ -603,10 +613,11 @@ int fwd(const void* q, const void* k, const void* v, void* o, float* lse, const 
   using P = std::conditional_t<kF32, FwdF32Plan<D>, FwdPlan<D>>;
   static_assert(P::kSmem > kStaticSmemLimit, "launch() sizes dynamic shared memory above 48 KB only");
   const int batches = kF32 ? 3 * B : B;
+  const int cols = kF32 ? f32_part_cols(D) : D;  // the maps' width: in fp32 the parts'
   CUtensorMap tq, tk, tv;
-  int err = encode_map(&tq, q, maps, D, Tq, H, batches, P::kBlockM);
-  if (!err) err = encode_map(&tk, k, maps + kMapLongs, D, Tk, H, batches, P::kBlockN);
-  if (!err) err = encode_map(&tv, v, maps + 2 * kMapLongs, D, Tk, H, batches, P::kBlockN);
+  int err = encode_map(&tq, q, maps, cols, Tq, H, batches, P::kBlockM);
+  if (!err) err = encode_map(&tk, k, maps + kMapLongs, cols, Tk, H, batches, P::kBlockN);
+  if (!err) err = encode_map(&tv, v, maps + 2 * kMapLongs, cols, Tk, H, batches, P::kBlockN);
   if (err) return err;
   static SmemOptIn opt_in;
   int n_work = 0, blocks = 0;
@@ -625,16 +636,15 @@ int fwd_by_head_dim(const void* q, const void* k, const void* v, void* o, float*
                     int Tq, int Tk, int H, int D, float scale, void* stream) {
   const float sl = scale * kLog2e;
   const auto st = static_cast<cudaStream_t>(stream);
-  return by_head_dim(
-      D, B, Tq, Tk, H,
-      [&] {
-        return lse ? fwd<64, true, kF32>(q, k, v, o, lse, maps, B, Tq, Tk, H, sl, st)
-                   : fwd<64, false, kF32>(q, k, v, o, lse, maps, B, Tq, Tk, H, sl, st);
-      },
-      [&] {
-        return lse ? fwd<128, true, kF32>(q, k, v, o, lse, maps, B, Tq, Tk, H, sl, st)
-                   : fwd<128, false, kF32>(q, k, v, o, lse, maps, B, Tq, Tk, H, sl, st);
-      });
+  auto run = [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    return lse ? fwd<kD, true, kF32>(q, k, v, o, lse, maps, B, Tq, Tk, H, sl, st)
+               : fwd<kD, false, kF32>(q, k, v, o, lse, maps, B, Tq, Tk, H, sl, st);
+  };
+  if constexpr (kF32)
+    return by_head_dim<32, 64, 128>(D, B, Tq, Tk, H, run);
+  else
+    return by_head_dim<64, 128>(D, B, Tq, Tk, H, run);
 }
 
 }  // namespace
@@ -652,8 +662,9 @@ extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void
 }
 
 // The fp32 forward on the split parts of q, k and v (flash_attention_split_f32), each a
-// contiguous bf16 (3, B, T, H, D); maps: their tensor maps' layout as (3B, T, H, D), boxed
-// by FWD_F32_TILES' rows. o is a contiguous fp32 (B, Tq, H, D). Returns as the bf16 forward.
+// contiguous bf16 (3, B, T, H, f32_part_cols(D)); maps: their tensor maps' layout as (3B, T,
+// H, f32_part_cols(D)), boxed by FWD_F32_TILES' rows; D: 32, 64 or 128. o is a contiguous
+// fp32 (B, Tq, H, D). Returns as the bf16 forward.
 extern "C" int flash_attention_fwd_f32(const void* q_parts, const void* k_parts, const void* v_parts, void* o,
                                        float* lse, const long long* maps, int B, int Tq, int Tk, int H, int D,
                                        float scale, void* stream) {
@@ -664,13 +675,11 @@ extern "C" int flash_attention_fwd_f32(const void* q_parts, const void* k_parts,
 // another D): kernel 0 the bf16 forward, 1 the fp32 forward. Printed beside each
 // instance's registers in the build line.
 extern "C" int flash_attention_fwd_smem(int kernel, int D) {
-  if (D != 64 && D != 128) return 0;
-  const bool d64 = D == 64;
   switch (kernel) {
     case 0:
-      return d64 ? FwdPlan<64>::kSmem : FwdPlan<128>::kSmem;
+      return D == 64 ? FwdPlan<64>::kSmem : D == 128 ? FwdPlan<128>::kSmem : 0;
     case 1:
-      return d64 ? FwdF32Plan<64>::kSmem : FwdF32Plan<128>::kSmem;
+      return D == 32 ? FwdF32Plan<32>::kSmem : D == 64 ? FwdF32Plan<64>::kSmem : D == 128 ? FwdF32Plan<128>::kSmem : 0;
     default:
       return 0;
   }

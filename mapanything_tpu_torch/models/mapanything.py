@@ -6,8 +6,13 @@ Counterpart of ``mapanything_tpu/models/mapanything.py``: ``Views`` (:70),
 ``MapAnythingConfig`` with ``.small()`` (:244-358), ``MapAnything.__call__``
 (:372-685) with its geometric branches (pose canonicalisation, ray and depth
 encoders, depth sparsification, metric-scale tokens; :416-533), and
-``assemble_scene_representation`` (:688), for the DPT head and the
-``raydirs+depth+pose`` and ``raydirs+depth+rgb+pose`` scene representations.
+``assemble_scene_representation`` (:688), for the ``raydirs+depth+pose`` and
+``raydirs+depth+rgb+pose`` scene representations. The dense head is DPT
+(``dense_head_type="dpt"``) or one of the RGB-prediction models' list-consuming
+heads (JAX :622-638): the MAE decoder (``"mae"``, ``heads/mae.py``) or the MoGe
+convolutional decoder (``"moge"``, ``heads/moge_conv.py``), which alone accept
+``use_raw_encoder_features_for_dpt`` (JAX :277, :589-594): the raw image-encoder
+features in front of the four levels.
 ``MapAnythingConfig.head_chunk_size`` runs the dense head over consecutive
 chunks of the B·V views (JAX :653-668), which bounds the head's activations
 when many views are reconstructed at once.
@@ -27,7 +32,9 @@ adaptors run in ``head_dtype`` (fp32 by default). Tensors are channel-last
 Top-level parameter names are the reference's (``encoder.model.*``,
 ``fusion_norm_layer``, ``scale_token``, ``info_sharing.*``,
 ``dpt_feature_head.*``, ``dpt_regressor_head.*``, ``pose_head.*``,
-``scale_head.*``), so ``mapanything_tpu.utils.torch_convert`` reads them.
+``scale_head.*``), so ``mapanything_tpu.utils.torch_convert`` reads them. The MAE
+and MoGe heads (``mae_head.*``, ``moge_head.*``), which no converter reads, take
+the JAX modules' names.
 """
 
 from __future__ import annotations
@@ -61,6 +68,8 @@ from mapanything_tpu_torch.models.heads.adaptors import (
     dense_components_for_scene_rep,
 )
 from mapanything_tpu_torch.models.heads.dpt import DPTFeature, DPTRegressionProcessor
+from mapanything_tpu_torch.models.heads.mae import MAEGeneralDecoder
+from mapanything_tpu_torch.models.heads.moge_conv import MoGeConvFeature
 from mapanything_tpu_torch.models.heads.pose import MLPHead, PoseHead
 from mapanything_tpu_torch.models.info_sharing.alternating import (
     AlternatingAttentionTransformer,
@@ -216,6 +225,8 @@ class Predictions:
 
 
 SCENE_REPS = ("raydirs+depth+pose", "raydirs+depth+rgb+pose")
+DENSE_HEADS = ("dpt", "mae", "moge")
+LIST_HEADS = ("mae", "moge")  # the heads that take the raw encoder features too
 
 
 @dataclass(frozen=True)
@@ -243,6 +254,9 @@ class MapAnythingConfig:
     dpt_hooks: Tuple[int, ...] = (0, 1, 2, 3)
     pose_head_num_resconv: int = 2
     scene_rep_type: str = "raydirs+depth+pose"
+    # The raw image-encoder output in front of the dense head's feature levels (the
+    # feature-returner encoder preset); the list-consuming heads (mae, moge) only.
+    use_raw_encoder_features_for_dpt: bool = False
     # adaptors
     dense_adaptor: DenseAdaptorConfig = field(default_factory=DenseAdaptorConfig)
     pose_adaptor: PoseAdaptorConfig = field(default_factory=PoseAdaptorConfig)
@@ -253,7 +267,8 @@ class MapAnythingConfig:
     head_dtype: str = "float32"
     dpt_fusion_dtype: Optional[str] = None  # None follows compute_dtype
     # Views per chunk of the dense head (DPT feature head and regression
-    # processor) over the B·V views; None, 0 or >= B·V runs them at once.
+    # processor, or the MAE or MoGe head) over the B·V views; None, 0 or >= B·V
+    # runs them at once.
     head_chunk_size: Optional[int] = None
 
     @property
@@ -320,8 +335,11 @@ class MapAnything(nn.Module):
         super().__init__()
         device = resolve_device(device)
         cfg = config
-        if cfg.dense_head_type != "dpt":
-            raise NotImplementedError(f"dense_head_type={cfg.dense_head_type!r}: only 'dpt' is ported")
+        if cfg.dense_head_type not in DENSE_HEADS:
+            raise NotImplementedError(f"dense_head_type={cfg.dense_head_type!r}: only {DENSE_HEADS} are ported")
+        if cfg.use_raw_encoder_features_for_dpt and cfg.dense_head_type not in LIST_HEADS:
+            raise ValueError(f"raw encoder features need a list-consuming head {LIST_HEADS}, "
+                             f"not {cfg.dense_head_type!r}")
         if cfg.scene_rep_type not in SCENE_REPS:
             raise NotImplementedError(f"scene_rep_type={cfg.scene_rep_type!r}: only {SCENE_REPS} are ported")
         if cfg.dense_adaptor.components != cfg.dense_components:
@@ -349,16 +367,25 @@ class MapAnything(nn.Module):
             use_entropy_scaling=cfg.use_entropy_scaling,
             dtype=dtype,
         )
-        self.dpt_feature_head = DPTFeature(
-            hooks=cfg.dpt_hooks,
-            input_feature_dims=(embed_dim,) + (cfg.info_sharing_dim,) * 3,
-            layer_dims=cfg.dpt_layer_dims,
-            feature_dim=cfg.dpt_feature_dim,
-            dtype=fdt,
-        )
-        self.dpt_regressor_head = DPTRegressionProcessor(
-            cfg.dpt_feature_dim, cfg.dense_adaptor.num_channels, dtype=hdt, feature_dtype=fdt
-        )
+        self.fusion_dtype = fdt  # the dense head's inputs
+        level_dims = (embed_dim,) + (cfg.info_sharing_dim,) * 3
+        n_dense = cfg.dense_adaptor.num_channels
+        if cfg.dense_head_type == "dpt":
+            self.dpt_feature_head = DPTFeature(
+                hooks=cfg.dpt_hooks,
+                input_feature_dims=level_dims,
+                layer_dims=cfg.dpt_layer_dims,
+                feature_dim=cfg.dpt_feature_dim,
+                dtype=fdt,
+            )
+            self.dpt_regressor_head = DPTRegressionProcessor(cfg.dpt_feature_dim, n_dense, dtype=hdt, feature_dtype=fdt)
+        else:  # fp32 whatever the model's dtype, as the JAX model builds them
+            if cfg.use_raw_encoder_features_for_dpt:
+                level_dims = (embed_dim,) + level_dims
+            if cfg.dense_head_type == "mae":
+                self.mae_head = MAEGeneralDecoder(level_dims, n_dense, patch_size=cfg.patch_size)
+            else:
+                self.moge_head = MoGeConvFeature(level_dims, n_dense)
         self.pose_head = PoseHead(
             cfg.info_sharing_dim, cfg.patch_size, cfg.pose_head_num_resconv, dtype=hdt
         )
@@ -493,12 +520,14 @@ class MapAnything(nn.Module):
             feats.to(dtype), scale_tokens, non_ref_view_pe_indices
         )
 
-        # 7. Heads. Hook 0 takes the fused post-norm features (the trunk input).
-        fdt = self.dpt_feature_head.dtype
-        dense_inputs = [
-            x.to(fdt).reshape(B * V, h, w, x.shape[-1])
-            for x in (feats, intermediates[0], intermediates[1], final_feats)
-        ]
+        # 7. Heads. Hook 0 takes the fused post-norm features (the trunk input); the
+        #    raw encoder features, where the config asks, go in front of the levels. As
+        #    in the JAX model, the pose head takes the fourth entry of the list, which
+        #    is then the second intermediate of the trunk, not its output.
+        levels = [feats, intermediates[0], intermediates[1], final_feats]
+        if cfg.use_raw_encoder_features_for_dpt:
+            levels = [enc_feats * per_view(rgb)] + levels
+        dense_inputs = [x.to(self.fusion_dtype).reshape(B * V, h, w, x.shape[-1]) for x in levels]
         dense_raw = self._dense_head(dense_inputs, (H, W))
         pose_raw = self.pose_head(dense_inputs[3])
         scale_raw = self.scale_head(token_feats)
@@ -510,10 +539,16 @@ class MapAnything(nn.Module):
         return assemble_scene_representation(cfg, dense_out, pose_out, scale, B, V, H, W)
 
     def _dense_head(self, dense_inputs, hw: Tuple[int, int]) -> torch.Tensor:
-        """The DPT feature head and regression processor over all B·V views,
-        or over consecutive chunks of ``head_chunk_size`` views, concatenated."""
+        """The dense head (the DPT feature head and regression processor, or the
+        MAE or MoGe head) over all B·V views, or over consecutive chunks of
+        ``head_chunk_size`` views, concatenated."""
         n, c = dense_inputs[0].shape[0], self.config.head_chunk_size
-        run = lambda xs: self.dpt_regressor_head(self.dpt_feature_head(xs), hw)  # noqa: E731
+        kind = self.config.dense_head_type
+        if kind == "dpt":
+            run = lambda xs: self.dpt_regressor_head(self.dpt_feature_head(xs), hw)  # noqa: E731
+        else:
+            head = self.mae_head if kind == "mae" else self.moge_head
+            run = lambda xs: head(xs, hw)  # noqa: E731
         if not c or c >= n:
             return run(dense_inputs)
         if c < 0 or n % c:

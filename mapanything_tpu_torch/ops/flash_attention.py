@@ -7,9 +7,15 @@ The port's counterpart of ``mapanything_tpu/ops/flash_attention.py``:
 Pallas kernels K1-K8 of PERF.md; here two hand-written Hopper sources serve
 them: ``csrc/flash_attention_fwd.cu`` (the forward, with or without the lse
 residual) and ``csrc/flash_attention_bwd.cu`` (the dq kernel and the dk/dv
-kernel), each instantiated for head dims 64 and 128 (``HEAD_DIMS``). D = 128
+kernel), each instantiated for head dims 64 and 128 in bf16 (``HEAD_DIMS``) and
+32, 64 and 128 in fp32 (``F32_HEAD_DIMS``); any other head dim raises. D = 128
 is K8's regime on the TPU (``d % 128 == 0``: ``_fwd_kernel``,
-``_fwd_kernel_lse``, ``_dq_kernel``, ``_dkv_kernel``). The plain versions
+``_fwd_kernel_lse``, ``_dq_kernel``, ``_dkv_kernel``). D = 32 is the RGB
+models' MAE decoder, which runs in fp32 whatever the model's dtype; on the TPU
+its attention took ``_fwd_kernel_single(_lse)``, ``_fwd_stream_aug(_lse)``,
+``_dq_aug_kernel`` and ``_dkv_aug_kernel``. The fp32 instances run it on the
+D = 64 plans: the split pass writes its parts zero-padded to 64 columns
+(``part_cols``), and the kernels store 32 columns a row. The plain versions
 below take any head dim: they are the plain version of K8 as they are of K1-K7.
 
 The bf16 kernels are Hopper's own design (wgmma, TMA, a producer warpgroup and
@@ -56,21 +62,34 @@ from mapanything_tpu_torch.ops import _build
 KERNEL_STEM = "flash_attention_fwd"
 BWD_KERNEL_STEM = "flash_attention_bwd"
 KERNEL_STEMS = (KERNEL_STEM, BWD_KERNEL_STEM)
-HEAD_DIMS = (64, 128)  # head dims the kernels are instantiated for
+HEAD_DIMS = (64, 128)  # head dims the bf16 kernels are instantiated for
+F32_HEAD_DIMS = (32, 64, 128)  # and the fp32 kernels
 # The kernels' instances: bf16 (wgmma) and fp32 (wgmma over split bf16 parts).
 _DTYPES = (torch.bfloat16, torch.float32)
 # The bf16 forward's tile plan by head dim, (query rows, key rows) a block: FwdPlan in
 # csrc/flash_attention_fwd.cu, which refuses maps whose boxes differ.
 FWD_TILES = {64: (128, 176), 128: (128, 176)}
-# The fp32 forward's, the same pair: FwdF32Plan, whose tiles hold three bf16 parts each.
+# The fp32 forward's, the same pair: FwdF32Plan, whose tiles hold three bf16 parts each;
+# keyed by the parts' width, part_cols(D) (D = 32 runs D = 64's plan on padded parts).
 FWD_F32_TILES = {64: (128, 96), 128: (128, 32)}
 # The bf16 backward's plans by head dim: the dq kernel's (query rows a work tile, keys a
 # K or V tile) and the dk/dv kernel's (keys a work tile, query rows a stage): DqPlan and
 # DkvPlan in csrc/flash_attention_bwd.cu.
 BWD_TILES = {64: {"dq": (128, 128), "dkv": (128, 96)}, 128: {"dq": (128, 64), "dkv": (128, 32)}}
-# The fp32 backward's plans, the same pairs: DqF32Plan and DkvF32Plan.
+# The fp32 backward's plans, the same pairs, by the parts' width: DqF32Plan and DkvF32Plan.
 BWD_F32_TILES = {64: {"dq": (128, 64), "dkv": (128, 64)}, 128: {"dq": (64, 32), "dkv": (64, 32)}}
 TMA_BOX_COLS = 64  # a box is one 128-byte swizzle row of bf16 wide
+
+
+def head_dims(dtype: torch.dtype) -> Tuple[int, ...]:
+    """The head dims with a kernel instance in ``dtype``."""
+    return F32_HEAD_DIMS if dtype == torch.float32 else HEAD_DIMS
+
+
+def part_cols(d: int) -> int:
+    """The columns of the fp32 split parts of head dim ``d``: at least one 64-column box
+    (f32_part_cols in csrc/flash_attention_common.cuh), zero past ``d``."""
+    return max(d, TMA_BOX_COLS)
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -158,15 +177,19 @@ def attention_bwd_dkv_reference(q, k, v, do, lse, delta, scale):
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def split_bf16x3_reference(x: torch.Tensor) -> torch.Tensor:
+def split_bf16x3_reference(x: torch.Tensor, cols: Optional[int] = None) -> torch.Tensor:
     """x (fp32) as its three bf16 parts stacked on a new leading axis, a contiguous
     (3, *x.shape) tensor: hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid),
     rounded to nearest even. Both differences are exact in fp32, and hi + mid + lo is
-    within 2^-24 |x| of x. The plain version of the split kernel."""
+    within 2^-24 |x| of x. With ``cols``, the last axis is zero-padded to ``cols``. The
+    plain version of the split kernel."""
     hi = x.to(torch.bfloat16)
     rest = x - hi.float()
     mid = rest.to(torch.bfloat16)
-    return torch.stack((hi, mid, (rest - mid.float()).to(torch.bfloat16)))
+    parts = torch.stack((hi, mid, (rest - mid.float()).to(torch.bfloat16)))
+    if cols is not None and cols > x.shape[-1]:
+        parts = torch.nn.functional.pad(parts, (0, cols - x.shape[-1]))
+    return parts
 
 
 _PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -218,8 +241,9 @@ def _tensor_maps(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tiles: dict 
 
 
 def _fwd_f32_tensor_maps(*parts: torch.Tensor) -> bytes:
-    """The tensor maps of the fp32 forward: each (3, B, T, H, D) part tensor of q, k and v
-    as one (3B, T, H, D) map (part p of batch b at p·B + b), boxed by ``FWD_F32_TILES``."""
+    """The tensor maps of the fp32 forward: each (3, B, T, H, part_cols(D)) part tensor of
+    q, k and v as one (3B, T, H, part_cols(D)) map (part p of batch b at p·B + b), boxed
+    by ``FWD_F32_TILES``."""
     return _tensor_maps(*(x.flatten(0, 1) for x in parts), tiles=FWD_F32_TILES)
 
 
@@ -232,9 +256,9 @@ def _bwd_tensor_maps(kernel: str, q, k, v, do, tiles: dict = BWD_TILES) -> bytes
 
 
 def _bwd_f32_tensor_maps(kernel: str, *parts: torch.Tensor) -> bytes:
-    """The tensor maps of the fp32 dq or dk/dv kernel: each (3, B, T, H, D) part tensor
-    of q, k, v and dO as one (3B, T, H, D) map (part p of batch b at p·B + b), boxed by
-    ``BWD_F32_TILES``."""
+    """The tensor maps of the fp32 dq or dk/dv kernel: each (3, B, T, H, part_cols(D)) part
+    tensor of q, k, v and dO as one (3B, T, H, part_cols(D)) map (part p of batch b at
+    p·B + b), boxed by ``BWD_F32_TILES``."""
     return _bwd_tensor_maps(kernel, *(x.flatten(0, 1) for x in parts), tiles=BWD_F32_TILES)
 
 
@@ -244,10 +268,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     b, _, h, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != q.shape[2:]:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} has no kernel instance (built: {HEAD_DIMS})")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention kernel takes bf16 or fp32, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if d not in head_dims(q.dtype):
+        raise ValueError(f"head dim {d} has no {q.dtype} kernel instance (built: {head_dims(q.dtype)})")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
     align = 16 // q.element_size()  # 16-byte vector loads (and TMA boxes) of each row
@@ -282,10 +306,11 @@ def _raise_on(err: int, name: str) -> None:
 
 
 def _launch_fwd(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, with_lse: bool, parts=None
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, with_lse: bool, parts=None, out=None
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The forward kernel on CUDA tensors; in fp32 on ``parts``, the split pass's parts of
-    q, k and v (one split pass first when not given)."""
+    q, k and v (one split pass first when not given). ``out``: (o, lse or None), contiguous
+    tensors to write into (new ones when not given)."""
     _check(q, k, v)
     b, tq, h, d = q.shape
     if q.dtype == torch.bfloat16:
@@ -293,8 +318,13 @@ def _launch_fwd(
     else:
         parts = flash_attention_split_f32(q, k, v) if parts is None else parts
         name, inputs, maps = "flash_attention_fwd_f32", parts, _fwd_f32_tensor_maps(*parts)
-    o = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device) if with_lse else None
+    if out is None:
+        o = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+        lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device) if with_lse else None
+    else:
+        o, lse = out
+        if o.shape != q.shape or not o.is_contiguous() or (lse is not None) != with_lse:
+            raise ValueError("out must hold a contiguous o of q's shape and an lse exactly when with_lse")
     ptrs = [x.data_ptr() for x in (*inputs, o)] + [None if lse is None else lse.data_ptr()]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -318,18 +348,19 @@ def _check_bwd(q, k, v, do, lse, delta) -> torch.Tensor:
 def flash_attention_split_f32(q, k, v, do=None) -> Tuple[torch.Tensor, ...]:
     """The split pass of the fp32 kernels: each of q, k, v and, where given (the
     backward), dO (fp32 (B, T, H, D)) as its three bf16 parts, a contiguous
-    (3, B, T, H, D) tensor each (hi, mid, lo of ``split_bf16x3_reference``). One launch
-    of the split kernel (in the backward's source) for the three or four on CUDA
-    tensors; the plain version on CPU tensors."""
+    (3, B, T, H, part_cols(D)) tensor each (hi, mid, lo of ``split_bf16x3_reference``,
+    zero past D). One launch of the split kernel (in the backward's source) for the three
+    or four on CUDA tensors; the plain version on CPU tensors."""
     xs = (q, k, v) if do is None else (q, k, v, do)
+    cols = part_cols(q.shape[-1])
     if _device_of(q) == "cpu":
-        return tuple(split_bf16x3_reference(x) for x in xs)
+        return tuple(split_bf16x3_reference(x, cols) for x in xs)
     _check(q, k, v)
     if q.dtype != torch.float32 or any(x.dtype != torch.float32 or x.shape != q.shape for x in xs[3:]):
         raise TypeError(f"the split takes fp32 q, k, v and a dO of q's shape, got "
                         f"{[(x.dtype, tuple(x.shape)) for x in xs]}")
     xs = (q, k, v, *(_aligned(x) for x in xs[3:]))
-    parts = tuple(torch.empty((3, *x.shape), dtype=torch.bfloat16, device=q.device) for x in xs)
+    parts = tuple(torch.empty((3, *x.shape[:-1], cols), dtype=torch.bfloat16, device=q.device) for x in xs)
     b, tq, h, d = q.shape
     absent = [None] * (4 - len(xs))  # no dO: null pointers, strides not read
     ptrs = [x.data_ptr() for x in xs] + absent + [x.data_ptr() for x in parts] + absent
@@ -466,7 +497,8 @@ def flash_attention(
 ) -> torch.Tensor:
     """softmax(q kᵀ scale) v over q (B, Tq, H, D) and k, v (B, Tk, H, D).
 
-    CUDA tensors run the Hopper kernels (bf16 or fp32, D = 64 or 128) and come back
+    CUDA tensors run the Hopper kernels (bf16 at D = 64 or 128, fp32 at D = 32, 64 or
+    128) and come back
     as a contiguous (B, Tq, H, D) tensor; CPU tensors run the plain versions.
     The result is differentiable when an input requires grad.
     """

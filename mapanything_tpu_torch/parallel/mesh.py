@@ -1,13 +1,16 @@
-"""The view axis: a group of ranks, block sharding of views, and collectives.
+"""The view and data axes: groups of ranks, block sharding, and collectives.
 
 Counterpart of ``mapanything_tpu/parallel/mesh.py`` (``make_mesh`` :29,
-``shard_views_pytree`` :59) for the view axis only. On the TPU a (data,
-view) mesh lets XLA place the collectives; here a ``ViewGroup`` names the
-ranks that share a batch's views, rank r holds views [r·V/n, (r+1)·V/n) (so
-rank 0 holds view 0), and the collectives are explicit. The differentiable
-ones carry their adjoints: the backward of an all-gather is a
-reduce-scatter, of an all-reduce an all-reduce, of a broadcast a sum back
-to its source.
+``shard_views_pytree`` :59). On the TPU a (data, view) mesh lets XLA place the
+collectives; here a ``ViewGroup`` names the ranks that share a batch's views,
+rank r holds views [r·V/n, (r+1)·V/n) (so rank 0 holds view 0), and the
+collectives are explicit. A ``Mesh`` is the 2-D group: data × view, view
+fastest, as ``make_mesh`` lays the devices out; its ``view`` group is one row
+(the ranks that split one block of samples' views) and its ``data`` group one
+column (the ranks that hold the same views of the other blocks of samples),
+both ``ViewGroup``s. The differentiable collectives carry their adjoints: the
+backward of an all-gather is a reduce-scatter, of an all-reduce an all-reduce,
+of a broadcast a sum back to its source.
 
 Each rank holds its own copy of a replicated value, and a rank's loss
 reaches its own copy only. The total gradient of a replicated value is then
@@ -49,6 +52,46 @@ class ViewGroup:
     @property
     def prev_rank(self) -> int:
         return self.ranks[(self.rank - 1) % self.size]
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """The 2-D group of every rank of the default process group: global rank r is
+    data index r // n_view and view index r % n_view. ``view``: this rank's row;
+    ``data``: its column; ``world``: every rank."""
+
+    view: ViewGroup
+    data: ViewGroup
+    world: ViewGroup
+
+    @property
+    def is_main(self) -> bool:
+        return self.world.rank == 0
+
+
+def make_mesh(view_parallelism: int = 1, data_parallelism: Optional[int] = None) -> Mesh:
+    """The (data, view) mesh over every rank of the default process group, view
+    fastest. ``data_parallelism`` None or -1 takes the ranks that are left; another
+    value must fit the world size. Every rank makes every row and column group, in
+    one order, as ``torch.distributed.new_group`` demands; a group of every rank is
+    the default group itself."""
+    world = make_view_group()
+    n, vp = world.size, view_parallelism
+    if vp < 1 or n % vp:
+        raise ValueError(f"{n} ranks do not split into rows of view_parallelism={vp}")
+    if data_parallelism not in (None, -1) and data_parallelism * vp != n:
+        raise ValueError(f"a {data_parallelism} x {vp} (data x view) mesh needs {data_parallelism * vp} ranks, "
+                         f"not {n}")
+    rows = [tuple(range(d * vp, (d + 1) * vp)) for d in range(n // vp)]
+    cols = [tuple(range(v, n, vp)) for v in range(vp)]
+    made = {}
+    for ranks in rows + cols:
+        if ranks not in made:
+            made[ranks] = None if len(ranks) == n else dist.new_group(list(ranks))
+    d, v = divmod(world.rank, vp)
+    return Mesh(view=ViewGroup(rank=v, size=vp, ranks=rows[d], group=made[rows[d]]),
+                data=ViewGroup(rank=d, size=n // vp, ranks=cols[v], group=made[cols[v]]),
+                world=world)
 
 
 def make_view_group(group: Optional[dist.ProcessGroup] = None) -> ViewGroup:
@@ -211,6 +254,28 @@ def broadcast_from_first(x: torch.Tensor, vg: ViewGroup) -> torch.Tensor:
     """Differentiable ``broadcast_first``; the first rank's input gets the sum
     of every rank's gradient, the others' none."""
     return _BroadcastFirst.apply(x, vg)
+
+
+def sample_slice(dg: ViewGroup, num_samples: int) -> slice:
+    """This rank's block of ``num_samples`` samples along the data axis."""
+    if num_samples % dg.size:
+        raise ValueError(f"{num_samples} samples do not split over {dg.size} ranks")
+    per = num_samples // dg.size
+    return slice(dg.rank * per, (dg.rank + 1) * per)
+
+
+def shard_batch_pytree(tree, mesh: Mesh):
+    """This rank's (data, view) block of a dataclass of tensors: every tensor field's
+    samples (dim 0) by the data group, then its views (dim 1 of the (B, V, ...)
+    fields) by the view group, as the JAX ``_shard_batch`` places (B, V, ...) and (B,)
+    arrays on the mesh."""
+    samples = {f.name: getattr(tree, f.name) for f in fields(tree)}
+    samples = {k: x for k, x in samples.items() if isinstance(x, torch.Tensor) and x.dim() >= 1}
+    bs = {x.shape[0] for x in samples.values()}
+    if len(bs) != 1:
+        raise ValueError(f"the tensor fields disagree on B: {sorted(bs)}")
+    sl = sample_slice(mesh.data, bs.pop())
+    return shard_views_pytree(replace(tree, **{k: x[sl] for k, x in samples.items()}), mesh.view)
 
 
 def gather_views_pytree(tree, vg: ViewGroup):

@@ -16,9 +16,22 @@ then build ``MapAnythingConfig``, ``GeometricInputConfig``, ``LossConfig``,
 script does, and run the ``Trainer`` on the card (``--device`` names another).
 The model gets the port's seeded initialisation (``seed``), with the geometric
 encoders, as the JAX script's ``model.init`` on the train views gives them.
-What the port does not have raises: a mesh (view or data parallelism above 1:
-the data axis is ROADMAP.md §1 item 1) and activation rematerialisation
-(``remat``: on ROADMAP.md's list of what is not ported, by design).
+
+A mesh (``distributed.mesh.view_parallelism`` or ``data_parallelism`` above 1,
+as the JAX script reads them, :102-110) runs one process a rank: launch the tool
+under ``torchrun`` (its ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``
+and ``MASTER_PORT``), e.g. 2 (data) x 2 (view) on four cards:
+
+    torchrun --nproc_per_node 4 -m mapanything_tpu_torch.tools.train \
+        --override distributed.mesh.view_parallelism=2
+
+or call ``main`` inside a joined process group (``parallel.distributed.run_ranks``).
+The tool joins the group (``init_distributed_mode``), builds the data x view
+``Mesh`` over every rank (view fastest; ``data_parallelism`` -1 takes the ranks
+that are left) and gives it to the ``Trainer``; every rank's loader yields the
+same global batches, of which each rank takes its block. Activation
+rematerialisation (``remat``) raises: it is on ROADMAP.md's list of what is not
+ported, by design.
 """
 
 from __future__ import annotations
@@ -26,9 +39,13 @@ from __future__ import annotations
 import argparse
 from typing import List, Optional
 
+import torch
+
 from mapanything_tpu_torch.data.datasets.wai_datasets import ALL_WAI_DATASETS
 from mapanything_tpu_torch.data.loader import MultiViewDataLoader
 from mapanything_tpu_torch.models.mapanything import GeometricInputConfig, MapAnything, MapAnythingConfig
+from mapanything_tpu_torch.parallel.distributed import init_distributed_mode
+from mapanything_tpu_torch.parallel.mesh import make_mesh
 from mapanything_tpu_torch.train.loop import Trainer, TrainLoopConfig
 from mapanything_tpu_torch.train.losses import LossConfig
 from mapanything_tpu_torch.utils.config import load_config
@@ -87,17 +104,29 @@ def loop_config(cfg: dict) -> TrainLoopConfig:
     )
 
 
-def build(args: argparse.Namespace):
-    """Everything the run needs, built from the composed config: (the model, the
-    loader, the loop, loss and geometric-input configs)."""
-    cfg = load_config(args.config, overrides=args.override)
-    mcfg = cfg["model"]
+def build_mesh(cfg: dict, device: str):
+    """The data x view ``Mesh`` that ``distributed.mesh`` asks for, over the process
+    group (joined here when it is not yet), or None for one process."""
     mesh_cfg = cfg.get("distributed", {}).get("mesh", {}) or {}
     view_par = int(mesh_cfg.get("view_parallelism", 1) or 1)
     data_par = mesh_cfg.get("data_parallelism", -1)
-    if view_par > 1 or (isinstance(data_par, int) and data_par > 1):
-        raise NotImplementedError(f"a mesh (view_parallelism={view_par}, data_parallelism={data_par}): the "
-                                  "Trainer's data axis is not ported yet (ROADMAP.md §1 item 1)")
+    if not (view_par > 1 or (isinstance(data_par, int) and data_par > 1)):
+        return None
+    init_distributed_mode(device)
+    if not torch.distributed.is_initialized():
+        raise RuntimeError(f"a mesh (view_parallelism={view_par}, data_parallelism={data_par}) needs a process "
+                           "group of its ranks: launch the tool under torchrun (or call main inside run_ranks)")
+    mesh = make_mesh(view_parallelism=view_par, data_parallelism=data_par if isinstance(data_par, int) else None)
+    print(f"training on mesh {{'data': {mesh.data.size}, 'view': {mesh.view.size}}}")
+    return mesh
+
+
+def build(args: argparse.Namespace):
+    """Everything the run needs, built from the composed config: (the model, the
+    loader, the loop, loss and geometric-input configs, the mesh or None)."""
+    cfg = load_config(args.config, overrides=args.override)
+    mcfg = cfg["model"]
+    mesh = build_mesh(cfg, args.device)
     model_cfg = model_config(cfg)
     geo_cfg = GeometricInputConfig(**{k: v for k, v in mcfg["task"].items()
                                       if k in GeometricInputConfig.__dataclass_fields__})
@@ -107,14 +136,18 @@ def build(args: argparse.Namespace):
     if not dataset_expr or dataset_expr == "???":
         raise ValueError("no dataset: pass --dataset-expr or compose a configs/dataset group")
     dist = cfg.get("distributed", {})
+    # The global batches on every rank (world size 1): under a mesh each rank takes its
+    # block of each one, so the loader must not deal batches out by rank.
     loader = MultiViewDataLoader(
         build_dataset(dataset_expr),
         images_per_batch=cfg.get("images_per_batch", dist.get("max_num_of_imgs_per_chip", 8)),
         num_workers=cfg.get("num_workers", cfg.get("dataset", {}).get("num_workers", 8)),
+        world_size=1,
+        rank=0,
     )
     loop_cfg = loop_config(cfg)
     model = MapAnything(model_cfg, device=args.device, seed=loop_cfg.seed, geometric_inputs=True)
-    return model, loader, loop_cfg, loss_cfg, geo_cfg
+    return model, loader, loop_cfg, loss_cfg, geo_cfg, mesh
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -128,8 +161,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[List[str]] = None) -> Trainer:
     """Build the run from ``argv`` and train; returns the Trainer."""
-    model, loader, loop_cfg, loss_cfg, geo_cfg = build(parse_args(argv))
-    trainer = Trainer(model, loader, loop_cfg, loss_cfg=loss_cfg, geo_cfg=geo_cfg)
+    model, loader, loop_cfg, loss_cfg, geo_cfg, mesh = build(parse_args(argv))
+    trainer = Trainer(model, loader, loop_cfg, loss_cfg=loss_cfg, geo_cfg=geo_cfg, mesh=mesh)
     trainer.train()
     return trainer
 

@@ -126,3 +126,90 @@ def cp_train_step(rank: int, world_size: int, config_kw: dict, params, img, batc
         "params": {n: p.detach().numpy() for n, p in state.params.items()},
         "counts": sa.counts(),
     }
+
+
+def mesh_trainer(rank: int, world_size: int, view_parallelism: int, config_kw: dict, state: dict, batch_np: dict,
+                 loop_kw: dict, out_root: str, resume: bool = False) -> dict:
+    """One epoch of one batch of the ``Trainer`` on the data x view mesh of every rank
+    (``make_mesh(view_parallelism)``), the small model with every geometric input.
+    Each rank starts from weights of its own seed; the first rank's are ``state`` (port
+    names, numpy), which the Trainer replicates. Each rank writes under its own
+    ``out_root/rank{r}``. With ``resume``, a second Trainer of fresh weights (each rank's
+    own seed again) and two epochs then resumes in the same directories, where only
+    the first rank has a checkpoint, and trains the second epoch. Each rank lists what
+    it wrote and deletes it. Returns, on every rank, the digest of its parameters after
+    the last update, its file list, the epoch its last Trainer started from and its
+    step; on rank 0 also the log and the summed gradients of the last step."""
+    import hashlib
+    import shutil
+    from pathlib import Path
+
+    from mapanything_tpu_torch.parallel.mesh import make_mesh
+    from mapanything_tpu_torch.train.loop import Trainer, TrainLoopConfig
+
+    mesh = make_mesh(view_parallelism=view_parallelism)
+    model = MapAnything(MapAnythingConfig.small(**config_kw), device="cpu", seed=rank + 1, geometric_inputs=True)
+    if rank == 0:
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    out = Path(out_root) / f"rank{rank}"
+    trainer = Trainer(model, [batch_np], TrainLoopConfig(output_dir=str(out), epochs=1, **loop_kw), mesh=mesh)
+    trainer.train()
+    if resume:
+        model = MapAnything(MapAnythingConfig.small(**config_kw), device="cpu", seed=rank + 11,
+                            geometric_inputs=True)
+        trainer = Trainer(model, [batch_np], TrainLoopConfig(output_dir=str(out), epochs=2, **loop_kw), mesh=mesh)
+        trainer.train()
+    files = sorted(str(p.relative_to(out)) for p in out.rglob("*") if p.is_file())
+    log = (out / "log.txt").read_text() if rank == 0 else None
+    shutil.rmtree(out)
+    h = hashlib.blake2b(digest_size=16)
+    for p in model.parameters():
+        h.update(p.detach().contiguous().numpy().tobytes())
+    result = {"files": files, "digest": h.hexdigest(), "mesh": (mesh.data.rank, mesh.view.rank),
+              "start_epoch": trainer.start_epoch, "step": trainer.state.step}
+    if rank == 0:
+        result.update(log=log, grads={n: p.grad.numpy() for n, p in model.named_parameters()})
+    return result
+
+
+def train_tool_mesh(rank: int, world_size: int, mesh_cfg: dict):
+    """The train tool's mesh for a config's ``distributed.mesh`` inside this group:
+    (data size, view size, data rank, view rank), or the error it raises."""
+    from mapanything_tpu_torch.tools.train import build_mesh
+
+    try:
+        mesh = build_mesh({"distributed": {"mesh": mesh_cfg}}, "cpu")
+    except ValueError as err:
+        return str(err)
+    return mesh.data.size, mesh.view.size, mesh.data.rank, mesh.view.rank
+
+
+def batch_digest(batch: dict) -> str:
+    """A digest of a collated batch's images, valid masks and points."""
+    import hashlib
+
+    h = hashlib.blake2b(digest_size=16)
+    for key in ("img", "valid_mask", "pts3d"):
+        h.update(np.ascontiguousarray(batch[key]).tobytes())
+    return h.hexdigest()
+
+
+def train_tool_run(rank: int, world_size: int, argv: list) -> dict:
+    """``tools.train.main(argv)`` inside this group, then the digest of every batch its
+    loader yields in epoch 0 (``batch_digest``), the step taken and the digest of the
+    parameters; rank 0 adds its log."""
+    import hashlib
+    from pathlib import Path
+
+    from mapanything_tpu_torch.tools.train import main
+
+    trainer = main(argv)
+    trainer.train_loader.set_epoch(0)
+    h = hashlib.blake2b(digest_size=16)
+    for p in trainer.model.parameters():
+        h.update(p.detach().contiguous().numpy().tobytes())
+    result = {"batches": [batch_digest(b) for b in trainer.train_loader], "step": trainer.state.step,
+              "digest": h.hexdigest()}
+    if rank == 0:
+        result["log"] = (Path(trainer.cfg.output_dir) / "log.txt").read_text()
+    return result

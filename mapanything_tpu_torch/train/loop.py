@@ -11,8 +11,15 @@ The ``Trainer`` takes any iterable of collated numpy batches with a length
 (``set_epoch(epoch)`` is called where the loader has it) and runs on the
 model's device. It keeps two quirks of the JAX package: a checkpoint's step
 is the epoch, and the random stream (masks, PE indices) restarts from
-``cfg.seed`` on resume, since it is not checkpointed. The data axis (the JAX
-``mesh``) is not ported yet.
+``cfg.seed`` on resume, since it is not checkpointed.
+
+The data axis (the JAX ``Trainer``'s ``mesh``, :139-145, :195-260): with a
+``parallel.mesh.Mesh`` (data × view) every rank runs a ``Trainer`` over the same
+loader, which yields the global batches; the train state starts replicated (the
+first rank's, which alone restores on resume) and stays so, each rank takes its (data, view) block of every
+batch (``shard_batch_pytree``), the steps sum the gradients and the metrics
+over the mesh (``train.step``), and the first rank alone writes checkpoints and
+logs.
 """
 
 from __future__ import annotations
@@ -22,12 +29,14 @@ import pickle
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mapanything_tpu_torch.models.mapanything import GeometricInputConfig, MapAnything, resolve_device
+from mapanything_tpu_torch.parallel.mesh import Mesh, sample_slice, shard_batch_pytree, view_slice
 from mapanything_tpu_torch.train.checkpointing import CheckpointManager
 from mapanything_tpu_torch.train.losses import LossBatch, LossConfig
 from mapanything_tpu_torch.train.optim import OptimConfig, SubmoduleOptimConfig, build_optimizer
@@ -92,10 +101,12 @@ def _images(batch_np, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(batch_np["img"]), dtype=torch.float32).to(device)
 
 
+
 class Trainer:
     """Epoch-driven trainer of ``model`` (which holds its parameters, on its
     device) over ``train_loader``; ``test_loader`` feeds the eval step and
-    checkpoint-best."""
+    checkpoint-best. ``mesh``: the data × view mesh of every rank (see the
+    module's docstring), or None for one process."""
 
     def __init__(
         self,
@@ -105,11 +116,13 @@ class Trainer:
         test_loader=None,
         loss_cfg: LossConfig = LossConfig(),
         geo_cfg: GeometricInputConfig = GeometricInputConfig(),
-        mesh=None,
+        mesh: Optional[Mesh] = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("the Trainer's data axis (mesh) is not ported yet")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh (make_mesh), not {type(mesh).__name__}")
         self.model = model
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.is_main
         self.device = model.device
         self.train_loader = train_loader
         self.test_loader = test_loader
@@ -134,18 +147,19 @@ class Trainer:
         self.optimizer = build_optimizer(self.opt_cfg, model)
         self.state = init_train_state(model, self.optimizer)
         self._accum_steps: Dict[int, object] = {}
-        self.eval_step = make_eval_step(model, loss_cfg)
+        self.eval_step = make_eval_step(model, loss_cfg, mesh)
 
         self.ckpt = CheckpointManager(str(Path(cfg.output_dir) / "checkpoints"), keep_freq=cfg.keep_freq)
         # checkpoint-best: saved whenever the test loss improves (training.py:237-287).
         self.ckpt_best = CheckpointManager(str(Path(cfg.output_dir) / "checkpoints-best"), max_to_keep=1)
-        self.jsonl = JsonlLogger(cfg.output_dir)
+        self.jsonl = JsonlLogger(cfg.output_dir, enabled=self.is_main)
         self.start_epoch = 0
         self.best_loss = float("inf")
         # Not checkpointed: a resumed run draws from the seed again, as the JAX Trainer does.
         self.generator = torch.Generator().manual_seed(cfg.seed)
 
-        if cfg.resume and self.ckpt.latest_step() is not None:
+        # Under a mesh the first rank alone reads its checkpoints, then replicates.
+        if cfg.resume and self.is_main and self.ckpt.latest_step() is not None:
             restored = self.ckpt.restore(self.state)
             if restored is not None:
                 self.state = restored
@@ -154,17 +168,37 @@ class Trainer:
                 best_meta = self.ckpt_best.load_metadata() or {}
                 self.best_loss = float(best_meta.get("best_loss", float("inf")))
                 print_main(f"Resumed from checkpoint at epoch {self.start_epoch - 1}")
+        if mesh is not None:
+            self._replicate_first_rank()
+
+    def _replicate_first_rank(self):
+        """Every rank takes the first rank's train state (parameters, Adam moments,
+        counts), epoch to start from and best test loss: its initial weights, or
+        what it restored."""
+        src, group = self.mesh.world.ranks[0], self.mesh.world.group
+        o = self.state.opt_state
+        norm = None if o.grad_norm is None else o.grad_norm.cpu()
+        meta = [(self.start_epoch, self.best_loss, self.state.step, o.count, norm)]
+        dist.broadcast_object_list(meta, src=src, group=group, device=self.device)
+        self.start_epoch, self.best_loss, step, count, norm = meta[0]
+        with torch.no_grad():
+            for tensors in (self.state.params, o.mu, o.nu):
+                for t in tensors.values():
+                    dist.broadcast(t.data, src=src, group=group)
+        opt_state = dataclasses.replace(o, count=count, grad_norm=None if norm is None else norm.to(self.device))
+        self.state = dataclasses.replace(self.state, opt_state=opt_state, step=step)
 
     # ------------------------------------------------------------------
     def _dump_forensics(self, batch_np, loss, epoch, it):
         """Loss explosion: pickle the batch, save a debug checkpoint at the
         optimizer step, raise (training.py:481-510)."""
         out = Path(self.cfg.output_dir) / "debug"
-        out.mkdir(parents=True, exist_ok=True)
-        with open(out / f"bad_batch_e{epoch}_i{it}.pkl", "wb") as f:
-            pickle.dump(batch_np, f)
-        self.ckpt.save(int(self.state.step), self.state, {"debug": True, "epoch": epoch})
-        self.ckpt.wait()
+        if self.is_main:
+            out.mkdir(parents=True, exist_ok=True)
+            with open(out / f"bad_batch_e{epoch}_i{it}.pkl", "wb") as f:
+                pickle.dump(batch_np, f)
+            self.ckpt.save(int(self.state.step), self.state, {"debug": True, "epoch": epoch})
+            self.ckpt.wait()
         raise FloatingPointError(
             f"loss explosion/NaN at epoch {epoch} iter {it}: {loss}; batch + checkpoint dumped to {out}"
         )
@@ -175,13 +209,21 @@ class Trainer:
 
     def _accum_step_for(self, n: int):
         if n not in self._accum_steps:
-            self._accum_steps[n] = make_accum_train_step(self.model, self.optimizer, n, self.loss_cfg, self.geo_cfg)
+            self._accum_steps[n] = make_accum_train_step(self.model, self.optimizer, n, self.loss_cfg, self.geo_cfg,
+                                                         self.mesh)
         return self._accum_steps[n]
 
+    def _inputs(self, batch_np):
+        """(img, LossBatch) of a collated batch on the device: this rank's block under a mesh."""
+        img, batch = _images(batch_np, self.device), loss_batch_from_numpy(batch_np, self.device)
+        if self.mesh is None:
+            return img, batch
+        img = img[sample_slice(self.mesh.data, img.shape[0])][:, view_slice(self.mesh.view, img.shape[1])]
+        return img, shard_batch_pytree(batch, self.mesh)
+
     def _run_accum_group(self, group):
-        imgs = [_images(b, self.device) for b in group]
-        batches = [loss_batch_from_numpy(b, self.device) for b in group]
-        return self._accum_step_for(len(group))(self.state, imgs, batches, self.generator)
+        imgs, batches = zip(*(self._inputs(b) for b in group))
+        return self._accum_step_for(len(group))(self.state, list(imgs), list(batches), self.generator)
 
     def train_one_epoch(self, epoch: int) -> Dict[str, float]:
         """One pass over the train loader in accumulation groups of up to
@@ -226,7 +268,7 @@ class Trainer:
         if hasattr(self.test_loader, "set_epoch"):
             self.test_loader.set_epoch(epoch)
         for batch_np in logger.log_every(self.test_loader, self.cfg.print_freq, f"Test [{epoch}]"):
-            metrics = self.eval_step(_images(batch_np, self.device), loss_batch_from_numpy(batch_np, self.device))
+            metrics = self.eval_step(*self._inputs(batch_np))
             logger.update(loss=float(metrics["loss"]))
         return logger.global_avg_dict("test_")
 
@@ -236,12 +278,13 @@ class Trainer:
             train_stats = self.train_one_epoch(epoch)
             test_stats = self.test_one_epoch(epoch)
             self.jsonl.write({"epoch": epoch, **train_stats, **test_stats, "epoch_time_s": time.time() - t0})
-            if epoch % self.cfg.save_freq == 0 or epoch == self.cfg.epochs - 1:
+            if self.is_main and (epoch % self.cfg.save_freq == 0 or epoch == self.cfg.epochs - 1):
                 self.ckpt.save(epoch, self.state, {"epoch": epoch})  # the step is the epoch, as in the JAX Trainer
             test_loss = test_stats.get("test_loss")
             if test_loss is not None and test_loss < self.best_loss:
                 self.best_loss = test_loss
-                self.ckpt_best.save(epoch, self.state, {"epoch": epoch, "best_loss": test_loss})
+                if self.is_main:
+                    self.ckpt_best.save(epoch, self.state, {"epoch": epoch, "best_loss": test_loss})
         self.ckpt.wait()
         self.ckpt_best.wait()
         return self.state

@@ -11,9 +11,17 @@ tree of the same structure. Nothing of JAX is imported here.
 Rules: Dense kernels (in, out) are transposed to ``Linear`` weights
 (out, in); conv kernels go from HWIO to OIHW; the ``StridedConvTranspose``
 kernel (k, k, out, in) goes to ``ConvTranspose2d``'s (in, out, k, k) — the
-same axis permutation; LayerNorm ``scale`` becomes ``weight``; every other
-leaf keeps its shape. Loading is strict: a JAX leaf that no port parameter
-takes, or a port parameter that no JAX leaf fills, raises.
+same axis permutation, as does the MoGe head's ``ConvTranspose`` with
+``transpose_kernel=True``; LayerNorm and GroupNorm ``scale`` become ``weight``;
+every other leaf keeps its shape. Loading is strict: a JAX leaf that no port
+parameter takes, or a port parameter that no JAX leaf fills, raises.
+
+The RGB-prediction heads (``mae_head``, ``moge_head``) have no torch converter
+in the JAX package, so no reference torch names exist for them: the port names
+their parameters after the JAX modules, and the map is one to one. The VGG19
+perceptual tower keeps torchvision's ``features.{i}`` names, the indices that
+``convert_vgg19_features`` reads, so a torchvision ``vgg19`` state dict loads
+into it as it is.
 """
 
 from __future__ import annotations
@@ -35,11 +43,14 @@ from mapanything_tpu_torch.models.heads.dpt import (
     DPTRegressionProcessor,
     StridedConvTranspose,
 )
+from mapanything_tpu_torch.models.heads.mae import MAEGeneralDecoder
+from mapanything_tpu_torch.models.heads.moge_conv import MoGeConvFeature
 from mapanything_tpu_torch.models.heads.pose import MLPHead, PoseHead
 from mapanything_tpu_torch.models.info_sharing.alternating import (
     AlternatingAttentionTransformer,
 )
 from mapanything_tpu_torch.models.mapanything import MapAnything
+from mapanything_tpu_torch.models.perceptual import VGG19_CONV_INDICES, VGG19Features
 
 # How a JAX leaf becomes the port's tensor, and the JAX leaf's rank where it
 # differs from the port's ("copy" keeps the shape).
@@ -194,6 +205,47 @@ def _global_rep(M, jp, tp):
     _norm(M, _join(jp, "norm"), tp + "norm_layer.")
 
 
+def _mae(M, jp, tp):
+    j = lambda n: _join(jp, n)  # noqa: E731
+    i = 0
+    while M.has(tp + f"embed_{i}.weight"):
+        _dense(M, j(f"embed_{i}"), tp + f"embed_{i}.")
+        i += 1
+    i = 0
+    while M.has(tp + f"decoder_block_{i}.norm1.weight"):
+        _block(M, j(f"decoder_block_{i}"), tp + f"decoder_block_{i}.")
+        i += 1
+    _norm(M, j("decoder_norm"), tp + "decoder_norm.")
+    _dense(M, j("decoder_pred"), tp + "decoder_pred.")
+
+
+def _moge(M, jp, tp):
+    j = lambda n: _join(jp, n)  # noqa: E731
+    i = 0
+    while M.has(tp + f"project_{i}.weight"):
+        _conv(M, j(f"project_{i}"), tp + f"project_{i}.")
+        i += 1
+    i = 0
+    while M.has(tp + f"upsample_{i}_conv.weight"):
+        _conv(M, j(f"upsample_{i}_deconv"), tp + f"upsample_{i}_deconv.")  # (k, k, out, in) -> (in, out, k, k)
+        _conv(M, j(f"upsample_{i}_conv"), tp + f"upsample_{i}_conv.")
+        k = 0
+        while M.has(tp + f"res_{i}_{k}.conv1.weight"):
+            rp, rj = tp + f"res_{i}_{k}.", f"res_{i}_{k}"
+            _norm(M, j(f"{rj}/GroupNorm_0"), rp + "norm.")
+            _conv(M, j(f"{rj}/conv1"), rp + "conv1.")
+            _conv(M, j(f"{rj}/conv2"), rp + "conv2.")
+            k += 1
+        i += 1
+    _conv(M, j("last_conv"), tp + "last_conv.")
+    _conv(M, j("out_proj"), tp + "out_proj.")
+
+
+def _vgg19(M, jp, tp):
+    for i in VGG19_CONV_INDICES:
+        _conv(M, _join(jp, f"conv{i}"), tp + f"features.{i}.")
+
+
 _DENSE_REP_ENCODERS = ("ray_dirs_encoder", "depth_encoder")
 _GLOBAL_REP_ENCODERS = ("depth_scale_encoder", "cam_rot_encoder", "cam_trans_encoder", "cam_trans_scale_encoder")
 
@@ -203,8 +255,13 @@ def _mapanything(M, jp, tp):
     _norm(M, "fusion_norm", "fusion_norm_layer.")
     _vit(M, "encoder", "encoder.model.")
     _trunk(M, "info_sharing", "info_sharing.")
-    _dpt_feature(M, "dpt_feature_head", "dpt_feature_head.")
-    _dpt_regressor(M, "dpt_regressor_head", "dpt_regressor_head.")
+    if M.has("mae_head.decoder_pred.weight"):
+        _mae(M, "mae_head", "mae_head.")
+    elif M.has("moge_head.out_proj.weight"):
+        _moge(M, "moge_head", "moge_head.")
+    else:
+        _dpt_feature(M, "dpt_feature_head", "dpt_feature_head.")
+        _dpt_regressor(M, "dpt_regressor_head", "dpt_regressor_head.")
     _pose_head(M, "pose_head", "pose_head.")
     _mlp_head(M, "scale_head", "scale_head.")
     for name in _DENSE_REP_ENCODERS:
@@ -222,6 +279,9 @@ _CONVERTERS: Dict[type, Callable] = {
     SelfAttentionBlock: _block,
     DPTFeature: _dpt_feature,
     DPTRegressionProcessor: _dpt_regressor,
+    MAEGeneralDecoder: _mae,
+    MoGeConvFeature: _moge,
+    VGG19Features: _vgg19,
     StridedConvTranspose: _conv,
     PoseHead: _pose_head,
     MLPHead: _mlp_head,

@@ -52,7 +52,7 @@ def split_forward(q, k, v, scale, passes=SIX_PASSES):
     softmax in fp32, P split into its parts, each tile's P V as a split product into a
     fresh sum, and O rescaled and added to in fp32."""
     b, tq, h, d = q.shape
-    block_n = port_fa.FWD_F32_TILES[d][1]
+    block_n = port_fa.FWD_F32_TILES[port_fa.part_cols(d)][1]
     scale_log2 = torch.tensor(scale, dtype=torch.float32) * LOG2E
     m = torch.full((b, h, tq), -torch.inf)
     l = torch.zeros(b, h, tq)

@@ -99,6 +99,10 @@ SLICE_MODULES = (
     "mapanything_tpu_torch.data.wai",
     "mapanything_tpu_torch.data.datasets.wai_datasets",
     "mapanything_tpu_torch.tools.train",
+    # the RGB-prediction models and the other losses
+    "mapanything_tpu_torch.models.heads.mae",
+    "mapanything_tpu_torch.models.heads.moge_conv",
+    "mapanything_tpu_torch.models.perceptual",
 )
 # Optional decoders that the port imports only when a file needs them, and what the JAX data path
 # uses that the port must not (PyYAML, SciPy).
@@ -171,14 +175,16 @@ def test_entry_point_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_unported_options_raise():
+    # The mae and moge heads and the disentangled loss are ported; the linear head, the
+    # other scene representations and the disentangled loss under a view group are not.
     with pytest.raises(NotImplementedError, match="dense_head_type"):
-        port_ma.MapAnything(port_ma.MapAnythingConfig.small(dense_head_type="moge"), device="cpu")
+        port_ma.MapAnything(port_ma.MapAnythingConfig.small(dense_head_type="linear"), device="cpu")
     with pytest.raises(NotImplementedError, match="scene_rep_type"):
         port_ma.MapAnything(port_ma.MapAnythingConfig.small(scene_rep_type="pointmap"), device="cpu")
     from mapanything_tpu_torch.train import losses as port_losses
 
     with pytest.raises(NotImplementedError, match="disentangled"):
-        port_losses.factored_geometry_scale_loss(None, None, port_losses.LossConfig(disentangled=True))
+        port_losses.factored_geometry_scale_loss(None, None, port_losses.LossConfig(disentangled=True), group=object())
 
 
 def test_attention_on_a_device_it_does_not_serve_raises():

@@ -538,7 +538,7 @@ def test_forensic_dump_pickles_the_batch_and_raises(tmp_path):
     assert sorted(batch) == sorted(last) and all(np.array_equal(batch[k], last[k]) for k in last)
     assert trainer.ckpt.all_steps() == [1] and trainer.ckpt.load_metadata() == {"step": 1, "debug": True, "epoch": 0}
     shutil.rmtree(tmp_path / "checkpoints")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):  # the data axis takes a parallel.mesh.Mesh
         port_loop.Trainer(trainer.model, data, cfg, mesh=object())
 
 

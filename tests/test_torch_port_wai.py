@@ -32,7 +32,9 @@ from mapanything_tpu.train import loop as jax_loop
 from mapanything_tpu.utils.exr import write_depth_exr as jax_write_exr
 from mapanything_tpu_torch.data import wai as port_wai
 from mapanything_tpu_torch.data.datasets import wai_datasets as port_wds
+from mapanything_tpu_torch.parallel.distributed import run_ranks
 from mapanything_tpu_torch.tools import train as port_train
+from mapanything_tpu_torch.tools import view_parallel_ranks
 from mapanything_tpu_torch.utils import exr as port_exr
 from mapanything_tpu_torch.utils import threads
 from mapanything_tpu_torch.utils.image import read_png
@@ -172,8 +174,8 @@ SMALL_MODEL = ["model.encoder.size=small", "model.info_sharing.depth=4", "model.
                "model.compute_dtype=float32"]
 
 
-def tool_args(base, root, meta, out):
-    expr = ("2 @ ETH3DWAI(split='train', resolution=[(56, 42), (42, 56)], aug_crop=16, transform='imgnorm', "
+def tool_args(base, root, meta, out, samples=2):
+    expr = (f"{samples} @ ETH3DWAI(split='train', resolution=[(56, 42), (42, 56)], aug_crop=16, transform='imgnorm', "
             f"ROOT='{root}', dataset_metadata_dir='{meta}', num_views=2, covisibility_thres=0.25, seed=3)")
     overrides = SMALL_MODEL + [
         f"machine.root_data_dir={base}", f"machine.mapanything_dataset_metadata_dir={meta}",
@@ -257,7 +259,7 @@ def test_train_tool_matches_the_jax_script(wai, tmp_path, monkeypatch):
 def test_train_tool_refuses_what_the_port_lacks(wai, tmp_path, monkeypatch):
     base, root, meta = wai
     argv = tool_args(base, root, meta, tmp_path) + ["--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 1"):
+    with pytest.raises(RuntimeError, match="torchrun"):  # a mesh needs its ranks' process group
         port_train.main(argv + ["--override", "distributed.mesh.view_parallelism=2"])
     with pytest.raises(NotImplementedError, match="not ported, by design"):
         port_train.main(argv + ["--override", "model.remat=true"])
@@ -272,3 +274,34 @@ def test_train_tool_refuses_what_the_port_lacks(wai, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):  # the card unless --device names another
         port_train.main(tool_args(base, root, meta, tmp_path))
+
+
+def test_train_tool_on_a_two_by_two_mesh_trains_on_the_global_batches(wai, tmp_path):
+    """``tools.train.main`` with ``distributed.mesh.view_parallelism=2`` in a group of 4
+    gloo ranks (2 data x 2 view): every rank's loader yields the same global batches
+    as one process's (2 batches of 2 samples x 2 views), every rank takes both steps
+    and ends with the same parameters, and the logged loss equals the one-process
+    run's within 1e-5 relative. A loader that dealt the batches out by rank would
+    give each rank another batch and fewer steps. The test encoder keeps the four
+    ranks' footprint small; the files they write are removed."""
+    base, root, meta = wai
+    lean = ["model.encoder.size=test", "model.info_sharing.depth=2", "model.info_sharing.dim=64",
+            "model.info_sharing.indices=[0, 1]", "images_per_batch=4", "num_workers=0"]
+    argv = lambda out, extra: tool_args(base, root, meta, out, samples=4) + sum(  # noqa: E731
+        (["--override", o] for o in lean + extra), []) + ["--device", "cpu"]
+    one = port_train.main(argv(tmp_path / "one", []))
+    one.train_loader.set_epoch(0)
+    want = [view_parallel_ranks.batch_digest(b) for b in one.train_loader]
+    (want_epoch,) = [json.loads(x) for x in (tmp_path / "one" / "train" / "log.txt").read_text().splitlines()]
+    assert one.state.step == len(want) == 2
+    del one  # the model and its Adam state, while the four ranks run
+
+    results = run_ranks(view_parallel_ranks.train_tool_run, 4, "cpu", tmp_path / "rendezvous",
+                        argv(tmp_path / "mesh", ["distributed.mesh.view_parallelism=2"]))
+    assert all(r["batches"] == want and r["step"] == 2 for r in results)
+    assert len({r["digest"] for r in results}) == 1
+    (got_epoch,) = [json.loads(x) for x in results[0]["log"].splitlines()]
+    for key in ("train_loss", "train_grad_norm"):
+        np.testing.assert_allclose(got_epoch[key], want_epoch[key], rtol=1e-5, err_msg=key)
+    shutil.rmtree(tmp_path / "one")
+    shutil.rmtree(tmp_path / "mesh")
