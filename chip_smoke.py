@@ -10,6 +10,7 @@
     python3 chip_smoke.py --trainer-only       # phases 1, 2 and 20 alone
     python3 chip_smoke.py --data-only          # phases 1, 2 and 21 alone
     python3 chip_smoke.py --rgb-only           # phases 1, 2, the D = 32 rows of 3 and 3b, 22-25
+    python3 chip_smoke.py --dust3r-only        # phases 1, 2, the DUSt3R rows of 3, 26 and 27
 
 Phases, each printing one JSON line:
   1. the card's name and power limit, as nvidia-smi reports them;
@@ -44,7 +45,10 @@ Phases, each printing one JSON line:
      with the kernel timed alone on one split pass's parts, the split pass
      (held bitwise to its plain version) and the whole call timed apart;
      and the fp32 D = 32 instance at the RGB models' MAE decoder, 8 x 1369 x 16 x 32
-     (8 launches a 1 x 8 x 518 forward, phase 22's);
+     (8 launches a 1 x 8 x 518 forward, phase 22's); and the DUSt3R path's shapes in
+     bf16 and fp32 (phase 27's): the encoder's 2 x 768 x 16 x 64, the decoder's self-
+     and cross-attention at 1 x 768 x 12 x 64 (the cross-attention's q, k and v three
+     tensors), and a 3-view context (1 x 768 queries against 1536 keys);
   3b. training kernel checks: the forward with lse, the dq and the dk/dv
      kernels against their plain versions at the 1 x 4 x 518 training
      shapes in bf16 (phase 7's) and in fp32 (phase 17's), with kernel, plain
@@ -192,13 +196,24 @@ Phases, each printing one JSON line:
      value and gradient within 1e-4 of its magnitude (TF32 off);
   25. the Trainer on a one-rank data x view mesh (NCCL, after phase 10, in
      the same group): the small fp32 multimodal model on one batch
-     against the Trainer without a mesh.
+     against the Trainer without a mesh;
+  26. the DUSt3R family's slice on the card, fp32 with TF32 off, each against the
+     same model on the plain versions (within 1e-4 of each field's magnitude): the
+     small ModularDUSt3R (the registry's depths, heads of 64) at 2 views with its
+     decoder features, its CrossAttentionTransformer alone at 3 views (contexts of
+     2 x 80 keys), and the small ablation MapAnything in the pointmap, raymap+depth,
+     campointmap+pose and pointmap+raydirs+depth+pose scene representations, the
+     linear head among them; launches by (Tk, D);
+  27. ModularDUSt3R at DUSt3R_ViTLarge_BaseDecoder_512_dpt's widths on one 512 x 384
+     pair, fp32 and bf16 (the same seeded weights): 72 launches at (768, 64) a
+     forward, its CUDA-event time, pairs a second, peak memory, finite pts3d and
+     features, conf >= 1, and the attention's share of the forward (phase 3's rows).
 On a machine with more than one card, phases 9 and 10 then run again over
 NCCL with one rank a card (2 or 4 cards); rank 0 checks the gathered
 outputs against the unsharded forward. A machine with one card skips this.
 Phases 11-13 run after phase 5, before phase 6; phase 3e after 3d; phases
 14-24 after phase 7, before phase 8 (the D = 32 rows with phases 3 and 3b);
-phase 25 after phase 10. Then the kernels' summary line and,
+phases 26-27 after phase 24; phase 25 after phase 10. Then the kernels' summary line and,
 last, {"ok": true, "device": {...}}.
 Phases 3f and 3g run right after the build. With --train-step-only, phase 7
 (phase 17 with --compute-dtype float32) runs after the build (without the SASS
@@ -208,7 +223,9 @@ the same way. With --forward-edges-only, phase
 3f runs after the build and the script stops there, the same way; with
 --backward-edges-only, phase 3g; with --files-only, phase 19; with
 --trainer-only, phase 20; with --data-only, phase 21; with --rgb-only, the
-D = 32 rows of phases 3 and 3b, phases 22-24, and 25 on a one-rank group of its own.
+D = 32 rows of phases 3 and 3b, phases 22-24, and 25 on a one-rank group of its own;
+with --dust3r-only, the DUSt3R rows of phase 3, phases 26 and 27, and a kernels line
+of their entries.
 Any failed check raises and the script exits non-zero. Without a CUDA device,
 or without the port beside it, it exits non-zero and prints no result.
 """
@@ -357,11 +374,11 @@ def split_bound_ms(card, n_elements: int) -> float:
     return n_elements * (4 + 3 * 2) / peaks_for(card["name"])[2] * 1e3
 
 
-def plain_chunks(b: int, t: int, fp32: bool) -> list:
+def plain_chunks(b: int, t: int, fp32: bool, tk: int = None) -> list:
     """(batch, query-row) slices over which the plain versions run: batch chunks of
-    PLAIN_BATCH; in fp32 also query rows, PLAIN_SLAB // t at a time (fp64 logits of
-    12 heads at 10953 tokens would take 11.5 GB a copy)."""
-    rows = min(t, PLAIN_SLAB // t) if fp32 else t
+    PLAIN_BATCH; in fp32 also query rows, PLAIN_SLAB // tk at a time (fp64 logits of
+    12 heads at 10953 tokens would take 11.5 GB a copy); ``tk`` defaults to t."""
+    rows = min(t, PLAIN_SLAB // (tk or t)) if fp32 else t
     return [(slice(i, i + PLAIN_BATCH), slice(r, r + rows)) for i in range(0, b, PLAIN_BATCH)
             for r in range(0, t, rows)]
 
@@ -371,24 +388,32 @@ def kernel_checks(card, shapes, phase_id: str):
     also under the fp32 rule), with times and the bound; the plain versions over chunks
     (plain_chunks). The fp32 rows time the kernel alone on one split pass's parts
     (``ms``), the split pass (``split_ms``, held bitwise to its plain version) and the
-    whole call (``call_ms``)."""
+    whole call (``call_ms``). A row of six entries gives the key length last: its q
+    (B, T, H, D) and its k and v (B, Tk, H, D) are three tensors, as a cross-attention's
+    ``projq``, ``projk`` and ``projv`` make them; a row of five is a self-attention over
+    views of one fused qkv tensor."""
     import torch
     import torch.nn.functional as F
 
     from mapanything_tpu_torch.ops import flash_attention as fa
 
     rows = []
-    for name, (b, t, h, d), dtype_name, per_forward, replaces in shapes:
+    for name, (b, t, h, d), dtype_name, per_forward, replaces, *key_length in shapes:
         dtype = getattr(torch, dtype_name)
         fp32 = dtype == torch.float32
         gen = torch.Generator(device="cuda").manual_seed(1)
-        # q, k, v as Attention makes them: strided views of one fused qkv tensor.
-        qkv = torch.randn(b, t, 3, h, d, device="cuda", dtype=torch.float32, generator=gen).to(dtype)
-        q, k, v = qkv.unbind(2)
+        tk = key_length[0] if key_length else t
+        if key_length:  # q, k, v as CrossAttention makes them: three projections
+            q, k, v = (torch.randn(b, n, h, d, device="cuda", dtype=torch.float32, generator=gen).to(dtype)
+                       for n in (t, tk, tk))
+            qkv = None
+        else:  # q, k, v as Attention makes them: strided views of one fused qkv tensor
+            qkv = torch.randn(b, t, 3, h, d, device="cuda", dtype=torch.float32, generator=gen).to(dtype)
+            q, k, v = qkv.unbind(2)
         scale = d**-0.5
         out = fa.flash_attention(q, k, v, scale)
         torch.cuda.synchronize()
-        chunks = plain_chunks(b, t, fp32)
+        chunks = plain_chunks(b, t, fp32, tk)
         exact_dtype = torch.float64 if fp32 else torch.float32
         err = plain_err = ref_max = 0.0
         for cb, cr in chunks:
@@ -411,7 +436,7 @@ def kernel_checks(card, shapes, phase_id: str):
             extra = {"split_ms": cuda_time_ms(lambda: fa.flash_attention_split_f32(q, k, v), iters=20),
                      "split_plain_ms": cuda_time_ms(
                          lambda: [fa.split_bf16x3_reference(x, fa.part_cols(d)) for x in (q, k, v)], iters=5, warmup=1),
-                     "split_bound_ms": split_bound_ms(card, 3 * b * t * h * d),
+                     "split_bound_ms": split_bound_ms(card, b * (t + 2 * tk) * h * d),
                      "split_bitwise": split_bitwise,
                      "call_ms": cuda_time_ms(lambda: fa.flash_attention(q, k, v, scale), iters=20),
                      "plain_fp32_err": plain_err, "fp32_tol": fp32_tol}
@@ -428,6 +453,7 @@ def kernel_checks(card, shapes, phase_id: str):
             "phase_id": phase_id,
             "shape": name,
             "b_t_h_d": [b, t, h, d],
+            **({"tk": tk} if key_length else {}),
             "dtype": dtype_name,
             "replaces": replaces,
             "max_abs_err": err,
@@ -435,8 +461,8 @@ def kernel_checks(card, shapes, phase_id: str):
             "ms": ms,
             "plain_ms": plain_ms,
             "library_ms": library_ms,
-            **forward_bounds(card, b, t, t, h, d, dtype_name, with_lse=False),
-            "tflops": fa.attention_flops(b, t, t, h, d) / ms / 1e9,
+            **forward_bounds(card, b, t, tk, h, d, dtype_name, with_lse=False),
+            "tflops": fa.attention_flops(b, t, tk, h, d) / ms / 1e9,
             **extra,
             "per_forward": per_forward,
             "card": card["name"],
@@ -2907,6 +2933,259 @@ def mesh_trainer_phase(card) -> dict:
     return line
 
 
+# The DUSt3R path (phases 26-27): ModularDUSt3R at DUSt3R_ViTLarge_BaseDecoder_512_dpt's widths
+# (ModularDUSt3RConfig's defaults) on one 512 x 384 pair, 32 x 24 = 768 patches a view. The
+# JAX package's sdpa sends fewer than 1024 queries to XLA's attention
+# (mapanything_tpu/ops/attention.py:73, jax.nn.dot_product_attention): no Pallas kernel ran
+# there on the TPU, and the rows name that dispatch as what the kernel replaces.
+DUST3R_REPLACES = "mapanything_tpu/ops/attention.py:73"
+DUST3R_HW = (384, 512)
+# (name, B x Tq x H x D, dtype, launches per 2-view forward, replaced[, Tk: q, k, v three
+# tensors]): the encoder's 24 layers over both views at once, the decoder's 12 layers of
+# self- and cross-attention per view; the 3-view context (Tk = 2 x 768) is off the 2-view
+# path (phase 26 runs the decoder at 3 views at a small width).
+DUST3R_SHAPES = [
+    row for dtype in ("bfloat16", "float32") for row in (
+        ("dust3r_encoder", (2, 768, 16, 64), dtype, 24, DUST3R_REPLACES),
+        ("dust3r_decoder_self", (1, 768, 12, 64), dtype, 24, DUST3R_REPLACES),
+        ("dust3r_decoder_cross", (1, 768, 12, 64), dtype, 24, DUST3R_REPLACES, 768),
+        ("dust3r_cross_3_views", (1, 768, 12, 64), dtype, 0, DUST3R_REPLACES, 1536),
+    )
+]
+# Phase 26: kernels against the plain versions on the card, fp32 with TF32 off, of each
+# field's magnitude.
+DUST3R_SLICE_RTOL = 1e-4
+# Phase 26's small ablation models: (scene representation, dense head, factored global pointmap).
+FAMILIES = [("pointmap", "dpt", True), ("raymap+depth", "linear", True), ("campointmap+pose", "dpt", True),
+            ("pointmap+raydirs+depth+pose", "dpt", True), ("pointmap+raydirs+depth+pose", "linear", False)]
+
+
+def against_plain(run, fields) -> tuple:
+    """``run()`` with the kernels and with the plain versions (fp32, TF32 off): each
+    field's largest difference over its magnitude, and the kernels' launches by shape."""
+    import torch
+
+    from mapanything_tpu_torch.ops.attention import plain_attention
+    from mapanything_tpu_torch.ops.flash_attention import launch_shapes, reset_launch_counts
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        reset_launch_counts()
+        with torch.inference_mode():
+            kern = run()
+        torch.cuda.synchronize()
+        shapes = launch_shapes()
+        with plain_attention(), torch.inference_mode():
+            plain = run()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    errs = {}
+    for name in fields:
+        a, b = kern[name], plain[name]
+        if a.dtype == torch.bool:
+            errs[name + "_agreement"] = (a == b).float().mean().item()
+            continue
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"non-finite {name}")
+        errs[name] = (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+    bad = {k: v for k, v in errs.items() if (v < 0.999 if k.endswith("_agreement") else v > DUST3R_SLICE_RTOL)}
+    if bad:
+        raise AssertionError(f"kernels and plain versions disagree: {bad} (limit {DUST3R_SLICE_RTOL})")
+    return errs, shapes
+
+
+def dust3r_slice_check(card) -> dict:
+    """Phase 26: on the card, fp32 with TF32 off, each held to the same model on the plain
+    versions: the small ModularDUSt3R (the registry's depths, heads of 64: the preset's
+    heads of 16 have no kernel instance) at 2 views with its decoder features; its
+    CrossAttentionTransformer alone at 3 views (contexts of 2 x 80 keys); and the small
+    ablation MapAnything in the four other scene representations and with the linear head."""
+    import torch
+
+    from mapanything_tpu_torch.models.heads.adaptors import DenseAdaptorConfig, dense_components_for_scene_rep
+    from mapanything_tpu_torch.models.info_sharing.cross_attention import CrossAttentionTransformer
+    from mapanything_tpu_torch.models.mapanything import MapAnything, MapAnythingConfig, Views
+    from mapanything_tpu_torch.models.modular_dust3r import ModularDUSt3R, small_config
+
+    rng = np.random.RandomState(26)
+    line = {"phase": "dust3r_slice", "phase_id": "26", "rtol": DUST3R_SLICE_RTOL}
+    # The model at 2 views: 8 x 10 patches a view.
+    cfg = small_config(enc_embed_dim=128, enc_num_heads=2, dec_embed_dim=128, dec_num_heads=2)
+    model = ModularDUSt3R(cfg, device="cuda", seed=26)
+    img = torch.from_numpy(rng.randn(1, 2, 128, 160, 3).astype(np.float32)).cuda()
+
+    def dust3r():
+        preds, feats = model(img, return_features=True)
+        return {"pts3d": preds.pts3d, "conf": preds.conf, "features": feats}
+
+    errs, shapes = against_plain(dust3r, ("pts3d", "conf", "features"))
+    want = {(80, 64): 10}  # 2 encoder layers over both views, 2 decoder layers x 2 views x 2
+    for name in ("flash_attention_fwd", "flash_attention_split_f32"):
+        if shapes[name] != want:
+            raise AssertionError(f"the small ModularDUSt3R launched {name} {shapes[name]}, not {want}")
+    line["modular_dust3r"] = {"config": f"{cfg}, 1x2x128x160, seeded", "err_over_magnitude": errs,
+                              "launches_by_shape": shape_counts(shapes)}
+    # The decoder alone at 3 views: each view's context is the other two's 160 tokens.
+    decoder = CrossAttentionTransformer(128, depth=2, dim=128, num_heads=2, indices=(0,)).cuda()
+    feats = torch.from_numpy(rng.randn(1, 3, 8, 10, 128).astype(np.float32)).cuda()
+
+    def three_views():
+        out, inters = decoder(feats)
+        return {"out": out, "tap": inters[0]}
+
+    errs, shapes = against_plain(three_views, ("out", "tap"))
+    want = {(80, 64): 6, (160, 64): 6}
+    if shapes["flash_attention_fwd"] != want:
+        raise AssertionError(f"the 3-view decoder launched {shapes['flash_attention_fwd']}, not {want}")
+    line["cross_attention_3_views"] = {"config": "CrossAttentionTransformer(128, depth=2, dim=128, num_heads=2), "
+                                                 "1x3x8x10", "err_over_magnitude": errs,
+                                       "launches_by_shape": shape_counts(shapes)}
+    # The small ablation model in the other scene representations and with the linear head.
+    img = torch.from_numpy(rng.randn(1, 2, 56, 56, 3).astype(np.float32)).cuda()
+    line["scene_representations"] = []
+    for rep, head, factored in FAMILIES:
+        cfg = MapAnythingConfig.small(
+            scene_rep_type=rep, dense_head_type=head, use_factored_predictions_for_global_pointmaps=factored,
+            dense_adaptor=DenseAdaptorConfig(components=dense_components_for_scene_rep(rep), with_confidence=True,
+                                             with_mask=True))
+        ablation_model = MapAnything(cfg, device="cuda", seed=26)
+
+        def ablation():
+            preds = ablation_model(Views(img=img))
+            return {k: v for k, v in vars(preds).items() if v is not None}
+
+        with torch.inference_mode():
+            fields = tuple(ablation())
+        errs, shapes = against_plain(ablation, fields)
+        if not shapes["flash_attention_fwd"]:
+            raise AssertionError(f"{rep} with the {head} head launched no attention kernel")
+        line["scene_representations"].append({"scene_rep_type": rep, "dense_head_type": head,
+                                              "use_factored_predictions_for_global_pointmaps": factored,
+                                              "err_over_magnitude": errs,
+                                              "launches_by_shape": shape_counts(shapes)["flash_attention_fwd"]})
+    line.update(card=card["name"], power_limit=card["power_limit"])
+    emit(line)
+    return line
+
+
+def dust3r_flagship(card, compute_dtype: str, kernel_rows, weights=None) -> dict:
+    """Phase 27: ModularDUSt3R at the published widths (DUSt3R_ViTLarge_BaseDecoder_512_dpt) on
+    one 512 x 384 pair in ``compute_dtype``, seeded weights (those of ``weights``, a state dict,
+    where given): launches by (Tk, D) (72 at (768, 64), each after a split pass in fp32),
+    the forward's CUDA-event time, pairs a second, peak memory, finite pts3d and features,
+    conf >= 1; and the attention's share of the forward from phase 3's DUSt3R rows (the
+    rest is the encoder's and decoder's products, RoPE, the norms and the DPT heads)."""
+    import torch
+
+    from mapanything_tpu_torch.models.modular_dust3r import ModularDUSt3R, ModularDUSt3RConfig
+    from mapanything_tpu_torch.ops.flash_attention import launch_counts, launch_shapes, reset_launch_counts
+
+    B, (H, W) = 1, DUST3R_HW
+    fp32 = compute_dtype == "float32"
+    cfg = ModularDUSt3RConfig(compute_dtype=compute_dtype)
+    t0 = time.perf_counter()
+    if weights is None:
+        model = ModularDUSt3R(cfg, device="cuda", seed=0)
+    else:  # the same weights without a second seeded initialisation
+        with torch.device("meta"):
+            model = ModularDUSt3R(cfg, device="meta")
+        model.to_empty(device="cuda")
+        model.load_state_dict(weights, strict=True)
+    setup_s = time.perf_counter() - t0
+    img = torch.from_numpy(np.random.RandomState(27).randn(B, 2, H, W, 3).astype(np.float32)).cuda()
+    reset_launch_counts()
+    with torch.inference_mode():
+        model(img)
+    torch.cuda.synchronize()
+    counts, shapes = launch_counts(), launch_shapes()
+    want = {"flash_attention_fwd": 72, "flash_attention_fwd_lse": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0, "flash_attention_split_f32": 72 if fp32 else 0}
+    if counts != want or shapes["flash_attention_fwd"] != {(768, 64): 72}:
+        raise AssertionError(f"one DUSt3R forward launched {counts} ({shapes['flash_attention_fwd']}), not {want}")
+    warmup, iters = 2, 5
+    with torch.inference_mode():
+        for _ in range(warmup):
+            model(img)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        each = []
+        for _ in range(iters):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            preds, feats = model(img, return_features=True)
+            end.record()
+            torch.cuda.synchronize()
+            each.append(start.elapsed_time(end))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if tuple(preds.pts3d.shape) != (B, 2, H, W, 3) or tuple(preds.conf.shape) != (B, 2, H, W):
+        raise AssertionError(f"unexpected shapes {tuple(preds.pts3d.shape)}, {tuple(preds.conf.shape)}")
+    if not (bool(torch.isfinite(preds.pts3d).all()) and bool(torch.isfinite(preds.conf).all())
+            and bool(torch.isfinite(feats).all())):
+        raise AssertionError("non-finite DUSt3R outputs")
+    if preds.conf.min().item() < 1.0:
+        raise AssertionError("confidence below 1")
+    ms = sum(each) / iters
+    rows = [r for r in kernel_rows if r["dtype"] == compute_dtype and r["per_forward"]]
+    attention_ms = sum((r["call_ms"] if fp32 else r["ms"]) * r["per_forward"] for r in rows)
+    line = {
+        "phase": "dust3r_flagship", "phase_id": "27",
+        "config": f"ModularDUSt3RConfig(compute_dtype={compute_dtype!r}) (DUSt3R_ViTLarge_BaseDecoder_512_dpt "
+                  f"widths), 1x2x{H}x{W}, seeded random weights",
+        "setup_s": setup_s, "warmup": warmup, "iters": iters, "ms_per_forward": ms, "ms_each": each,
+        "pairs_per_s": B / (ms / 1e3), "peak_mem_gib": peak_gib,
+        "launches_per_forward": counts, "launches_by_shape": shape_counts(shapes),
+        "attention_ms_per_forward": attention_ms, "share_outside_attention": 1.0 - attention_ms / ms,
+        "pts3d_abs_max": preds.pts3d.abs().max().item(), "conf_min": preds.conf.min().item(),
+        "card": card["name"], "power_limit": card["power_limit"],
+    }
+    emit(line)
+    return {"line": line, "model": model}
+
+
+def dust3r_phases(card, rows=None) -> dict:
+    """The DUSt3R path: (without ``rows``) its rows of phase 3, then phase 26 and phase 27
+    in fp32 and bf16 (the bf16 model holding the fp32 model's weights)."""
+    import torch
+
+    out = {"rows": kernel_checks(card, DUST3R_SHAPES, "3") if rows is None else rows}
+    out["slice"] = dust3r_slice_check(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp32 = dust3r_flagship(card, "float32", out["rows"])
+    # The weights on the host, the card's memory freed: the bf16 run starts from an
+    # empty caching allocator, as in a process of its own.
+    weights = {k: v.cpu() for k, v in fp32.pop("model").state_dict().items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    bf16 = dust3r_flagship(card, "bfloat16", out["rows"], weights)
+    del bf16["model"], weights
+    out["flagship"] = {"float32": fp32["line"], "bfloat16": bf16["line"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dust3r_entries(dust3r) -> list:
+    """Phases 26-27 in the kernels line: the forward (and, in fp32, its split pass) on the
+    DUSt3R flagship's forward in each dtype, times per forward, with that run's launches;
+    the 3-view context row under per_shape."""
+    entries = []
+    for dtype, line in dust3r["flagship"].items():
+        rows = [r for r in dust3r["rows"] if r["dtype"] == dtype]
+        main, also = [r for r in rows if r["per_forward"]], [r for r in rows if not r["per_forward"]]
+        launches = {r["shape"]: r["per_forward"] for r in main}
+        kinds = [("flash_attention_fwd", main, also, KERNEL_SOURCE)]
+        if dtype == "float32":
+            kinds.append(("flash_attention_split_f32", split_rows(main), split_rows(also), BWD_KERNEL_SOURCE))
+        for name, entry_rows, also_rows, source in kinds:
+            entries.append(path_entry(name, DUST3R_REPLACES, entry_rows, launches, also=also_rows, source=source,
+                                      dtype=dtype, path=f"ModularDUSt3R 1x2x{DUST3R_HW[0]}x{DUST3R_HW[1]} "
+                                                        f"(phase 27); times per forward"))
+            entries[-1]["launches"] = line["launches_per_forward"][name]
+    return entries
+
+
 def worst_err(row) -> float:
     err = row["max_abs_err"]
     return max(err.values()) if isinstance(err, dict) else err
@@ -2922,7 +3201,7 @@ def path_entry(name, replaces, rows, launches, also=(), source=KERNEL_SOURCE, **
             return None
         return sum(r[key] * launches[r["shape"]] for r in rows)
 
-    shape = lambda r: {k: r[k] for k in ("shape", "b_t_h_d", "dtype", "replaces", "max_abs_err", "ms",  # noqa: E731
+    shape = lambda r: {k: r[k] for k in ("shape", "b_t_h_d", "tk", "dtype", "replaces", "max_abs_err", "ms",  # noqa: E731
                                          "plain_ms", "bound_ms", "library_ms", "exp_bound_ms", "ffma_bound_ms",
                                          "split_ms", "call_ms") if k in r}
     return {
@@ -2981,7 +3260,8 @@ def split_rows(rows) -> list:
 
 
 def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, inference_launches, train_launches,
-                 train_steps, vp_launches, many_view_line, h128, fp32_train, fp32_forward, files, trainer, data, rgb):
+                 train_steps, vp_launches, many_view_line, h128, fp32_train, fp32_forward, files, trainer, data, rgb,
+                 dust3r):
     """The kernels line: each kernel, what it replaces, its launches on its path
     (one forward; all train steps, and per step), its max error and its times
     per forward (inference) or per train step. The phase-3c rows are the
@@ -3002,7 +3282,9 @@ def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, infe
     are the data path's training kernels (``data``) by the TPU kernels that the JAX dispatch
     takes at its lengths, with that epoch's launches; times per micro-batch. The RGB rows
     of phases 3 and 3b (``rgb``) are the fp32 D = 32 instances on the MAE flagship's infer
-    (phase 22) and train step (phase 23), with those runs' D = 32 launches."""
+    (phase 22) and train step (phase 23), with those runs' D = 32 launches. The DUSt3R rows
+    of phase 3 (``dust3r``) are the forward on the DUSt3R flagship's forward in each dtype
+    (phase 27), with that run's launches."""
     main_rows = [r for r in rows if r["per_forward"] and r["dtype"] == "bfloat16"]
     kernels = [path_entry("flash_attention_fwd", "mapanything_tpu/ops/flash_attention.py:395", main_rows,
                           {r["shape"]: r["per_forward"] for r in main_rows},
@@ -3061,6 +3343,7 @@ def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, infe
     kernels += files_trainer_entries(train_rows, files, trainer)
     kernels += data_path_entries(data)
     kernels += rgb_entries(rgb)
+    kernels += dust3r_entries(dust3r)
     emit({"kernels": kernels})
 
 
@@ -3179,6 +3462,9 @@ def main() -> int:
     parser.add_argument("--data-only", action="store_true",
                         help="build the kernels, then run phase 21 (from disk to a trained step) alone and stop "
                              "after its line")
+    parser.add_argument("--dust3r-only", action="store_true",
+                        help="build the kernels, then run the DUSt3R path alone (its rows of phase 3, phases 26 and "
+                             "27) and stop after their lines and their kernels line")
     parser.add_argument("--rgb-only", action="store_true",
                         help="build the kernels, then run the RGB models' phases alone (the D = 32 rows of phases 3 "
                              "and 3b, phases 22-24, and 25 on its one-rank group) and stop after their lines")
@@ -3220,6 +3506,10 @@ def main() -> int:
         emit(build)
         flagship_train(card, compute_dtype=args.compute_dtype)
         return 0
+    if args.dust3r_only:
+        emit(build)
+        emit({"kernels": dust3r_entries(dust3r_phases(card))})
+        return 0
     if args.rgb_only:
         emit(build)
         rgb_phases(card)
@@ -3253,6 +3543,7 @@ def main() -> int:
         return 0
     rows = kernel_checks(card, ATTENTION_SHAPES, "3")
     rgb = {"rows": kernel_checks(card, RGB_SHAPES, "3")}
+    dust3r_rows = kernel_checks(card, DUST3R_SHAPES, "3")
     train_rows = train_kernel_checks(card)
     rgb["train_rows"] = train_kernel_checks(card, RGB_TRAIN_SHAPES, RGB_TRAIN_REPLACES)
     fp32_train_rows = train_kernel_checks(card, FP32_TRAIN_SHAPES)
@@ -3316,6 +3607,9 @@ def main() -> int:
     # 22-24. The RGB models: the MAE and MoGe flagships' infer, the MAE train step, the losses.
     rgb.update(rgb_phases(card, kernel_rows=False))
 
+    # 26-27. The DUSt3R path: the small models against the plain versions, the flagship forward.
+    dust3r = dust3r_phases(card, dust3r_rows)
+
     # 8-10. View parallelism on a process group of this process alone: NCCL at world size 1.
     from mapanything_tpu_torch.parallel.distributed import init_distributed_mode
     from mapanything_tpu_torch.parallel.mesh import make_view_group
@@ -3352,7 +3646,7 @@ def main() -> int:
     summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, inference_launches, train_launches,
                  train_steps, vp_launches, many_view_line, h128,
                  {"rows": fp32_train_rows, "launches": fp32_launches, "steps": fp32_steps}, fp32_forward, files,
-                 trainer, data, rgb)
+                 trainer, data, rgb, dust3r)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1,9 +1,11 @@
 """Transformer primitives of the port: dtype-aware layers, MLP, attention, blocks.
 
-Counterpart of ``mapanything_tpu/models/blocks.py`` for the images-only
-slice: ``gelu_matched`` (:43), ``Mlp`` (:55), ``LayerScale`` (:108),
-``DropPath`` (:122), ``Attention`` (:140) with its context-parallel routing
-(:159-165, :215-237) and ``SelfAttentionBlock`` (:313).
+Counterpart of ``mapanything_tpu/models/blocks.py``: ``gelu_matched`` (:43),
+``Mlp`` (:55), ``LayerScale`` (:108), ``DropPath`` (:122), ``Attention`` (:140)
+with its qk-norm (:192-194), rope hook (:196-199) and context-parallel routing
+(:159-165, :215-237), ``CrossAttention`` (:248), ``SelfAttentionBlock`` (:313),
+``CrossAttentionBlock`` (:400), ``RMSNorm`` (:498), ``DiffAttention`` (:513) and
+``DiffCrossAttention`` (:582).
 Parameter names are the reference's torch names (DINOv2 / UniCeption), so
 ``mapanything_tpu.utils.torch_convert`` reads a port state dict unchanged.
 
@@ -18,7 +20,7 @@ LayerNorm does.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +35,15 @@ from mapanything_tpu_torch.parallel.cp import current_cp
 from mapanything_tpu_torch.parallel.sharded_attention import global_attention_cp
 
 
+def _product_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.dtype:
+    """The dtype a layer's product runs in: float64 for an fp32 product on the CPU
+    (rounded once to fp32 after it), else ``dtype``. MKL's GEMM and oneDNN's
+    convolution split a product's sum over threads at some shapes, so their fp32
+    result depends on torch's thread count; in float64 that rounding vanishes
+    from the fp32 result."""
+    return torch.float64 if dtype == torch.float32 and x.device.type == "cpu" else dtype
+
+
 class Linear(nn.Linear):
     """``nn.Linear`` computing in ``dtype``; ``init`` names its Flax initializer."""
 
@@ -43,8 +54,9 @@ class Linear(nn.Linear):
 
     def forward(self, x):
         dt = self.compute_dtype
-        bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        pt = _product_dtype(x, dt)
+        bias = None if self.bias is None else self.bias.to(pt)
+        return F.linear(x.to(pt), self.weight.to(pt), bias).to(dt)
 
 
 class Conv2d(nn.Conv2d):
@@ -56,8 +68,9 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x):
         dt = self.compute_dtype
-        bias = None if self.bias is None else self.bias.to(dt)
-        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+        pt = _product_dtype(x, dt)
+        bias = None if self.bias is None else self.bias.to(pt)
+        return self._conv_forward(x.to(pt), self.weight.to(pt), bias).to(dt)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
@@ -69,7 +82,8 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
     def forward(self, x):
         dt = self.compute_dtype
-        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), self.bias.to(dt), self.stride)
+        pt = _product_dtype(x, dt)
+        return F.conv_transpose2d(x.to(pt), self.weight.to(pt), self.bias.to(pt), self.stride).to(dt)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -133,7 +147,10 @@ class Attention(nn.Module):
     """Multi-head self-attention over (B, N, C) through ``sdpa``.
 
     q, k and v are strided views of the fused ``qkv`` projection, (B, N, H, D)
-    each; the attention kernel reads them in place.
+    each; the attention kernel reads them in place. With ``qk_norm`` q and k
+    pass a LayerNorm over the head dim (``q_norm``, ``k_norm``); with a ``rope``
+    hook (``ops.rope.make_rope2d``) q and k are rotated at the token positions
+    ``xpos`` (B, N, 2) given to ``forward``.
 
     Context-parallel routing (the trunk's global layers): with ``cp_global``
     set and a ``parallel.cp`` context active, the last ``cp_extra_tokens``
@@ -148,6 +165,8 @@ class Attention(nn.Module):
         dim,
         num_heads=8,
         qkv_bias=False,
+        qk_norm=False,
+        rope: Optional[Callable] = None,
         use_scalable_softmax=False,
         use_entropy_scaling=False,
         base_token_count_for_entropy_scaling=444,
@@ -157,27 +176,32 @@ class Attention(nn.Module):
     ):
         super().__init__()
         self.num_heads = num_heads
+        self.rope = rope
         self.cp_global = cp_global
         self.use_scalable_softmax = use_scalable_softmax
         self.use_entropy_scaling = use_entropy_scaling
         self.base_token_count_for_entropy_scaling = base_token_count_for_entropy_scaling
         self.entropy_scaling_growth_factor = entropy_scaling_growth_factor
         self.qkv = Linear(dim, dim * 3, bias=qkv_bias, dtype=dtype, init="xavier")
+        if qk_norm:
+            self.q_norm = LayerNorm(dim // num_heads, dtype=dtype)
+            self.k_norm = LayerNorm(dim // num_heads, dtype=dtype)
         self.proj = Linear(dim, dim, dtype=dtype, init="xavier")
 
-    def forward(self, x, cp_extra_tokens: int = 0):
+    def forward(self, x, xpos: Optional[torch.Tensor] = None, cp_extra_tokens: int = 0):
         B, N, C = x.shape
         head_dim = C // self.num_heads
         q, k, v = self.qkv(x).reshape(B, N, 3, self.num_heads, head_dim).unbind(2)
+        if hasattr(self, "q_norm"):
+            q, k = self.q_norm(q), self.k_norm(k)
+        if self.rope is not None:
+            if xpos is None:
+                raise ValueError("an attention with a rope hook needs the token positions xpos")
+            q, k = self.rope(q, xpos), self.rope(k, xpos)
         cp = current_cp() if self.cp_global else None
         E = cp_extra_tokens
         n_tokens = N if cp is None else (N - E) * cp.group.size + E
-        if self.use_scalable_softmax:
-            q = apply_scalable_softmax(q, n_tokens)
-        if self.use_entropy_scaling:
-            q = apply_entropy_scaling(
-                q, n_tokens, self.base_token_count_for_entropy_scaling, self.entropy_scaling_growth_factor
-            )
+        q = _scale_queries(self, q, n_tokens)
         if cp is None:
             out = sdpa(q, k, v, scale=head_dim**-0.5)
         else:
@@ -191,8 +215,78 @@ class Attention(nn.Module):
         return self.proj(out.reshape(B, N, C))
 
 
+def _scale_queries(attn: nn.Module, q: torch.Tensor, n_tokens: int) -> torch.Tensor:
+    """The length-extrapolation multipliers of q that ``attn`` asks for, at
+    ``n_tokens`` keys."""
+    if attn.use_scalable_softmax:
+        q = apply_scalable_softmax(q, n_tokens)
+    if attn.use_entropy_scaling:
+        q = apply_entropy_scaling(
+            q, n_tokens, attn.base_token_count_for_entropy_scaling, attn.entropy_scaling_growth_factor
+        )
+    return q
+
+
+class CrossAttention(nn.Module):
+    """Multi-head attention of (B, Nq, C) queries over (B, Nk, C) keys and values,
+    through ``sdpa``: separate ``projq``, ``projk`` and ``projv`` projections (CroCo's
+    names), the optional head-dim LayerNorms and rope hook on q and k at their own
+    positions, and the softmax scalings at the key count Nk."""
+
+    def __init__(
+        self,
+        dim,
+        num_heads=8,
+        qkv_bias=False,
+        qk_norm=False,
+        rope: Optional[Callable] = None,
+        use_scalable_softmax=False,
+        use_entropy_scaling=False,
+        base_token_count_for_entropy_scaling=444,
+        entropy_scaling_growth_factor=1.4,
+        dtype=torch.float32,
+    ):
+        super().__init__()
+        self.num_heads = num_heads
+        self.rope = rope
+        self.use_scalable_softmax = use_scalable_softmax
+        self.use_entropy_scaling = use_entropy_scaling
+        self.base_token_count_for_entropy_scaling = base_token_count_for_entropy_scaling
+        self.entropy_scaling_growth_factor = entropy_scaling_growth_factor
+        self.projq = Linear(dim, dim, bias=qkv_bias, dtype=dtype, init="xavier")
+        self.projk = Linear(dim, dim, bias=qkv_bias, dtype=dtype, init="xavier")
+        self.projv = Linear(dim, dim, bias=qkv_bias, dtype=dtype, init="xavier")
+        if qk_norm:
+            self.q_norm = LayerNorm(dim // num_heads, dtype=dtype)
+            self.k_norm = LayerNorm(dim // num_heads, dtype=dtype)
+        self.proj = Linear(dim, dim, dtype=dtype, init="xavier")
+
+    def forward(self, query, key, value, qpos=None, kpos=None):
+        B, Nq, C = query.shape
+        Nk = key.shape[1]
+        H, D = self.num_heads, C // self.num_heads
+        q = self.projq(query).reshape(B, Nq, H, D)
+        k = self.projk(key).reshape(B, Nk, H, D)
+        v = self.projv(value).reshape(B, Nk, H, D)
+        if hasattr(self, "q_norm"):
+            q, k = self.q_norm(q), self.k_norm(k)
+        if self.rope is not None:
+            if qpos is not None:
+                q = self.rope(q, qpos)
+            if kpos is not None:
+                k = self.rope(k, kpos)
+        q = _scale_queries(self, q, Nk)
+        out = sdpa(q, k, v, scale=D**-0.5)
+        return self.proj(out.reshape(B, Nq, C))
+
+
 class SelfAttentionBlock(nn.Module):
-    """Pre-norm self-attention transformer block (DINOv2 ``Block`` names)."""
+    """Pre-norm self-attention transformer block (DINOv2 ``Block`` names).
+
+    With ``differential=True`` the attention is ``DiffAttention`` at the lambda
+    schedule of ``layer_depth``; with a ``rope`` hook ``forward`` takes the token
+    positions ``xpos``.
+    """
 
     def __init__(
         self,
@@ -200,37 +294,227 @@ class SelfAttentionBlock(nn.Module):
         num_heads,
         mlp_ratio=4.0,
         qkv_bias=True,
+        qk_norm=False,
         init_values: Optional[float] = None,
         drop_path=0.0,
+        rope: Optional[Callable] = None,
         use_scalable_softmax=False,
         use_entropy_scaling=False,
         base_token_count_for_entropy_scaling=444,
         entropy_scaling_growth_factor=1.4,
+        differential=False,
+        layer_depth=0,
         cp_global=False,
         dtype=torch.float32,
     ):
         super().__init__()
         self.norm1 = LayerNorm(dim, dtype=dtype)
-        self.attn = Attention(
-            dim,
-            num_heads,
-            qkv_bias=qkv_bias,
-            use_scalable_softmax=use_scalable_softmax,
-            use_entropy_scaling=use_entropy_scaling,
-            base_token_count_for_entropy_scaling=base_token_count_for_entropy_scaling,
-            entropy_scaling_growth_factor=entropy_scaling_growth_factor,
-            cp_global=cp_global,
-            dtype=dtype,
-        )
+        if differential:
+            self.attn = DiffAttention(dim, layer_depth, num_heads, qkv_bias=qkv_bias, rope=rope, dtype=dtype)
+        else:
+            self.attn = Attention(
+                dim,
+                num_heads,
+                qkv_bias=qkv_bias,
+                qk_norm=qk_norm,
+                rope=rope,
+                use_scalable_softmax=use_scalable_softmax,
+                use_entropy_scaling=use_entropy_scaling,
+                base_token_count_for_entropy_scaling=base_token_count_for_entropy_scaling,
+                entropy_scaling_growth_factor=entropy_scaling_growth_factor,
+                cp_global=cp_global,
+                dtype=dtype,
+            )
         self.ls1 = LayerScale(dim, init_values) if init_values is not None else nn.Identity()
         self.norm2 = LayerNorm(dim, dtype=dtype)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype=dtype)
         self.ls2 = LayerScale(dim, init_values) if init_values is not None else nn.Identity()
         self.drop_path = DropPath(drop_path)
 
-    def forward(self, x, cp_extra_tokens: int = 0):
-        x = x + self.drop_path(self.ls1(self.attn(self.norm1(x), cp_extra_tokens)))
+    def forward(self, x, xpos: Optional[torch.Tensor] = None, cp_extra_tokens: int = 0):
+        if isinstance(self.attn, DiffAttention):
+            y = self.attn(self.norm1(x), xpos)
+        else:
+            y = self.attn(self.norm1(x), xpos, cp_extra_tokens)
+        x = x + self.drop_path(self.ls1(y))
         return x + self.drop_path(self.ls2(self.mlp(self.norm2(x))))
+
+
+class CrossAttentionBlock(nn.Module):
+    """CroCo's decoder block: self-attention, then cross-attention of the tokens over
+    the (normalised) context, then the MLP, each pre-norm with a residual. Names:
+    ``norm1``/``attn``, ``norm_y`` (the context's norm: JAX ``norm_mem``),
+    ``norm2``/``cross_attn`` (``projq``, ``projk``, ``projv``, ``proj``), ``norm3``/
+    ``mlp``, and ``ls1``..``ls3`` with ``init_values``. With ``differential=True``
+    the cross-attention is ``DiffCrossAttention``; the self-attention stays standard."""
+
+    def __init__(
+        self,
+        dim,
+        num_heads,
+        mlp_ratio=4.0,
+        qkv_bias=True,
+        qk_norm=False,
+        init_values: Optional[float] = None,
+        drop_path=0.0,
+        norm_mem=True,
+        rope: Optional[Callable] = None,
+        use_scalable_softmax=False,
+        use_entropy_scaling=False,
+        differential=False,
+        layer_depth=0,
+        dtype=torch.float32,
+    ):
+        super().__init__()
+        layer_scale = lambda: LayerScale(dim, init_values) if init_values is not None else nn.Identity()  # noqa: E731
+        self.norm1 = LayerNorm(dim, dtype=dtype)
+        self.attn = Attention(
+            dim, num_heads, qkv_bias=qkv_bias, qk_norm=qk_norm, rope=rope,
+            use_scalable_softmax=use_scalable_softmax, use_entropy_scaling=use_entropy_scaling, dtype=dtype,
+        )
+        self.ls1 = layer_scale()
+        if norm_mem:
+            self.norm_y = LayerNorm(dim, dtype=dtype)
+        self.norm2 = LayerNorm(dim, dtype=dtype)
+        if differential:
+            self.cross_attn = DiffCrossAttention(
+                dim, layer_depth, num_heads, qkv_bias=qkv_bias, qk_norm=qk_norm, rope=rope, dtype=dtype
+            )
+        else:
+            self.cross_attn = CrossAttention(
+                dim, num_heads, qkv_bias=qkv_bias, qk_norm=qk_norm, rope=rope,
+                use_scalable_softmax=use_scalable_softmax, use_entropy_scaling=use_entropy_scaling, dtype=dtype,
+            )
+        self.ls2 = layer_scale()
+        self.norm3 = LayerNorm(dim, dtype=dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype=dtype)
+        self.ls3 = layer_scale()
+        self.drop_path = DropPath(drop_path)
+
+    def forward(self, x, context, xpos=None, cpos=None):
+        x = x + self.drop_path(self.ls1(self.attn(self.norm1(x), xpos)))
+        mem = self.norm_y(context) if hasattr(self, "norm_y") else context
+        x = x + self.drop_path(self.ls2(self.cross_attn(self.norm2(x), mem, mem, xpos, cpos)))
+        return x + self.drop_path(self.ls3(self.mlp(self.norm3(x))))
+
+
+def _lambda_init(depth: int) -> float:
+    """The Differential Transformer's lambda schedule."""
+    return 0.8 - 0.6 * math.exp(-0.3 * depth)
+
+
+class RMSNorm(nn.Module):
+    """Root-mean-square norm over the last axis: the mean square in fp32, the
+    product in the input's dtype; its scale is ``weight``."""
+
+    def __init__(self, dim, eps=1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x):
+        var = x.float().square().mean(dim=-1, keepdim=True)
+        y = x * torch.rsqrt(var + self.eps).to(x.dtype)
+        return y * self.weight.to(x.dtype)
+
+
+class _DiffAttend(nn.Module):
+    """The shared part of ``DiffAttention`` and ``DiffCrossAttention``: two softmax
+    maps over head groups, subtracted with the learned lambda, RMS-normalised per
+    head (``subln``) and scaled by (1 - lambda_init).
+
+    The value head dim (2·Dh) differs from the q/k head dim (Dh), so this is no
+    flash-attention call: the maps are explicit products, in plain PyTorch, as in
+    the JAX module (no TPU kernel computes them either)."""
+
+    def _init_lambdas(self, head_dim: int, depth: int) -> None:
+        self.lambda_init = _lambda_init(depth)
+        for name in ("lambda_q1", "lambda_k1", "lambda_q2", "lambda_k2"):
+            setattr(self, name, nn.Parameter(torch.zeros(head_dim)))
+        self.subln = RMSNorm(2 * head_dim)
+
+    def init_tokens(self, generator: torch.Generator) -> None:
+        for name in ("lambda_q1", "lambda_k1", "lambda_q2", "lambda_k2"):
+            nn.init.normal_(getattr(self, name), 0.0, 0.1, generator=generator)
+
+    def _attend(self, q, k, v, n_heads: int, head_dim: int):
+        """q, k (B, N, 2H, Dh) and v (B, Nk, H, 2Dh) -> (B, Nq, H·2Dh)."""
+        scale = head_dim**-0.5
+
+        def attend(qh, kh):
+            logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * scale
+            w = torch.softmax(logits.float(), dim=-1).to(v.dtype)
+            return torch.einsum("bhqk,bkhd->bqhd", w, v)
+
+        attn1 = attend(q[:, :, :n_heads], k[:, :, :n_heads])
+        attn2 = attend(q[:, :, n_heads:], k[:, :, n_heads:])
+        lam_1 = torch.exp(torch.sum(self.lambda_q1 * self.lambda_k1))
+        lam_2 = torch.exp(torch.sum(self.lambda_q2 * self.lambda_k2))
+        lam = (lam_1 - lam_2 + self.lambda_init).to(attn1.dtype)
+        attn = self.subln(attn1 - lam * attn2) * (1 - self.lambda_init)
+        return attn.reshape(attn.shape[0], attn.shape[1], n_heads * 2 * head_dim)
+
+
+class DiffAttention(_DiffAttend):
+    """Differential self-attention (arXiv:2410.05258): ``qkv``, the four lambda
+    vectors, ``subln`` and ``proj``; ``num_heads`` heads of 2·Dh values over
+    2·``num_heads`` q/k heads of Dh = dim / num_heads / 2."""
+
+    def __init__(self, dim, depth, num_heads=8, qkv_bias=False, rope: Optional[Callable] = None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.num_heads = num_heads
+        self.rope = rope
+        self.head_dim = dim // num_heads // 2
+        self.qkv = Linear(dim, dim * 3, bias=qkv_bias, dtype=dtype, init="xavier")
+        self._init_lambdas(self.head_dim, depth)
+        self.proj = Linear(dim, dim, dtype=dtype, init="xavier")
+
+    def forward(self, x, xpos=None):
+        B, N, _ = x.shape
+        H, Dh = self.num_heads, self.head_dim
+        q, k, v = self.qkv(x).reshape(B, N, 3, H, 2 * Dh).unbind(2)
+        q, k = q.reshape(B, N, 2 * H, Dh), k.reshape(B, N, 2 * H, Dh)
+        if self.rope is not None:
+            q, k = self.rope(q, xpos), self.rope(k, xpos)
+        return self.proj(self._attend(q, k, v, H, Dh))
+
+
+class DiffCrossAttention(_DiffAttend):
+    """Differential cross-attention: ``DiffAttention``'s maps over separate
+    ``projq``, ``projk`` and ``projv`` projections of queries and context, with the
+    optional head-dim LayerNorms and rope hook on q and k."""
+
+    def __init__(self, dim, depth, num_heads=8, qkv_bias=False, qk_norm=False, rope: Optional[Callable] = None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.num_heads = num_heads
+        self.rope = rope
+        self.head_dim = dim // num_heads // 2
+        self.projq = Linear(dim, dim, bias=qkv_bias, dtype=dtype, init="xavier")
+        self.projk = Linear(dim, dim, bias=qkv_bias, dtype=dtype, init="xavier")
+        self.projv = Linear(dim, dim, bias=qkv_bias, dtype=dtype, init="xavier")
+        if qk_norm:
+            self.q_norm = LayerNorm(self.head_dim, dtype=dtype)
+            self.k_norm = LayerNorm(self.head_dim, dtype=dtype)
+        self._init_lambdas(self.head_dim, depth)
+        self.proj = Linear(dim, dim, dtype=dtype, init="xavier")
+
+    def forward(self, query, key, value, qpos=None, kpos=None):
+        B, Nq, _ = query.shape
+        Nk = key.shape[1]
+        H, Dh = self.num_heads, self.head_dim
+        q = self.projq(query).reshape(B, Nq, 2 * H, Dh)
+        k = self.projk(key).reshape(B, Nk, 2 * H, Dh)
+        v = self.projv(value).reshape(B, Nk, H, 2 * Dh)
+        if hasattr(self, "q_norm"):
+            q, k = self.q_norm(q), self.k_norm(k)
+        if self.rope is not None:
+            if qpos is not None:
+                q = self.rope(q, qpos)
+            if kpos is not None:
+                k = self.rope(k, kpos)
+        return self.proj(self._attend(q, k, v, H, Dh))
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
@@ -267,6 +551,9 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
             nn.init.ones_(m.weight)
         elif isinstance(m, LayerScale):
             m.gamma.fill_(m.init_values)
+        elif isinstance(m, RMSNorm):
+            nn.init.ones_(m.weight)
+            continue
         else:
             if hasattr(m, "init_tokens"):
                 m.init_tokens(generator)

@@ -1,9 +1,11 @@
 """DINOv2-style ViT image encoder of the port.
 
 Counterpart of ``mapanything_tpu/models/encoders/vit.py``: ``VIT_SIZES``,
-``interpolate_pos_embed`` (:110) and ``ViTEncoder`` (:142). Parameter names
-are those of the DINOv2 torch-hub model (``patch_embed.proj``, ``cls_token``,
-``pos_embed``, ``blocks.N.*``, ``norm``).
+``interpolate_pos_embed`` (:110) and ``ViTEncoder`` (:142), with its register
+tokens (:154-156, :206-216) and ``return_layers`` (the intermediate-feature
+variant, :218-283). Parameter names are those of the DINOv2 torch-hub model
+(``patch_embed.proj``, ``cls_token``, ``register_tokens``, ``pos_embed``,
+``blocks.N.*``, ``norm``).
 """
 
 from __future__ import annotations
@@ -64,10 +66,12 @@ class PatchEmbed(nn.Module):
 
 
 class ViTEncoder(nn.Module):
-    """Plain ViT feature extractor with cls token and learned pos embed.
+    """Plain ViT feature extractor with cls token, optional register tokens and
+    learned pos embed.
 
     ``forward(images (B, H, W, 3))`` returns the normalised patch tokens as
-    (B, H/P, W/P, C) in ``dtype``.
+    (B, H/P, W/P, C) in ``dtype``; with ``return_layers``, (the listed blocks'
+    patch tokens, each (B, H/P, W/P, C) before the norm, then those).
     """
 
     def __init__(
@@ -76,6 +80,8 @@ class ViTEncoder(nn.Module):
         patch_size: int = 14,
         pos_embed_grid: int = 37,
         init_values: float = 1e-5,
+        num_register_tokens: int = 0,
+        return_layers=None,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
@@ -83,8 +89,11 @@ class ViTEncoder(nn.Module):
         self.embed_dim = embed_dim
         self.patch_size = patch_size
         self.dtype = dtype
+        self.return_layers = None if return_layers is None else tuple(return_layers)
         self.patch_embed = PatchEmbed(patch_size, embed_dim, dtype=dtype)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
+        if num_register_tokens:
+            self.register_tokens = nn.Parameter(torch.zeros(1, num_register_tokens, embed_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, pos_embed_grid * pos_embed_grid + 1, embed_dim))
         self.blocks = nn.ModuleList(
             SelfAttentionBlock(embed_dim, num_heads, 4.0, qkv_bias=True, init_values=init_values, dtype=dtype)
@@ -93,8 +102,9 @@ class ViTEncoder(nn.Module):
         self.norm = LayerNorm(embed_dim, dtype=dtype)
 
     def init_tokens(self, generator: torch.Generator) -> None:
-        for p in (self.cls_token, self.pos_embed):
-            nn.init.trunc_normal_(p, 0.0, 0.02, -0.04, 0.04, generator=generator)
+        for p in (self.cls_token, self.pos_embed, getattr(self, "register_tokens", None)):
+            if p is not None:
+                nn.init.trunc_normal_(p, 0.0, 0.02, -0.04, 0.04, generator=generator)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         B, H, W, _ = images.shape
@@ -104,9 +114,19 @@ class ViTEncoder(nn.Module):
         x = self.patch_embed(images)
         cls_pe, patch_pe = self.pos_embed[:, :1], self.pos_embed[:, 1:]
         x = x + interpolate_pos_embed(patch_pe, h, w).to(self.dtype)
-        cls = (self.cls_token + cls_pe).expand(B, 1, self.embed_dim).to(self.dtype)
-        x = torch.cat([cls, x], dim=1)
-        for block in self.blocks:
+        tokens = [(self.cls_token + cls_pe).expand(B, 1, self.embed_dim).to(self.dtype)]
+        if hasattr(self, "register_tokens"):
+            tokens.append(self.register_tokens.expand(B, -1, -1).to(self.dtype))
+        x = torch.cat(tokens + [x], dim=1)
+        n_prefix = x.shape[1] - h * w
+        take = set(self.return_layers or ())
+        intermediates = []
+        for i, block in enumerate(self.blocks):
             x = block(x)
+            if i in take:
+                intermediates.append(x[:, n_prefix:].reshape(B, h, w, self.embed_dim))
         x = self.norm(x)
-        return x[:, 1:].reshape(B, h, w, self.embed_dim)
+        out = x[:, n_prefix:].reshape(B, h, w, self.embed_dim)
+        if self.return_layers is not None:
+            return intermediates, out
+        return out

@@ -1,9 +1,11 @@
 """Pose and scale-MLP heads of the port.
 
-Counterpart of ``ResConvBlock`` (:13), ``PoseHead`` (:33) and ``MLPHead``
-(:59) in ``mapanything_tpu/models/heads/pose.py``. Channel-last at the
-boundary; parameter names follow the reference (``proj``, ``res_conv.i.*``,
-``more_mlps.*``, ``fc_t``, ``fc_rot``; ``proj``, ``mlp.i.0``, ``output_proj``).
+Counterpart of ``ResConvBlock`` (:13), ``PoseHead`` (:33), ``MLPHead``
+(:59), ``LinearFeature`` (:78) and ``MLPFeature`` (:103) in
+``mapanything_tpu/models/heads/pose.py``. Channel-last at the boundary;
+parameter names follow the reference (``proj``, ``res_conv.i.*``,
+``more_mlps.*``, ``fc_t``, ``fc_rot``; ``proj``, ``mlp.i.0``, ``output_proj``;
+``linear``; ``mlp.fc1``, ``mlp.fc2``, ``out.linear``).
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mapanything_tpu_torch.models.blocks import Conv2d, Linear
+from mapanything_tpu_torch.models.blocks import Conv2d, Linear, Mlp
 
 
 class ResConvBlock(nn.Module):
@@ -91,3 +93,33 @@ class MLPHead(nn.Module):
         for layer in self.mlp:
             x = layer(x)
         return self.output_proj(x)
+
+
+class LinearFeature(nn.Module):
+    """Linear unpatchify head: (B, h, w, C) -> a 1x1 conv to output_dim·P² channels
+    -> pixel shuffle (torch's channel order) -> (B, h·P, w·P, output_dim)."""
+
+    def __init__(self, input_feature_dim: int, output_dim: int, patch_size: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.patch_size = patch_size
+        self.linear = Conv2d(input_feature_dim, output_dim * patch_size**2, 1, dtype=dtype)
+
+    def forward(self, feat: torch.Tensor) -> torch.Tensor:
+        x = self.linear(feat.to(self.dtype).permute(0, 3, 1, 2))
+        return F.pixel_shuffle(x, self.patch_size).permute(0, 2, 3, 1)
+
+
+class MLPFeature(nn.Module):
+    """``LinearFeature`` after a (C -> mlp_ratio·C -> C) MLP on each token."""
+
+    def __init__(self, input_feature_dim: int, output_dim: int, patch_size: int, mlp_ratio: float = 4.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        c = input_feature_dim
+        self.mlp = Mlp(c, int(mlp_ratio * c), c, dtype=dtype)
+        self.out = LinearFeature(c, output_dim, patch_size, dtype=dtype)
+
+    def forward(self, feat: torch.Tensor) -> torch.Tensor:
+        return self.out(self.mlp(feat.to(self.dtype)))

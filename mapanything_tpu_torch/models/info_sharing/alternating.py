@@ -137,7 +137,7 @@ class AlternatingAttentionTransformer(nn.Module):
         intermediates = []
         for depth_idx, block in enumerate(self.self_attention_blocks):
             if depth_idx % 2 == 0:
-                x = block(x, T)
+                x = block(x, cp_extra_tokens=T)
             else:
                 view_tok = block(x[:, : V * P].reshape(B * V, P, self.dim))
                 view_tok = view_tok.reshape(B, V * P, self.dim)

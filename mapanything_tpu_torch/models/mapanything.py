@@ -6,11 +6,16 @@ Counterpart of ``mapanything_tpu/models/mapanything.py``: ``Views`` (:70),
 ``MapAnythingConfig`` with ``.small()`` (:244-358), ``MapAnything.__call__``
 (:372-685) with its geometric branches (pose canonicalisation, ray and depth
 encoders, depth sparsification, metric-scale tokens; :416-533), and
-``assemble_scene_representation`` (:688), for the ``raydirs+depth+pose`` and
-``raydirs+depth+rgb+pose`` scene representations. The dense head is DPT
-(``dense_head_type="dpt"``) or one of the RGB-prediction models' list-consuming
-heads (JAX :622-638): the MAE decoder (``"mae"``, ``heads/mae.py``) or the MoGe
-convolutional decoder (``"moge"``, ``heads/moge_conv.py``), which alone accept
+``assemble_scene_representation`` (:688-776), for every scene representation
+(``SCENE_REPS``): ``pointmap``, ``raymap+depth``, ``raydirs+depth+pose``,
+``raydirs+depth+rgb+pose``, ``campointmap+pose`` and
+``pointmap+raydirs+depth+pose`` (whose global pointmap comes from the factored
+rays, depth and pose under ``use_factored_predictions_for_global_pointmaps``).
+The dense head is DPT (``dense_head_type="dpt"``), the linear unpatchify head
+on the trunk's output (``"linear"``, JAX :640-648, ``heads/pose.LinearFeature``)
+or one of the RGB-prediction models' list-consuming heads (JAX :622-638): the
+MAE decoder (``"mae"``, ``heads/mae.py``) or the MoGe convolutional decoder
+(``"moge"``, ``heads/moge_conv.py``), which alone accept
 ``use_raw_encoder_features_for_dpt`` (JAX :277, :589-594): the raw image-encoder
 features in front of the four levels.
 ``MapAnythingConfig.head_chunk_size`` runs the dense head over consecutive
@@ -32,9 +37,9 @@ adaptors run in ``head_dtype`` (fp32 by default). Tensors are channel-last
 Top-level parameter names are the reference's (``encoder.model.*``,
 ``fusion_norm_layer``, ``scale_token``, ``info_sharing.*``,
 ``dpt_feature_head.*``, ``dpt_regressor_head.*``, ``pose_head.*``,
-``scale_head.*``), so ``mapanything_tpu.utils.torch_convert`` reads them. The MAE
-and MoGe heads (``mae_head.*``, ``moge_head.*``), which no converter reads, take
-the JAX modules' names.
+``scale_head.*``), so ``mapanything_tpu.utils.torch_convert`` reads them. The MAE,
+MoGe and linear heads (``mae_head.*``, ``moge_head.*``, ``linear_head.*``), which
+no converter reads, take the JAX modules' names.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from mapanything_tpu_torch.geometry.normalization import (
     apply_log_to_norm,
     normalize_depth_using_non_zero_pixels,
     normalize_pose_translations,
+    safe_norm,
 )
 from mapanything_tpu_torch.geometry.quaternion import relative_pose_quats_trans
 from mapanything_tpu_torch.models.blocks import LayerNorm, init_params
@@ -70,7 +76,7 @@ from mapanything_tpu_torch.models.heads.adaptors import (
 from mapanything_tpu_torch.models.heads.dpt import DPTFeature, DPTRegressionProcessor
 from mapanything_tpu_torch.models.heads.mae import MAEGeneralDecoder
 from mapanything_tpu_torch.models.heads.moge_conv import MoGeConvFeature
-from mapanything_tpu_torch.models.heads.pose import MLPHead, PoseHead
+from mapanything_tpu_torch.models.heads.pose import LinearFeature, MLPHead, PoseHead
 from mapanything_tpu_torch.models.info_sharing.alternating import (
     AlternatingAttentionTransformer,
 )
@@ -222,10 +228,12 @@ class Predictions:
     non_ambiguous_mask: Optional[torch.Tensor] = None  # (B, V, H, W) bool
     non_ambiguous_mask_logits: Optional[torch.Tensor] = None
     rgb: Optional[torch.Tensor] = None  # (B, V, H, W, 3) in [0, 1], rgb scene rep only
+    ray_origins: Optional[torch.Tensor] = None  # metric, raymap+depth only
 
 
-SCENE_REPS = ("raydirs+depth+pose", "raydirs+depth+rgb+pose")
-DENSE_HEADS = ("dpt", "mae", "moge")
+SCENE_REPS = ("pointmap", "raymap+depth", "raydirs+depth+pose", "raydirs+depth+rgb+pose", "campointmap+pose",
+              "pointmap+raydirs+depth+pose")
+DENSE_HEADS = ("dpt", "linear", "mae", "moge")
 LIST_HEADS = ("mae", "moge")  # the heads that take the raw encoder features too
 
 
@@ -254,6 +262,9 @@ class MapAnythingConfig:
     dpt_hooks: Tuple[int, ...] = (0, 1, 2, 3)
     pose_head_num_resconv: int = 2
     scene_rep_type: str = "raydirs+depth+pose"
+    # pointmap+raydirs+depth+pose: the global pointmap from the factored rays, depth
+    # and pose (True) or the predicted pointmap channels (False).
+    use_factored_predictions_for_global_pointmaps: bool = True
     # The raw image-encoder output in front of the dense head's feature levels (the
     # feature-returner encoder preset); the list-consuming heads (mae, moge) only.
     use_raw_encoder_features_for_dpt: bool = False
@@ -336,12 +347,12 @@ class MapAnything(nn.Module):
         device = resolve_device(device)
         cfg = config
         if cfg.dense_head_type not in DENSE_HEADS:
-            raise NotImplementedError(f"dense_head_type={cfg.dense_head_type!r}: only {DENSE_HEADS} are ported")
+            raise ValueError(f"invalid dense_head_type: {cfg.dense_head_type!r} (one of {DENSE_HEADS})")
         if cfg.use_raw_encoder_features_for_dpt and cfg.dense_head_type not in LIST_HEADS:
             raise ValueError(f"raw encoder features need a list-consuming head {LIST_HEADS}, "
                              f"not {cfg.dense_head_type!r}")
         if cfg.scene_rep_type not in SCENE_REPS:
-            raise NotImplementedError(f"scene_rep_type={cfg.scene_rep_type!r}: only {SCENE_REPS} are ported")
+            raise ValueError(f"invalid scene_rep_type: {cfg.scene_rep_type!r} (one of {SCENE_REPS})")
         if cfg.dense_adaptor.components != cfg.dense_components:
             raise ValueError("dense_adaptor.components must match scene_rep_type")
         self.config = cfg
@@ -379,6 +390,8 @@ class MapAnything(nn.Module):
                 dtype=fdt,
             )
             self.dpt_regressor_head = DPTRegressionProcessor(cfg.dpt_feature_dim, n_dense, dtype=hdt, feature_dtype=fdt)
+        elif cfg.dense_head_type == "linear":  # fp32, on the trunk's output
+            self.linear_head = LinearFeature(cfg.info_sharing_dim, n_dense, cfg.patch_size)
         else:  # fp32 whatever the model's dtype, as the JAX model builds them
             if cfg.use_raw_encoder_features_for_dpt:
                 level_dims = (embed_dim,) + level_dims
@@ -546,6 +559,8 @@ class MapAnything(nn.Module):
         kind = self.config.dense_head_type
         if kind == "dpt":
             run = lambda xs: self.dpt_regressor_head(self.dpt_feature_head(xs), hw)  # noqa: E731
+        elif kind == "linear":
+            run = lambda xs: self.linear_head(xs[-1])  # noqa: E731
         else:
             head = self.mae_head if kind == "mae" else self.moge_head
             run = lambda xs: head(xs, hw)  # noqa: E731
@@ -559,13 +574,14 @@ class MapAnything(nn.Module):
 def assemble_scene_representation(
     cfg: MapAnythingConfig, dense_out, pose_out, scale, B, V, H, W
 ) -> Predictions:
-    """Decode adapted channels into the factored metric scene representation.
+    """Decode adapted channels into the scene representation ``cfg.scene_rep_type``.
 
-    Metric scaling applies to points, depths and translations, not to
+    Metric scaling applies to points, origins, depths and translations, not to
     directions, quaternions or colours.
     """
-    if cfg.scene_rep_type not in SCENE_REPS:
-        raise NotImplementedError(f"scene_rep_type={cfg.scene_rep_type!r}")
+    rep = cfg.scene_rep_type
+    if rep not in SCENE_REPS:
+        raise ValueError(f"invalid scene_rep_type: {rep!r}")
     slices = cfg.dense_adaptor.component_slices()
     value = dense_out.value.reshape(B, V, H, W, -1)
     s_bv = scale[:, None, None, None, None]
@@ -577,19 +593,39 @@ def assemble_scene_representation(
 
     cam_trans = pose_out[..., :3].reshape(B, V, 3)
     cam_quats = pose_out[..., 3:7].reshape(B, V, 4)
-    dirs = comp("ray_directions")
-    depth = comp("depth")
-    pts3d = pointmap_from_rays_depth_pose(dirs, depth, cam_trans, cam_quats)
-    preds = Predictions(
-        pts3d=pts3d * s_bv,
-        pts3d_cam=dirs * depth * s_bv,
-        ray_directions=dirs,
-        depth_along_ray=depth * s_bv,
-        cam_trans=cam_trans * s_bv3,
-        cam_quats=cam_quats,
-        metric_scaling_factor=scale,
-        rgb=comp("rgb") if "rgb" in slices else None,
-    )
+    if rep == "pointmap":
+        preds = Predictions(pts3d=comp("pointmap") * s_bv, metric_scaling_factor=scale)
+    elif rep == "raymap+depth":
+        origins, dirs, depth = comp("ray_origins"), comp("ray_directions"), comp("depth")
+        preds = Predictions(
+            pts3d=(origins + dirs * depth) * s_bv,
+            ray_origins=origins * s_bv,
+            ray_directions=dirs,
+            depth_along_ray=depth * s_bv,
+            metric_scaling_factor=scale,
+        )
+    else:
+        if rep == "campointmap+pose":
+            pts3d_cam = comp("pointmap")
+            depth = safe_norm(pts3d_cam, dim=-1, keepdim=True)
+            dirs = pts3d_cam / torch.clamp(depth, min=1e-12)
+        else:
+            dirs, depth = comp("ray_directions"), comp("depth")
+            pts3d_cam = dirs * depth
+        if rep == "pointmap+raydirs+depth+pose" and not cfg.use_factored_predictions_for_global_pointmaps:
+            pts3d = comp("pointmap")
+        else:
+            pts3d = pointmap_from_rays_depth_pose(dirs, depth, cam_trans, cam_quats)
+        preds = Predictions(
+            pts3d=pts3d * s_bv,
+            pts3d_cam=pts3d_cam * s_bv,
+            ray_directions=dirs,
+            depth_along_ray=depth * s_bv,
+            cam_trans=cam_trans * s_bv3,
+            cam_quats=cam_quats,
+            metric_scaling_factor=scale,
+            rgb=comp("rgb") if "rgb" in slices else None,
+        )
     if dense_out.confidence is not None:
         preds.conf = dense_out.confidence.reshape(B, V, H, W)
     if dense_out.mask is not None:

@@ -9,12 +9,14 @@ later slice.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+import sys
+from typing import Iterator, Optional
 
 import torch
 
-from mapanything_tpu_torch.ops.flash_attention import flash_attention
+from mapanything_tpu_torch.ops.flash_attention import attention_reference, flash_attention
 
 
 def apply_scalable_softmax(q: torch.Tensor, num_tokens: int) -> torch.Tensor:
@@ -37,3 +39,17 @@ def sdpa(
 ) -> torch.Tensor:
     """Non-causal attention over q (B, Tq, H, D) and k, v (B, Tk, H, D)."""
     return flash_attention(q, k, v, scale)
+
+
+@contextlib.contextmanager
+def plain_attention() -> Iterator[None]:
+    """Inside: every ``sdpa`` call runs the kernels' plain version (differentiable
+    by autograd), on CUDA tensors too, and no kernel's launch count moves. The
+    yardstick of a model run with the kernels against the same run without them."""
+    module = sys.modules[__name__]
+    kernels = module.flash_attention
+    module.flash_attention = lambda q, k, v, scale=None: attention_reference(q, k, v, scale)
+    try:
+        yield
+    finally:
+        module.flash_attention = kernels

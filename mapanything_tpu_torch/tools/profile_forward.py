@@ -1,6 +1,7 @@
 """Where the time of the flagship forward, or train step, goes on the card, by kernel family.
 
     python3 -m mapanything_tpu_torch.tools.profile_forward [--train] [--ring] [--out DIR]
+    python3 -m mapanything_tpu_torch.tools.profile_forward --dust3r {float32,bfloat16} [--out DIR]
 
 Builds MapAnythingConfig(compute_dtype="bfloat16") with seeded random
 weights. Without ``--train``: the images-only forward on 1 x 8 views at
@@ -9,7 +10,10 @@ weights. Without ``--train``: the images-only forward on 1 x 8 views at
 bench.py LossBatch and GeometricInputConfig() masks, as ``chip_smoke.py``
 phase 7 runs it. With ``--ring``: the same, view-parallel under the ring
 schedule on a process group of this process alone (NCCL at world size 1),
-as ``chip_smoke.py`` phases 9 and 10 run it. Warms up, then traces three iterations with torch.profiler
+as ``chip_smoke.py`` phases 9 and 10 run it. With ``--dust3r DTYPE``: the
+ModularDUSt3R forward at its published widths on one 512 x 384 pair in DTYPE,
+under ``torch.inference_mode()``, as ``chip_smoke.py`` phase 27 runs it.
+Warms up, then traces three iterations with torch.profiler
 (CPU and CUDA activities). The Chrome trace is parsed directly: every
 "kernel" event is summed by name and by family (the port's attention
 kernels, GEMMs, convolutions, casts and copies, normalisation, resizes,
@@ -19,7 +23,8 @@ iteration traced and, timed just before the trace in the same process,
 untraced, the device's idle share over the traced window, an estimate of
 the idle share without the profiler (one minus busy time over untraced
 wall time), and the families in order. The per-kernel table goes to ``<out>/profile_forward.json``
-(``profile_train.json`` with ``--train``; ``_ring`` added with ``--ring``).
+(``profile_train.json`` with ``--train``; ``_ring`` added with ``--ring``;
+``profile_dust3r_<DTYPE>.json`` with ``--dust3r``).
 """
 
 from __future__ import annotations
@@ -122,11 +127,27 @@ def train_runner(group=None):
                  + (", ring" if group else ""))
 
 
+def dust3r_runner(compute_dtype: str):
+    """The ModularDUSt3R forward on one 512 x 384 pair, under inference mode (phase 27)."""
+    from mapanything_tpu_torch.models.modular_dust3r import ModularDUSt3R, ModularDUSt3RConfig
+
+    model = ModularDUSt3R(ModularDUSt3RConfig(compute_dtype=compute_dtype), device="cuda", seed=0)
+    img = torch.from_numpy(np.random.RandomState(0).randn(1, 2, 384, 512, 3).astype(np.float32)).cuda()
+
+    def run():
+        with torch.inference_mode():
+            model(img)
+
+    return run, f"ModularDUSt3RConfig(compute_dtype={compute_dtype!r}), 1x2x384x512 forward"
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/profile")
     ap.add_argument("--train", action="store_true", help="profile the train step instead of the forward")
     ap.add_argument("--ring", action="store_true", help="view-parallel under the ring, on a group of one rank")
+    ap.add_argument("--dust3r", choices=("float32", "bfloat16"),
+                    help="profile the ModularDUSt3R forward in this dtype instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward: no CUDA device")
@@ -144,7 +165,10 @@ def main() -> None:
 
         init_distributed_mode("cuda", f"file://{tempfile.mkdtemp()}/rendezvous", 0, 1)
         group = make_view_group()
-    run, config = train_runner(group) if args.train else forward_runner(group)
+    if args.dust3r:
+        run, config = dust3r_runner(args.dust3r)
+    else:
+        run, config = train_runner(group) if args.train else forward_runner(group)
     for _ in range(3):
         run()
     torch.cuda.synchronize()
@@ -183,6 +207,8 @@ def main() -> None:
         key=lambda r: -r["ms_per_iteration"],
     )
     name = ("profile_train" if args.train else "profile_forward") + ("_ring" if args.ring else "")
+    if args.dust3r:
+        name = f"profile_dust3r_{args.dust3r}"
     (out_dir / f"{name}.json").write_text(json.dumps({"card": smi, "config": config, "kernels": table}, indent=1))
     trace.unlink()  # large; the per-kernel table above keeps what it says
     print(json.dumps({

@@ -23,6 +23,7 @@ most under a tiny perturbation are the leaves the card moves most.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 
@@ -33,7 +34,6 @@ from mapanything_tpu_torch.models.mapanything import (
     GeometricInputConfig, MapAnything, MapAnythingConfig, sample_modality_masks,
 )
 from mapanything_tpu_torch.ops import attention
-from mapanything_tpu_torch.ops.flash_attention import attention_reference
 from mapanything_tpu_torch.train.losses import synthetic_loss_batch
 from mapanything_tpu_torch.train.step import make_loss_fn
 
@@ -46,10 +46,7 @@ def gradients(cfg, device: str, plain: bool, perturb: float = 0.0) -> dict:
     batch = synthetic_loss_batch(B, V, HW, HW, seed=1)
     geo = GeometricInputConfig(ray_dirs_prob=1.0, depth_prob=1.0, cam_prob=1.0, sparse_depth_prob=1.0)
     masks = sample_modality_masks(torch.Generator().manual_seed(0), B, V, (HW, HW), geo)
-    kernels = attention.flash_attention
-    if plain:  # the plain version, differentiable by autograd, in the kernels' place
-        attention.flash_attention = lambda q, k, v, scale=None: attention_reference(q, k, v, scale)
-    try:
+    with attention.plain_attention() if plain else contextlib.nullcontext():
         model = MapAnything(cfg, device=device, seed=0, geometric_inputs=True)
         if perturb:
             gen = torch.Generator().manual_seed(1)
@@ -58,8 +55,6 @@ def gradients(cfg, device: str, plain: bool, perturb: float = 0.0) -> dict:
                     p.add_(perturb * torch.randn(p.shape, generator=gen).to(p.device))
         loss, _ = make_loss_fn(model)(batch.to(device), img.to(device), masks)
         loss.backward()
-    finally:
-        attention.flash_attention = kernels
     return {n: p.grad.detach().double().cpu() for n, p in model.named_parameters()}
 
 

@@ -38,7 +38,7 @@ WEIGHTS_NAME = "model.pt"
 _EXECUTION_ONLY = ("context_parallel_trunk", "scan_layers", "remat", "encoder_remat", "trunk_remat",
                    "remat_policy", "encoder_remat_policy", "trunk_remat_policy")
 # JAX fields the port does not have, with the only value it builds.
-_FIXED = {"with_confidence": True, "with_mask": True, "use_factored_predictions_for_global_pointmaps": True}
+_FIXED = {"with_confidence": True, "with_mask": True}
 
 
 def save_pretrained(model: MapAnything, directory) -> Path:

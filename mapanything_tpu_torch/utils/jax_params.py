@@ -16,9 +16,23 @@ same axis permutation, as does the MoGe head's ``ConvTranspose`` with
 every other leaf keeps its shape. Loading is strict: a JAX leaf that no port
 parameter takes, or a port parameter that no JAX leaf fills, raises.
 
-The RGB-prediction heads (``mae_head``, ``moge_head``) have no torch converter
-in the JAX package, so no reference torch names exist for them: the port names
-their parameters after the JAX modules, and the map is one to one. The VGG19
+The RGB-prediction heads (``mae_head``, ``moge_head``) and the linear head
+(``linear_head``) have no torch converter in the JAX package, so no reference
+torch names exist for them: the port names their parameters after the JAX
+modules, and the map is one to one.
+
+The DUSt3R family (``ModularDUSt3R``, ``CroCoEncoder``,
+``CrossAttentionTransformer``) keeps the DUSt3R release's names, those that
+``convert_croco_encoder`` and ``convert_modular_dust3r`` read: ``patch_embed.proj``
+(JAX ``encoder/patch_embed``), ``enc_blocks.N`` (``encoder/block_N``), ``enc_norm``
+(``encoder/norm``), ``decoder_embed`` (``decoder/proj_embed``), ``dec_blocks.N``
+(``decoder/ref_block_N``), ``dec_blocks2.N`` (``decoder/nonref_block_N``), each
+block's ``norm_y`` (``norm_mem``), ``dec_norm`` (``decoder/norm``). The converter
+leaves the release's DPT heads unconverted, so ``ModularDUSt3R``'s heads keep the
+JAX names, ``dpt_head_{0,1}`` and ``dpt_reg_{0,1}``. The RADIO ViT sits under the
+torch-hub ``model.`` (JAX ``backbone``); the Cosmos encoder takes the tokenizer
+release's names that ``convert_cosmos_encoder`` reads. The differential
+attentions' RMS norm scale is ``subln.weight`` (JAX ``subln/scale``). The VGG19
 perceptual tower keeps torchvision's ``features.{i}`` names, the indices that
 ``convert_vgg19_features`` reads, so a torchvision ``vgg19`` state dict loads
 into it as it is.
@@ -32,11 +46,21 @@ import numpy as np
 import torch
 from torch import nn
 
-from mapanything_tpu_torch.models.blocks import SelfAttentionBlock
+from mapanything_tpu_torch.models.blocks import (
+    Attention,
+    CrossAttention,
+    CrossAttentionBlock,
+    DiffAttention,
+    DiffCrossAttention,
+    SelfAttentionBlock,
+)
+from mapanything_tpu_torch.models.encoders.cosmos import CosmosEncoder
+from mapanything_tpu_torch.models.encoders.croco import CroCoEncoder, PatchEmbedder
 from mapanything_tpu_torch.models.encoders.dense_rep import (
     DenseRepresentationEncoder,
     GlobalRepresentationEncoder,
 )
+from mapanything_tpu_torch.models.encoders.radio import RADIOEncoder
 from mapanything_tpu_torch.models.encoders.vit import ViTEncoder
 from mapanything_tpu_torch.models.heads.dpt import (
     DPTFeature,
@@ -45,11 +69,14 @@ from mapanything_tpu_torch.models.heads.dpt import (
 )
 from mapanything_tpu_torch.models.heads.mae import MAEGeneralDecoder
 from mapanything_tpu_torch.models.heads.moge_conv import MoGeConvFeature
-from mapanything_tpu_torch.models.heads.pose import MLPHead, PoseHead
+from mapanything_tpu_torch.models.heads.pose import LinearFeature, MLPFeature, MLPHead, PoseHead
 from mapanything_tpu_torch.models.info_sharing.alternating import (
     AlternatingAttentionTransformer,
 )
+from mapanything_tpu_torch.models.info_sharing.cross_attention import CrossAttentionTransformer
+from mapanything_tpu_torch.models.info_sharing.global_attention import GlobalAttentionTransformer
 from mapanything_tpu_torch.models.mapanything import MapAnything
+from mapanything_tpu_torch.models.modular_dust3r import ModularDUSt3R
 from mapanything_tpu_torch.models.perceptual import VGG19_CONV_INDICES, VGG19Features
 
 # How a JAX leaf becomes the port's tensor, and the JAX leaf's rank where it
@@ -97,11 +124,28 @@ def _norm(M: _Map, jp: str, tp: str) -> None:
     M.add(tp + "bias", _join(jp, "bias"))
 
 
+_LAMBDAS = ("lambda_q1", "lambda_k1", "lambda_q2", "lambda_k2")
+
+
+def _attention(M, jp, tp, projections):
+    """An attention's projections, its head-dim LayerNorms and, for the
+    differential ones, the lambda vectors and the RMS norm ``subln``."""
+    j = lambda n: _join(jp, n)  # noqa: E731
+    for name in projections + ("proj",):
+        _dense(M, j(name), tp + f"{name}.")
+    for name in ("q_norm", "k_norm"):
+        if M.has(tp + f"{name}.weight"):
+            _norm(M, j(name), tp + f"{name}.")
+    if M.has(tp + "subln.weight"):
+        for name in _LAMBDAS:
+            M.add(tp + name, j(name))
+        M.add(tp + "subln.weight", j("subln/scale"))
+
+
 def _block(M, jp, tp):
     j = lambda n: _join(jp, n)  # noqa: E731
     _norm(M, j("norm1"), tp + "norm1.")
-    _dense(M, j("attn/qkv"), tp + "attn.qkv.")
-    _dense(M, j("attn/proj"), tp + "attn.proj.")
+    _attention(M, j("attn"), tp + "attn.", ("qkv",))
     _norm(M, j("norm2"), tp + "norm2.")
     _dense(M, j("mlp/fc1"), tp + "mlp.fc1.")
     _dense(M, j("mlp/fc2"), tp + "mlp.fc2.")
@@ -110,10 +154,66 @@ def _block(M, jp, tp):
             M.add(tp + f"{ls}.gamma", j(f"{ls}/gamma"))
 
 
+def _cross_block(M, jp, tp):
+    """A ``CrossAttentionBlock``; the context's norm is JAX ``norm_mem``, CroCo's ``norm_y``."""
+    j = lambda n: _join(jp, n)  # noqa: E731
+    _norm(M, j("norm1"), tp + "norm1.")
+    _attention(M, j("attn"), tp + "attn.", ("qkv",))
+    if M.has(tp + "norm_y.weight"):
+        _norm(M, j("norm_mem"), tp + "norm_y.")
+    _norm(M, j("norm2"), tp + "norm2.")
+    _attention(M, j("cross_attn"), tp + "cross_attn.", ("projq", "projk", "projv"))
+    _norm(M, j("norm3"), tp + "norm3.")
+    _dense(M, j("mlp/fc1"), tp + "mlp.fc1.")
+    _dense(M, j("mlp/fc2"), tp + "mlp.fc2.")
+    for ls in ("ls1", "ls2", "ls3"):
+        if M.has(tp + f"{ls}.gamma"):
+            M.add(tp + f"{ls}.gamma", j(f"{ls}/gamma"))
+
+
+def _croco(M, jp, tp):
+    j = lambda n: _join(jp, n)  # noqa: E731
+    _conv(M, j("patch_embed"), tp + "patch_embed.proj.")
+    i = 0
+    while M.has(tp + f"enc_blocks.{i}.norm1.weight"):
+        _block(M, j(f"block_{i}"), tp + f"enc_blocks.{i}.")
+        i += 1
+    _norm(M, j("norm"), tp + "enc_norm.")
+
+
+def _patch_embedder(M, jp, tp):
+    _conv(M, _join(jp, "proj"), tp + "proj.")
+    _norm(M, _join(jp, "norm"), tp + "norm.")
+
+
+def _cross_trunk(M, jp, tp):
+    """``CrossAttentionTransformer``: CroCo's ``decoder_embed``, ``dec_blocks``
+    (JAX ``ref_block_N``), ``dec_blocks2`` (``nonref_block_N``), ``dec_norm``."""
+    j = lambda n: _join(jp, n)  # noqa: E731
+    if M.has(tp + "decoder_embed.weight"):
+        _dense(M, j("proj_embed"), tp + "decoder_embed.")
+    for branch, jax_name in (("dec_blocks", "ref_block"), ("dec_blocks2", "nonref_block")):
+        i = 0
+        while M.has(tp + f"{branch}.{i}.norm1.weight"):
+            _cross_block(M, j(f"{jax_name}_{i}"), tp + f"{branch}.{i}.")
+            i += 1
+    _norm(M, j("norm"), tp + "dec_norm.")
+
+
+def _modular_dust3r(M, jp, tp):
+    _croco(M, "encoder", "")
+    _cross_trunk(M, "decoder", "")
+    for b in range(2):
+        _dpt_feature(M, f"dpt_head_{b}", f"dpt_head_{b}.")
+        _dpt_regressor(M, f"dpt_reg_{b}", f"dpt_reg_{b}.")
+
+
 def _vit(M, jp, tp):
     j = lambda n: _join(jp, n)  # noqa: E731
     _conv(M, j("patch_embed"), tp + "patch_embed.proj.")
     M.add(tp + "cls_token", j("cls_token"))
+    if M.has(tp + "register_tokens"):
+        M.add(tp + "register_tokens", j("register_tokens"))
     M.add(tp + "pos_embed", j("pos_embed"))
     i = 0
     while M.has(tp + f"blocks.{i}.norm1.weight"):
@@ -241,6 +341,53 @@ def _moge(M, jp, tp):
     _conv(M, j("out_proj"), tp + "out_proj.")
 
 
+def _linear_feature(M, jp, tp):
+    _conv(M, _join(jp, "linear"), tp + "linear.")
+
+
+def _mlp_feature(M, jp, tp):
+    _dense(M, _join(jp, "mlp/fc1"), tp + "mlp.fc1.")
+    _dense(M, _join(jp, "mlp/fc2"), tp + "mlp.fc2.")
+    _linear_feature(M, _join(jp, "out"), tp + "out.")
+
+
+def _radio(M, jp, tp):
+    _vit(M, _join(jp, "backbone"), tp + "model.")
+
+
+def _cosmos(M, jp, tp):
+    """The tokenizer release's names (``encoder.down.L.block.j.*``, ...) against the
+    JAX modules' (``res_L_j/GroupNorm_0``, ...), as ``convert_cosmos_encoder`` maps them."""
+    j = lambda n: _join(jp, n)  # noqa: E731
+    e = tp + "encoder."
+
+    def res(jax_name, torch_prefix):
+        for k, (norm, conv) in enumerate((("norm1", "conv1"), ("norm2", "conv2"))):
+            _norm(M, j(f"{jax_name}/GroupNorm_{k}"), torch_prefix + f"{norm}.")
+            _conv(M, j(f"{jax_name}/Conv_{k}"), torch_prefix + f"{conv}.")
+        if M.has(torch_prefix + "nin_shortcut.weight"):
+            _conv(M, j(f"{jax_name}/Conv_2"), torch_prefix + "nin_shortcut.")
+
+    _conv(M, j("conv_in"), e + "conv_in.")
+    level = 0
+    while M.has(e + f"down.{level}.block.0.conv1.weight"):
+        i = 0
+        while M.has(e + f"down.{level}.block.{i}.conv1.weight"):
+            res(f"res_{level}_{i}", e + f"down.{level}.block.{i}.")
+            i += 1
+        if M.has(e + f"down.{level}.downsample.conv.weight"):
+            _conv(M, j(f"down_{level}"), e + f"down.{level}.downsample.conv.")
+        level += 1
+    res("mid_res1", e + "mid.block_1.")
+    res("mid_res2", e + "mid.block_2.")
+    _norm(M, j("mid_attn/GroupNorm_0"), e + "mid.attn_1.norm.")
+    for name in ("q", "k", "v", "proj_out"):
+        _conv(M, j(f"mid_attn/{name}"), e + f"mid.attn_1.{name}.")
+    _norm(M, j("GroupNorm_0"), e + "norm_out.")
+    _conv(M, j("conv_out"), e + "conv_out.")
+    _conv(M, j("quant_conv"), tp + "quant_conv.")
+
+
 def _vgg19(M, jp, tp):
     for i in VGG19_CONV_INDICES:
         _conv(M, _join(jp, f"conv{i}"), tp + f"features.{i}.")
@@ -257,6 +404,8 @@ def _mapanything(M, jp, tp):
     _trunk(M, "info_sharing", "info_sharing.")
     if M.has("mae_head.decoder_pred.weight"):
         _mae(M, "mae_head", "mae_head.")
+    elif M.has("linear_head.linear.weight"):
+        _linear_feature(M, "linear_head", "linear_head.")
     elif M.has("moge_head.out_proj.weight"):
         _moge(M, "moge_head", "moge_head.")
     else:
@@ -274,9 +423,23 @@ def _mapanything(M, jp, tp):
 
 _CONVERTERS: Dict[type, Callable] = {
     MapAnything: _mapanything,
+    ModularDUSt3R: _modular_dust3r,
     ViTEncoder: _vit,
+    CroCoEncoder: _croco,
+    PatchEmbedder: _patch_embedder,
+    RADIOEncoder: _radio,
+    CosmosEncoder: _cosmos,
     AlternatingAttentionTransformer: _trunk,
+    GlobalAttentionTransformer: _trunk,
+    CrossAttentionTransformer: _cross_trunk,
     SelfAttentionBlock: _block,
+    CrossAttentionBlock: _cross_block,
+    Attention: lambda M, jp, tp: _attention(M, jp, tp, ("qkv",)),
+    DiffAttention: lambda M, jp, tp: _attention(M, jp, tp, ("qkv",)),
+    CrossAttention: lambda M, jp, tp: _attention(M, jp, tp, ("projq", "projk", "projv")),
+    DiffCrossAttention: lambda M, jp, tp: _attention(M, jp, tp, ("projq", "projk", "projv")),
+    LinearFeature: _linear_feature,
+    MLPFeature: _mlp_feature,
     DPTFeature: _dpt_feature,
     DPTRegressionProcessor: _dpt_regressor,
     MAEGeneralDecoder: _mae,

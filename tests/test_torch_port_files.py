@@ -396,8 +396,12 @@ def test_jax_config_json_builds_the_same_config(tmp_path):
     assert got == want
     raw = json.loads((tmp_path / "jax" / "config.json").read_text())["config"]
     assert raw["dense_adaptor"]["depth"]["vmax"] == float("inf")
-    with pytest.raises(NotImplementedError, match="use_factored_predictions_for_global_pointmaps"):
-        port_hub.config_from_dict(dict(raw, use_factored_predictions_for_global_pointmaps=False))
+    with pytest.raises(NotImplementedError, match="with_mask"):
+        port_hub.config_from_dict(dict(raw, with_mask=False))
+    # The global-pointmap switch of pointmap+raydirs+depth+pose is ported: a config field.
+    factored = dict(raw, use_factored_predictions_for_global_pointmaps=False)
+    assert port_hub.config_from_dict(factored) == dataclasses.replace(
+        want, use_factored_predictions_for_global_pointmaps=False)
     # The raw-encoder preset is ported with the RGB models' heads: it reads as a config field.
     rgb = dict(raw, dense_head_type="mae", use_raw_encoder_features_for_dpt=True)
     assert port_hub.config_from_dict(rgb) == dataclasses.replace(want, dense_head_type="mae",

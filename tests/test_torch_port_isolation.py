@@ -103,6 +103,15 @@ SLICE_MODULES = (
     "mapanything_tpu_torch.models.heads.mae",
     "mapanything_tpu_torch.models.heads.moge_conv",
     "mapanything_tpu_torch.models.perceptual",
+    # the DUSt3R family, the other trunks and encoders, the registries
+    "mapanything_tpu_torch.ops.rope",
+    "mapanything_tpu_torch.models.encoders.croco",
+    "mapanything_tpu_torch.models.encoders.radio",
+    "mapanything_tpu_torch.models.encoders.cosmos",
+    "mapanything_tpu_torch.models.info_sharing.cross_attention",
+    "mapanything_tpu_torch.models.info_sharing.global_attention",
+    "mapanything_tpu_torch.models.modular_dust3r",
+    "mapanything_tpu_torch.models.registry",
 )
 # Optional decoders that the port imports only when a file needs them, and what the JAX data path
 # uses that the port must not (PyYAML, SciPy).
@@ -175,12 +184,16 @@ def test_entry_point_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_unported_options_raise():
-    # The mae and moge heads and the disentangled loss are ported; the linear head, the
-    # other scene representations and the disentangled loss under a view group are not.
-    with pytest.raises(NotImplementedError, match="dense_head_type"):
-        port_ma.MapAnything(port_ma.MapAnythingConfig.small(dense_head_type="linear"), device="cpu")
-    with pytest.raises(NotImplementedError, match="scene_rep_type"):
-        port_ma.MapAnything(port_ma.MapAnythingConfig.small(scene_rep_type="pointmap"), device="cpu")
+    # Every dense head and scene representation is ported; the baselines' and the bundle
+    # adjustment's registry slots and the disentangled loss under a view group are not.
+    from mapanything_tpu_torch.models.registry import init_model
+
+    for name in ("dust3r_ba", "metric_dust3r", "mast3r_sga", "vggt", "moge", "moge_2", "pi3", "anycalib",
+                 "pow3r", "pow3r_ba", "must3r", "vggsfm_tracker"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            init_model(name, size="small")
+    with pytest.raises(ValueError, match="invalid scene_rep_type"):
+        port_ma.MapAnything(port_ma.MapAnythingConfig.small(scene_rep_type="not_a_rep"), device="cpu")
     from mapanything_tpu_torch.train import losses as port_losses
 
     with pytest.raises(NotImplementedError, match="disentangled"):

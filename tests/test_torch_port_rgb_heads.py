@@ -196,7 +196,10 @@ def rgb_step_inputs():
     return img, batch
 
 
-def test_small_mae_train_step_matches_jax(record_property):
+@pytest.fixture(scope="module")
+def mae_step():
+    """The small MAE model's train step in JAX (loss, details, gradients; jitted once),
+    the port model with the same weights, and the step's port inputs."""
     model, params, port = small_rgb_model("mae", geometric=True, seed=3)
     img, batch = rgb_step_inputs()
     jviews = jax_ma.Views(img=jnp.asarray(img), ray_directions=jnp.asarray(batch["ray_directions"]),
@@ -214,24 +217,59 @@ def test_small_mae_train_step_matches_jax(record_property):
         return loss * 2.0 / V, details
 
     (loss, details), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
-    assert "rgb_loss" in details
     pmasks = port_ma.ModalityMasks(**{k: None if v is None else torch.from_numpy(np.array(v))
                                       for k, v in vars(masks).items()})
-    got, got_details = port_step.make_loss_fn(port)(port_batch(batch), torch.from_numpy(img), pmasks)
-    np.testing.assert_allclose(got.item(), float(loss), rtol=1e-4)
+    return dict(port=port, loss=float(loss), details={k: float(v) for k, v in details.items()},
+                want=jax_params_to_state_dict(port, grads), inputs=(port_batch(batch), torch.from_numpy(img), pmasks))
+
+
+def port_step_gradients(step):
+    """The port's loss, details and gradients (by name) of ``mae_step``'s inputs, from zero."""
+    port = step["port"]
+    port.zero_grad(set_to_none=True)
+    got, got_details = port_step.make_loss_fn(port)(*step["inputs"])
+    got.backward()
+    return got, got_details, {name: p.grad for name, p in port.named_parameters()}
+
+
+def check_gradients(grads, want) -> float:
+    """Each leaf's gradient within 1e-4 of the JAX leaf's largest; the worst ratio."""
+    worst = 0.0
+    for name, g in grads.items():
+        r = want[name].numpy()
+        assert g is not None, name
+        worst = max(worst, float(np.abs(g.numpy() - r).max() / (np.abs(r).max() + 1e-12)))
+        np.testing.assert_allclose(g.numpy(), r, atol=1e-4 * np.abs(r).max() + 1e-12, rtol=0, err_msg=name)
+    return worst
+
+
+def test_small_mae_train_step_matches_jax(mae_step, record_property):
+    got, got_details, grads = port_step_gradients(mae_step)
+    details = mae_step["details"]
+    assert "rgb_loss" in details
+    np.testing.assert_allclose(got.item(), mae_step["loss"], rtol=1e-4)
     assert sorted(got_details) == sorted(details)
     for name, value in got_details.items():
-        np.testing.assert_allclose(value.item(), float(details[name]), rtol=1e-4, atol=1e-6, err_msg=name)
-    got.backward()
-    want = jax_params_to_state_dict(port, grads)
-    worst = 0.0
-    for name, p in port.named_parameters():
-        r = want[name].numpy()
-        assert p.grad is not None, name
-        worst = max(worst, float(np.abs(p.grad.numpy() - r).max() / (np.abs(r).max() + 1e-12)))
-        np.testing.assert_allclose(p.grad.numpy(), r, atol=1e-4 * np.abs(r).max() + 1e-12, rtol=0, err_msg=name)
+        np.testing.assert_allclose(value.item(), details[name], rtol=1e-4, atol=1e-6, err_msg=name)
+    want = mae_step["want"]
+    worst = check_gradients(grads, want)
     assert float(np.abs(want["mae_head.decoder_block_0.attn.qkv.weight"].numpy()).max()) > 0
     record_property("grad_err_over_leaf_magnitude", worst)
+
+
+@pytest.mark.parametrize("n_threads", [1, 4])
+def test_small_mae_train_step_gradients_do_not_depend_on_the_thread_count(mae_step, n_threads, record_property):
+    """The same step on ``n_threads`` torch threads, held to the JAX gradients under
+    the rule above. An fp32 product on the CPU used to split its sum by the thread
+    count, and a ReLU input of the pose head near zero then took the other side on
+    one thread; the port's layers now run their CPU products in float64."""
+    threads_before = torch.get_num_threads()
+    torch.set_num_threads(n_threads)
+    try:
+        _, _, grads = port_step_gradients(mae_step)
+    finally:
+        torch.set_num_threads(threads_before)
+    record_property("grad_err_over_leaf_magnitude", check_gradients(grads, mae_step["want"]))
 
 
 def test_rgb_l1_term_of_the_dpt_rgb_model_matches_jax(record_property):
