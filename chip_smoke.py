@@ -11,6 +11,7 @@
     python3 chip_smoke.py --data-only          # phases 1, 2 and 21 alone
     python3 chip_smoke.py --rgb-only           # phases 1, 2, the D = 32 rows of 3 and 3b, 22-25
     python3 chip_smoke.py --dust3r-only        # phases 1, 2, the DUSt3R rows of 3, 26 and 27
+    python3 chip_smoke.py --baselines-only     # phases 1, 2, the baselines' rows of 3, 28 and 29
 
 Phases, each printing one JSON line:
   1. the card's name and power limit, as nvidia-smi reports them;
@@ -48,7 +49,13 @@ Phases, each printing one JSON line:
      (8 launches a 1 x 8 x 518 forward, phase 22's); and the DUSt3R path's shapes in
      bf16 and fp32 (phase 27's): the encoder's 2 x 768 x 16 x 64, the decoder's self-
      and cross-attention at 1 x 768 x 12 x 64 (the cross-attention's q, k and v three
-     tensors), and a 3-view context (1 x 768 queries against 1536 keys);
+     tensors), and a 3-view context (1 x 768 queries against 1536 keys); and the
+     baselines' shapes (phase 29's, BASELINE_SHAPES): VGGT's 8 x 1374 x 16 x 64 (its
+     encoder and frame layers; Pi3's and AnyCalib's too), its global 1 x 10992 x 16 x 64
+     and its camera trunk's 1 x 8 x 16 x 128 in bf16 and fp32, ViT-L without registers
+     at 8 x 1370 x 16 x 64, MUSt3R's encoder, decoder self-attention and 768 queries
+     against each of its memories' 1536 to 6144 keys, and Pow3R's encoder and decoder
+     (769 tokens with the CLS token);
   3b. training kernel checks: the forward with lse, the dq and the dk/dv
      kernels against their plain versions at the 1 x 4 x 518 training
      shapes in bf16 (phase 7's) and in fp32 (phase 17's), with kernel, plain
@@ -207,13 +214,34 @@ Phases, each printing one JSON line:
   27. ModularDUSt3R at DUSt3R_ViTLarge_BaseDecoder_512_dpt's widths on one 512 x 384
      pair, fp32 and bf16 (the same seeded weights): 72 launches at (768, 64) a
      forward, its CUDA-event time, pairs a second, peak memory, finite pts3d and
-     features, conf >= 1, and the attention's share of the forward (phase 3's rows).
+     features, conf >= 1, and the attention's share of the forward (phase 3's rows);
+  28. the feed-forward baselines' slice on the card: each of the eight registry
+     baselines (vggt, moge, moge_1, moge_2, pi3, anycalib, must3r, pow3r) at
+     size="small" with heads of 64 (BASELINE_SMALL; VGGT's camera trunk at heads of
+     128), fp32 with TF32 off, against the same model on the plain versions under phase
+     26's rule; the invariants of the outputs (finite, unit rays and quaternions,
+     positive depth, confidence >= 1 where the model has it, MoGe's positive focal);
+  29. each baseline at its release's widths, seeded random weights: VGGT-1B on 1 x 8 x
+     518 in fp32 and in bf16 (the fp32 model's weights), Pi3 on 1 x 8 x 518, MoGe-1,
+     MoGe-2 and AnyCalib (ViT-L) on 8 views of 518, MUSt3R on 1 x 8 x 384 x 512 and
+     Pow3R on one 384 x 512 pair with its three priors; one forward with the kernels
+     (launches by (Tk, D) held to BASELINE_SHAPES' counts) against one with the plain
+     versions (TF32 off: fp32 within BASELINE_FULL_RTOL of each field's magnitude, but
+     AnyCalib's pinhole fit, a least-squares solution, reported beside its held FoV
+     field; in bf16 VGGT's aggregator tokens within BASELINE_BF16_MEAN_RTOL on average,
+     its pose encoding and outputs reported), the invariants, then one warm-up and 3
+     CUDA-event-timed forwards: ms a forward, peak memory, launches by kernel and head
+     dim; and the phase's whole time. Phase 3 holds the kernels at these paths' shapes
+     first (BASELINE_SHAPES, bf16 and fp32, with the bounds, plain and SDPA times);
+  30. phase 9 for flagship-h128 (trunk heads of 128): unsharded, ring and allgather
+     on the one-rank group under phase 9's limits, the D = 128 launches counted.
 On a machine with more than one card, phases 9 and 10 then run again over
 NCCL with one rank a card (2 or 4 cards); rank 0 checks the gathered
 outputs against the unsharded forward. A machine with one card skips this.
 Phases 11-13 run after phase 5, before phase 6; phase 3e after 3d; phases
 14-24 after phase 7, before phase 8 (the D = 32 rows with phases 3 and 3b);
-phases 26-27 after phase 24; phase 25 after phase 10. Then the kernels' summary line and,
+phases 26-29 after phase 24; phase 25 after phase 10, phase 30 after phase 9. Then the
+kernels' summary line and,
 last, {"ok": true, "device": {...}}.
 Phases 3f and 3g run right after the build. With --train-step-only, phase 7
 (phase 17 with --compute-dtype float32) runs after the build (without the SASS
@@ -225,7 +253,8 @@ the same way. With --forward-edges-only, phase
 --trainer-only, phase 20; with --data-only, phase 21; with --rgb-only, the
 D = 32 rows of phases 3 and 3b, phases 22-24, and 25 on a one-rank group of its own;
 with --dust3r-only, the DUSt3R rows of phase 3, phases 26 and 27, and a kernels line
-of their entries.
+of their entries; with --baselines-only, the baselines' rows of phase 3, phases 28 and 29,
+and a kernels line of their entries.
 Any failed check raises and the script exits non-zero. Without a CUDA device,
 or without the port beside it, it exits non-zero and prints no result.
 """
@@ -2554,24 +2583,27 @@ def view_parallel_slice_check(group):
         raise AssertionError(f"the ring train step disagrees with the unsharded one: {bad}")
 
 
-def flagship_view_parallel(card, group):
+def flagship_view_parallel(card, group, trunk_heads: int = 12):
     """Phase 9: the flagship bf16 forward on 1 x 16 x 518 unsharded, under the
     ring and under allgather, over ``group`` (one rank on one card, or one
     rank a card). Every rank runs the view-parallel forwards; the first also
-    runs the unsharded one and compares the gathered outputs."""
+    runs the unsharded one and compares the gathered outputs. Phase 30 with
+    trunk_heads=6: flagship-h128, whose trunk layers then launch the D = 128
+    instances (the ring's lse forwards among them)."""
     import torch
 
-    from mapanything_tpu_torch.models.mapanything import MapAnything, MapAnythingConfig, Views
-    from mapanything_tpu_torch.ops.flash_attention import launch_counts, reset_launch_counts
+    from mapanything_tpu_torch.models.mapanything import MapAnything, Views
+    from mapanything_tpu_torch.ops.flash_attention import launch_counts, launch_shapes, reset_launch_counts
     from mapanything_tpu_torch.parallel import sharded_attention as sa
     from mapanything_tpu_torch.parallel.context import gather_predictions, infer_view_sharded
 
     B, V, H, W = 1, 16, 518, 518
     warmup, iters = 2, 3
     n, lead = group.size, group.rank == 0
-    model = MapAnything(MapAnythingConfig(compute_dtype="bfloat16"), device="cuda", seed=0)
+    model = MapAnything(flagship_config(trunk_heads), device="cuda", seed=0)
     img = torch.from_numpy(np.random.RandomState(0).randn(B, V, H, W, 3).astype(np.float32)).cuda()
     views = Views(img=img)
+    trunk_d = model.config.info_sharing_dim // trunk_heads
     forwards = {"ring": lambda: infer_view_sharded(model, views, group, "ring"),
                 "allgather": lambda: infer_view_sharded(model, views, group, "allgather")}
     if lead:
@@ -2588,11 +2620,17 @@ def flagship_view_parallel(card, group):
             sa.reset_counts()
             preds = fwd()
             torch.cuda.synchronize()
-            counts, ring = launch_counts(), sa.counts()
+            counts, ring, by_d = launch_counts(), sa.counts(), by_head_dim(launch_shapes())
             expect = {**want[mode], "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
                       "flash_attention_split_f32": 0}
             if counts != expect or ring["ring_steps"] != (12 * n if mode == "ring" else 0):
                 raise AssertionError(f"one {mode} forward launched {counts} with {ring}, not {expect}")
+            # The trunk's 24 layers at its head dim (12 frame, 12 global or 12 n ring steps),
+            # beside the encoder's 24 at D = 64.
+            trunk = (by_d["flash_attention_fwd"].get(trunk_d, 0) + by_d["flash_attention_fwd_lse"].get(trunk_d, 0)
+                     - (24 if trunk_d == 64 else 0))
+            if trunk != (12 + 12 * n if mode == "ring" else 24):
+                raise AssertionError(f"one {mode} forward launched {by_d} at the trunk's D = {trunk_d}")
             for _ in range(warmup - 1):
                 fwd()
             torch.cuda.synchronize()
@@ -2610,7 +2648,8 @@ def flagship_view_parallel(card, group):
             ray_norm_err = check_invariants(preds, (B, V, H, W))
             outs[mode] = {f: getattr(preds, f).float() for f in PRED_FIELDS}
         ms = 1e3 * sum(times) / iters
-        lines[mode] = {"launches_per_forward": counts, "ring_steps_per_forward": ring["ring_steps"],
+        lines[mode] = {"launches_per_forward": counts, "launches_by_head_dim": by_d,
+                       "ring_steps_per_forward": ring["ring_steps"],
                        "collectives_per_forward": ring["collectives"], "ms_per_forward": ms,
                        "ms_each": [1e3 * t for t in times], "views_per_s": B * V / (ms / 1e3),
                        "peak_mem_gib": peak}
@@ -2624,8 +2663,8 @@ def flagship_view_parallel(card, group):
     diffs = {f"{a}_vs_{b}": {f: (outs[a][f] - outs[b][f]).abs().max().item() for f in PRED_FIELDS} for a, b in pairs}
     mean_diffs = {f"{a}_vs_{b}": {f: (outs[a][f] - outs[b][f]).abs().mean().item() for f in PRED_FIELDS}
                   for a, b in pairs}
-    line = {"phase": "flagship_view_parallel",
-            "config": "MapAnythingConfig(compute_dtype='bfloat16'), "
+    line = {"phase": "flagship_view_parallel", "phase_id": "9" if trunk_heads == 12 else "30",
+            "config": f"MapAnythingConfig(compute_dtype='bfloat16', info_sharing_num_heads={trunk_heads}), "
                       f"1x{V}x518x518, seeded random weights, {n} rank(s) (NCCL)",
             "world_size": n, "warmup": warmup, "iters": iters, **lines, "max_abs_diff": diffs,
             "mean_abs_diff": mean_diffs, "mean_abs_diff_limits": MEAN_DIFF_LIMITS,
@@ -2980,18 +3019,10 @@ def against_plain(run, fields) -> tuple:
             plain = run()
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
-    errs = {}
     for name in fields:
-        a, b = kern[name], plain[name]
-        if a.dtype == torch.bool:
-            errs[name + "_agreement"] = (a == b).float().mean().item()
-            continue
-        if not bool(torch.isfinite(a).all()):
+        if kern[name].dtype != torch.bool and not bool(torch.isfinite(kern[name]).all()):
             raise AssertionError(f"non-finite {name}")
-        errs[name] = (a - b).abs().max().item() / max(1.0, b.abs().max().item())
-    bad = {k: v for k, v in errs.items() if (v < 0.999 if k.endswith("_agreement") else v > DUST3R_SLICE_RTOL)}
-    if bad:
-        raise AssertionError(f"kernels and plain versions disagree: {bad} (limit {DUST3R_SLICE_RTOL})")
+    errs = compare_outputs({k: kern[k] for k in fields}, plain, fields, limit=DUST3R_SLICE_RTOL)
     return errs, shapes
 
 
@@ -3186,6 +3217,382 @@ def dust3r_entries(dust3r) -> list:
     return entries
 
 
+# The feed-forward baselines (phases 28-29) at their releases' widths: VGGT-1B and Pi3 on
+# 1 x 8 x 518 (8 x 1374 tokens: a camera token or a register more than the ViT's 1 + 4 + 1369),
+# MoGe-1, MoGe-2 and AnyCalib with ViT-L on 8 views of 518 (1370 tokens without registers),
+# MUSt3R on 1 x 8 x 384 x 512 and Pow3R on one 384 x 512 pair with its three priors (768
+# patches a view; Pow3R's decoder adds a CLS token). VGGT's camera trunk attends over the 8
+# views' camera tokens at heads of 128. At fewer than 1024 queries the JAX sdpa takes XLA's
+# attention (DUST3R_REPLACES); elsewhere the Pallas kernel of the JAX dispatch.
+BASELINE_HW = (518, 518)
+BASELINE_PAIR_HW = (384, 512)
+# (name, B x Tq x H x D, dtype, {path: launches per forward}, replaced[, Tk: q, k, v three
+# tensors]). MUSt3R's memory: the first two views decode together (keys 2 x 768), then view v
+# of 2..7 against the v earlier views' tokens and its own ((v + 1) x 768 keys).
+BASELINE_SHAPES = [
+    ("vggt_1374", (8, 1374, 16, 64), "bfloat16", {"vggt": 48}, f"{FA}:395"),
+    ("vggt_global", (1, 10992, 16, 64), "bfloat16", {"vggt": 24}, f"{FA}:516"),
+    ("vggt_camera", (1, 8, 16, 128), "bfloat16", {"vggt": 16}, DUST3R_REPLACES),
+    ("fp32_1374", (8, 1374, 16, 64), "float32", {"vggt": 48, "pi3": 57, "anycalib": 24}, f"{FA}:114"),
+    ("fp32_global_10992", (1, 10992, 16, 64), "float32", {"vggt": 24, "pi3": 18}, f"{FA}:164"),
+    ("fp32_vggt_camera", (1, 8, 16, 128), "float32", {"vggt": 16}, DUST3R_REPLACES),
+    ("fp32_1370", (8, 1370, 16, 64), "float32", {"moge_1": 24, "moge_2": 24}, f"{FA}:114"),
+    ("must3r_encoder", (8, 768, 16, 64), "float32", {"must3r": 24}, DUST3R_REPLACES),
+    ("must3r_self_pair", (2, 768, 12, 64), "float32", {"must3r": 12}, DUST3R_REPLACES),
+    ("must3r_self", (1, 768, 12, 64), "float32", {"must3r": 72}, DUST3R_REPLACES),
+    ("must3r_cross_1536", (2, 768, 12, 64), "float32", {"must3r": 12}, DUST3R_REPLACES, 1536),
+    *[(f"must3r_cross_{768 * (v + 1)}", (1, 768, 12, 64), "float32", {"must3r": 12}, DUST3R_REPLACES, 768 * (v + 1))
+      for v in range(2, 8)],
+    ("pow3r_encoder", (2, 768, 16, 64), "float32", {"pow3r": 24}, DUST3R_REPLACES),
+    ("pow3r_decoder_self", (1, 769, 12, 64), "float32", {"pow3r": 24}, DUST3R_REPLACES),
+    ("pow3r_decoder_cross", (1, 769, 12, 64), "float32", {"pow3r": 24}, DUST3R_REPLACES, 769),
+]
+# Phase 28: the registry's small presets with heads of 64 (the presets' heads of 16 have no
+# kernel instance; VGGT's camera trunk then has heads of 128), on the card against the same
+# models on the plain versions under against_plain's rule.
+BASELINE_SMALL = {
+    "vggt": dict(embed_dim=128, num_heads=2),
+    "pi3": dict(dec_embed_dim=128, dec_num_heads=2, head_dec_embed_dim=128, head_num_heads=2),
+    "moge": dict(backbone_size="small"),
+    "moge_1": dict(backbone_size="small"),
+    "moge_2": dict(encoder_size="small"),
+    "anycalib": dict(patch_embed="vit", patch_embed_vit_size="small"),
+    "must3r": dict(enc_embed_dim=128, enc_num_heads=2, dec_embed_dim=128, dec_num_heads=2),
+    "pow3r": dict(enc_embed_dim=128, enc_num_heads=2, dec_embed_dim=128, dec_num_heads=2),
+}
+# Phase 29: each path's fp32 outputs against the same model on the plain versions (TF32
+# off), of each field's magnitude (phase29_fields says which are held). In bf16 the aggregator's tokens at the DPT's hooks are held, by their mean
+# |difference| over their mean magnitude: VGGT's depth and confidence are exp of a bf16
+# number that seeded weights put near ±64, where one bf16 step (0.5) is a factor of e^0.5,
+# and its camera head refines a bf16 estimate four times, so the outputs and the pose
+# encoding are reported, not held.
+BASELINE_FULL_RTOL = 1e-3
+BASELINE_BF16_MEAN_RTOL = 2e-2
+
+
+def baseline_inputs(name: str, shape, seed: int) -> dict:
+    """Seeded inputs of a baseline wrapper on the card: images in [0, 1] (DUSt3R-normalised
+    N(0, 1) for MUSt3R and Pow3R), and Pow3R's priors (a pinhole, depth with a hole, a
+    relative pose)."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    if name in ("must3r", "pow3r"):
+        images = rng.randn(*shape, 3).astype(np.float32)
+    else:
+        images = rng.rand(*shape, 3).astype(np.float32)
+    out = {"images": torch.from_numpy(images).cuda()}
+    if name == "pow3r":
+        B, _, H, W = shape
+        K = np.tile(np.asarray([[0.8 * W, 0, W / 2], [0, 0.8 * W, H / 2], [0, 0, 1]], np.float32), (B, 2, 1, 1))
+        depth = (1.0 + rng.rand(B, 2, H, W)).astype(np.float32)
+        depth[:, :, : H // 8, : W // 8] = 0.0
+        poses = np.tile(np.eye(4, dtype=np.float32), (B, 2, 1, 1))
+        c, s = np.cos(0.3), np.sin(0.3)
+        poses[:, 1, :3, :3] = [[c, 0, s], [0, 1, 0], [-s, 0, c]]
+        poses[:, 1, :3, 3] = [0.5, -0.1, 0.2]
+        out.update(intrinsics=torch.from_numpy(K).cuda(), depthmaps=torch.from_numpy(depth).cuda(),
+                   camera_poses=torch.from_numpy(poses).cuda())
+    return out
+
+
+def flat_views(views) -> dict:
+    """A wrapper's per-view dicts as one dict of tensors: ``field[v]``."""
+    return {f"{k}[{v}]": x for v, d in enumerate(views) for k, x in d.items()}
+
+
+def baseline_invariants(name: str, out: dict) -> dict:
+    """The outputs' invariants: finite; unit rays and quaternions (orthonormal rotations);
+    positive depth along the rays; confidence >= 1 where the model has the exp
+    confidence (VGGT, MUSt3R, Pow3R; Pi3's confidence is a logit); MoGe's positive focal
+    (clipped to [0.1, 20] of the half-diagonal; AnyCalib's least-squares focal of a
+    random-weight field may take either sign). Returns the largest deviations."""
+    import torch
+
+    dev = {"ray_norm": 0.0, "quat_norm": 0.0}
+    for key, x in out.items():
+        field = key.split("[")[0]
+        if x.dtype == torch.bool:
+            continue
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{name}: non-finite {key}")
+        if field == "ray_directions":
+            dev["ray_norm"] = max(dev["ray_norm"], (x.norm(dim=-1) - 1).abs().max().item())
+        elif field == "cam_quats":
+            dev["quat_norm"] = max(dev["quat_norm"], (x.norm(dim=-1) - 1).abs().max().item())
+        elif field == "depth_along_ray" and not x.min().item() > 0:
+            raise AssertionError(f"{name}: depth along the rays not positive in {key}")
+        elif field == "conf" and name in ("vggt", "must3r", "pow3r") and x.min().item() < 1.0:
+            raise AssertionError(f"{name}: confidence below 1 in {key}")
+        elif field == "intrinsics" and name.startswith("moge") and not x[..., [0, 1], [0, 1]].min().item() > 0:
+            raise AssertionError(f"{name}: focal not positive in {key}")
+    if dev["ray_norm"] > 1e-4 or dev["quat_norm"] > 1e-4:
+        raise AssertionError(f"{name}: rays or quaternions off the unit sphere: {dev}")
+    return dev
+
+
+def baseline_slice_check(card) -> dict:
+    """Phase 28: each of the eight registry baselines at size="small" with heads of 64
+    (BASELINE_SMALL), on the card, fp32 with TF32 off, against the same model on the plain
+    versions (against_plain); the outputs' invariants; launches by (Tk, D)."""
+    import torch
+
+    from mapanything_tpu_torch.models.registry import init_model
+
+    shapes_of = {"vggt": (1, 2, 56, 70), "pi3": (1, 2, 56, 70), "moge": (2, 56, 70), "moge_1": (2, 56, 70),
+                 "moge_2": (1, 2, 56, 70), "anycalib": (2, 56, 70), "must3r": (1, 3, 64, 80),
+                 "pow3r": (1, 2, 64, 80)}
+    line = {"phase": "baseline_slice", "phase_id": "28", "rtol": DUST3R_SLICE_RTOL, "models": {}}
+    for name, overrides in BASELINE_SMALL.items():
+        model = init_model(name, size="small", device="cuda", seed=28, **overrides)
+        inputs = baseline_inputs(name, shapes_of[name], 28)
+
+        def run():
+            return flat_views(model(**inputs))
+
+        with torch.inference_mode():
+            fields = tuple(run())
+        errs, shapes = against_plain(run, fields)
+        if not shapes["flash_attention_fwd"] or shapes["flash_attention_split_f32"] != shapes["flash_attention_fwd"]:
+            raise AssertionError(f"{name} launched {shapes}")
+        with torch.inference_mode():
+            dev = baseline_invariants(name, run())
+        line["models"][name] = {"config": f"{type(model.config).__name__}.small(**{overrides}), "
+                                          f"{'x'.join(map(str, shapes_of[name]))}",
+                                "err_over_magnitude_max": max(v for k, v in errs.items()
+                                                              if not k.endswith("_agreement")),
+                                "agreement_min": min((v for k, v in errs.items() if k.endswith("_agreement")),
+                                                     default=None),
+                                "invariants": dev, "launches_by_shape": shape_counts(shapes)["flash_attention_fwd"]}
+        del model
+        torch.cuda.empty_cache()
+    line.update(card=card["name"], power_limit=card["power_limit"])
+    emit(line)
+    return line
+
+
+# Phase 29's paths: (path, registry name, compute dtype, input shape), and each one's
+# lse-free launches a forward by (Tk, D) (in fp32 as many split passes).
+BASELINE_FULL = [
+    ("vggt", "vggt", "float32", (1, 8) + BASELINE_HW),
+    ("vggt_bf16", "vggt", "bfloat16", (1, 8) + BASELINE_HW),
+    ("pi3", "pi3", "float32", (1, 8) + BASELINE_HW),
+    ("moge_1", "moge_1", "float32", (8,) + BASELINE_HW),
+    ("moge_2", "moge_2", "float32", (1, 8) + BASELINE_HW),
+    ("anycalib", "anycalib", "float32", (8,) + BASELINE_HW),
+    ("must3r", "must3r", "float32", (1, 8) + BASELINE_PAIR_HW),
+    ("pow3r", "pow3r", "float32", (1, 2) + BASELINE_PAIR_HW),
+]
+
+
+def expected_baseline_launches(path: str) -> dict:
+    """{(Tk, D): launches} of one forward of ``path``, from BASELINE_SHAPES."""
+    dtype = "bfloat16" if path.endswith("_bf16") else "float32"
+    model = path.replace("_bf16", "")
+    out = {}
+    for name, (b, t, h, d), row_dtype, per_forward, _, *key_length in BASELINE_SHAPES:
+        if row_dtype == dtype and model in per_forward:
+            key = (key_length[0] if key_length else t, d)
+            out[key] = out.get(key, 0) + per_forward[model]
+    return out
+
+
+def compare_outputs(kern: dict, plain: dict, held, mean: bool = False, limit: float = None) -> dict:
+    """A run with the kernels against one with the plain versions (phases 26, 28, 29):
+    each field's largest |difference| over its magnitude (with ``mean``: its mean
+    |difference| over its mean magnitude), masks by agreement (>= 0.999); the fields
+    named in ``held`` within ``limit`` (by default BASELINE_FULL_RTOL,
+    BASELINE_BF16_MEAN_RTOL with ``mean``), the others reported."""
+    import torch
+
+    errs = {}
+    for key, a in kern.items():
+        b = plain[key]
+        if a.dtype == torch.bool:
+            errs[key + "_agreement"] = (a == b).float().mean().item()
+            continue
+        a, b = a.float(), b.float()
+        diff = (a - b).abs()
+        if mean:
+            errs[key] = diff.mean().item() / max(1e-12, b.abs().mean().item())
+        else:
+            errs[key] = diff.max().item() / max(1.0, b.abs().max().item())
+    if limit is None:
+        limit = BASELINE_BF16_MEAN_RTOL if mean else BASELINE_FULL_RTOL
+    bad = {k: v for k, v in errs.items()
+           if (v < 0.999 if k.endswith("_agreement") else k in held and not v <= limit)}
+    if bad:
+        raise AssertionError(f"the kernels and the plain versions disagree: {bad} (limit {limit})")
+    return errs
+
+
+def vggt_trunk_fields(model, images) -> dict:
+    """VGGT's aggregator tokens at the DPT's hooks and its pose encoding."""
+    inters, _ = model.aggregator(images)
+    out = {f"aggregator_{i}": t for i, t in enumerate(inters)}
+    out["pose_enc"] = model.camera_head(inters[-1][:, :, 0])
+    return out
+
+
+def phase29_fields(path: str, model, inputs) -> tuple:
+    """One forward of ``path``'s wrapper as flat fields, the fields that phase 29 adds
+    beside them, and the names it holds to the plain versions: every output, but in bf16
+    VGGT's aggregator tokens (its outputs and pose encoding reported), and for AnyCalib
+    the network's FoV field with the outputs except the pinhole fit and the rays drawn
+    from it (a least-squares fit whose conditioning a seeded random field sets:
+    reported)."""
+    out = flat_views(model(**inputs))
+    if path == "vggt_bf16":
+        out.update(vggt_trunk_fields(model, inputs["images"]))
+        return out, [k for k in out if k.startswith("aggregator_")]
+    if path == "anycalib":
+        out["fov_field"] = model.predict(inputs["images"])["fov_field"]
+        return out, [k for k in out if not k.startswith(("intrinsics", "ray_directions"))]
+    return out, list(out)
+
+
+def baseline_flagship(card, path: str, name: str, compute_dtype: str, shape, weights=None) -> dict:
+    """Phase 29, one path: the baseline at its release's widths in ``compute_dtype``, built on
+    the meta device, its weights seeded on the card by ``init_params`` with a CUDA generator
+    (those of ``weights``, a state dict, where given).
+    One forward with the kernels then one with the plain versions (TF32 off; the launch
+    counts of the first held to the path's), then, warmed once, ``iters`` CUDA-event-timed
+    forwards: ms each, peak memory, the invariants of the outputs."""
+    import torch
+
+    from mapanything_tpu_torch.models.blocks import init_params
+    from mapanything_tpu_torch.models.registry import MODEL_REGISTRY
+    from mapanything_tpu_torch.ops.attention import plain_attention
+    from mapanything_tpu_torch.ops.flash_attention import launch_counts, launch_shapes, reset_launch_counts
+
+    fp32 = compute_dtype == "float32"
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        model = MODEL_REGISTRY[name](device="meta", compute_dtype=compute_dtype)
+    model.to_empty(device="cuda")
+    if weights is None:  # seeded on the card: a billion parameters take the host ~18 s
+        init_params(model, torch.Generator(device="cuda").manual_seed(0))
+    else:
+        model.load_state_dict(weights, strict=True)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    inputs = baseline_inputs(name, shape, 29)
+    want = expected_baseline_launches(path)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        reset_launch_counts()
+        with torch.inference_mode():
+            model(**inputs)
+            torch.cuda.synchronize()
+            counts, shapes = launch_counts(), launch_shapes()
+            kern, held = phase29_fields(path, model, inputs)
+        with plain_attention(), torch.inference_mode():
+            plain, _ = phase29_fields(path, model, inputs)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    n = sum(want.values())
+    expect = {"flash_attention_fwd": n, "flash_attention_fwd_lse": 0, "flash_attention_bwd_dq": 0,
+              "flash_attention_bwd_dkv": 0, "flash_attention_split_f32": n if fp32 else 0}
+    if counts != expect or shapes["flash_attention_fwd"] != want:
+        raise AssertionError(f"one {path} forward launched {counts} ({shapes['flash_attention_fwd']}), not {expect} "
+                             f"({want})")
+    errs = compare_outputs(kern, plain, held, mean=not fp32)
+    dev = baseline_invariants(name, {k: v for k, v in kern.items() if "[" in k})
+    del kern, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    warmup, iters = 1, 3
+    with torch.inference_mode():
+        for _ in range(warmup):
+            model(**inputs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        each = []
+        for _ in range(iters):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = model(**inputs)
+            end.record()
+            torch.cuda.synchronize()
+            each.append(start.elapsed_time(end))
+            del out
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    ms = sum(each) / iters
+    n_params = sum(p.numel() for p in model.parameters())
+    line = {
+        "phase": "baseline_flagship", "phase_id": "29", "path": path,
+        "config": f"{type(model.config).__name__}(compute_dtype={compute_dtype!r}) (the release's widths), "
+                  f"{'x'.join(map(str, shape))}, seeded random weights",
+        "parameters": n_params, "setup_s": setup_s, "warmup": warmup, "iters": iters, "ms_per_forward": ms,
+        "ms_each": each, "peak_mem_gib": peak_gib, "launches_per_forward": counts,
+        "launches_by_shape": shape_counts(shapes), "launches_by_head_dim": by_head_dim(shapes),
+        "err_vs_plain_held": max(errs[k] for k in held if k in errs), "err_rule": "max |diff| / max(1, max |plain|)" if fp32
+        else "mean |diff| / mean |plain|", "err_by_field": errs,
+        "agreement_min": min((v for k, v in errs.items() if k.endswith("_agreement")), default=None),
+        "invariants": dev, "card": card["name"], "power_limit": card["power_limit"],
+    }
+    emit(line)
+    return {"line": line, "model": model}
+
+
+def baseline_phases(card, rows=None) -> dict:
+    """The baselines: (without ``rows``) their rows of phase 3, then phase 28, then phase 29
+    path by path (the bf16 VGGT on the fp32 VGGT's weights), the memory freed between them."""
+    import torch
+
+    out = {"rows": kernel_checks(card, BASELINE_SHAPES, "3") if rows is None else rows}
+    out["slice"] = baseline_slice_check(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["flagship"], vggt_weights = {}, None
+    for path, name, dtype, shape in BASELINE_FULL:
+        res = baseline_flagship(card, path, name, dtype, shape, vggt_weights if path == "vggt_bf16" else None)
+        model = res.pop("model")
+        if path == "vggt":  # the weights on the host: the bf16 run starts from an empty allocator
+            vggt_weights = {k: v.cpu() for k, v in model.state_dict().items()}
+        del model
+        out["flagship"][path] = res["line"]
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["phase_29_s"] = time.perf_counter() - t0
+    emit({"phase": "baseline_flagships_total", "phase_id": "29", "seconds": out["phase_29_s"],
+          "card": card["name"], "power_limit": card["power_limit"]})
+    return out
+
+
+BASELINE_PATHS = {"vggt": "VGGT-1B fp32", "vggt_bf16": "VGGT-1B bf16", "pi3": "Pi3 fp32", "moge_1": "MoGe-1 fp32",
+                  "moge_2": "MoGe-2 fp32", "anycalib": "AnyCalib fp32", "must3r": "MUSt3R fp32",
+                  "pow3r": "Pow3R fp32"}
+
+
+def baseline_entries(bl) -> list:
+    """Phases 28-29 in the kernels line: on each baseline path (phase 29), the lse-free
+    forward (and in fp32 its split pass), one entry per TPU kernel replaced, with the
+    phase-3 rows of that path (times per forward) and the run's launches at their shapes."""
+    entries = []
+    for path, line in bl["flagship"].items():
+        model = path.replace("_bf16", "")
+        dtype = "bfloat16" if path.endswith("_bf16") else "float32"
+        rows = [r for r in bl["rows"] if r["dtype"] == dtype and model in r["per_forward"]]
+        run = line["launches_by_shape"]["flash_attention_fwd"]
+        kinds = [("flash_attention_fwd", KERNEL_SOURCE)]
+        if dtype == "float32":
+            kinds.append(("flash_attention_split_f32", BWD_KERNEL_SOURCE))
+        for replaces in dict.fromkeys(r["replaces"] for r in rows):
+            group = [r for r in rows if r["replaces"] == replaces]
+            keys = {f"{r.get('tk', r['b_t_h_d'][1])}x{r['b_t_h_d'][3]}" for r in group}
+            launches = {r["shape"]: r["per_forward"][model] for r in group}
+            for name, source in kinds:
+                entry_rows = group if name == "flash_attention_fwd" else split_rows(group)
+                entries.append(path_entry(name, replaces, entry_rows, launches, source=source, dtype=dtype,
+                                          path=f"{BASELINE_PATHS[path]} {line['config'].split(', ')[1]} (phase 29); "
+                                               "times per forward"))
+                entries[-1]["launches"] = sum(run[k] for k in keys)
+    return entries
+
+
 def worst_err(row) -> float:
     err = row["max_abs_err"]
     return max(err.values()) if isinstance(err, dict) else err
@@ -3261,7 +3668,7 @@ def split_rows(rows) -> list:
 
 def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, inference_launches, train_launches,
                  train_steps, vp_launches, many_view_line, h128, fp32_train, fp32_forward, files, trainer, data, rgb,
-                 dust3r):
+                 dust3r, baseline):
     """The kernels line: each kernel, what it replaces, its launches on its path
     (one forward; all train steps, and per step), its max error and its times
     per forward (inference) or per train step. The phase-3c rows are the
@@ -3284,7 +3691,9 @@ def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, infe
     of phases 3 and 3b (``rgb``) are the fp32 D = 32 instances on the MAE flagship's infer
     (phase 22) and train step (phase 23), with those runs' D = 32 launches. The DUSt3R rows
     of phase 3 (``dust3r``) are the forward on the DUSt3R flagship's forward in each dtype
-    (phase 27), with that run's launches."""
+    (phase 27), with that run's launches; the baselines' rows (``baseline``) the forward (and
+    its split pass) on each baseline's forward at its release's widths (phase 29), with that
+    run's launches."""
     main_rows = [r for r in rows if r["per_forward"] and r["dtype"] == "bfloat16"]
     kernels = [path_entry("flash_attention_fwd", "mapanything_tpu/ops/flash_attention.py:395", main_rows,
                           {r["shape"]: r["per_forward"] for r in main_rows},
@@ -3344,6 +3753,7 @@ def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, infe
     kernels += data_path_entries(data)
     kernels += rgb_entries(rgb)
     kernels += dust3r_entries(dust3r)
+    kernels += baseline_entries(baseline)
     emit({"kernels": kernels})
 
 
@@ -3465,6 +3875,9 @@ def main() -> int:
     parser.add_argument("--dust3r-only", action="store_true",
                         help="build the kernels, then run the DUSt3R path alone (its rows of phase 3, phases 26 and "
                              "27) and stop after their lines and their kernels line")
+    parser.add_argument("--baselines-only", action="store_true",
+                        help="build the kernels, then run the feed-forward baselines alone (their rows of phase 3, "
+                             "phases 28 and 29) and stop after their lines and their kernels line")
     parser.add_argument("--rgb-only", action="store_true",
                         help="build the kernels, then run the RGB models' phases alone (the D = 32 rows of phases 3 "
                              "and 3b, phases 22-24, and 25 on its one-rank group) and stop after their lines")
@@ -3510,6 +3923,10 @@ def main() -> int:
         emit(build)
         emit({"kernels": dust3r_entries(dust3r_phases(card))})
         return 0
+    if args.baselines_only:
+        emit(build)
+        emit({"kernels": baseline_entries(baseline_phases(card))})
+        return 0
     if args.rgb_only:
         emit(build)
         rgb_phases(card)
@@ -3544,6 +3961,7 @@ def main() -> int:
     rows = kernel_checks(card, ATTENTION_SHAPES, "3")
     rgb = {"rows": kernel_checks(card, RGB_SHAPES, "3")}
     dust3r_rows = kernel_checks(card, DUST3R_SHAPES, "3")
+    baseline_rows = kernel_checks(card, BASELINE_SHAPES, "3")
     train_rows = train_kernel_checks(card)
     rgb["train_rows"] = train_kernel_checks(card, RGB_TRAIN_SHAPES, RGB_TRAIN_REPLACES)
     fp32_train_rows = train_kernel_checks(card, FP32_TRAIN_SHAPES)
@@ -3610,6 +4028,10 @@ def main() -> int:
     # 26-27. The DUSt3R path: the small models against the plain versions, the flagship forward.
     dust3r = dust3r_phases(card, dust3r_rows)
 
+    # 28-29. The feed-forward baselines: the small models against the plain versions, each at
+    # its release's widths.
+    baseline = baseline_phases(card, baseline_rows)
+
     # 8-10. View parallelism on a process group of this process alone: NCCL at world size 1.
     from mapanything_tpu_torch.parallel.distributed import init_distributed_mode
     from mapanything_tpu_torch.parallel.mesh import make_view_group
@@ -3623,6 +4045,9 @@ def main() -> int:
             gc.collect()
             torch.cuda.empty_cache()
             vp_line = flagship_view_parallel(card, group)
+            gc.collect()
+            torch.cuda.empty_cache()
+            flagship_view_parallel(card, group, trunk_heads=H128_TRUNK_HEADS)  # 30
             gc.collect()
             torch.cuda.empty_cache()
             _, _, vp_train = flagship_train(card, group, train_line["loss"])
@@ -3646,7 +4071,7 @@ def main() -> int:
     summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, inference_launches, train_launches,
                  train_steps, vp_launches, many_view_line, h128,
                  {"rows": fp32_train_rows, "launches": fp32_launches, "steps": fp32_steps}, fp32_forward, files,
-                 trainer, data, rgb, dust3r)
+                 trainer, data, rgb, dust3r, baseline)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -14,7 +14,7 @@ Dtype policy, as in Flax. Parameters stay fp32. ``Linear``, ``Conv2d`` and
 every call, which is what ``flax.linen.Dense(dtype=...)`` does; with
 ``dtype=torch.float32`` the casts are no-ops. ``LayerNorm`` normalises in
 fp32 and returns ``dtype`` (or fp32 when ``dtype`` is None), as Flax's
-LayerNorm does.
+LayerNorm does; ``GroupNorm`` the same, over NCHW, with Flax's epsilon.
 """
 
 from __future__ import annotations
@@ -97,6 +97,20 @@ class LayerNorm(nn.LayerNorm):
         out_dtype = self.compute_dtype or torch.promote_types(x.dtype, torch.float32)
         y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
         return y.to(out_dtype)
+
+
+class GroupNorm(nn.GroupNorm):
+    """GroupNorm over NCHW with Flax's epsilon (1e-6); statistics in fp32. It returns
+    ``dtype``, or (when that is None) the input's dtype promoted with fp32, as Flax's
+    GroupNorm does without a dtype."""
+
+    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-6, dtype: Optional[torch.dtype] = None):
+        super().__init__(num_groups, num_channels, eps=eps)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        out_dtype = self.compute_dtype or torch.promote_types(x.dtype, torch.float32)
+        return F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps).to(out_dtype)
 
 
 def gelu_matched(x: torch.Tensor) -> torch.Tensor:
@@ -530,7 +544,7 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
 
     Dense kernels: Xavier-uniform in the transformer blocks and the trunk's
     input projection, LeCun-normal elsewhere; convolutions LeCun-normal;
-    biases zero; LayerNorm one and zero; LayerScale its ``init_values``.
+    biases zero; LayerNorm and GroupNorm one and zero; LayerScale its ``init_values``.
     Token and position parameters (``nn.Parameter``s held directly by a
     module) are set by the module that owns them through ``init_tokens``.
     """
@@ -547,7 +561,7 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, nn.Conv2d):
             kh, kw = m.kernel_size
             _lecun_normal_(m.weight, m.in_channels * kh * kw, generator)
-        elif isinstance(m, nn.LayerNorm):
+        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
             nn.init.ones_(m.weight)
         elif isinstance(m, LayerScale):
             m.gamma.fill_(m.init_values)

@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mapanything_tpu_torch.models.blocks import Conv2d
+from mapanything_tpu_torch.models.blocks import Conv2d, GroupNorm
 
 GROUP_NORM_EPS = 1e-6  # flax.linen.GroupNorm's default
 
@@ -64,16 +64,9 @@ class Patcher2D(nn.Module):
         return x.permute(0, 1, 3, 2, 4, 5).reshape(B, H // p, W // p, p * p * C)
 
 
-class _GroupNorm(nn.GroupNorm):
-    """Flax's GroupNorm: min(32, C) groups, epsilon 1e-6, statistics in fp32,
-    on NCHW tensors; returns ``dtype``."""
-
-    def __init__(self, channels: int, dtype: torch.dtype):
-        super().__init__(min(32, channels), channels, eps=GROUP_NORM_EPS)
-        self.compute_dtype = dtype
-
-    def forward(self, x):
-        return F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps).to(self.compute_dtype)
+def _group_norm(channels: int, dtype: torch.dtype) -> GroupNorm:
+    """Flax's GroupNorm of min(32, C) groups on NCHW tensors, returning ``dtype``."""
+    return GroupNorm(min(32, channels), channels, eps=GROUP_NORM_EPS, dtype=dtype)
 
 
 class _ResBlock(nn.Module):
@@ -82,9 +75,9 @@ class _ResBlock(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.norm1 = _GroupNorm(in_channels, dtype)
+        self.norm1 = _group_norm(in_channels, dtype)
         self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1, dtype=dtype)
-        self.norm2 = _GroupNorm(out_channels, dtype)
+        self.norm2 = _group_norm(out_channels, dtype)
         self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1, dtype=dtype)
         if in_channels != out_channels:
             self.nin_shortcut = Conv2d(in_channels, out_channels, 1, dtype=dtype)
@@ -101,7 +94,7 @@ class _ConvAttn(nn.Module):
 
     def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.norm = _GroupNorm(channels, dtype)
+        self.norm = _group_norm(channels, dtype)
         self.q = Conv2d(channels, channels, 1, dtype=dtype)
         self.k = Conv2d(channels, channels, 1, dtype=dtype)
         self.v = Conv2d(channels, channels, 1, dtype=dtype)
@@ -164,7 +157,7 @@ class _Encoder(nn.Module):
             for i in range(len(channels_mult))
         )
         self.mid = _Mid(widths[-1], dtype)
-        self.norm_out = _GroupNorm(widths[-1], dtype)
+        self.norm_out = _group_norm(widths[-1], dtype)
         self.conv_out = Conv2d(widths[-1], z_channels, 3, padding=1, dtype=dtype)
 
     def forward(self, x):

@@ -5,25 +5,29 @@ Counterpart of ``mapanything_tpu/models/registry.py`` (``register_model``,
 seed=0, **config)`` builds the model on ``device`` (CUDA unless it says
 otherwise) with seeded random weights; the other keywords are config fields.
 ``mapanything``, ``mapanything_ablations`` (a scene representation's preset of
-``MapAnythingConfig``) and ``modular_dust3r`` are ported. The baselines and the
-models that wrap a bundle adjustment (``vggt``, ``moge``, ``moge_1``,
-``moge_2``, ``pi3``, ``anycalib``, ``pow3r``, ``pow3r_ba``, ``must3r``,
-``dust3r_ba``, ``metric_dust3r``, ``mast3r_sga``, ``vggsfm_tracker``) keep
-their slots, which raise ``NotImplementedError`` until the port has them.
+``MapAnythingConfig``) and ``modular_dust3r`` are ported, and so are the
+feed-forward baselines ``vggt``, ``moge`` (= ``moge_1``), ``moge_2``, ``pi3``,
+``anycalib``, ``must3r`` and ``pow3r``: each takes ``size="full"`` (the release's
+widths) or ``"small"`` (the JAX package's test preset), and returns the model's
+view-dict wrapper. The optimisation-based baselines and the tracker
+(``dust3r_ba``, ``metric_dust3r``, ``pow3r_ba``, ``mast3r_sga``,
+``vggsfm_tracker``) keep their slots, which raise ``NotImplementedError`` until
+bundle adjustment is ported.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Dict
 
+from mapanything_tpu_torch.models import external
 from mapanything_tpu_torch.models.heads.adaptors import DenseAdaptorConfig, dense_components_for_scene_rep
 from mapanything_tpu_torch.models.mapanything import MapAnything, MapAnythingConfig
 from mapanything_tpu_torch.models.modular_dust3r import ModularDUSt3R, ModularDUSt3RConfig
 
 MODEL_REGISTRY: Dict[str, Callable[..., Any]] = {}
 
-# The ROADMAP queue items that bring the unported slots.
-NOT_PORTED = "not ported yet: the baselines and bundle adjustment are ROADMAP.md section 1, items 3-4"
+# The ROADMAP queue item that brings the unported slots.
+NOT_PORTED = "not ported yet: it comes with bundle adjustment, ROADMAP.md section 1, item 4"
 
 
 def register_model(name: str):
@@ -60,6 +64,31 @@ def _build_modular_dust3r(device=None, seed: int = 0, **overrides):
     return ModularDUSt3R(ModularDUSt3RConfig(**overrides), device=device, seed=seed)
 
 
+def _baseline(config_cls, wrapper_cls):
+    """A baseline's builder: ``size="small"`` takes the config's test preset."""
+
+    def build(size: str = "full", device=None, seed: int = 0, **overrides):
+        if size not in ("full", "small"):
+            raise ValueError(f"size must be 'full' or 'small', got {size!r}")
+        cfg = config_cls.small(**overrides) if size == "small" else config_cls(**overrides)
+        return wrapper_cls(cfg, device=device, seed=seed)
+
+    return build
+
+
+for _names, _config, _wrapper in (
+    (("vggt",), external.VGGTConfig, external.VGGTWrapper),
+    (("moge", "moge_1"), external.MoGeConfig, external.MoGeWrapper),
+    (("moge_2",), external.MoGe2Config, external.MoGe2Wrapper),
+    (("pi3",), external.Pi3Config, external.Pi3Wrapper),
+    (("anycalib",), external.AnyCalibConfig, external.AnyCalibWrapper),
+    (("must3r",), external.MUSt3RConfig, external.MUSt3RWrapper),
+    (("pow3r",), external.Pow3RConfig, external.Pow3RWrapper),
+):
+    for _name in _names:
+        register_model(_name)(_baseline(_config, _wrapper))
+
+
 def _not_ported(name: str):
     def build(**_):
         raise NotImplementedError(f"model {name!r} is {NOT_PORTED}")
@@ -67,8 +96,7 @@ def _not_ported(name: str):
     return build
 
 
-for _name in ("vggt", "moge", "moge_1", "moge_2", "pi3", "anycalib", "pow3r", "pow3r_ba", "must3r", "dust3r_ba",
-              "metric_dust3r", "mast3r_sga", "vggsfm_tracker"):
+for _name in ("pow3r_ba", "dust3r_ba", "metric_dust3r", "mast3r_sga", "vggsfm_tracker"):
     register_model(_name)(_not_ported(_name))
 
 

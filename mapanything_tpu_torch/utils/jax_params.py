@@ -36,6 +36,13 @@ attentions' RMS norm scale is ``subln.weight`` (JAX ``subln/scale``). The VGG19
 perceptual tower keeps torchvision's ``features.{i}`` names, the indices that
 ``convert_vgg19_features`` reads, so a torchvision ``vgg19`` state dict loads
 into it as it is.
+
+The feed-forward baselines (``models/external``) take the release's names where a
+``convert_*`` reads them, the JAX names elsewhere (each module's docstring lists
+them). Two layouts serve them: "pointwise", a JAX 1x1 conv kernel (1, 1, in, out)
+held by a release's Linear weight (out, in) (Pi3's and MUSt3R's ``proj`` heads), and
+"lead_axis", a JAX token set held with the release's leading axis of one (VGGT's
+camera and register tokens, Pi3's register tokens).
 """
 
 from __future__ import annotations
@@ -62,6 +69,22 @@ from mapanything_tpu_torch.models.encoders.dense_rep import (
 )
 from mapanything_tpu_torch.models.encoders.radio import RADIOEncoder
 from mapanything_tpu_torch.models.encoders.vit import ViTEncoder
+from mapanything_tpu_torch.models.external import (
+    VGGT,
+    AnyCalibNet,
+    AnyCalibWrapper,
+    MoGe2Model,
+    MoGe2Wrapper,
+    MoGeModel,
+    MoGeWrapper,
+    MUSt3RModel,
+    MUSt3RWrapper,
+    Pi3,
+    Pi3Wrapper,
+    Pow3RModel,
+    Pow3RWrapper,
+    VGGTWrapper,
+)
 from mapanything_tpu_torch.models.heads.dpt import (
     DPTFeature,
     DPTRegressionProcessor,
@@ -84,9 +107,11 @@ from mapanything_tpu_torch.models.perceptual import VGG19_CONV_INDICES, VGG19Fea
 _LAYOUTS: Dict[str, Callable[[np.ndarray], np.ndarray]] = {
     "dense": lambda x: x.T,
     "conv": lambda x: x.transpose(3, 2, 0, 1),
+    "pointwise": lambda x: x[0, 0].T,  # a 1x1 conv kernel (1, 1, in, out) -> a Linear weight (out, in)
+    "lead_axis": lambda x: x[None],  # a token set (n, ..., C) -> the release's (1, n, ..., C)
     "copy": lambda x: x,
 }
-_JAX_RANK = {"dense": 2, "conv": 4}
+_JAX_RANK = {"dense": 2, "conv": 4, "pointwise": 4}
 
 
 class _Map:
@@ -393,6 +418,155 @@ def _vgg19(M, jp, tp):
         _conv(M, _join(jp, f"conv{i}"), tp + f"features.{i}.")
 
 
+def _pointwise(M, jp, tp):
+    """A JAX ``LinearFeature``'s 1x1 conv (``linear``) held by the release's Linear ``proj``."""
+    M.add(tp + "weight", _join(jp, "linear/kernel"), "pointwise")
+    M.add(tp + "bias", _join(jp, "linear/bias"))
+
+
+def _patch_embed(M, jp, tp):
+    """A ViT backbone (DINOv2 names) or, with ``patch_embed="conv"``, its ``proj`` alone."""
+    if M.has(tp + "proj.weight"):
+        _conv(M, jp, tp + "proj.")
+    else:
+        _vit(M, jp, tp)
+
+
+def _blocks(M, jp_fmt, tp_fmt, fn=None):
+    i = 0
+    while M.has(tp_fmt.format(i) + "norm1.weight"):
+        (fn or _block)(M, jp_fmt.format(i), tp_fmt.format(i))
+        i += 1
+
+
+def _vggt(M, jp, tp):
+    """VGGT: the release's names for the aggregator and the camera head, the JAX names
+    (``depth_dpt``, ``depth_proc``) for the depth head."""
+    _patch_embed(M, "aggregator/patch_embed", "aggregator.patch_embed.")
+    if M.has("aggregator.patch_proj.weight"):
+        _dense(M, "aggregator/patch_proj", "aggregator.patch_proj.")
+    for name in ("camera_token", "register_token"):
+        M.add(f"aggregator.{name}", f"aggregator/{name}", "lead_axis")
+    for kind in ("frame", "global"):
+        _blocks(M, f"aggregator/{kind}_block_{{}}", f"aggregator.{kind}_blocks.{{}}.")
+    c = "camera_head"
+    _norm(M, f"{c}/token_norm", f"{c}.token_norm.")
+    _norm(M, f"{c}/trunk_norm", f"{c}.trunk_norm.")
+    M.add(f"{c}.empty_pose_tokens", f"{c}/empty_pose_tokens")
+    _dense(M, f"{c}/embed_pose", f"{c}.embed_pose.")
+    _dense(M, f"{c}/poseLN_modulation", f"{c}.poseLN_modulation.1.")
+    _blocks(M, f"{c}/trunk_{{}}", f"{c}.trunk.{{}}.")
+    _dense(M, f"{c}/pose_branch/fc1", f"{c}.pose_branch.fc1.")
+    _dense(M, f"{c}/pose_branch/fc2", f"{c}.pose_branch.fc2.")
+    _dpt_feature(M, "depth_dpt", "depth_dpt.")
+    _dpt_regressor(M, "depth_proc", "depth_proc.")
+
+
+def _pi3(M, jp, tp):
+    _patch_embed(M, "encoder", "encoder.")
+    if M.has("patch_proj.weight"):
+        _dense(M, "patch_proj", "patch_proj.")
+    M.add("register_token", "register_token", "lead_axis")
+    _blocks(M, "decoder_{}", "decoder.{}.")
+    for head in ("point", "conf", "camera"):
+        _dense(M, f"{head}_decoder/project", f"{head}_decoder.projects.")
+        _blocks(M, f"{head}_decoder/block_{{}}", f"{head}_decoder.blocks.{{}}.")
+        _dense(M, f"{head}_decoder/linear_out", f"{head}_decoder.linear_out.")
+    _pointwise(M, "point_head", "point_head.proj.")
+    _pointwise(M, "conf_head", "conf_head.proj.")
+    i = 0
+    while M.has(f"camera_head.res_conv.{i}.res_conv1.weight"):
+        for k in (1, 2, 3):
+            _dense(M, f"camera_head/res{i}_{k}", f"camera_head.res_conv.{i}.res_conv{k}.")
+        i += 1
+    _dense(M, "camera_head/mlp1", "camera_head.more_mlps.0.")
+    _dense(M, "camera_head/mlp2", "camera_head.more_mlps.2.")
+    _dense(M, "camera_head/fc_t", "camera_head.fc_t.")
+    _dense(M, "camera_head/fc_rot", "camera_head.fc_rot.")
+
+
+def _moge_1(M, jp, tp):
+    """MoGe-1: the release's ``head.*`` names against the JAX ``head/*`` modules."""
+    _vit(M, "backbone", "backbone.")
+    i = 0
+    while M.has(f"head.projects.{i}.weight"):
+        _conv(M, f"head/project_{i}", f"head.projects.{i}.")
+        i += 1
+    i = 0
+    while M.has(f"head.upsample_blocks.{i}.0.0.weight"):
+        up = f"head.upsample_blocks.{i}."
+        _conv(M, f"head/upsample_{i}", up + "0.0.")  # (k, k, out, in) -> (in, out, k, k)
+        _conv(M, f"head/up_conv_{i}", up + "0.1.")
+        for jax_name, index in (("gn1", 0), ("conv1", 2), ("gn2", 3), ("conv2", 5)):
+            (_norm if jax_name.startswith("gn") else _conv)(M, f"head/up_res_{i}/{jax_name}", up + f"1.layers.{index}.")
+        i += 1
+    j = 0
+    while M.has(f"head.output_block.{j}.0.weight"):
+        _conv(M, f"head/out_conv_{j}", f"head.output_block.{j}.0.")
+        _conv(M, f"head/out_proj_{j}", f"head.output_block.{j}.2.")
+        j += 1
+
+
+def _conv_stack(M, jp, tp):
+    j = lambda n: _join(jp, n)  # noqa: E731
+    i = 0
+    while M.has(tp + f"in_{i}.weight"):
+        _conv(M, j(f"in_{i}"), tp + f"in_{i}.")
+        k = 0
+        while M.has(tp + f"res_{i}_{k}.conv1.weight"):
+            for name in ("gn_in", "conv1", "gn_hidden", "conv2"):
+                (_norm if name.startswith("gn") else _conv)(M, j(f"res_{i}_{k}/{name}"), tp + f"res_{i}_{k}.{name}.")
+            k += 1
+        if M.has(tp + f"resample_{i}.weight"):
+            _conv(M, j(f"resample_{i}"), tp + f"resample_{i}.")
+        i += 1
+    if M.has(tp + "out.weight"):
+        _conv(M, j("out"), tp + "out.")
+
+
+def _moge_2(M, jp, tp):
+    _vit(M, "backbone", "backbone.")
+    for name in ("neck", "points_head", "normal_head", "mask_head"):
+        if M.has(f"{name}.in_0.weight"):
+            _conv_stack(M, name, f"{name}.")
+    for name in ("scale_hidden", "scale_head"):
+        if M.has(f"{name}.weight"):
+            _dense(M, name, f"{name}.")
+
+
+def _anycalib(M, jp, tp):
+    _patch_embed(M, "backbone", "backbone.")
+    for name in ("dec_in", "up0", "up1", "dec_out"):
+        _conv(M, name, f"{name}.")
+
+
+def _must3r(M, jp, tp):
+    """MUSt3R: the release's flat names against the JAX ``encoder``, ``decoder_embed``,
+    ``decoder/dec_block_N``, ``decoder/dec_norm`` and ``head``."""
+    _croco(M, "encoder", "")
+    _dense(M, "decoder_embed", "decoder_embed.")
+    _blocks(M, "decoder/dec_block_{}", "dec_blocks.{}.", _cross_block)
+    _norm(M, "decoder/dec_norm", "dec_norm.")
+    _pointwise(M, "head", "downstream_head.proj.")
+
+
+def _pow3r(M, jp, tp):
+    _conv(M, "patch_embed", "patch_embed.proj.")
+    for name in ("patch_embed_rays", "patch_embed_depth"):
+        _conv(M, name, f"{name}.")
+    for name in ("patch_ln", "enc_norm", "dec1_pre_ln", "dec2_pre_ln", "dec_norm1", "dec_norm2"):
+        _norm(M, name, f"{name}.")
+    _blocks(M, "enc_block_{}", "enc_blocks.{}.")
+    _dense(M, "decoder_embed", "decoder_embed.")
+    M.add("cls_tokens", "cls_tokens")
+    _dense(M, "pose_embed_hidden", "pose_embed.0.")
+    _dense(M, "pose_embed_out", "pose_embed.2.")
+    _blocks(M, "dec1_block_{}", "dec_blocks.{}.", _cross_block)
+    _blocks(M, "dec2_block_{}", "dec_blocks2.{}.", _cross_block)
+    _linear_feature(M, "head1", "head1.")
+    _linear_feature(M, "head2", "head2.")
+
+
 _DENSE_REP_ENCODERS = ("ray_dirs_encoder", "depth_encoder")
 _GLOBAL_REP_ENCODERS = ("depth_scale_encoder", "cam_rot_encoder", "cam_trans_encoder", "cam_trans_scale_encoder")
 
@@ -450,6 +624,20 @@ _CONVERTERS: Dict[type, Callable] = {
     MLPHead: _mlp_head,
     DenseRepresentationEncoder: _dense_rep,
     GlobalRepresentationEncoder: _global_rep,
+    VGGT: _vggt,
+    VGGTWrapper: _vggt,
+    Pi3: _pi3,
+    Pi3Wrapper: _pi3,
+    MoGeModel: _moge_1,
+    MoGeWrapper: _moge_1,
+    MoGe2Model: _moge_2,
+    MoGe2Wrapper: _moge_2,
+    AnyCalibNet: _anycalib,
+    AnyCalibWrapper: _anycalib,
+    MUSt3RModel: _must3r,
+    MUSt3RWrapper: _must3r,
+    Pow3RModel: _pow3r,
+    Pow3RWrapper: _pow3r,
 }
 
 
@@ -469,6 +657,8 @@ def param_map(module: nn.Module) -> Dict[str, Tuple[str, str]]:
 
 def jax_leaf_rank(layout: str, port_param: torch.Tensor) -> int:
     """The rank of the JAX leaf behind a port parameter of this layout."""
+    if layout == "lead_axis":
+        return port_param.dim() - 1
     return _JAX_RANK.get(layout, port_param.dim())
 
 

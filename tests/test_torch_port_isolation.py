@@ -112,6 +112,16 @@ SLICE_MODULES = (
     "mapanything_tpu_torch.models.info_sharing.global_attention",
     "mapanything_tpu_torch.models.modular_dust3r",
     "mapanything_tpu_torch.models.registry",
+    # the feed-forward baselines and the closed-form head of the global alignment
+    "mapanything_tpu_torch.models.external",
+    "mapanything_tpu_torch.models.external.common",
+    "mapanything_tpu_torch.models.external.vggt",
+    "mapanything_tpu_torch.models.external.pi3",
+    "mapanything_tpu_torch.models.external.moge",
+    "mapanything_tpu_torch.models.external.anycalib",
+    "mapanything_tpu_torch.models.external.must3r",
+    "mapanything_tpu_torch.models.external.pow3r",
+    "mapanything_tpu_torch.ba.global_alignment",
 )
 # Optional decoders that the port imports only when a file needs them, and what the JAX data path
 # uses that the port must not (PyYAML, SciPy).
@@ -184,13 +194,13 @@ def test_entry_point_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_unported_options_raise():
-    # Every dense head and scene representation is ported; the baselines' and the bundle
-    # adjustment's registry slots and the disentangled loss under a view group are not.
+    # Every dense head, scene representation and feed-forward baseline is ported; the
+    # registry slots that wait for bundle adjustment and the disentangled loss under a
+    # view group are not.
     from mapanything_tpu_torch.models.registry import init_model
 
-    for name in ("dust3r_ba", "metric_dust3r", "mast3r_sga", "vggt", "moge", "moge_2", "pi3", "anycalib",
-                 "pow3r", "pow3r_ba", "must3r", "vggsfm_tracker"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for name in ("dust3r_ba", "metric_dust3r", "mast3r_sga", "pow3r_ba", "vggsfm_tracker"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md section 1, item 4"):
             init_model(name, size="small")
     with pytest.raises(ValueError, match="invalid scene_rep_type"):
         port_ma.MapAnything(port_ma.MapAnythingConfig.small(scene_rep_type="not_a_rep"), device="cpu")
