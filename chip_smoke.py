@@ -234,13 +234,29 @@ Phases, each printing one JSON line:
      dim; and the phase's whole time. Phase 3 holds the kernels at these paths' shapes
      first (BASELINE_SHAPES, bf16 and fp32, with the bounds, plain and SDPA times);
   30. phase 9 for flagship-h128 (trunk heads of 128): unsharded, ring and allgather
-     on the one-rank group under phase 9's limits, the D = 128 launches counted.
+     on the one-rank group under phase 9's limits, the D = 128 launches counted;
+  31. bundle adjustment on the flagship: tools/demo_colmap.py --use-ba (bf16, seeded on
+     the card) over phase 19's eight PNGs at 518 x 392, tracks from the predictions
+     (4096 x 8) and from the photometric tracker, 10 x 25 Gauss-Newton/CG: stage times,
+     costs, rms px, the BA held to the port's CPU run on the same tracks, sparse/*.bin
+     read back; then tools/demo_inference_on_colmap_outputs.py on the written model;
+  32. the VGGSfM tracker at its release widths on the same frames, 512 queries x 3 query
+     frames, coarse_iters=6, fine on: 144 launches of fa_fwd_f32<48> and 24 of
+     fa_fwd_f32<32> a query frame (TRACKER_SHAPES), tracks and visibility held to the
+     same call on the plain versions;
+  33. the optimisation baselines at their releases' widths on 4 views of 384 x 512:
+     DUSt3R-BA (metric DUSt3R builds the same), Pow3R-BA with its priors, MASt3R-SGA
+     (desc_dim 24, subsample 8): launches by (Tk, D), final loss, focals and poses held
+     to the plain versions (OPTIM_RTOL; MASt3R-SGA's pair outputs and the share of its
+     matches that agree instead, its alignment reported), ms a scene, peak memory. Phase 3 holds the
+     kernels at the tracker's and these paths' shapes first (TRACKER_SHAPES, OPTIM_SHAPES),
+     phase 3f the D = 48 forward at the edge shapes and the tracker's canary cases.
 On a machine with more than one card, phases 9 and 10 then run again over
 NCCL with one rank a card (2 or 4 cards); rank 0 checks the gathered
 outputs against the unsharded forward. A machine with one card skips this.
 Phases 11-13 run after phase 5, before phase 6; phase 3e after 3d; phases
 14-24 after phase 7, before phase 8 (the D = 32 rows with phases 3 and 3b);
-phases 26-29 after phase 24; phase 25 after phase 10, phase 30 after phase 9. Then the
+phases 26-29 after phase 24, 31-33 after 29; phase 25 after phase 10, phase 30 after phase 9. Then the
 kernels' summary line and,
 last, {"ok": true, "device": {...}}.
 Phases 3f and 3g run right after the build. With --train-step-only, phase 7
@@ -254,7 +270,8 @@ the same way. With --forward-edges-only, phase
 D = 32 rows of phases 3 and 3b, phases 22-24, and 25 on a one-rank group of its own;
 with --dust3r-only, the DUSt3R rows of phase 3, phases 26 and 27, and a kernels line
 of their entries; with --baselines-only, the baselines' rows of phase 3, phases 28 and 29,
-and a kernels line of their entries.
+and a kernels line of their entries; with --ba-only, the SASS check, phase 3f's D = 48
+cases, the BA slice's rows of phase 3, phases 31-33, and a kernels line of their entries.
 Any failed check raises and the script exits non-zero. Without a CUDA device,
 or without the port beside it, it exits non-zero and prints no result.
 """
@@ -572,23 +589,24 @@ def ptxas_report(log: str) -> dict:
 # forward's, bf16 and fp32, by (dtype, D, lse) in the forward library; the backward's by
 # (kernel, dtype, D) in the backward library; with the index of each in its library's
 # flash_attention_fwd_smem or flash_attention_bwd_smem.
-def instance_dims() -> dict:
-    """The head dims of each dtype's instances, as ``ops/flash_attention.py`` lists them."""
+def instance_dims(lse: bool = False) -> dict:
+    """The head dims of each dtype's instances, as ``ops/flash_attention.py`` lists them: of
+    the lse-free forward, or with ``lse`` of the lse forward and the backward."""
     import torch
 
     from mapanything_tpu_torch.ops import flash_attention as fa
 
-    return {"bf16": fa.head_dims(torch.bfloat16), "f32": fa.head_dims(torch.float32)}
+    return {"bf16": fa.head_dims(torch.bfloat16, lse), "f32": fa.head_dims(torch.float32, lse)}
 
 
 def fwd_instances() -> dict:
     return {(dtype, d, lse): f"fa_fwd_{dtype}ILi{d}ELb{int(lse)}E"
-            for dtype, dims in instance_dims().items() for d in dims for lse in (False, True)}
+            for lse in (False, True) for dtype, dims in instance_dims(lse).items() for d in dims}
 
 
 def bwd_instances() -> dict:
     return {(kernel, dtype, d): f"fa_bwd_{kernel}_{dtype}ILi{d}E"
-            for kernel in ("dq", "dkv") for dtype, dims in instance_dims().items() for d in dims}
+            for kernel in ("dq", "dkv") for dtype, dims in instance_dims(lse=True).items() for d in dims}
 
 
 FWD_SMEM_INDEX = {"bf16": 0, "f32": 1}
@@ -625,9 +643,10 @@ EDGE_SCALE = 0.3  # the fused-layout cases' scale; the contiguous cases take D *
 
 
 def forward_edge_checks(card) -> list:
-    """Phase 3f: the forward, bf16 and fp32, lse-free and lse, at D = 64 and 128 against
-    its plain version under phase 3's rule (fp32 also under the fp32 rule), at the edge
-    shapes; o and the lse of every row."""
+    """Phase 3f: the forward, bf16 and fp32, lse-free and lse, at every instantiated head
+    dim against its plain version under phase 3's rule (fp32 also under the fp32 rule), at
+    the edge shapes; o and the lse of every row (fp32 D = 48, the VGGSfM tracker's: the
+    lse-free o alone, its only instance), then the canary cases."""
     import torch
 
     from mapanything_tpu_torch.ops import flash_attention as fa
@@ -651,14 +670,17 @@ def forward_edge_checks(card) -> list:
                         k, v = torch.randn(b, tk, 2, h, d, device="cuda", generator=gen).to(dtype).unbind(2)
                         scale = EDGE_SCALE
                     o_free = fa.flash_attention(q, k, v, scale)
-                    o_lse, lse = fa.flash_attention_lse(q, k, v, scale)
+                    with_lse = d in fa.head_dims(dtype, lse=True)
+                    if with_lse:
+                        o_lse, lse = fa.flash_attention_lse(q, k, v, scale)
                     torch.cuda.synchronize()
                     exact_dtype = torch.float64 if fp32 else torch.float32
                     o_exact, lse_exact = fa.attention_lse_reference(*(x.to(exact_dtype) for x in (q, k, v)), scale)
                     o_plain, lse_plain = fa.attention_lse_reference(q, k, v, scale)
-                    for form, out, exact, plain in (("o", o_free, o_exact, o_plain),
-                                                    ("o_lse", o_lse, o_exact, o_plain),
-                                                    ("lse", lse, lse_exact, lse_plain)):
+                    forms = [("o", o_free, o_exact, o_plain)]
+                    if with_lse:
+                        forms += [("o_lse", o_lse, o_exact, o_plain), ("lse", lse, lse_exact, lse_plain)]
+                    for form, out, exact, plain in forms:
                         plain_err = max_err(plain, exact)
                         row = {"dtype": dname, "d": d, "tq": tq, "tk": tk, "b": b, "h": h, "layout": layout,
                                "out": form, "err": max_err(out, exact), "tol": tolerance(plain_err, exact),
@@ -703,24 +725,27 @@ def canary_buffer(shape, dtype=None):
 
 
 def forward_canary_checks() -> list:
-    """Phase 3f's canary cases: the fp32 forward with lse into canary buffers."""
+    """Phase 3f's canary cases: the fp32 forward with lse into canary buffers (D = 48, which
+    has no lse instance: the lse-free forward, also at the VGGSfM tracker's four shapes)."""
     import torch
 
     from mapanything_tpu_torch.ops import flash_attention as fa
 
     cases = []
     for d in fa.F32_HEAD_DIMS:
-        for tq, tk, b, h in CANARY_CASES:
+        for tq, tk, b, h in CANARY_CASES + (TRACKER_CANARY_CASES if d == 48 else []):
             gen = torch.Generator(device="cuda").manual_seed(tq * 31 + tk + d)
             q, k, v, _, scale = backward_edge_inputs(d, tq, tk, b, h, "fused", gen, torch.float32)
+            with_lse = d in fa.F32_LSE_HEAD_DIMS
             o, o_ok = canary_buffer((b, tq, h, d))
-            lse, lse_ok = canary_buffer((b, h, tq))
-            fa._launch_fwd(q, k, v, scale, True, out=(o, lse))
+            lse, lse_ok = canary_buffer((b, h, tq)) if with_lse else (None, lambda: True)
+            fa._launch_fwd(q, k, v, scale, with_lse, out=(o, lse))
             torch.cuda.synchronize()
             o_exact, lse_exact = fa.attention_lse_reference(*(x.double() for x in (q, k, v)), scale)
             o_plain, lse_plain = fa.attention_lse_reference(q, k, v, scale)
             intact = o_ok() and lse_ok()
-            for form, out, exact, plain in (("o", o, o_exact, o_plain), ("lse", lse, lse_exact, lse_plain)):
+            forms = [("o", o, o_exact, o_plain)] + ([("lse", lse, lse_exact, lse_plain)] if with_lse else [])
+            for form, out, exact, plain in forms:
                 plain_err = max_err(plain, exact)
                 cases.append({"dtype": "float32", "d": d, "tq": tq, "tk": tk, "b": b, "h": h, "layout": "fused",
                               "out": form, "err": max_err(out, exact), "tol": tolerance(plain_err, exact),
@@ -794,7 +819,7 @@ def backward_edge_checks(card) -> list:
 
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
-        for d in fa.head_dims(dtype):
+        for d in fa.head_dims(dtype, lse=True):
             for tq, tk, b, h in EDGE_CASES:
                 for layout in ("contiguous", "fused"):
                     gen = torch.Generator(device="cuda").manual_seed(tq * 7919 + tk + d + 1)
@@ -808,7 +833,7 @@ def backward_edge_checks(card) -> list:
             lse, delta = statistics(q, k, v, do, d**-0.5, gen)
             check({"dtype": dname, "d": d, "tq": 1370, "tk": 1370, "b": 1, "h": 4, "layout": "contiguous",
                    "merged_lse": True}, q, k, v, do, lse, delta, d**-0.5)
-    for d in fa.F32_HEAD_DIMS:  # the canary cases (CANARY_CASES)
+    for d in fa.F32_LSE_HEAD_DIMS:  # the canary cases (CANARY_CASES)
         for tq, tk, b, h in CANARY_CASES:
             gen = torch.Generator(device="cuda").manual_seed(tq * 31 + tk + d + 1)
             q, k, v, do, scale = backward_edge_inputs(d, tq, tk, b, h, "fused", gen, torch.float32)
@@ -1697,6 +1722,22 @@ def check_scene_files(out: Path, views: int) -> dict:
             "viewer_bytes": (out / "viewer.html").stat().st_size}
 
 
+def write_demo_pngs(folder: Path) -> None:
+    """The demo's FILES_VIEWS seeded 1024 x 768 PNGs (smooth structure plus noise, a new
+    phase a view) into a new ``folder`` (an old one is removed)."""
+    from mapanything_tpu_torch.utils.image import write_png
+
+    shutil.rmtree(folder.parent, ignore_errors=True)
+    folder.mkdir(parents=True)
+    rng = np.random.default_rng(19)
+    h, w = FILES_HW
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    for i in range(FILES_VIEWS):
+        base = 128 + 70 * np.sin(x / 37 + i)[..., None] * np.cos(y / 23 - i)[..., None]
+        img = np.clip(base + rng.normal(0, 10, (h, w, 3)), 0, 255).astype(np.uint8)
+        write_png(folder / f"view_{i:02d}.png", img, filters=(0, 1, 2, 3, 4))
+
+
 def files_to_scene(card):
     """Phase 19: from files to a scene, the flagship bf16 at full width. Eight seeded
     1024 x 768 PNGs (rows under every scanline filter) and a reference-format
@@ -1714,21 +1755,14 @@ def files_to_scene(card):
     from mapanything_tpu_torch.utils.checkpoint import (
         canonical_keys, load_reference_checkpoint, load_reference_state_dict,
     )
-    from mapanything_tpu_torch.utils.image import _fake_K, load_images, read_png, write_png
+    from mapanything_tpu_torch.utils.image import _fake_K, load_images, read_png
     from mapanything_tpu_torch.utils.inference import PostprocessConfig
 
     rows = kernel_checks(card, FILES_SHAPES, "19")
     work = ROOT / "build" / "files_to_scene"
-    shutil.rmtree(work, ignore_errors=True)
-    (work / "images").mkdir(parents=True)
-    rng = np.random.default_rng(19)
     h, w = FILES_HW
-    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
     t0 = time.perf_counter()
-    for i in range(FILES_VIEWS):  # smooth structure plus noise, a new phase a view
-        base = 128 + 70 * np.sin(x / 37 + i)[..., None] * np.cos(y / 23 - i)[..., None]
-        img = np.clip(base + rng.normal(0, 10, (h, w, 3)), 0, 255).astype(np.uint8)
-        write_png(work / "images" / f"view_{i:02d}.png", img, filters=(0, 1, 2, 3, 4))
+    write_demo_pngs(work / "images")
     write_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -3668,7 +3702,7 @@ def split_rows(rows) -> list:
 
 def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, inference_launches, train_launches,
                  train_steps, vp_launches, many_view_line, h128, fp32_train, fp32_forward, files, trainer, data, rgb,
-                 dust3r, baseline):
+                 dust3r, baseline, ba):
     """The kernels line: each kernel, what it replaces, its launches on its path
     (one forward; all train steps, and per step), its max error and its times
     per forward (inference) or per train step. The phase-3c rows are the
@@ -3693,7 +3727,7 @@ def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, infe
     of phase 3 (``dust3r``) are the forward on the DUSt3R flagship's forward in each dtype
     (phase 27), with that run's launches; the baselines' rows (``baseline``) the forward (and
     its split pass) on each baseline's forward at its release's widths (phase 29), with that
-    run's launches."""
+    run's launches; the BA slice's (``ba``) those of ``ba_entries`` (phases 31-33)."""
     main_rows = [r for r in rows if r["per_forward"] and r["dtype"] == "bfloat16"]
     kernels = [path_entry("flash_attention_fwd", "mapanything_tpu/ops/flash_attention.py:395", main_rows,
                           {r["shape"]: r["per_forward"] for r in main_rows},
@@ -3754,6 +3788,7 @@ def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, infe
     kernels += rgb_entries(rgb)
     kernels += dust3r_entries(dust3r)
     kernels += baseline_entries(baseline)
+    kernels += ba_entries(ba)
     emit({"kernels": kernels})
 
 
@@ -3855,6 +3890,649 @@ def one_rank_group(fn, card):
         shutil.rmtree(rendezvous, ignore_errors=True)
 
 
+# ---- Bundle adjustment, the trackers and the optimisation baselines (phases 31-33) ----
+
+# Phase 31: the COLMAP demo with bundle adjustment on the flagship (bf16) over phase 19's
+# eight PNGs (518 x 392): tracks from the predictions (512 seeds a view: 4096 tracks x 8
+# cameras) and from the photometric tracker (512 corners x 3 query frames), 10 Gauss-Newton
+# iterations of 25 CG steps each (the JAX demo's). The card's BA is held to the port's CPU
+# run: on the demo's tracks its first system in float64 (ba_against_cpu), on a well-posed
+# synthetic problem of the same size the whole solve in fp32, the cost history within
+# BA_COST_RTOL of its magnitude, the refined poses within BA_POSE_ATOL of theirs (fp32 sums
+# in another order through a system that the 1e12 gauge prior makes stiff).
+BA_COST_RTOL = 1e-3
+BA_POSE_ATOL = 1e-3
+BA_SYSTEM_RTOL = 1e-9  # the demo tracks' first system in float64, card against CPU (3e-16 read on an H100)
+BA_TRACKERS = ("dense", "photometric")
+# Phase 32: the VGGSfM tracker at its release widths over the same eight frames, 512
+# queries from each of 3 query frames, coarse_iters=6, fine on. The coarse transformer
+# (width 384, 8 heads of 48) runs 4 attentions a block, 6 blocks, 6 iterations: 144
+# launches of fa_fwd_f32<48> a query frame; the fine one (width 256, heads of 32) 4 blocks
+# x 6 iterations: 24 of fa_fwd_f32<32>. (name, B x Tq x H x D, dtype, launches a query
+# frame, replaced, Tk): q, k and v are the packed in-projection's three outputs. At fewer
+# than 1024 queries the JAX sdpa takes XLA's attention (DUST3R_REPLACES); the
+# point-to-virtual attention takes _fwd_kernel_single (:114) from 1024 queries on.
+TRACKER_QUERIES, TRACKER_QUERY_FRAMES, TRACKER_ITERS = 512, 3, 6
+TRACKER_SHAPES = [
+    ("tracker_time", (576, 8, 8, 48), "float32", 36, DUST3R_REPLACES, 8),
+    ("tracker_virtual2point", (8, 64, 8, 48), "float32", 36, DUST3R_REPLACES, 512),
+    ("tracker_virtual", (8, 64, 8, 48), "float32", 36, DUST3R_REPLACES, 64),
+    ("tracker_point2virtual", (8, 512, 8, 48), "float32", 36, DUST3R_REPLACES, 64),
+    ("tracker_fine_time", (512, 8, 8, 32), "float32", 24, DUST3R_REPLACES, 8),
+]
+# Phase 3's fp32 D = 32 row at phase 3f's 129 x 4000 keys, where the JAX dispatch took
+# _fwd_stream_aug (:164): no path runs it (the MAE decoder attends within a view).
+D32_LONG_SHAPES = [("fp32_d32_129x4000", (2, 129, 3, 32), "float32", 0, f"{FA}:164", 4000)]
+# Phase 3f's D = 48 canary cases at the tracker's four shapes, (Tq, Tk, B, H).
+TRACKER_CANARY_CASES = [(8, 8, 576, 8), (64, 512, 8, 8), (64, 64, 8, 8), (512, 64, 8, 8)]
+# The tracker's flow heads scaled by this (both runs): steps of a pixel or so an iteration,
+# as trained weights take; seeded weights take tens of pixels, send tracks out of the frame
+# and turn fp32 rounding into whole-pixel shifts of the fine tracker's patches (its floor).
+TRACKER_FLOW_SCALE = 0.01
+TRACKER_PX_ATOL = 0.05  # tracks, kernels against plain versions
+TRACKER_VIS_ATOL = 1e-2  # visibility scores (sigmoids: 9.7e-4 read on an H100 in the first run)
+# Phase 33: the optimisation baselines on 4 views of 384 x 512 (12 ordered pairs) at their
+# releases' widths, fp32, seeded on the card; each against the same run on the plain
+# versions (TF32 off), the tolerance beside each held quantity (300 Adam steps of a global
+# alignment amplify the kernels' rounding of the pair pointmaps). MASt3R-SGA's alignment
+# follows its reciprocal matches, which argmax near-ties flip: its pairs and matches are
+# held (mast3r_pairs_against_plain), its loss, focals and poses reported.
+OPTIM_VIEWS, OPTIM_HW = 4, (384, 512)
+OPTIM_RTOL = {"loss": 1e-2, "focals": 1e-2, "cam2world": 1e-2}
+OPTIM_PATHS = [("dust3r_ba", {"global_optim_niter": 300}), ("pow3r_ba", {"global_optim_niter": 300}),
+               ("mast3r_sga", {"desc_dim": 24, "matching_subsample": 8})]
+# Phase 3's rows of the optimisation paths: (name, B x Tq x H x D, dtype, {path: launches a
+# scene}, replaced[, Tk]). DUSt3R-BA and Pow3R-BA run the 12 pairs as one batch (24 views in
+# the encoder), MASt3R-SGA a pair a forward.
+OPTIM_SHAPES = [
+    ("ba_encoder_24_views", (24, 768, 16, 64), "float32", {"dust3r_ba": 24, "pow3r_ba": 24}, DUST3R_REPLACES),
+    ("ba_dust3r_decoder_self", (12, 768, 12, 64), "float32", {"dust3r_ba": 24}, DUST3R_REPLACES),
+    ("ba_dust3r_decoder_cross", (12, 768, 12, 64), "float32", {"dust3r_ba": 24}, DUST3R_REPLACES, 768),
+    ("ba_pow3r_decoder_self", (12, 769, 12, 64), "float32", {"pow3r_ba": 24}, DUST3R_REPLACES),
+    ("ba_pow3r_decoder_cross", (12, 769, 12, 64), "float32", {"pow3r_ba": 24}, DUST3R_REPLACES, 769),
+    ("mast3r_encoder", (2, 768, 16, 64), "float32", {"mast3r_sga": 288}, DUST3R_REPLACES),
+    ("mast3r_decoder_self", (1, 768, 12, 64), "float32", {"mast3r_sga": 288}, DUST3R_REPLACES),
+    ("mast3r_decoder_cross", (1, 768, 12, 64), "float32", {"mast3r_sga": 288}, DUST3R_REPLACES, 768),
+]
+
+
+def flagship_on_card(compute_dtype: str = "bfloat16", geometric_inputs: bool = False, seed: int = 0):
+    """The flagship built on the meta device and seeded on the card (``init_params`` with a
+    CUDA generator)."""
+    import torch
+
+    from mapanything_tpu_torch.models.blocks import init_params
+    from mapanything_tpu_torch.models.mapanything import MapAnything
+
+    with torch.device("meta"):
+        model = MapAnything(flagship_config(12, compute_dtype), device="meta", geometric_inputs=geometric_inputs)
+    model.to_empty(device="cuda")
+    init_params(model, torch.Generator(device="cuda").manual_seed(seed))
+    return model
+
+
+def _tracks_on(tracks, device, dtype):
+    """``tracks`` on ``device``, its float fields in ``dtype``."""
+    import dataclasses as dc
+
+    import torch
+
+    return type(tracks)(**{f.name: getattr(tracks, f.name).to(device, dtype if getattr(tracks, f.name).is_floating_point()
+                                                               else None) for f in dc.fields(tracks)})
+
+
+def ba_against_cpu(tracks) -> dict:
+    """The card's BA on the demo's tracks against the port's CPU run on the same tracks.
+    Held: the first iteration's Huber-weighted residuals and Jacobian blocks
+    (``_build_system`` at the initial state) in float64, each entry within BA_SYSTEM_RTOL
+    of max(1, its magnitude). Reported: the same in fp32, and the whole 10 x 25 solve's
+    gaps in fp32 and float64. Seeded weights put the tracks' points at random depths (up
+    to ~4e7 from the cameras in the first runs): in fp32, R X + t then cancels to noise for
+    points near a camera plane, on the card and on the CPU alike, and the stiff system
+    (1e12 gauge prior) takes the LM loop to other steps in either dtype (phase 31 holds the
+    whole fp32 solve on the synthetic problem instead, synthetic_ba_check)."""
+    import torch
+
+    from mapanything_tpu_torch.ba.solver import BAState, _build_system, ba_solve, refined_camera_poses
+
+    def system(device, dtype):
+        t = _tracks_on(tracks, device, dtype)
+        return _build_system(t, BAState(t.cam_from_world_rot, t.cam_from_world_trans, t.points3d), 2.0)
+
+    gaps = {}
+    for dtype, name in ((torch.float64, "float64"), (torch.float32, "float32")):
+        gaps[name] = {k: ((got.cpu() - want).abs() / torch.clamp(want.abs(), min=1.0)).max().item()
+                      for k, got, want in zip(("r", "Jc", "Jp"), system("cuda", dtype), system("cpu", dtype))}
+    if not all(v <= BA_SYSTEM_RTOL for v in gaps["float64"].values()):
+        raise AssertionError(f"the card's float64 BA system on the demo's tracks is {gaps['float64']} from the CPU's "
+                             f"(limit {BA_SYSTEM_RTOL})")
+    out = {"system_err_vs_cpu": gaps, "points_abs_max": tracks.points3d.abs().max().item()}
+    for dtype, name in ((torch.float32, "float32"), (torch.float64, "float64")):
+        (pose_c, cost_c), (pose_h, cost_h) = (
+            (refined_camera_poses(st).cpu().double(), c.cpu().double())
+            for st, c in (ba_solve(_tracks_on(tracks, device, dtype), 10, 25) for device in ("cuda", "cpu")))
+        out[f"solve_{name}_vs_cpu"] = {
+            "cost": (cost_c - cost_h).abs().max().item() / max(1.0, cost_h.abs().max().item()),
+            "pose": (pose_c - pose_h).abs().max().item() / max(1.0, pose_h.abs().max().item())}
+    return out
+
+
+def synthetic_ba_check(card) -> dict:
+    """Phase 31's fp32 hold on a well-posed problem of the demo's size: 4096 tracks of a
+    point cloud seen by 8 cameras on an arc, 0.5 px noise, 5% outliers, a tenth of the
+    observations invalid, poses and points perturbed; the card's fp32 BA (10 x 25) against
+    the CPU's fp32 run within BA_COST_RTOL (costs) and BA_POSE_ATOL (poses), the rms
+    reprojection error before and after, and ``ba_solve_sharded`` on a one-rank group."""
+    import torch
+
+    from mapanything_tpu_torch.ba.solver import BAState, _total_cost, ba_solve, ba_solve_sharded, refined_camera_poses
+    from mapanything_tpu_torch.ba.tracks import Tracks
+
+    rng = np.random.RandomState(31)
+    N, M = 4096, FILES_VIEWS
+    points = rng.uniform(-1, 1, (N, 3))
+    points[:, 2] += 6.0
+    K = np.array([[400.0, 0, 259.0], [0, 400.0, 196.0], [0, 0, 1]])
+    rots, transs, uvs = [], [], []
+    for m in range(M):
+        a = (m - M / 2) * 0.1
+        R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]).T
+        t = -R @ np.array([np.sin(a) * 6.0, 0.0, 6.0 - np.cos(a) * 6.0])
+        uv = (points @ R.T + t) @ K.T
+        uvs.append(uv[:, :2] / uv[:, 2:3] + rng.randn(N, 2) * 0.5)
+        w = rng.randn(3) * 0.01
+        th = np.linalg.norm(w)
+        k = w / th
+        Kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+        rots.append((np.eye(3) + np.sin(th) * Kx + (1 - np.cos(th)) * Kx @ Kx) @ R)
+        transs.append(t + rng.randn(3) * 0.05)
+    uv = np.stack(uvs, 1)
+    uv[rng.rand(N, M) < 0.05] += 20.0
+    f32 = lambda x: torch.from_numpy(np.asarray(x, np.float32)).cuda()  # noqa: E731
+    tracks = Tracks(points3d=f32(points + rng.randn(N, 3) * 0.01), observations_uv=f32(uv),
+                    valid=torch.from_numpy(rng.rand(N, M) > 0.1).cuda(), intrinsics=f32(np.stack([K] * M)),
+                    cam_from_world_rot=f32(np.stack(rots)), cam_from_world_trans=f32(np.stack(transs)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, costs = ba_solve(tracks, 10, 25)
+    torch.cuda.synchronize()
+    ba_ms = 1e3 * (time.perf_counter() - t0)
+    cpu_state, cpu_costs = ba_solve(_tracks_on(tracks, "cpu", torch.float32), 10, 25)
+    cost_err = (costs.cpu() - cpu_costs).abs().max().item() / max(1.0, cpu_costs.abs().max().item())
+    poses, cpu_poses = refined_camera_poses(state).cpu(), refined_camera_poses(cpu_state)
+    pose_err = (poses - cpu_poses).abs().max().item() / max(1.0, cpu_poses.abs().max().item())
+    n_obs = int(tracks.valid.sum())
+    initial = BAState(tracks.cam_from_world_rot, tracks.cam_from_world_trans, tracks.points3d)
+    rms = [float(np.sqrt(float(_total_cost(tracks, s, 2.0)) / n_obs)) for s in (initial, state)]
+    if not (cost_err <= BA_COST_RTOL and pose_err <= BA_POSE_ATOL and rms[1] < rms[0]):
+        raise AssertionError(f"fp32 BA on the synthetic problem: card vs CPU costs {cost_err}, poses {pose_err}; rms "
+                             f"{rms}")
+    # The track-sharded solve on a process group of this process alone (NCCL at world size
+    # 1: every all_reduce and the points' all_gather pass values through): bitwise ba_solve's.
+    sh_state, sh_costs = one_rank_group(lambda _: ba_solve_sharded(tracks, None, 10, 25), card)
+    sharded_equal = (torch.equal(sh_costs, costs) and torch.equal(sh_state.rot, state.rot)
+                     and torch.equal(sh_state.trans, state.trans) and torch.equal(sh_state.points, state.points))
+    if not sharded_equal:
+        raise AssertionError("ba_solve_sharded on one rank differs from ba_solve")
+    return {"tracks": N, "cameras": M, "observations": n_obs, "ba_ms": ba_ms, "costs": costs.tolist(),
+            "rms_px_before": rms[0], "rms_px_after": rms[1], "cost_err_vs_cpu": cost_err, "pose_err_vs_cpu": pose_err,
+            "sharded_one_rank_bitwise": sharded_equal}
+
+
+def ba_colmap_phase(card) -> dict:
+    """Phase 31: ``tools/demo_colmap.py`` with ``--use-ba`` on the flagship (bf16, seeded on the
+    card), once per track source: the stage times, the lse-free launches of its infer (held
+    to phase 19's), the costs before and after and the rms reprojection error, the BA held
+    to the CPU's (ba_against_cpu; synthetic_ba_check in fp32), the written ``sparse/*.bin`` read back (8 cameras and
+    images, poses equal to the refined ones, points). Then
+    ``tools/demo_inference_on_colmap_outputs.py`` on the written model (the multimodal
+    flagship with the model's calibration and poses): its launches, finite outputs."""
+    import torch
+
+    from mapanything_tpu_torch.tools import demo_colmap
+    from mapanything_tpu_torch.tools import demo_inference_on_colmap_outputs as demo_inf
+    from mapanything_tpu_torch.utils.colmap import colmap_qt_to_c2w, read_model
+    from mapanything_tpu_torch.ops.flash_attention import launch_counts, launch_shapes, reset_launch_counts
+
+    work = ROOT / "build" / "ba_colmap"
+    write_demo_pngs(work / "images")
+    t0 = time.perf_counter()
+    model = flagship_on_card()
+    setup_s = time.perf_counter() - t0
+    t = FILES_VIEWS * 1036 + 1
+    want_shapes = {(1037, 64): 24, (1036, 64): 12, (t, 64): 12}
+    line = {"phase": "ba_colmap", "phase_id": "31", "setup_s": setup_s,
+            "config": "MapAnythingConfig(compute_dtype='bfloat16') seeded on the card, 8 PNGs of 1024x768 -> "
+                      "518x392, demo_colmap --use-ba, 10 GN iterations x 25 CG steps",
+            "runs": {}}
+    launches = {}
+    for tracker in BA_TRACKERS:
+        args = demo_colmap.parse_args(["--images", str(work / "images"), "--out", str(work), "--use-ba",
+                                       "--tracker", tracker, "--device", "cuda"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        res = demo_colmap.run(args, model=model)
+        torch.cuda.synchronize()
+        counts, shapes = launch_counts(), launch_shapes()
+        if counts["flash_attention_fwd"] != 48 or shapes["flash_attention_fwd"] != want_shapes or any(
+                n for k, n in counts.items() if k != "flash_attention_fwd"):
+            raise AssertionError(f"the BA demo ({tracker}) launched {counts} ({shapes['flash_attention_fwd']})")
+        launches[tracker] = dict(shapes["flash_attention_fwd"])
+        tracks, costs = res["tracks"], res["costs"]
+        if not bool(torch.isfinite(costs).all()) or not bool(torch.isfinite(res["state"].points).all()):
+            raise AssertionError(f"non-finite BA state or costs ({tracker})")
+        if res["final_cost"] > res["initial_cost"] * (1 + 1e-6):  # the history holds refused steps too
+            raise AssertionError(f"BA raised the cost ({tracker}): {res['initial_cost']} -> {res['final_cost']}")
+        held = ba_against_cpu(tracks)
+        cameras, images, points = read_model(work / "sparse", ".bin")
+        poses = {im.name: colmap_qt_to_c2w(im.qvec, im.tvec) for im in images.values()}
+        names = [Path(p).name for p in res["paths"]]
+        read_err = max(np.abs(poses[n] - res["poses"][i]).max() / max(1.0, np.abs(res["poses"][i]).max())
+                       for i, n in enumerate(names))
+        if len(cameras) != FILES_VIEWS or len(images) != FILES_VIEWS or not points or read_err > 1e-5:
+            raise AssertionError(f"sparse/ read back {len(cameras)} cameras, {len(images)} images, {len(points)} "
+                                 f"points, poses {read_err} (of their magnitude) from the refined ones")
+        n_obs = res["n_obs"]
+        line["runs"][tracker] = {
+            "ms": {k: 1e3 * v for k, v in res["seconds"].items()}, "tracks": int(tracks.valid.shape[0]),
+            "cameras": int(tracks.valid.shape[1]), "observations": int(tracks.valid.sum()),
+            "initial_cost": res["initial_cost"], "final_cost": res["final_cost"], "costs": costs.tolist(),
+            "rms_px_before": float(np.sqrt(res["initial_cost"] / n_obs)),
+            "rms_px_after": float(np.sqrt(res["final_cost"] / n_obs)), **held,
+            "sparse_read_back": {"cameras": len(cameras), "images": len(images), "points": len(points),
+                                 "pose_err": float(read_err)},
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del res, tracks
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["synthetic_fp32"] = synthetic_ba_check(card)
+
+    # The written model into the inference demo: the multimodal flagship, calibration and poses.
+    t0 = time.perf_counter()
+    model = flagship_on_card(geometric_inputs=True)
+    args = demo_inf.parse_args(["--data", str(work), "--out", str(work / "inference"), "--device", "cuda"])
+    reset_launch_counts()
+    res = demo_inf.run(args, model=model)
+    torch.cuda.synchronize()
+    counts, shapes = launch_counts(), launch_shapes()
+    if counts["flash_attention_fwd"] != 48 or shapes["flash_attention_fwd"] != want_shapes:
+        raise AssertionError(f"the inference demo launched {counts} ({shapes['flash_attention_fwd']})")
+    out = res["outputs"]
+    check_infer_outputs(out, (1, FILES_VIEWS, 392, 518))
+    written = sorted(p.name for p in (work / "inference").iterdir())
+    if written != ["points.ply", "predictions.npz", "scene.glb"] or res["intrinsics"].shape != (1, 8, 3, 3):
+        raise AssertionError(f"the inference demo wrote {written}, calibration {res['intrinsics'].shape}")
+    line["inference_on_colmap"] = {"ms": {k: 1e3 * v for k, v in res["seconds"].items()},
+                                   "total_s": time.perf_counter() - t0, "outputs": written,
+                                   "launches_by_shape": shape_counts(shapes)["flash_attention_fwd"]}
+    line.update(launches_by_shape={k: {f"{tk}x{d}": n for (tk, d), n in v.items()} for k, v in launches.items()},
+                card=card["name"], power_limit=card["power_limit"])
+    emit(line)
+    del model, res, out
+    shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def tracker_phase(card) -> dict:
+    """Phase 32: the VGGSfM tracker (the registry's ``vggsfm_tracker``, seeded; flow heads
+    scaled by TRACKER_FLOW_SCALE) through ``ba.tracker.predict_tracks_learned`` on the demo's
+    eight frames: launches by (Tk, D) held to TRACKER_SHAPES' (a query frame's, times 3), the
+    tracks and visibility held to the same call under ``plain_attention()`` (TF32 off), the
+    CUDA-event time a query frame, peak memory."""
+    import torch
+
+    from mapanything_tpu_torch.ba.tracker import predict_tracks_learned
+    from mapanything_tpu_torch.models.registry import init_model
+    from mapanything_tpu_torch.ops.attention import plain_attention
+    from mapanything_tpu_torch.ops.flash_attention import launch_counts, launch_shapes, reset_launch_counts
+    from mapanything_tpu_torch.utils.image import load_images
+
+    work = ROOT / "build" / "tracker"
+    write_demo_pngs(work / "images")
+    frames = load_images(str(work / "images"), device="cuda")["images_no_norm"]
+    t0 = time.perf_counter()
+    model = init_model("vggsfm_tracker", device="cuda", seed=32)
+    with torch.no_grad():
+        for pred in (model.coarse_predictor, model.fine_predictor):
+            pred.updateformer.flow_head.weight.mul_(TRACKER_FLOW_SCALE)
+    setup_s = time.perf_counter() - t0
+    kw = dict(max_query_pts=TRACKER_QUERIES, query_frame_num=TRACKER_QUERY_FRAMES, coarse_iters=TRACKER_ITERS)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        kern = predict_tracks_learned(frames, model, **kw)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        counts, shapes = launch_counts(), launch_shapes()
+        with plain_attention():
+            plain = predict_tracks_learned(frames, model, **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    q = TRACKER_QUERY_FRAMES
+    want = {}
+    for _, (b, t, h, d), _, per_frame, _, tk in TRACKER_SHAPES:
+        want[(tk, d)] = want.get((tk, d), 0) + q * per_frame
+    n = sum(want.values())
+    expect = {"flash_attention_fwd": n, "flash_attention_fwd_lse": 0, "flash_attention_bwd_dq": 0,
+              "flash_attention_bwd_dkv": 0, "flash_attention_split_f32": n}
+    if counts != expect or shapes["flash_attention_fwd"] != want:
+        raise AssertionError(f"the tracker launched {counts} ({shapes['flash_attention_fwd']}), not {expect} ({want})")
+    tracks, vis, scores = kern
+    if not (np.isfinite(tracks).all() and np.isfinite(scores).all()) or tracks.shape[0] != FILES_VIEWS:
+        raise AssertionError(f"non-finite or misshapen tracks {tracks.shape}")
+    px_err = float(np.abs(tracks - plain[0]).max())
+    vis_err = float(np.abs(scores - plain[2]).max())
+    agree = float((vis == plain[1]).mean())
+    if px_err > TRACKER_PX_ATOL or vis_err > TRACKER_VIS_ATOL:
+        raise AssertionError(f"the tracker's kernels and plain versions differ by {px_err} px, {vis_err} in "
+                             f"visibility (limits {TRACKER_PX_ATOL}, {TRACKER_VIS_ATOL})")
+    # One query frame's forward, CUDA-event timed (warm).
+    order = list(range(FILES_VIEWS))
+    uv = torch.rand(1, TRACKER_QUERIES, 2, device="cuda", generator=torch.Generator(device="cuda").manual_seed(32))
+    uv = uv * torch.tensor([517.0, 391.0], device="cuda")
+    each = []
+    with torch.inference_mode():
+        model(frames[order][None], uv, coarse_iters=TRACKER_ITERS)
+        for _ in range(3):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            model(frames[order][None], uv, coarse_iters=TRACKER_ITERS)
+            end.record()
+            torch.cuda.synchronize()
+            each.append(start.elapsed_time(end))
+    line = {"phase": "vggsfm_tracker", "phase_id": "32",
+            "config": f"VGGSfMTracker (coarse 384 / 8 heads / depth 6, fine 256 / depth 4), seeded, flow heads x"
+                      f"{TRACKER_FLOW_SCALE}; 8 frames of 518x392, {TRACKER_QUERIES} queries x {q} query frames, "
+                      f"coarse_iters={TRACKER_ITERS}, fine on",
+            "parameters": sum(p.numel() for p in model.parameters()), "setup_s": setup_s,
+            "predict_tracks_learned_s": call_s, "ms_per_query_frame": sum(each) / len(each), "ms_each": each,
+            "peak_mem_gib": peak_gib, "tracks": list(tracks.shape), "visible_share": float(vis.mean()),
+            "launches": counts, "launches_by_shape": shape_counts(shapes)["flash_attention_fwd"],
+            "launches_per_query_frame": {k: v // q for k, v in shape_counts(shapes)["flash_attention_fwd"].items()},
+            "px_err_vs_plain": px_err, "vis_err_vs_plain": vis_err, "vis_agreement": agree,
+            "card": card["name"], "power_limit": card["power_limit"]}
+    emit(line)
+    del model
+    shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def optim_inputs(name: str) -> dict:
+    """Phase 33's inputs: 4 seeded views (N(0, 1), DUSt3R-normalised), and Pow3R's priors."""
+    import torch
+
+    rng = np.random.RandomState(33)
+    H, W = OPTIM_HW
+    V = OPTIM_VIEWS
+    out = {"images": torch.from_numpy(rng.randn(1, V, H, W, 3).astype(np.float32)).cuda()}
+    if name == "pow3r_ba":
+        K = np.tile(np.asarray([[0.8 * W, 0, W / 2], [0, 0.8 * W, H / 2], [0, 0, 1]], np.float32), (1, V, 1, 1))
+        depth = (1.0 + rng.rand(1, V, H, W)).astype(np.float32)
+        depth[:, :, : H // 8, : W // 8] = 0.0
+        poses = np.tile(np.eye(4, dtype=np.float32), (1, V, 1, 1))
+        for v in range(1, V):
+            a = 0.1 * v
+            poses[0, v, :3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+            poses[0, v, :3, 3] = [0.2 * v, -0.05, 0.1]
+        out.update(intrinsics=torch.from_numpy(K).cuda(), depthmaps=torch.from_numpy(depth).cuda(),
+                   camera_poses=torch.from_numpy(poses).cuda())
+    return out
+
+
+def optim_scene(model, name: str, inputs) -> dict:
+    """One scene through a wrapper: its final loss, focals and cam2world poses (finite views)."""
+    import torch
+
+    views = model(**inputs)
+    for v in views:
+        for key, x in v.items():
+            if not bool(torch.isfinite(x).all()):
+                raise AssertionError(f"{name}: non-finite {key}")
+    scene = model.scene
+    return {"loss": scene.loss, "focals": torch.from_numpy(scene.focals).double(),
+            "cam2world": torch.from_numpy(scene.cam2world).double()}
+
+
+MAST3R_AGREE_MIN = 0.99  # reciprocal matches of the kernels' run that the plain versions' run also finds
+
+
+def mast3r_pairs_against_plain(model, images) -> dict:
+    """MASt3R-SGA's pair forwards on the kernels against the plain versions (TF32 off): each
+    output within BASELINE_FULL_RTOL of its magnitude (as phase 29's fp32 baselines), and
+    the share of reciprocal matches (pixel pairs and validity) that both runs find, at least
+    MAST3R_AGREE_MIN. An argmax over 196608 similarities flips where two are within the
+    descriptors' rounding, and a flipped match moves the sparse alignment, whose result
+    (300 + 300 Adam steps on seeded weights) phase 33 reports beside it."""
+    import torch
+
+    from mapanything_tpu_torch.models.external.mast3r import reciprocal_matches
+    from mapanything_tpu_torch.ops.attention import plain_attention
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        edges, kern = model.pair_outputs(images)
+        with plain_attention():
+            _, plain = model.pair_outputs(images)
+        errs, agree, total = {}, 0, 0
+        for e, (k, p) in enumerate(zip(kern, plain)):
+            for key in k:
+                errs[key] = max(errs.get(key, 0.0), (k[key] - p[key]).abs().max().item()
+                                / max(1.0, p[key].abs().max().item()))
+            mk = reciprocal_matches(k["desc"][0, 0], k["desc"][0, 1], model.subsample)
+            mp = reciprocal_matches(p["desc"][0, 0], p["desc"][0, 1], model.subsample)
+            same = (mk[1] == mp[1]).all(-1) & (mk[2] == mp[2])
+            agree += int(same.sum())
+            total += same.numel()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    share = agree / total
+    bad = {k: v for k, v in errs.items() if not v <= BASELINE_FULL_RTOL}
+    if bad or share < MAST3R_AGREE_MIN:
+        raise AssertionError(f"MASt3R's pairs on the kernels and the plain versions: {bad} (limit {BASELINE_FULL_RTOL}), "
+                             f"matches agreeing {share} (at least {MAST3R_AGREE_MIN})")
+    return {"pair_err_vs_plain": errs, "matches": total, "match_agreement": share}
+
+
+def optim_phase(card) -> dict:
+    """Phase 33: DUSt3R-BA (and metric DUSt3R, the same registry entry and model), Pow3R-BA with
+    its three priors and MASt3R-SGA at their releases' widths, fp32, built on the meta
+    device and seeded on the card, on 4 views of 384 x 512: launches by (Tk, D), the final
+    loss, focals and poses held to the same scene on the plain versions (TF32 off; limits in
+    OPTIM_RTOL; for MASt3R-SGA its pair outputs and matches instead, the alignment reported),
+    ms a scene (CUDA events; the alignment's Adam loop included: the first scene, then a
+    warm one and its pair forwards alone), peak memory."""
+    import torch
+
+    from mapanything_tpu_torch.models.blocks import init_params
+    from mapanything_tpu_torch.models.registry import MODEL_REGISTRY
+    from mapanything_tpu_torch.ops.attention import plain_attention
+    from mapanything_tpu_torch.ops.flash_attention import launch_counts, launch_shapes, reset_launch_counts
+
+    line = {"phase": "optim_baselines", "phase_id": "33", "views": OPTIM_VIEWS, "hw": list(OPTIM_HW),
+            "rtol": OPTIM_RTOL, "paths": {}}
+    with torch.device("meta"):
+        metric = MODEL_REGISTRY["metric_dust3r"](device="meta")
+        same = MODEL_REGISTRY["dust3r_ba"](device="meta")
+    if type(metric) is not type(same) or metric.config != same.config:
+        raise AssertionError("metric_dust3r does not build DUSt3R-BA's model")
+    line["metric_dust3r"] = f"{type(metric).__name__}({type(metric.config).__name__}()): dust3r_ba's path"
+    del metric, same
+    for name, kw in OPTIM_PATHS:
+        t0 = time.perf_counter()
+        with torch.device("meta"):
+            model = MODEL_REGISTRY[name](device="meta", **kw)
+        model.to_empty(device="cuda")
+        init_params(model, torch.Generator(device="cuda").manual_seed(33))
+        setup_s = time.perf_counter() - t0
+        inputs = optim_inputs(name)
+        want = {}
+        for _, (b, t, h, d), _, per_scene, _, *tk in OPTIM_SHAPES:
+            if name in per_scene:
+                key = (tk[0] if tk else t, d)
+                want[key] = want.get(key, 0) + per_scene[name]
+        n = sum(want.values())
+        tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        try:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            kern = optim_scene(model, name, inputs)
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end)
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            counts, shapes = launch_counts(), launch_shapes()
+            with plain_attention():
+                plain = optim_scene(model, name, inputs)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        expect = {"flash_attention_fwd": n, "flash_attention_fwd_lse": 0, "flash_attention_bwd_dq": 0,
+                  "flash_attention_bwd_dkv": 0, "flash_attention_split_f32": n}
+        if counts != expect or shapes["flash_attention_fwd"] != want:
+            raise AssertionError(f"{name} launched {counts} ({shapes['flash_attention_fwd']}), not {expect} ({want})")
+        # A second scene, warm, and the pair forwards alone (the rest of a scene is the
+        # alignment, its init on the host and its Adam steps at the host's pace).
+        pairs = model.pair_outputs if name == "mast3r_sga" else model.pair_predictions
+        timed = {}
+        for key, fn in (("warm_ms_per_scene", lambda: model(**inputs)), ("pair_forwards_ms", lambda: pairs(**inputs))):
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            timed[key] = start.elapsed_time(end)
+        errs = {"loss": abs(kern["loss"] - plain["loss"]) / max(1e-12, abs(plain["loss"])),
+                "focals": ((kern["focals"] - plain["focals"]).abs() / plain["focals"].abs()).max().item(),
+                "cam2world": (kern["cam2world"] - plain["cam2world"]).abs().max().item()
+                / max(1.0, plain["cam2world"].abs().max().item())}
+        extra = {}
+        if name == "mast3r_sga":  # the matches decide the alignment: hold them, report the alignment
+            extra = mast3r_pairs_against_plain(model, inputs["images"])
+            held = {}
+        else:
+            held = {k: v for k, v in errs.items() if not v <= OPTIM_RTOL[k]}
+        if held:
+            raise AssertionError(f"{name}: the kernels and the plain versions disagree: {held} (limits {OPTIM_RTOL})")
+        line["paths"][name] = {**extra, "alignment_held": name != "mast3r_sga",
+            "config": f"{type(model).__name__}({type(getattr(model, 'mast3r_config', model.config)).__name__}(), "
+                      f"{kw}) (the release's widths), 1x{OPTIM_VIEWS}x{OPTIM_HW[0]}x{OPTIM_HW[1]}, seeded",
+            "parameters": sum(p.numel() for p in model.parameters()), "setup_s": setup_s, "ms_per_scene": ms,
+            **timed, "alignment_ms": timed["warm_ms_per_scene"] - timed["pair_forwards_ms"],
+            "peak_mem_gib": peak_gib, "launches": counts, "launches_by_shape": shape_counts(shapes)["flash_attention_fwd"],
+            "loss": kern["loss"], "focals": kern["focals"].tolist(), "err_vs_plain": errs}
+        del model, kern, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+    line.update(card=card["name"], power_limit=card["power_limit"])
+    emit(line)
+    return line
+
+
+def d48_edge_checks(card) -> list:
+    """Phase 3f's D = 48 cases alone (``--ba-only``): the lse-free fp32 forward against its
+    plain version at EDGE_CASES in both layouts, then the canary cases with the tracker's."""
+    import torch
+
+    from mapanything_tpu_torch.ops import flash_attention as fa
+
+    cases = []
+    for tq, tk, b, h in EDGE_CASES:
+        for layout in ("contiguous", "fused"):
+            gen = torch.Generator(device="cuda").manual_seed(tq * 7919 + tk + 48)
+            q, k, v, _, scale = backward_edge_inputs(48, tq, tk, b, h, layout, gen, torch.float32)
+            out = fa.flash_attention(q, k, v, scale)
+            torch.cuda.synchronize()
+            exact = fa.attention_reference(*(x.double() for x in (q, k, v)), scale)
+            plain_err = max_err(fa.attention_reference(q, k, v, scale), exact)
+            cases.append({"dtype": "float32", "d": 48, "tq": tq, "tk": tk, "b": b, "h": h, "layout": layout,
+                          "out": "o", "err": max_err(out, exact), "tol": tolerance(plain_err, exact),
+                          "fp32_tol": fp32_tolerance(plain_err, exact), "finite": bool(torch.isfinite(out).all())})
+    cases += [c for c in forward_canary_checks() if c["d"] == 48]
+    bad = [c for c in cases if not (c["finite"] and c["err"] <= min(c["tol"], c["fp32_tol"])
+                                    and c.get("canaries_intact", True))]
+    worst = max(cases, key=lambda c: c["err"] / max(c["fp32_tol"], 1e-30))
+    emit({"phase": "forward_edge_check_d48", "phase_id": "3f", "cases": len(cases), "worst": worst, "failed": bad,
+          "canary_cases": sum("canaries_intact" in c for c in cases),
+          "card": card["name"], "power_limit": card["power_limit"]})
+    if bad:
+        raise AssertionError(f"the D = 48 forward disagrees with its plain version at {len(bad)} cases: {bad[:4]}")
+    return cases
+
+
+def ba_phases(card, rows=None) -> dict:
+    """The BA slice: (without ``rows``) its rows of phase 3 (the flagship demo's, the
+    tracker's, the optimisation paths', and fp32 D = 32 at 4000 keys), then phases 31, 32
+    and 33."""
+    import torch
+
+    if rows is None:
+        rows = {"files": kernel_checks(card, FILES_SHAPES, "3"), "tracker": kernel_checks(card, TRACKER_SHAPES, "3"),
+                "optim": kernel_checks(card, OPTIM_SHAPES, "3"), "d32_long": kernel_checks(card, D32_LONG_SHAPES, "3")}
+    out = {"rows": rows}
+    for key, phase in (("colmap", ba_colmap_phase), ("tracker", tracker_phase), ("optim", optim_phase)):
+        t0 = time.perf_counter()
+        out[key] = phase(card)
+        out[key]["phase_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "ba_phases_total", "phase_id": "31-33",
+          "seconds": {k: out[k]["phase_s"] for k in ("colmap", "tracker", "optim")},
+          "card": card["name"], "power_limit": card["power_limit"]})
+    return out
+
+
+def ba_entries(ba) -> list:
+    """Phases 31-33 in the kernels line: the bf16 forward on the BA demo's infer (phase 31,
+    both track sources' runs), the fp32 forward at D = 48 and D = 32 and its split pass on
+    the tracker (phase 32; times per scene of 3 query frames), and the fp32 forward and its
+    split pass on each optimisation path (phase 33; times per scene), each with that run's
+    launches."""
+    entries = []
+    runs = ba["colmap"]["launches_by_shape"]
+    rows = ba["rows"]["files"]
+    launches = {r["shape"]: sum(run[f"{r['b_t_h_d'][1]}x64"] for run in runs.values()) for r in rows}
+    for replaces in dict.fromkeys(r["replaces"] for r in rows):
+        group = [r for r in rows if r["replaces"] == replaces]
+        entries.append(path_entry("flash_attention_fwd", replaces, group, launches,
+                                  path=f"demo_colmap --use-ba, flagship bf16 8x518x392, {len(runs)} runs (phase 31); "
+                                       "times per run"))
+    run = ba["tracker"]["launches_by_shape"]
+    for d in (48, 32):
+        group = [r for r in ba["rows"]["tracker"] if r["b_t_h_d"][3] == d]
+        launches = {r["shape"]: r["per_forward"] * TRACKER_QUERY_FRAMES for r in group}
+        for name, entry_rows, source in (("flash_attention_fwd", group, KERNEL_SOURCE),
+                                         ("flash_attention_split_f32", split_rows(group), BWD_KERNEL_SOURCE)):
+            entries.append(path_entry(name, DUST3R_REPLACES, entry_rows, launches, source=source, dtype="float32",
+                                      head_dim=d, path=f"VGGSfM tracker 8x518x392, {TRACKER_QUERIES} queries x "
+                                                       f"{TRACKER_QUERY_FRAMES} query frames (phase 32); times per scene"))
+            entries[-1]["launches"] = sum(n for k, n in run.items() if k.endswith(f"x{d}"))
+    for path, line in ba["optim"]["paths"].items():
+        group = [r for r in ba["rows"]["optim"] if path in r["per_forward"]]
+        launches = {r["shape"]: r["per_forward"][path] for r in group}
+        for name, entry_rows, source in (("flash_attention_fwd", group, KERNEL_SOURCE),
+                                         ("flash_attention_split_f32", split_rows(group), BWD_KERNEL_SOURCE)):
+            entries.append(path_entry(name, DUST3R_REPLACES, entry_rows, launches, source=source, dtype="float32",
+                                      path=f"{path} 1x{OPTIM_VIEWS}x{OPTIM_HW[0]}x{OPTIM_HW[1]} (phase 33); "
+                                           "times per scene"))
+            entries[-1]["launches"] = line["launches"][name]
+    return entries
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the PyTorch port on one NVIDIA GPU.")
     parser.add_argument("--train-step-only", action="store_true",
@@ -3878,6 +4556,10 @@ def main() -> int:
     parser.add_argument("--baselines-only", action="store_true",
                         help="build the kernels, then run the feed-forward baselines alone (their rows of phase 3, "
                              "phases 28 and 29) and stop after their lines and their kernels line")
+    parser.add_argument("--ba-only", action="store_true",
+                        help="build the kernels, check their SASS, then run the bundle-adjustment slice alone (the "
+                             "D = 48 forward's edge cases and canaries, its rows of phase 3, phases 31-33) and stop "
+                             "after their lines and their kernels line")
     parser.add_argument("--rgb-only", action="store_true",
                         help="build the kernels, then run the RGB models' phases alone (the D = 32 rows of phases 3 "
                              "and 3b, phases 22-24, and 25 on its one-rank group) and stop after their lines")
@@ -3951,6 +4633,10 @@ def main() -> int:
             if key in name:
                 report["dynamic_smem"] = nbytes
     emit({**build, "fwd_sass": sass_check(libs[0], fwd), "bwd_sass": sass_check(libs[1], bwd)})
+    if args.ba_only:
+        d48_edge_checks(card)
+        emit({"kernels": ba_entries(ba_phases(card))})
+        return 0
     if not args.backward_edges_only:
         forward_edge_checks(card)
     if args.forward_edges_only:
@@ -3962,6 +4648,8 @@ def main() -> int:
     rgb = {"rows": kernel_checks(card, RGB_SHAPES, "3")}
     dust3r_rows = kernel_checks(card, DUST3R_SHAPES, "3")
     baseline_rows = kernel_checks(card, BASELINE_SHAPES, "3")
+    tracker_rows = kernel_checks(card, TRACKER_SHAPES, "3")
+    optim_rows = kernel_checks(card, OPTIM_SHAPES, "3")
     train_rows = train_kernel_checks(card)
     rgb["train_rows"] = train_kernel_checks(card, RGB_TRAIN_SHAPES, RGB_TRAIN_REPLACES)
     fp32_train_rows = train_kernel_checks(card, FP32_TRAIN_SHAPES)
@@ -4032,6 +4720,11 @@ def main() -> int:
     # its release's widths.
     baseline = baseline_phases(card, baseline_rows)
 
+    # 31-33. Bundle adjustment on the flagship (the COLMAP demos), the VGGSfM tracker, the
+    # optimisation baselines.
+    ba = ba_phases(card, {"files": files[0], "tracker": tracker_rows, "optim": optim_rows,
+                          "d32_long": kernel_checks(card, D32_LONG_SHAPES, "3")})
+
     # 8-10. View parallelism on a process group of this process alone: NCCL at world size 1.
     from mapanything_tpu_torch.parallel.distributed import init_distributed_mode
     from mapanything_tpu_torch.parallel.mesh import make_view_group
@@ -4071,7 +4764,7 @@ def main() -> int:
     summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, inference_launches, train_launches,
                  train_steps, vp_launches, many_view_line, h128,
                  {"rows": fp32_train_rows, "launches": fp32_launches, "steps": fp32_steps}, fp32_forward, files,
-                 trainer, data, rgb, dust3r, baseline)
+                 trainer, data, rgb, dust3r, baseline, ba)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1301,14 +1301,15 @@ extern "C" int flash_attention_bwd_dkv_f32(const void* q_parts, const void* k_pa
 // token and head strides in elements (the head-dim stride is 1; rows 16-byte aligned;
 // dout's strides are not read without it), into the contiguous bf16 parts q_parts ..
 // dout_parts, (3, B, T, H, f32_part_cols(D)) each. One launch. Returns
-// cudaErrorInvalidValue for a D other than 32, 64 or 128 or empty shapes, else
-// cudaGetLastError() after the launch.
+// cudaErrorInvalidValue for a D other than 32, 48 (the forward's alone), 64 or 128 or empty
+// shapes, else cudaGetLastError() after the launch.
 extern "C" int flash_attention_split_f32(const void* q, const void* k, const void* v, const void* dout, void* q_parts,
                                          void* k_parts, void* v_parts, void* dout_parts, int B, int Tq, int Tk, int H,
                                          int D, long long sqb, long long sqt, long long sqh, long long skb,
                                          long long skt, long long skh, long long svb, long long svt, long long svh,
                                          long long sdb, long long sdt, long long sdh, void* stream) {
-  if (by_head_dim<32, 64, 128>(D, B, Tq, Tk, H, [](auto) { return 0; })) return static_cast<int>(cudaErrorInvalidValue);
+  if (by_head_dim<32, 48, 64, 128>(D, B, Tq, Tk, H, [](auto) { return 0; }))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int Dp = f32_part_cols(D);
   const SplitArgs a{{static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
                      static_cast<const float*>(dout)},

@@ -62,11 +62,13 @@
 //   consumers take turns to issue on two named barriers (ping-pong), so that one's
 //   softmax runs under the other's products. The last key tile's columns past Tk are
 //   masked to -inf; query rows past Tq are computed on zeros and not stored.
-// fa_fwd_f32<D, kLse>, D = 32, 64 and 128: the fp32 model's instance (compute_dtype="float32",
+// fa_fwd_f32<D, kLse>, D = 32, 48, 64 and 128: the fp32 model's instance (compute_dtype="float32",
 //   the model's default), which K3/K4/K7/K8 and _fwd_kernel_single (:114) served on the
 //   TPU in fp32; at D = 32 the RGB models' MAE decoder (8 blocks of 16 heads of 32, fp32
 //   whatever the model's dtype), which _fwd_kernel_single(_lse) (:114, :118) and
-//   _fwd_stream_aug(_lse) (:164, :168) served there. One bf16 or TF32 pass would keep 8 or
+//   _fwd_stream_aug(_lse) (:164, :168) served there; at D = 48 (lse-free only) the VGGSfM
+//   tracker's coarse transformer (8 heads of 48), whose point-to-virtual attention took
+//   _fwd_kernel_single (:114) there. One bf16 or TF32 pass would keep 8 or
 //   11 of fp32's 24 significand bits.
 //   As in the fp32 backward (csrc/flash_attention_bwd.cu), each fp32 operand x is split
 //   into three bf16 parts, hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), and
@@ -380,11 +382,14 @@ __global__ void __launch_bounds__(FwdPlan<D>::kThreads, 1)
 // setmaxnreg's 240; none spilled. 96-key tiles ran 0.93-0.97x the time of 64-key ones at
 // D = 64, where 3 stages of 64 keys ran as 2 did (PERF.md, section 6). At D = 128 the Q
 // descriptors stay in registers: the backward's reloaded_zero cost 1.04-1.05x here.
-// D = 32 (the MAE decoder's heads) is the D = 64 plan on parts zero-padded to 64 columns
-// (f32_part_cols): twice the necessary products, every store clipped at D.
+// D = 32 (the MAE decoder's heads) and D = 48 (the VGGSfM tracker's coarse transformer, 8
+// heads of 48) are the D = 64 plan on parts zero-padded to 64 columns (f32_part_cols): 2x
+// and 1.33x the necessary products, every store clipped at D (a row of o is 96 or 192
+// bytes, so no store of a whole 64-column tile). D = 48 has the lse-free form only: the
+// tracker runs inference alone.
 template <int D>
 struct FwdF32Plan {
-  static_assert(D == 32 || D == 64 || D == 128, "the fp32 forward's plans: D = 32, 64 and 128");
+  static_assert(D == 32 || D == 48 || D == 64 || D == 128, "the fp32 forward's plans: D = 32, 48, 64 and 128");
   static constexpr int kCols = f32_part_cols(D);          // columns of the staged parts
   static constexpr int kBlockM = 128;                     // query rows a work tile, 64 a consumer
   static constexpr int kBlockN = kCols == 64 ? 96 : 32;  // keys a K or V tile
@@ -642,7 +647,13 @@ int fwd_by_head_dim(const void* q, const void* k, const void* v, void* o, float*
                : fwd<kD, false, kF32>(q, k, v, o, lse, maps, B, Tq, Tk, H, sl, st);
   };
   if constexpr (kF32)
-    return by_head_dim<32, 64, 128>(D, B, Tq, Tk, H, run);
+    return by_head_dim<32, 48, 64, 128>(D, B, Tq, Tk, H, [&](auto d) {
+      if constexpr (decltype(d)::value == 48)  // the lse-free form alone (FwdF32Plan)
+        return lse ? static_cast<int>(cudaErrorInvalidValue)
+                   : fwd<48, false, true>(q, k, v, o, lse, maps, B, Tq, Tk, H, sl, st);
+      else
+        return run(d);
+    });
   else
     return by_head_dim<64, 128>(D, B, Tq, Tk, H, run);
 }
@@ -663,8 +674,8 @@ extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void
 
 // The fp32 forward on the split parts of q, k and v (flash_attention_split_f32), each a
 // contiguous bf16 (3, B, T, H, f32_part_cols(D)); maps: their tensor maps' layout as (3B, T,
-// H, f32_part_cols(D)), boxed by FWD_F32_TILES' rows; D: 32, 64 or 128. o is a contiguous
-// fp32 (B, Tq, H, D). Returns as the bf16 forward.
+// H, f32_part_cols(D)), boxed by FWD_F32_TILES' rows; D: 32, 48 (lse null only), 64 or 128.
+// o is a contiguous fp32 (B, Tq, H, D). Returns as the bf16 forward.
 extern "C" int flash_attention_fwd_f32(const void* q_parts, const void* k_parts, const void* v_parts, void* o,
                                        float* lse, const long long* maps, int B, int Tq, int Tk, int H, int D,
                                        float scale, void* stream) {
@@ -679,7 +690,11 @@ extern "C" int flash_attention_fwd_smem(int kernel, int D) {
     case 0:
       return D == 64 ? FwdPlan<64>::kSmem : D == 128 ? FwdPlan<128>::kSmem : 0;
     case 1:
-      return D == 32 ? FwdF32Plan<32>::kSmem : D == 64 ? FwdF32Plan<64>::kSmem : D == 128 ? FwdF32Plan<128>::kSmem : 0;
+      return D == 32   ? FwdF32Plan<32>::kSmem
+             : D == 48 ? FwdF32Plan<48>::kSmem
+             : D == 64 ? FwdF32Plan<64>::kSmem
+             : D == 128 ? FwdF32Plan<128>::kSmem
+                        : 0;
     default:
       return 0;
   }

@@ -8,14 +8,18 @@ Pallas kernels K1-K8 of PERF.md; here two hand-written Hopper sources serve
 them: ``csrc/flash_attention_fwd.cu`` (the forward, with or without the lse
 residual) and ``csrc/flash_attention_bwd.cu`` (the dq kernel and the dk/dv
 kernel), each instantiated for head dims 64 and 128 in bf16 (``HEAD_DIMS``) and
-32, 64 and 128 in fp32 (``F32_HEAD_DIMS``); any other head dim raises. D = 128
+32, 64 and 128 in fp32 (``F32_LSE_HEAD_DIMS``), with the fp32 lse-free forward also
+at 48 (``F32_HEAD_DIMS``); any other head dim raises. D = 128
 is K8's regime on the TPU (``d % 128 == 0``: ``_fwd_kernel``,
 ``_fwd_kernel_lse``, ``_dq_kernel``, ``_dkv_kernel``). D = 32 is the RGB
 models' MAE decoder, which runs in fp32 whatever the model's dtype; on the TPU
 its attention took ``_fwd_kernel_single(_lse)``, ``_fwd_stream_aug(_lse)``,
 ``_dq_aug_kernel`` and ``_dkv_aug_kernel``. The fp32 instances run it on the
 D = 64 plans: the split pass writes its parts zero-padded to 64 columns
-(``part_cols``), and the kernels store 32 columns a row. The plain versions
+(``part_cols``), and the kernels store 32 columns a row. D = 48 is the VGGSfM
+tracker's coarse transformer (inference only, fp32), whose point-to-virtual
+attention took ``_fwd_kernel_single`` on the TPU: the lse-free forward on the same
+padded parts, storing 48 columns a row. The plain versions
 below take any head dim: they are the plain version of K8 as they are of K1-K7.
 
 The bf16 kernels are Hopper's own design (wgmma, TMA, a producer warpgroup and
@@ -63,7 +67,8 @@ KERNEL_STEM = "flash_attention_fwd"
 BWD_KERNEL_STEM = "flash_attention_bwd"
 KERNEL_STEMS = (KERNEL_STEM, BWD_KERNEL_STEM)
 HEAD_DIMS = (64, 128)  # head dims the bf16 kernels are instantiated for
-F32_HEAD_DIMS = (32, 64, 128)  # and the fp32 kernels
+F32_HEAD_DIMS = (32, 48, 64, 128)  # and the fp32 lse-free forward
+F32_LSE_HEAD_DIMS = (32, 64, 128)  # the fp32 lse forward, dq and dk/dv (D = 48 runs inference alone)
 # The kernels' instances: bf16 (wgmma) and fp32 (wgmma over split bf16 parts).
 _DTYPES = (torch.bfloat16, torch.float32)
 # The bf16 forward's tile plan by head dim, (query rows, key rows) a block: FwdPlan in
@@ -81,9 +86,12 @@ BWD_F32_TILES = {64: {"dq": (128, 64), "dkv": (128, 64)}, 128: {"dq": (64, 32), 
 TMA_BOX_COLS = 64  # a box is one 128-byte swizzle row of bf16 wide
 
 
-def head_dims(dtype: torch.dtype) -> Tuple[int, ...]:
-    """The head dims with a kernel instance in ``dtype``."""
-    return F32_HEAD_DIMS if dtype == torch.float32 else HEAD_DIMS
+def head_dims(dtype: torch.dtype, lse: bool = False) -> Tuple[int, ...]:
+    """The head dims with a kernel instance in ``dtype``: of the lse-free forward, or with
+    ``lse`` of the lse forward and the backward kernels."""
+    if dtype != torch.float32:
+        return HEAD_DIMS
+    return F32_LSE_HEAD_DIMS if lse else F32_HEAD_DIMS
 
 
 def part_cols(d: int) -> int:
@@ -262,7 +270,7 @@ def _bwd_f32_tensor_maps(kernel: str, *parts: torch.Tensor) -> bytes:
     return _bwd_tensor_maps(kernel, *(x.flatten(0, 1) for x in parts), tiles=BWD_F32_TILES)
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse: bool = False) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention expects (B, T, H, D) tensors")
     b, _, h, d = q.shape
@@ -270,8 +278,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention kernel takes bf16 or fp32, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if d not in head_dims(q.dtype):
-        raise ValueError(f"head dim {d} has no {q.dtype} kernel instance (built: {head_dims(q.dtype)})")
+    if d not in head_dims(q.dtype, lse):
+        raise ValueError(f"head dim {d} has no {q.dtype} {'lse or backward' if lse else 'forward'} kernel instance "
+                         f"(built: {head_dims(q.dtype, lse)})")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
     align = 16 // q.element_size()  # 16-byte vector loads (and TMA boxes) of each row
@@ -311,7 +320,7 @@ def _launch_fwd(
     """The forward kernel on CUDA tensors; in fp32 on ``parts``, the split pass's parts of
     q, k and v (one split pass first when not given). ``out``: (o, lse or None), contiguous
     tensors to write into (new ones when not given)."""
-    _check(q, k, v)
+    _check(q, k, v, with_lse)
     b, tq, h, d = q.shape
     if q.dtype == torch.bfloat16:
         name, inputs, maps = "flash_attention_fwd_bf16", (q, k, v), _tensor_maps(q, k, v)
@@ -334,7 +343,7 @@ def _launch_fwd(
 
 
 def _check_bwd(q, k, v, do, lse, delta) -> torch.Tensor:
-    _check(q, k, v)
+    _check(q, k, v, lse=True)
     b, tq, h, _ = q.shape
     if do.shape != q.shape or lse.shape != (b, h, tq) or delta.shape != (b, h, tq):
         raise ValueError(f"do {tuple(do.shape)}, lse {tuple(lse.shape)} and delta "
@@ -498,7 +507,7 @@ def flash_attention(
     """softmax(q kᵀ scale) v over q (B, Tq, H, D) and k, v (B, Tk, H, D).
 
     CUDA tensors run the Hopper kernels (bf16 at D = 64 or 128, fp32 at D = 32, 64 or
-    128) and come back
+    128, and without gradients also at 48) and come back
     as a contiguous (B, Tq, H, D) tensor; CPU tensors run the plain versions.
     The result is differentiable when an input requires grad.
     """

@@ -213,3 +213,14 @@ def train_tool_run(rank: int, world_size: int, argv: list) -> dict:
     if rank == 0:
         result["log"] = (Path(trainer.cfg.output_dir) / "log.txt").read_text()
     return result
+
+
+def ba_sharded(rank: int, world_size: int, arrays: dict, solve_kw: dict):
+    """``ba.solver.ba_solve_sharded`` on the tracks of ``arrays`` (numpy, every rank the
+    same); every rank returns its (rot, trans, points, costs) as numpy."""
+    from mapanything_tpu_torch.ba.solver import ba_solve_sharded
+    from mapanything_tpu_torch.ba.tracks import Tracks
+
+    del rank, world_size
+    state, costs = ba_solve_sharded(Tracks(**{k: torch.from_numpy(v) for k, v in arrays.items()}), **solve_kw)
+    return tuple(x.numpy() for x in (state.rot, state.trans, state.points, costs))

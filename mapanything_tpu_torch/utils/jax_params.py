@@ -73,6 +73,9 @@ from mapanything_tpu_torch.models.external import (
     VGGT,
     AnyCalibNet,
     AnyCalibWrapper,
+    DUSt3RBAWrapper,
+    MASt3RModel,
+    MASt3RSGAWrapper,
     MoGe2Model,
     MoGe2Wrapper,
     MoGeModel,
@@ -81,8 +84,10 @@ from mapanything_tpu_torch.models.external import (
     MUSt3RWrapper,
     Pi3,
     Pi3Wrapper,
+    Pow3RBAWrapper,
     Pow3RModel,
     Pow3RWrapper,
+    VGGSfMTracker,
     VGGTWrapper,
 )
 from mapanything_tpu_torch.models.heads.dpt import (
@@ -231,6 +236,20 @@ def _modular_dust3r(M, jp, tp):
     for b in range(2):
         _dpt_feature(M, f"dpt_head_{b}", f"dpt_head_{b}.")
         _dpt_regressor(M, f"dpt_reg_{b}", f"dpt_reg_{b}.")
+
+
+def _mast3r(M, jp, tp):
+    """MASt3R: ``ModularDUSt3R``'s names under the JAX ``trunk``, and the release's
+    descriptor MLP ``downstream_head1.head_local_features`` (JAX ``desc_mlp1`` and the 1x1
+    convolution ``desc_head/linear``)."""
+    _croco(M, "trunk/encoder", "")
+    _cross_trunk(M, "trunk/decoder", "")
+    for b in range(2):
+        _dpt_feature(M, f"trunk/dpt_head_{b}", f"dpt_head_{b}.")
+        _dpt_regressor(M, f"trunk/dpt_reg_{b}", f"dpt_reg_{b}.")
+    mlp = "downstream_head1.head_local_features."
+    _dense(M, "desc_mlp1", mlp + "fc1.")
+    _pointwise(M, "desc_head", mlp + "fc2.")
 
 
 def _vit(M, jp, tp):
@@ -567,6 +586,68 @@ def _pow3r(M, jp, tp):
     _linear_feature(M, "head2", "head2.")
 
 
+def _tracker_res_block(M, jp, tp):
+    _conv(M, _join(jp, "conv1"), tp + "conv1.")
+    _conv(M, _join(jp, "conv2"), tp + "conv2.")
+    if M.has(tp + "downsample.0.weight"):
+        _conv(M, _join(jp, "downsample"), tp + "downsample.0.")
+
+
+def _tracker_mha(M, jp, tp):
+    M.add(tp + "in_proj_weight", _join(jp, "in_proj_kernel"), "dense")
+    M.add(tp + "in_proj_bias", _join(jp, "in_proj_bias"))
+    _dense(M, _join(jp, "out_proj"), tp + "out_proj.")
+
+
+def _tracker_block(M, jp, tp):
+    """A tracker ``AttnBlock`` or ``CrossAttnBlock`` (its norms are non-affine but the
+    context's)."""
+    j = lambda n: _join(jp, n)  # noqa: E731
+    if M.has(tp + "norm_context.weight"):
+        _norm(M, j("norm_context"), tp + "norm_context.")
+        _tracker_mha(M, j("cross_attn"), tp + "cross_attn.")
+    else:
+        _tracker_mha(M, j("attn"), tp + "attn.")
+    _dense(M, j("mlp/fc1"), tp + "mlp.fc1.")
+    _dense(M, j("mlp/fc2"), tp + "mlp.fc2.")
+
+
+def _tracker_predictor(M, jp, tp):
+    j = lambda n: _join(jp, n)  # noqa: E731
+    u, tu = j("updateformer"), tp + "updateformer."
+    _dense(M, _join(u, "input_transform"), tu + "input_transform.")
+    _dense(M, _join(u, "flow_head"), tu + "flow_head.")
+    if M.has(tu + "virual_tracks"):
+        M.add(tu + "virual_tracks", _join(u, "virual_tracks"))
+    for kind in ("time_blocks", "space_virtual_blocks", "space_point2virtual_blocks", "space_virtual2point_blocks"):
+        i = 0
+        while M.has(tu + f"{kind}.{i}.mlp.fc1.weight"):
+            _tracker_block(M, _join(u, f"{kind}_{i}"), tu + f"{kind}.{i}.")
+            i += 1
+    _norm(M, j("norm"), tp + "norm.")
+    _dense(M, j("ffeat_updater"), tp + "ffeat_updater.0.")
+    if M.has(tp + "vis_predictor.0.weight"):
+        _dense(M, j("vis_predictor"), tp + "vis_predictor.0.")
+
+
+def _vggsfm_tracker(M, jp, tp):
+    """The VGGSfM tracker: the reference ``TrackerPredictor``'s names against the JAX
+    ``coarse_fnet/layer{i}_{j}``, ``fine_fnet/layer{i}``, ``*/time_blocks_{i}`` and the
+    rest that ``convert_vggsfm_tracker`` writes."""
+    _conv(M, "coarse_fnet/conv1", "coarse_fnet.conv1.")
+    for li in range(1, 5):
+        for bi in range(2):
+            _tracker_res_block(M, f"coarse_fnet/layer{li}_{bi}", f"coarse_fnet.layer{li}.{bi}.")
+    for name in ("conv2", "conv3"):
+        _conv(M, f"coarse_fnet/{name}", f"coarse_fnet.{name}.")
+    _conv(M, "fine_fnet/conv1", "fine_fnet.conv1.")
+    for name in ("layer1", "layer2"):
+        _tracker_res_block(M, f"fine_fnet/{name}", f"fine_fnet.{name}.")
+    _conv(M, "fine_fnet/conv2", "fine_fnet.conv2.")
+    _tracker_predictor(M, "coarse_predictor", "coarse_predictor.")
+    _tracker_predictor(M, "fine_predictor", "fine_predictor.")
+
+
 _DENSE_REP_ENCODERS = ("ray_dirs_encoder", "depth_encoder")
 _GLOBAL_REP_ENCODERS = ("depth_scale_encoder", "cam_rot_encoder", "cam_trans_encoder", "cam_trans_scale_encoder")
 
@@ -598,6 +679,9 @@ def _mapanything(M, jp, tp):
 _CONVERTERS: Dict[type, Callable] = {
     MapAnything: _mapanything,
     ModularDUSt3R: _modular_dust3r,
+    DUSt3RBAWrapper: _modular_dust3r,
+    MASt3RModel: _mast3r,
+    MASt3RSGAWrapper: _mast3r,
     ViTEncoder: _vit,
     CroCoEncoder: _croco,
     PatchEmbedder: _patch_embedder,
@@ -638,6 +722,8 @@ _CONVERTERS: Dict[type, Callable] = {
     MUSt3RWrapper: _must3r,
     Pow3RModel: _pow3r,
     Pow3RWrapper: _pow3r,
+    Pow3RBAWrapper: _pow3r,
+    VGGSfMTracker: _vggsfm_tracker,
 }
 
 

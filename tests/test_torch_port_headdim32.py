@@ -162,12 +162,15 @@ def test_d32_tensor_maps_read_the_padded_parts_with_the_d64_plans(kernel):
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 32), (torch.float32, 48), (torch.float32, 80),
                                      (torch.bfloat16, 32), (torch.bfloat16, 48)])
 def test_head_dims_without_an_instance_raise(dtype, d):
-    """fp32 has D = 32, 64 and 128; bf16 64 and 128 (no path runs bf16 at 32: the RGB
-    heads are fp32). Any other D raises before a launch."""
+    """fp32 has D = 32, 64 and 128, and its lse-free forward also D = 48 (the VGGSfM
+    tracker, inference only); bf16 64 and 128 (no path runs bf16 at 32 or 48: the RGB
+    heads and the tracker are fp32). Any other D raises before a launch."""
     x = torch.zeros(1, 8, 2, d, dtype=dtype)
-    if d in port_fa.head_dims(dtype):
-        port_fa._check(x, x, x)
-    else:
-        with pytest.raises(ValueError, match=f"head dim {d}"):
-            port_fa._check(x, x, x)
-    assert port_fa.head_dims(torch.float32) == (32, 64, 128) and port_fa.head_dims(torch.bfloat16) == (64, 128)
+    for lse in (False, True):
+        if d in port_fa.head_dims(dtype, lse):
+            port_fa._check(x, x, x, lse)
+        else:
+            with pytest.raises(ValueError, match=f"head dim {d}"):
+                port_fa._check(x, x, x, lse)
+    assert port_fa.head_dims(torch.float32) == (32, 48, 64, 128) and port_fa.head_dims(torch.bfloat16) == (64, 128)
+    assert port_fa.head_dims(torch.float32, lse=True) == (32, 64, 128)

@@ -122,6 +122,15 @@ SLICE_MODULES = (
     "mapanything_tpu_torch.models.external.must3r",
     "mapanything_tpu_torch.models.external.pow3r",
     "mapanything_tpu_torch.ba.global_alignment",
+    # bundle adjustment, the trackers, the optimisation baselines and the COLMAP tools
+    "mapanything_tpu_torch.ba.solver",
+    "mapanything_tpu_torch.ba.tracks",
+    "mapanything_tpu_torch.ba.tracker",
+    "mapanything_tpu_torch.models.external.vggsfm_tracker",
+    "mapanything_tpu_torch.models.external.dust3r_ba",
+    "mapanything_tpu_torch.models.external.mast3r",
+    "mapanything_tpu_torch.tools.demo_colmap",
+    "mapanything_tpu_torch.tools.demo_inference_on_colmap_outputs",
 )
 # Optional decoders that the port imports only when a file needs them, and what the JAX data path
 # uses that the port must not (PyYAML, SciPy).
@@ -194,14 +203,8 @@ def test_entry_point_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_unported_options_raise():
-    # Every dense head, scene representation and feed-forward baseline is ported; the
-    # registry slots that wait for bundle adjustment and the disentangled loss under a
-    # view group are not.
-    from mapanything_tpu_torch.models.registry import init_model
-
-    for name in ("dust3r_ba", "metric_dust3r", "mast3r_sga", "pow3r_ba", "vggsfm_tracker"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md section 1, item 4"):
-            init_model(name, size="small")
+    # Every dense head, scene representation, baseline and registry slot is ported; the
+    # disentangled loss under a view group is not.
     with pytest.raises(ValueError, match="invalid scene_rep_type"):
         port_ma.MapAnything(port_ma.MapAnythingConfig.small(scene_rep_type="not_a_rep"), device="cpu")
     from mapanything_tpu_torch.train import losses as port_losses
