@@ -12,6 +12,7 @@
     python3 chip_smoke.py --rgb-only           # phases 1, 2, the D = 32 rows of 3 and 3b, 22-25
     python3 chip_smoke.py --dust3r-only        # phases 1, 2, the DUSt3R rows of 3, 26 and 27
     python3 chip_smoke.py --baselines-only     # phases 1, 2, the baselines' rows of 3, 28 and 29
+    python3 chip_smoke.py --benchmarks-only    # phases 1, 2, the benchmarks' rows of 3, 34-37
 
 Phases, each printing one JSON line:
   1. the card's name and power limit, as nvidia-smi reports them;
@@ -250,13 +251,31 @@ Phases, each printing one JSON line:
      to the plain versions (OPTIM_RTOL; MASt3R-SGA's pair outputs and the share of its
      matches that agree instead, its alignment reported), ms a scene, peak memory. Phase 3 holds the
      kernels at the tracker's and these paths' shapes first (TRACKER_SHAPES, OPTIM_SHAPES),
-     phase 3f the D = 48 forward at the edge shapes and the tracker's canary cases.
+     phase 3f the D = 48 forward at the edge shapes and the tracker's canary cases;
+  34. the accuracy benchmarks on phase 21's synthetic scenes (written again, with a
+     test-split list), the seeded flagship bf16: dense N-view and RMVD run_benchmark
+     over 4 sets of 8 views at 518 x 392 (covisibility_thres 0.25, batch 1),
+     calibration on single views; metrics finite and in range, ms a set, peak memory,
+     launches a set by shape; the first set's predictions scored on the card and on
+     the CPU (within 1e-5 but for what the counted edge pixels and pairs allow), the
+     ground truth scored as the prediction (abs-rel 0, every inlier, AUC 100);
+  35. tools/benchmark_many_views.py at its defaults (1 x 100 x 518, head_chunk_size
+     10): views/s, s a scene, peak memory, launches by key length (K3 at 136901), phase
+     5's and 13's invariants; K1 at its encoder and frame shapes and K3 at 1 x 136901
+     on a slice of query rows against their plain versions;
+  36. tools/inference_wai.py on scene_png, 8 views at 518 with the same model: the
+     three files, launches by shape;
+  37. tools/one_sample_finetune.py, the flagship fp32 on 2 views of 518, 30 steps at lr
+     1e-4: ms a step, peak memory, launches by shape, the JAX test's criterion (the
+     last printed loss under 0.9x the first); the fp32 training kernels at its shapes
+     against their plain versions first.
 On a machine with more than one card, phases 9 and 10 then run again over
 NCCL with one rank a card (2 or 4 cards); rank 0 checks the gathered
 outputs against the unsharded forward. A machine with one card skips this.
 Phases 11-13 run after phase 5, before phase 6; phase 3e after 3d; phases
 14-24 after phase 7, before phase 8 (the D = 32 rows with phases 3 and 3b);
-phases 26-29 after phase 24, 31-33 after 29; phase 25 after phase 10, phase 30 after phase 9. Then the
+phases 26-29 after phase 24, 31-33 after 29, 34-37 after 33; phase 25 after phase 10, phase 30 after
+phase 9. Then the
 kernels' summary line and,
 last, {"ok": true, "device": {...}}.
 Phases 3f and 3g run right after the build. With --train-step-only, phase 7
@@ -271,7 +290,9 @@ D = 32 rows of phases 3 and 3b, phases 22-24, and 25 on a one-rank group of its 
 with --dust3r-only, the DUSt3R rows of phase 3, phases 26 and 27, and a kernels line
 of their entries; with --baselines-only, the baselines' rows of phase 3, phases 28 and 29,
 and a kernels line of their entries; with --ba-only, the SASS check, phase 3f's D = 48
-cases, the BA slice's rows of phase 3, phases 31-33, and a kernels line of their entries.
+cases, the BA slice's rows of phase 3, phases 31-33, and a kernels line of their entries; with
+--benchmarks-only, the benchmark slice's rows of phase 3 (phase 19's and the single
+view's), phases 34-37, and a kernels line of their entries.
 Any failed check raises and the script exits non-zero. Without a CUDA device,
 or without the port beside it, it exits non-zero and prints no result.
 """
@@ -1079,6 +1100,68 @@ def plain_by_rows(fn, q, *rest, rows: int = ROW_SLICE):
     return torch.cat(outs, 1)
 
 
+def long_forward_check(card, phase_id, name, t, kname, replaces, launches_key, plain_iters: int = 2):
+    """One forward row of phases 3c, 3d and 35: the kernel at 1 x t x 12 x 64 (bf16) against
+    its plain version on ROW_SLICE query rows (the first and the last half); kernel, plain
+    (over every row, in chunks), library and bound times."""
+    import torch
+    import torch.nn.functional as F
+
+    from mapanything_tpu_torch.ops import flash_attention as fa
+
+    bf16_peak, _, mem_bw = peaks_for(card["name"])
+    b, h, d = 1, 12, 64
+    scale = d**-0.5
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    qkv = torch.randn(b, t, 3, h, d, device="cuda", generator=gen).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    sl = torch.cat([torch.arange(ROW_SLICE // 2), torch.arange(t - ROW_SLICE // 2, t)]).cuda()
+    chunk = min(ROW_SLICE, PLAIN_SLAB // t)
+    with_lse = kname.endswith("lse")
+    if with_lse:
+        o, lse = fa.flash_attention_lse(q, k, v, scale)
+        o_e, lse_e = plain_by_rows(fa.attention_lse_reference, q[:, sl].float(), k.float(), v.float(), scale,
+                                   rows=chunk)
+        o_p, lse_p = plain_by_rows(fa.attention_lse_reference, q[:, sl], k, v, scale, rows=chunk)
+        outs = {"o": (o[:, sl], o_e, o_p), "lse": (lse[:, :, sl], lse_e, lse_p)}
+        fn, plain_fn = fa.flash_attention_lse, fa.attention_lse_reference
+    else:
+        o = fa.flash_attention(q, k, v, scale)
+        exact = plain_by_rows(fa.attention_reference, q[:, sl].float(), k.float(), v.float(), scale, rows=chunk)
+        outs = {"o": (o[:, sl], exact, plain_by_rows(fa.attention_reference, q[:, sl], k, v, scale, rows=chunk))}
+        fn, plain_fn = fa.flash_attention, fa.attention_reference
+    torch.cuda.synchronize()
+    errs = {key: max_err(x, e) for key, (x, e, _) in outs.items()}
+    plain_errs = {key: max_err(pl, e) for key, (_, e, pl) in outs.items()}
+    tols = {key: tolerance(plain_errs[key], e) for key, (_, e, _) in outs.items()}
+    finite = all(bool(torch.isfinite(x).all()) for x, _, _ in outs.values())
+    del outs
+    torch.cuda.empty_cache()
+    ms = cuda_time_ms(lambda: fn(q, k, v, scale), iters=10)
+    plain_ms = cuda_time_ms(lambda: plain_by_rows(plain_fn, q, k, v, scale, rows=chunk), iters=plain_iters, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), iters=10)
+    flop = fa.attention_flops(b, t, t, h, d)
+    nbytes = fa.attention_bytes(b, t, t, h, d, 2) + (4 * b * h * t if with_lse else 0)
+    t_ops, t_bytes = flop / bf16_peak * 1e3, nbytes / mem_bw * 1e3
+    row = {
+        "phase": "long_kernel_check", "phase_id": phase_id, "shape": name, "launches_key": launches_key,
+        "kernel": kname, "b_t_h_d": [b, t, h, d], "dtype": "bfloat16", "replaces": replaces,
+        "rows_checked": ROW_SLICE, "plain_rows_per_chunk": chunk,
+        "max_abs_err": errs, "plain_err": plain_errs, "tol": tols,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "tflops": flop / ms / 1e9, "card": card["name"], "power_limit": card["power_limit"],
+    }
+    emit(row)
+    bad = {key: (errs[key], tols[key]) for key in errs if not errs[key] <= tols[key]}
+    if not finite or bad:
+        raise AssertionError(f"{kname} disagrees with its plain version at {name}: {bad}")
+    del qkv, q, k, v, o
+    torch.cuda.empty_cache()
+    return row
+
+
 def long_kernel_checks(card):
     """Phases 3c and 3d: the forward kernels at K3's and K7's lengths, dq and
     dk/dv against a merged lse; kernel, plain, library and bound times."""
@@ -1091,56 +1174,7 @@ def long_kernel_checks(card):
     bf16_peak, _, mem_bw = peaks_for(card["name"])
     b, h, d = 1, 12, 64
     scale = d**-0.5
-    rows = []
-    for phase_id, name, t, kname, replaces, launches_key in LONG_SHAPES:
-        gen = torch.Generator(device="cuda").manual_seed(3)
-        qkv = torch.randn(b, t, 3, h, d, device="cuda", generator=gen).to(torch.bfloat16)
-        q, k, v = qkv.unbind(2)
-        sl = torch.cat([torch.arange(ROW_SLICE // 2), torch.arange(t - ROW_SLICE // 2, t)]).cuda()
-        chunk = min(ROW_SLICE, PLAIN_SLAB // t)
-        with_lse = kname.endswith("lse")
-        if with_lse:
-            o, lse = fa.flash_attention_lse(q, k, v, scale)
-            o_e, lse_e = plain_by_rows(fa.attention_lse_reference, q[:, sl].float(), k.float(), v.float(), scale,
-                                       rows=chunk)
-            o_p, lse_p = plain_by_rows(fa.attention_lse_reference, q[:, sl], k, v, scale, rows=chunk)
-            outs = {"o": (o[:, sl], o_e, o_p), "lse": (lse[:, :, sl], lse_e, lse_p)}
-            fn, plain_fn = fa.flash_attention_lse, fa.attention_lse_reference
-        else:
-            o = fa.flash_attention(q, k, v, scale)
-            exact = plain_by_rows(fa.attention_reference, q[:, sl].float(), k.float(), v.float(), scale, rows=chunk)
-            outs = {"o": (o[:, sl], exact, plain_by_rows(fa.attention_reference, q[:, sl], k, v, scale, rows=chunk))}
-            fn, plain_fn = fa.flash_attention, fa.attention_reference
-        torch.cuda.synchronize()
-        errs = {key: max_err(x, e) for key, (x, e, _) in outs.items()}
-        plain_errs = {key: max_err(pl, e) for key, (_, e, pl) in outs.items()}
-        tols = {key: tolerance(plain_errs[key], e) for key, (_, e, _) in outs.items()}
-        finite = all(bool(torch.isfinite(x).all()) for x, _, _ in outs.values())
-        del outs
-        torch.cuda.empty_cache()
-        ms = cuda_time_ms(lambda: fn(q, k, v, scale), iters=10)
-        plain_ms = cuda_time_ms(lambda: plain_by_rows(plain_fn, q, k, v, scale, rows=chunk), iters=2, warmup=1)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), iters=10)
-        flop = fa.attention_flops(b, t, t, h, d)
-        nbytes = fa.attention_bytes(b, t, t, h, d, 2) + (4 * b * h * t if with_lse else 0)
-        t_ops, t_bytes = flop / bf16_peak * 1e3, nbytes / mem_bw * 1e3
-        row = {
-            "phase": "long_kernel_check", "phase_id": phase_id, "shape": name, "launches_key": launches_key,
-            "kernel": kname, "b_t_h_d": [b, t, h, d], "dtype": "bfloat16", "replaces": replaces,
-            "rows_checked": ROW_SLICE, "plain_rows_per_chunk": chunk,
-            "max_abs_err": errs, "plain_err": plain_errs, "tol": tols,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "tflops": flop / ms / 1e9, "card": card["name"], "power_limit": card["power_limit"],
-        }
-        emit(row)
-        bad = {key: (errs[key], tols[key]) for key in errs if not errs[key] <= tols[key]}
-        if not finite or bad:
-            raise AssertionError(f"{kname} disagrees with its plain version at {name}: {bad}")
-        rows.append(row)
-        del qkv, q, k, v, o
-        torch.cuda.empty_cache()
+    rows = [long_forward_check(card, *shape) for shape in LONG_SHAPES]
 
     # dq and dk/dv at the 4-view ring block, fed the lse of the ring's forward:
     # the kernel's own lse merged with a 1-token extra block (the scale token).
@@ -2027,7 +2061,8 @@ JPEG_FIXTURES = ROOT / "tests" / "data" / "jpeg"  # 1024 x 768, written by cv2 (
 def write_wai_scenes(root: Path) -> dict:
     """Two synthetic ETH3D scenes of DATA_FRAMES 1024 x 768 frames with the port's writers:
     "scene_png" (PNG frames, 16-bit millimetre PNG depth) and "scene_jpg" (the committed
-    JPEG fixtures, EXR depth); covisibility, scene_meta.json and the scene list. Returns
+    JPEG fixtures, EXR depth); covisibility, scene_meta.json and the scene lists of the
+    train and test splits. Returns
     a frame path of each format, for the decode timings."""
     from mapanything_tpu_torch.utils.exr import write_depth_exr
     from mapanything_tpu_torch.utils.image import write_png
@@ -2070,8 +2105,9 @@ def write_wai_scenes(root: Path) -> dict:
         np.save(scene / "covisibility" / "v0" / "pairwise.npy", covis)
         samples[image_ext] = [scene / f["image"] for f in frames[:4]]
         samples[depth_ext + "_depth"] = [scene / f["depth"] for f in frames[:4]]
-    (root / "meta" / "train").mkdir(parents=True)
-    np.save(root / "meta" / "train" / "eth3d_scene_list_train.npy", np.array(["scene_png", "scene_jpg"]))
+    for split in ("train", "test"):  # phase 21 reads the train list, phase 34 the test list (ETH3D's default)
+        (root / "meta" / split).mkdir(parents=True)
+        np.save(root / "meta" / split / f"eth3d_scene_list_{split}.npy", np.array(["scene_png", "scene_jpg"]))
     return samples
 
 
@@ -3702,7 +3738,7 @@ def split_rows(rows) -> list:
 
 def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, inference_launches, train_launches,
                  train_steps, vp_launches, many_view_line, h128, fp32_train, fp32_forward, files, trainer, data, rgb,
-                 dust3r, baseline, ba):
+                 dust3r, baseline, ba, bench):
     """The kernels line: each kernel, what it replaces, its launches on its path
     (one forward; all train steps, and per step), its max error and its times
     per forward (inference) or per train step. The phase-3c rows are the
@@ -3727,7 +3763,8 @@ def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, infe
     of phase 3 (``dust3r``) are the forward on the DUSt3R flagship's forward in each dtype
     (phase 27), with that run's launches; the baselines' rows (``baseline``) the forward (and
     its split pass) on each baseline's forward at its release's widths (phase 29), with that
-    run's launches; the BA slice's (``ba``) those of ``ba_entries`` (phases 31-33)."""
+    run's launches; the BA slice's (``ba``) those of ``ba_entries`` (phases 31-33); the
+    benchmark slice's (``bench``) those of ``benchmark_entries`` (phases 34-37)."""
     main_rows = [r for r in rows if r["per_forward"] and r["dtype"] == "bfloat16"]
     kernels = [path_entry("flash_attention_fwd", "mapanything_tpu/ops/flash_attention.py:395", main_rows,
                           {r["shape"]: r["per_forward"] for r in main_rows},
@@ -3789,6 +3826,7 @@ def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, infe
     kernels += dust3r_entries(dust3r)
     kernels += baseline_entries(baseline)
     kernels += ba_entries(ba)
+    kernels += benchmark_entries(bench)
     emit({"kernels": kernels})
 
 
@@ -4533,6 +4571,411 @@ def ba_entries(ba) -> list:
     return entries
 
 
+# Phases 34-37: the accuracy benchmarks on phase 21's synthetic WAI scenes, the 100-view
+# tool at its defaults, tools/inference_wai.py and the one-sample finetune.
+BENCH_VIEWS, BENCH_RES = 8, (518, 392)  # the 4:3 frames' bucket at 518: 37 x 28 patches
+BENCH_SETS = 4  # sets a run, two a scene (``4 @``: each scene twice, each visit a new view set)
+# The scenes' covisibility is 1 - 0.15 |i - j| within four frames (write_wai_scenes): at
+# 0.25 every neighbour within four frames counts, so a walk draws 8 distinct views.
+BENCH_COVIS = 0.25
+BENCH_CPU_RTOL = 1e-5  # set metrics of the same predictions, normalised on the card and on the CPU
+# Ground truth fed back as the prediction: abs-rel exactly 0 (the same arithmetic on both
+# sides), every pixel an inlier, every pair in the first 1-degree bin, ATE under this.
+GT_ATE_LIMIT = 1e-4
+# Calibration: single views, each layer at 1 x 1037 (the encoder, and the global layers
+# over 1036 patch tokens and the scale token) or 1 x 1036 (the frame layers).
+CALIB_SHAPES = [
+    ("calib_encoder", (1, 1037, 16, 64), "bfloat16", 24, f"{FA}:395"),
+    ("calib_frame", (1, 1036, 12, 64), "bfloat16", 12, f"{FA}:395"),
+    ("calib_global", (1, 1037, 12, 64), "bfloat16", 12, f"{FA}:395"),
+]
+# Phase 35: tools/benchmark_many_views.py at its defaults, 1 x 100 views of 518 x 518.
+MANY_VIEWS = 100
+MANY_VIEW_T = MANY_VIEWS * 1369 + 1  # the global layers' tokens: 136901 (K3's regime on the TPU)
+MANY_VIEW_100_SHAPES = [
+    ("encoder_100_views", (MANY_VIEWS, 1370, 16, 64), "bfloat16", 24, f"{FA}:395"),
+    ("frame_100_views", (MANY_VIEWS, 1369, 12, 64), "bfloat16", 12, f"{FA}:395"),
+]
+MANY_VIEW_LONG = ("35", "k3_global_100_views", MANY_VIEW_T, "flash_attention_fwd", f"{FA}:164", "by_length")
+# Phase 37: tools/one_sample_finetune.py, the flagship at its default dtype (fp32), 2 views
+# of 518 x 518; FINETUNE_STEPS steps at FINETUNE_LR.
+FINETUNE_STEPS, FINETUNE_LR = 30, 1e-4
+FINETUNE_SHAPES = [
+    ("ft_encoder", (2, 1370, 16, 64), "float32", 24),
+    ("ft_frame", (2, 1369, 12, 64), "float32", 12),
+    ("ft_global", (1, 2739, 12, 64), "float32", 12),
+]
+FINETUNE_REPLACES = {  # fp32: the single pass up to 2048 padded keys, the augmented stream (K7) beyond
+    "flash_attention_fwd_lse": {"ft_encoder": f"{FA}:118", "ft_frame": f"{FA}:118", "ft_global": f"{FA}:168"},
+    "flash_attention_bwd_dq": dict.fromkeys(("ft_encoder", "ft_frame", "ft_global"), f"{FA}:227"),
+    "flash_attention_bwd_dkv": dict.fromkeys(("ft_encoder", "ft_frame", "ft_global"), f"{FA}:262"),
+    "flash_attention_split_f32": dict.fromkeys(("ft_encoder", "ft_frame", "ft_global"), f"{FA}:227"),
+}
+
+
+def shape_key(counts: dict) -> dict:
+    """{(Tk, D): n} as {"<Tk>x<D>": n}."""
+    return {f"{tk}x{d}": n for (tk, d), n in sorted(counts.items())}
+
+
+def bench_expr(root: Path, views: int) -> str:
+    return (f"{BENCH_SETS} @ ETH3DWAI(ROOT={str(root / 'eth3d')!r}, dataset_metadata_dir={str(root / 'meta')!r}, "
+            f"split='test', num_views={views}, resolution={BENCH_RES}, covisibility_thres={BENCH_COVIS}, seed=0)")
+
+
+class TimedModel:
+    """A model whose every forward is timed on the host clock between two synchronises,
+    with its lse-free launches by (Tk, D) counted a forward."""
+
+    def __init__(self, model):
+        self.model, self.ms, self.shapes = model, [], []
+
+    @property
+    def device(self):
+        return self.model.device
+
+    def __call__(self, views):
+        import torch
+
+        from mapanything_tpu_torch.ops.flash_attention import launch_shapes, reset_launch_counts
+
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = self.model(views)
+        torch.cuda.synchronize()
+        self.ms.append(1e3 * (time.perf_counter() - t0))
+        self.shapes.append(launch_shapes()["flash_attention_fwd"])
+        return out
+
+
+def check_launches_per_forward(path: str, shapes: list, want: dict) -> dict:
+    """Every forward of ``path`` launched the lse-free forward ``want`` = {(Tk, D): n} times."""
+    bad = [s for s in shapes if dict(s) != want]
+    if bad or not shapes:
+        raise AssertionError(f"{path}: forwards launched {[shape_key(s) for s in bad] or 'nothing'}, "
+                             f"not {shape_key(want)} each")
+    return shape_key(want)
+
+
+def predictions_on(preds, device):
+    """Predictions with every tensor field on ``device``."""
+    return dataclasses.replace(preds, **{f.name: getattr(preds, f.name).to(device)
+                                         for f in dataclasses.fields(preds) if getattr(preds, f.name) is not None})
+
+
+def ground_truth_predictions(batch):
+    """The batch's ground truth as predictions: world points, poses, rays, depths, unit scale."""
+    import torch
+
+    from mapanything_tpu_torch.models.mapanything import Predictions
+
+    B, V, H, W = batch.valid_mask.shape
+    return Predictions(pts3d=batch.pts3d, pts3d_cam=batch.pts3d_cam, ray_directions=batch.ray_directions,
+                       depth_along_ray=batch.depth_along_ray, cam_trans=batch.camera_pose_trans,
+                       cam_quats=batch.camera_pose_quats, metric_scaling_factor=torch.ones(B, device=batch.pts3d.device),
+                       conf=torch.ones((B, V, H, W), device=batch.pts3d.device))
+
+
+def check_set_metrics(name: str, m: dict) -> None:
+    """Finite metrics in their ranges: abs-rel, ATE and errors >= 0, inlier shares in [0, 1],
+    pose_auc_5 in [0, 100], ray errors in [0, 180] degrees."""
+    bad = {k: v for k, v in m.items() if not np.isfinite(v) or v < 0}
+    bad.update({k: m[k] for k in ("pointmaps_inlier_thres_103", "z_depth_inlier_thres_103") if not m[k] <= 1})
+    bad.update({k: m[k] for k, top in (("pose_auc_5", 100), ("ray_dirs_err_deg", 180)) if not m[k] <= top})
+    if bad:
+        raise AssertionError(f"{name}: metrics out of range: {bad}")
+
+
+def benchmarks_phase(card, work: Path, model) -> dict:
+    """Phase 34: dense N-view, RMVD and calibration run_benchmark with ``model`` (the
+    flagship bf16, seeded) over test-split ETH3D loaders of the scenes under ``work``
+    (BENCH_SETS sets of BENCH_VIEWS views at 518 x 392, batch 1, covisibility_thres
+    BENCH_COVIS; calibration one view a sample). The first dense set's predictions (held
+    on the card) scored on the card and on the CPU, within BENCH_CPU_RTOL but for what
+    the counted edges allow; the ground truth scored as the prediction on the card."""
+    import os
+
+    import torch
+
+    from mapanything_tpu_torch.benchmarking import calibration, dense_n_view, rmvd_mvs
+    from mapanything_tpu_torch.data.loader import get_test_data_loader
+    from mapanything_tpu_torch.tools.train import build_dataset
+
+    workers = min(os.cpu_count() or 1, 8)
+
+    def loader(views):
+        out = get_test_data_loader(build_dataset(bench_expr(work, views)), 1, num_workers=workers)
+        out.set_epoch(0)
+        return out
+
+    line = {"phase": "benchmarks", "phase_id": "34",
+            "config": f"MapAnythingConfig(compute_dtype='bfloat16'), seeded; {BENCH_SETS} @ ETH3DWAI test split, "
+                      f"{BENCH_VIEWS} views at {BENCH_RES[0]}x{BENCH_RES[1]}, covisibility_thres={BENCH_COVIS}, "
+                      "batch 1", "loader_workers": workers}
+    per_set = {(1037, 64): 24, (1036, 64): 12, (BENCH_VIEWS * 1036 + 1, 64): 12}
+    kept, runs = {}, {}
+
+    def keep_first(i, batch, preds, set_metrics):
+        if i == 0:
+            kept.update(batch=batch, preds=preds, card_metrics=set_metrics)
+
+    for name, run, views, want in (
+            ("dense_n_view", lambda m, ld: dense_n_view.run_benchmark(m, ld, on_batch=keep_first), BENCH_VIEWS,
+             per_set),
+            ("rmvd", rmvd_mvs.run_benchmark, BENCH_VIEWS, per_set),
+            ("calibration", calibration.run_benchmark, 1, {(1037, 64): 36, (1036, 64): 12})):
+        timed = TimedModel(model)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        summary = run(timed, loader(views))
+        run_s = time.perf_counter() - t0
+        runs[name] = {"summary": summary, "sets": len(timed.ms), "forward_ms_per_set": float(np.mean(timed.ms)),
+                      "forward_ms_after_first": float(np.mean(timed.ms[1:])), "forward_ms_each": timed.ms, "s_per_set_with_loader_and_metrics": run_s / len(timed.ms),
+                      "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "launches_per_set": check_launches_per_forward(name, timed.shapes, want),
+                      "launches": {k: n * len(timed.ms) for k, n in shape_key(want).items()}}
+        if len(timed.ms) != BENCH_SETS:
+            raise AssertionError(f"{name}: {len(timed.ms)} sets, not {BENCH_SETS}")
+    dense, rmvd, calib = (runs[k]["summary"] for k in ("dense_n_view", "rmvd", "calibration"))
+    if set(dense) != {"scene_png", "scene_jpg", "overall"} or set(calib) != set(dense):
+        raise AssertionError(f"scenes: {sorted(dense)}, {sorted(calib)}")
+    for scene, m in dense.items():
+        check_set_metrics(f"dense_n_view {scene}", m)
+    if not (np.isfinite(rmvd["absrel"]) and rmvd["absrel"] >= 0 and 0 <= rmvd["inlier103"] <= 100
+            and rmvd["num_samples"] == BENCH_SETS):
+        raise AssertionError(f"rmvd: {rmvd}")
+    if not all(np.isfinite(v) and 0 <= v <= 180 for v in calib.values()):
+        raise AssertionError(f"calibration: {calib}")
+
+    # The same predictions scored on the CPU; the allowance of each discontinuous metric
+    # from the counted pixels and pairs near an edge.
+    batch, preds = kept["batch"], kept["preds"]
+    edges = dense_n_view.metric_edges(batch, preds)[0]
+    cpu = dense_n_view.compute_set_metrics(batch.to("cpu"), predictions_on(preds, "cpu"))[0]
+    gpu = kept["card_metrics"][0]
+    gaps = {k: abs(cpu[k] - gpu[k]) for k in gpu}
+    limits = {k: BENCH_CPU_RTOL * abs(cpu[k]) + 1e-7 + edges.get(k, 0.0) for k in gpu}
+    line["card_vs_cpu"] = {"gaps": gaps, "limits": limits, "edges": edges}
+    bad = {k: (gaps[k], limits[k]) for k in gaps if not gaps[k] <= limits[k]}
+    if bad:
+        raise AssertionError(f"set metrics on the card and on the CPU disagree: {bad}")
+
+    # The ground truth fed back as the prediction, scored on the card.
+    gt = dense_n_view.compute_set_metrics(batch, ground_truth_predictions(batch))[0]
+    line["ground_truth_as_prediction"] = gt
+    if not (gt["pointmaps_abs_rel"] == 0 and gt["z_depth_abs_rel"] == 0 and gt["pointmaps_inlier_thres_103"] == 1
+            and gt["z_depth_inlier_thres_103"] == 1 and gt["pose_auc_5"] == 100
+            and gt["pose_ate_rmse"] < GT_ATE_LIMIT):
+        raise AssertionError(f"the ground truth as the prediction scores {gt}")
+    line.update(runs=runs, card=card["name"], power_limit=card["power_limit"])
+    emit(line)
+    return line
+
+
+def many_view_phase(card) -> dict:
+    """Phase 35: tools/benchmark_many_views.py in this process at its defaults (100 views of
+    518 x 518, head_chunk_size 10, 2 timed iterations after one warm-up): views/s, s a
+    scene, peak memory, launches a forward by key length (36 K1-regime and 12 K3-regime
+    lse-free launches); the last forward's outputs under phase 5's and, postprocessed,
+    phase 13's invariants. Then the kernel at its shapes: K1 at the encoder and frame
+    layers, K3 at 1 x 136901 on a slice of query rows."""
+    import torch
+
+    from mapanything_tpu_torch.models.mapanything import Views
+    from mapanything_tpu_torch.ops.flash_attention import launch_counts, launch_lengths, reset_launch_counts
+    from mapanything_tpu_torch.tools import benchmark_many_views
+    from mapanything_tpu_torch.utils.inference import PostprocessConfig, postprocess_model_outputs_for_inference
+
+    args = benchmark_many_views.parse_args([])
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    run = benchmark_many_views.run(args)
+    tool_s = time.perf_counter() - t0
+    counts, lengths = launch_counts(), launch_lengths()
+    forwards = 1 + args.iters
+    want = {1370: 24 * forwards, 1369: 12 * forwards, MANY_VIEW_T: 12 * forwards}
+    if counts["flash_attention_fwd"] != 48 * forwards or lengths != want or any(
+            n for k, n in counts.items() if k != "flash_attention_fwd"):
+        raise AssertionError(f"{forwards} forwards at 100 views launched {counts}, by length {lengths}")
+    shape = (1, args.views, args.res, args.res)
+    ray_norm_err = check_invariants(run["preds"], shape)
+    with torch.inference_mode():
+        out = postprocess_model_outputs_for_inference(run["preds"], Views(img=run["images"]), PostprocessConfig())
+    line = {"phase": "many_view_tool", "phase_id": "35",
+            "config": "tools/benchmark_many_views.py defaults: MapAnythingConfig(compute_dtype='bfloat16', "
+                      f"head_chunk_size={run['line']['head_chunk_size']}), 1x{args.views}x{args.res}x{args.res}, "
+                      f"seeded random weights, {args.iters} timed forwards",
+            **run["line"], "tool_s": tool_s, "forwards": forwards, "launches": counts,
+            "lse_free_launches_per_forward_by_length": {str(k): n // forwards for k, n in lengths.items()},
+            "ray_norm_err": ray_norm_err, **check_infer_outputs(out, shape)}
+    del run, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["rows"] = kernel_checks(card, MANY_VIEW_100_SHAPES, "35")
+    line["long_row"] = long_forward_check(card, *MANY_VIEW_LONG, plain_iters=1)
+    line.update(card=card["name"], power_limit=card["power_limit"])
+    emit({k: v for k, v in line.items() if k not in ("rows", "long_row")})
+    return line
+
+
+def inference_wai_phase(card, work: Path, model) -> dict:
+    """Phase 36: tools/inference_wai.py on phase 21's scene_png, 8 views at 518 (the
+    518 x 392 bucket), with ``model`` (the flagship bf16, seeded): the three files written,
+    infer's launches by shape."""
+    import torch
+
+    from mapanything_tpu_torch.ops.flash_attention import launch_counts, launch_shapes, reset_launch_counts
+    from mapanything_tpu_torch.tools import inference_wai
+
+    out_dir = work / "inference_wai"
+    args = inference_wai.parse_args(["--scene", str(work / "eth3d" / "scene_png"), "--out", str(out_dir)])
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    run = inference_wai.run(args, model=model)
+    torch.cuda.synchronize()
+    tool_s = time.perf_counter() - t0
+    counts, shapes = launch_counts(), launch_shapes()
+    want = {(1037, 64): 24, (1036, 64): 12, (BENCH_VIEWS * 1036 + 1, 64): 12}
+    if shapes.get("flash_attention_fwd") != want or any(n for k, n in counts.items() if k != "flash_attention_fwd"):
+        raise AssertionError(f"inference_wai launched {counts}, by shape {shape_key(shapes['flash_attention_fwd'])}")
+    sizes = {name: (out_dir / name).stat().st_size for name in inference_wai.OUTPUTS}
+    if not all(sizes.values()):
+        raise AssertionError(f"inference_wai wrote {sizes}")
+    line = {"phase": "inference_wai", "phase_id": "36", "views": list(run["views"]["images"].shape[1:4]),
+            "tool_s": tool_s, "file_bytes": sizes, "launches": counts,
+            "launches_by_shape": shape_key(shapes["flash_attention_fwd"]),
+            **check_infer_outputs(run["outputs"], (1, BENCH_VIEWS, BENCH_RES[1], BENCH_RES[0])),
+            "card": card["name"], "power_limit": card["power_limit"]}
+    emit(line)
+    return line
+
+
+def finetune_phase(card) -> dict:
+    """Phase 37: tools/one_sample_finetune.py in this process, the flagship at its default
+    dtype (fp32) with the geometric encoders, 2 views of 518 x 518, FINETUNE_STEPS steps at
+    lr FINETUNE_LR: ms a step, peak memory, launches a step by kernel and shape, finite
+    losses and gradient norms, and the JAX test's criterion (the last printed loss under
+    0.9x the first). The training kernels first against their plain versions at its shapes."""
+    import torch
+
+    from mapanything_tpu_torch.ops.flash_attention import launch_counts, launch_shapes, reset_launch_counts
+    from mapanything_tpu_torch.tools import one_sample_finetune
+
+    rows = train_kernel_checks(card, FINETUNE_SHAPES, FINETUNE_REPLACES, "37")
+    args = one_sample_finetune.parse_args(["--views", "2", "--resolution", "518", "--steps", str(FINETUNE_STEPS),
+                                           "--lr", str(FINETUNE_LR)])
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    run = one_sample_finetune.run(args)
+    counts, shapes = launch_counts(), launch_shapes()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [loss for _, loss, _ in run["printed"]]
+    norms = [g for _, _, g in run["printed"]]
+    n = FINETUNE_STEPS
+    want = {"flash_attention_fwd": 0, "flash_attention_fwd_lse": 48 * n, "flash_attention_bwd_dq": 48 * n,
+            "flash_attention_bwd_dkv": 48 * n, "flash_attention_split_f32": 96 * n}
+    per_step = {(1370, 64): 24 * n, (1369, 64): 12 * n, (2739, 64): 12 * n}
+    bad = [k for k in ("flash_attention_fwd_lse", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+           if shapes.get(k) != per_step]
+    if counts != want or bad:
+        raise AssertionError(f"{n} finetune steps launched {counts}, by shape "
+                             f"{ {k: shape_key(v) for k, v in shapes.items()} }")
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+        raise AssertionError(f"non-finite finetune losses or gradient norms: {run['printed']}")
+    met = losses[-1] < losses[0] * 0.9
+    line = {"phase": "one_sample_finetune", "phase_id": "37",
+            "config": f"tools/one_sample_finetune.py --views 2 --resolution 518 --steps {n} --lr {FINETUNE_LR}: "
+                      "MapAnythingConfig() (fp32) with the geometric encoders, seeded",
+            "printed": run["printed"], "criterion_last_under_0.9_first": met,
+            "ms_per_step": 1e3 * float(np.mean(run["seconds"][1:])), "ms_each_step": [1e3 * s for s in run["seconds"]],
+            "peak_mem_gib": peak, "launches": counts,
+            "launches_per_step_by_shape": {k: {key: c // n for key, c in shape_key(v).items()}
+                                           for k, v in shapes.items() if v},
+            "card": card["name"], "power_limit": card["power_limit"]}
+    emit(line)
+    if not met:
+        raise AssertionError(f"the finetune's last printed loss {losses[-1]} is not under 0.9x the first {losses[0]}")
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"line": line, "rows": rows, "launches": counts, "steps": n}
+
+
+def benchmark_phases(card, files_rows=None) -> dict:
+    """Phases 34-37 on one set of phase 21's scenes (written to a temporary directory under
+    build/) and one seeded flagship bf16 for 34 and 36; ``files_rows``: phase 19's kernel
+    rows (the 518 x 392 shapes), checked here when not given; the calibration's rows."""
+    import torch
+
+    if files_rows is None:
+        files_rows = kernel_checks(card, FILES_SHAPES, "3")
+    out = {"files_rows": files_rows, "calib_rows": kernel_checks(card, CALIB_SHAPES, "3")}
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="benchmarks_", dir=ROOT / "build"))
+    seconds = {}
+    try:
+        t0 = time.perf_counter()
+        write_wai_scenes(work)
+        seconds["write_scenes"] = time.perf_counter() - t0
+        model = flagship_on_card()
+        for key, phase in (("benchmarks", lambda: benchmarks_phase(card, work, model)),
+                           ("inference_wai", lambda: inference_wai_phase(card, work, model))):
+            t0 = time.perf_counter()
+            out[key] = phase()
+            seconds[key] = time.perf_counter() - t0
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        for key, phase in (("many_view", many_view_phase), ("finetune", finetune_phase)):
+            t0 = time.perf_counter()
+            out[key] = phase(card)
+            seconds[key] = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "benchmark_phases_total", "phase_id": "34-37", "seconds": seconds,
+          "card": card["name"], "power_limit": card["power_limit"]})
+    return out
+
+
+def benchmark_entries(bench) -> list:
+    """Phases 34-37 in the kernels line: the lse-free forward on each benchmark's path
+    (dense N-view and RMVD at 8 x 518 x 392, calibration on single views: times per set;
+    inference_wai: times per scene), one entry per TPU kernel replaced, with that run's
+    launches; on the 100-view tool (K1 at the encoder and frame layers, K3 at the global
+    layers: times per scene, the run's launches); and the fp32 training kernels and their
+    split pass on the one-sample finetune (times per step, the run's launches)."""
+    entries = []
+    files, calib = bench["files_rows"], bench["calib_rows"]
+    # Each forward's launches at each row's shape were checked equal to the row's per_forward.
+    for path, rows, runs, what in (("dense_n_view (phase 34), 1x8x518x392", files, BENCH_SETS, "times per set"),
+                                   ("rmvd (phase 34), 1x8x518x392", files, BENCH_SETS, "times per set"),
+                                   ("calibration (phase 34), 1x1x518x392", calib, BENCH_SETS, "times per set"),
+                                   ("inference_wai (phase 36), 1x8x518x392", files, 1, "times per scene")):
+        for replaces in dict.fromkeys(r["replaces"] for r in rows):
+            group = [r for r in rows if r["replaces"] == replaces]
+            entries.append(path_entry("flash_attention_fwd", replaces, group,
+                                      {r["shape"]: r["per_forward"] for r in group}, path=f"{path}; {what}"))
+            entries[-1]["launches"] = sum(r["per_forward"] for r in group) * runs
+    many = bench["many_view"]
+    by_length, forwards = many["lse_free_launches_per_forward_by_length"], many["forwards"]
+    for replaces, group in ((f"{FA}:395", many["rows"]), (f"{FA}:164", [many["long_row"]])):
+        entries.append(path_entry("flash_attention_fwd", replaces, group,
+                                  {r["shape"]: by_length[str(r["b_t_h_d"][1])] for r in group},
+                                  path="tools/benchmark_many_views.py defaults, 1x100x518 (phase 35); "
+                                       "times per scene"))
+        entries[-1]["launches"] = sum(by_length[str(r["b_t_h_d"][1])] * forwards for r in group)
+    ft = bench["finetune"]
+    for name in TRAIN_OUTPUTS:
+        entries.append(train_entry(name, ft["rows"], FINETUNE_REPLACES[name]["ft_global"], ft["launches"][name],
+                                   ft["steps"], dtype="float32",
+                                   path="tools/one_sample_finetune.py, flagship fp32 1x2x518 (phase 37); "
+                                        "times per step"))
+    return entries
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the PyTorch port on one NVIDIA GPU.")
     parser.add_argument("--train-step-only", action="store_true",
@@ -4560,6 +5003,9 @@ def main() -> int:
                         help="build the kernels, check their SASS, then run the bundle-adjustment slice alone (the "
                              "D = 48 forward's edge cases and canaries, its rows of phase 3, phases 31-33) and stop "
                              "after their lines and their kernels line")
+    parser.add_argument("--benchmarks-only", action="store_true",
+                        help="build the kernels, then run the benchmark slice alone (the kernel rows at its shapes, "
+                             "phases 34-37) and stop after their lines and their kernels line")
     parser.add_argument("--rgb-only", action="store_true",
                         help="build the kernels, then run the RGB models' phases alone (the D = 32 rows of phases 3 "
                              "and 3b, phases 22-24, and 25 on its one-rank group) and stop after their lines")
@@ -4608,6 +5054,10 @@ def main() -> int:
     if args.baselines_only:
         emit(build)
         emit({"kernels": baseline_entries(baseline_phases(card))})
+        return 0
+    if args.benchmarks_only:
+        emit(build)
+        emit({"kernels": benchmark_entries(benchmark_phases(card))})
         return 0
     if args.rgb_only:
         emit(build)
@@ -4725,6 +5175,10 @@ def main() -> int:
     ba = ba_phases(card, {"files": files[0], "tracker": tracker_rows, "optim": optim_rows,
                           "d32_long": kernel_checks(card, D32_LONG_SHAPES, "3")})
 
+    # 34-37. The accuracy benchmarks, the 100-view tool, inference on a WAI scene, the
+    # one-sample finetune.
+    bench = benchmark_phases(card, files[0])
+
     # 8-10. View parallelism on a process group of this process alone: NCCL at world size 1.
     from mapanything_tpu_torch.parallel.distributed import init_distributed_mode
     from mapanything_tpu_torch.parallel.mesh import make_view_group
@@ -4764,7 +5218,7 @@ def main() -> int:
     summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, inference_launches, train_launches,
                  train_steps, vp_launches, many_view_line, h128,
                  {"rows": fp32_train_rows, "launches": fp32_launches, "steps": fp32_steps}, fp32_forward, files,
-                 trainer, data, rgb, dust3r, baseline, ba)
+                 trainer, data, rgb, dust3r, baseline, ba, bench)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -131,6 +131,21 @@ SLICE_MODULES = (
     "mapanything_tpu_torch.models.external.mast3r",
     "mapanything_tpu_torch.tools.demo_colmap",
     "mapanything_tpu_torch.tools.demo_inference_on_colmap_outputs",
+    # the accuracy benchmarks, the timers, the benchmark, inference, finetune and data tools
+    "mapanything_tpu_torch.utils.metrics",
+    "mapanything_tpu_torch.utils.timing",
+    "mapanything_tpu_torch.benchmarking",
+    "mapanything_tpu_torch.benchmarking.dense_n_view",
+    "mapanything_tpu_torch.benchmarking.calibration",
+    "mapanything_tpu_torch.benchmarking.rmvd_mvs",
+    "mapanything_tpu_torch.tools.benchmark_dense_n_view",
+    "mapanything_tpu_torch.tools.benchmark_calibration",
+    "mapanything_tpu_torch.tools.benchmark_rmvd",
+    "mapanything_tpu_torch.tools.benchmark_many_views",
+    "mapanything_tpu_torch.tools.inference_wai",
+    "mapanything_tpu_torch.tools.one_sample_finetune",
+    "mapanything_tpu_torch.tools.viz_dataset",
+    "mapanything_tpu_torch.tools.profile_dataloading",
 )
 # Optional decoders that the port imports only when a file needs them, and what the JAX data path
 # uses that the port must not (PyYAML, SciPy).
