@@ -302,6 +302,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import inspect
 import json
 import math
 import re
@@ -3738,7 +3739,7 @@ def split_rows(rows) -> list:
 
 def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, inference_launches, train_launches,
                  train_steps, vp_launches, many_view_line, h128, fp32_train, fp32_forward, files, trainer, data, rgb,
-                 dust3r, baseline, ba, bench):
+                 dust3r, baseline, ba, bench, proc):
     """The kernels line: each kernel, what it replaces, its launches on its path
     (one forward; all train steps, and per step), its max error and its times
     per forward (inference) or per train step. The phase-3c rows are the
@@ -3764,7 +3765,8 @@ def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, infe
     (phase 27), with that run's launches; the baselines' rows (``baseline``) the forward (and
     its split pass) on each baseline's forward at its release's widths (phase 29), with that
     run's launches; the BA slice's (``ba``) those of ``ba_entries`` (phases 31-33); the
-    benchmark slice's (``bench``) those of ``benchmark_entries`` (phases 34-37)."""
+    benchmark slice's (``bench``) those of ``benchmark_entries`` (phases 34-37); the processing
+    slice's (``proc``) those of ``processing_entries`` (phases 38-40)."""
     main_rows = [r for r in rows if r["per_forward"] and r["dtype"] == "bfloat16"]
     kernels = [path_entry("flash_attention_fwd", "mapanything_tpu/ops/flash_attention.py:395", main_rows,
                           {r["shape"]: r["per_forward"] for r in main_rows},
@@ -3827,6 +3829,7 @@ def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, infe
     kernels += baseline_entries(baseline)
     kernels += ba_entries(ba)
     kernels += benchmark_entries(bench)
+    kernels += processing_entries(proc)
     emit({"kernels": kernels})
 
 
@@ -4976,6 +4979,554 @@ def benchmark_entries(bench) -> list:
     return entries
 
 
+# ---------------------------------------------------------------- phases 38-40
+
+
+PROC_CUT = 4  # the CPU comparisons' cut: the first 4 frames at a quarter of each side (192 x 256)
+PROC_STAGE_FRAMES = 4  # frames of the render and undistort scene copies
+MOGE_BATCH = 4
+COVIS_ATOL, CONF_AGREEMENT, SWEEP_AGREEMENT, SWEEP_EPS = 2e-3, 0.999, 0.995, 3e-5
+RENDER_RTOL, FACE_TIES, MOGE_RTOL = 1e-5, 1e-3, 1e-3
+LIVE_REQUESTS = 3
+
+
+def cam_txt(w2c, K) -> str:
+    """A BlendedMVS cams/<frame>_cam.txt: "extrinsic", the 4 x 4 world2cam, "intrinsic", K."""
+    rows = ["extrinsic", *(" ".join(map(str, r)) for r in w2c), "", "intrinsic", *(" ".join(map(str, r)) for r in K)]
+    return "\n".join(rows) + "\n"
+
+
+def frame_pose(i: int) -> np.ndarray:
+    """Phase 21's camera path: a turn of 0.03 rad about y and a step of (0.05, 0, 0.01) a frame."""
+    pose = np.eye(4)
+    a = 0.03 * i
+    pose[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+    pose[:3, 3] = [0.05 * i, 0.0, 0.01 * i]
+    return pose
+
+
+def write_blendedmvs_raw(root: Path) -> None:
+    """A raw BlendedMVS scene of DATA_FRAMES 1024 x 768 frames: the JPEG fixtures as
+    blended_images, PFM depth (phase 21's surface) and cams files."""
+    fixtures = sorted(JPEG_FIXTURES.glob("*.jpg"))
+    h, w = DATA_HW
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    K = np.array([[0.8 * w, 0, w / 2 - 0.5], [0, 0.8 * w, h / 2 - 0.5], [0, 0, 1]])
+    scene = root / "5a3ca9cb270f0c1234567890"
+    for sub in ("cams", "rendered_depth_maps", "blended_images"):
+        (scene / sub).mkdir(parents=True)
+    for i in range(DATA_FRAMES):
+        n = f"{i:08d}"
+        shutil.copyfile(fixtures[i % len(fixtures)], scene / "blended_images" / f"{n}.jpg")
+        depth = (2.5 + 0.8 * np.sin(x / 90 + 0.3 * i) * np.cos(y / 70) + 0.002 * y).astype("<f4")
+        (scene / "rendered_depth_maps" / f"{n}.pfm").write_bytes(b"Pf\n%d %d\n-1.0\n" % (w, h) + depth[::-1].tobytes())
+        (scene / "cams" / f"{n}_cam.txt").write_text(cam_txt(np.linalg.inv(frame_pose(i)), K))
+
+
+def cut(depths=None, Ks=None, images=None, step: int = 4, n: int = PROC_CUT):
+    """The first ``n`` frames, every ``step``-th pixel, the intrinsics scaled to match."""
+    out = []
+    if depths is not None:
+        out.append(np.ascontiguousarray(depths[:n, ::step, ::step]))
+    if Ks is not None:
+        K = np.array(Ks[:n], np.float32)
+        K[:, :2] /= step
+        out.append(K)
+    if images is not None:
+        out.append(np.ascontiguousarray(images[:n, ::step, ::step]))
+    return out
+
+
+def scene_arrays(scene: Path, mods=("depth", "intrinsics", "pose"), frames: int = PROC_CUT) -> dict:
+    """The first ``frames`` frames' ``mods`` of a WAI scene, stacked."""
+    from mapanything_tpu_torch.data import wai as wai_io
+
+    meta = wai_io.load_scene_meta(scene)
+    frames = [wai_io.load_frame(scene, fr["frame_name"], list(mods), meta=meta) for fr in meta["frames"][:frames]]
+    return {m: np.stack([f[m] for f in frames]) for m in mods}
+
+
+def covisibility_cut_check(depths, Ks, poses) -> dict:
+    """Covisibility on the card against the CPU on the cut: off the diagonal within
+    COVIS_ATOL; on it (a view against itself, whose border reprojects exactly onto its
+    border) within one border row and column of pixels."""
+    from mapanything_tpu_torch.data_processing.covisibility import compute_pairwise_covisibility
+
+    d, K = cut(depths, Ks)
+    card = compute_pairwise_covisibility(d, K, poses[:PROC_CUT], device="cuda")
+    cpu = compute_pairwise_covisibility(d, K, poses[:PROC_CUT], device="cpu")
+    off = ~np.eye(len(card), dtype=bool)
+    h, w = d.shape[1:]
+    diag_tol = max(COVIS_ATOL, (h + w) / (h * w))
+    out = {"cut": list(d.shape), "off_diagonal_max_abs_diff": float(np.abs(card - cpu)[off].max()),
+           "diagonal_max_abs_diff": float(np.abs(np.diag(card) - np.diag(cpu)).max()), "tol": COVIS_ATOL,
+           "diagonal_tol": diag_tol, "entries_differing": int((card != cpu).sum()), "card": card.round(6).tolist()}
+    if out["off_diagonal_max_abs_diff"] > COVIS_ATOL or out["diagonal_max_abs_diff"] > diag_tol:
+        raise AssertionError(f"covisibility on the card is off the CPU's: {out}")
+    return out
+
+
+def timed_stage(fn):
+    """(result, seconds, peak GiB) of ``fn`` on the card."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+
+
+def convert_phase(card, work: Path) -> dict:
+    """Phase 38: a raw BlendedMVS scene of 24 frames of 1024 x 768 through
+    tools/convert_wai.py (conversion, covisibility on the card, aggregation); the
+    covisibility held to the CPU's on the cut."""
+    from mapanything_tpu_torch.tools import convert_wai
+
+    raw, wai, md = work / "raw_blendedmvs", work / "wai_blendedmvs", work / "meta_blendedmvs"
+    t0 = time.perf_counter()
+    write_blendedmvs_raw(raw)
+    write_s = time.perf_counter() - t0
+    args = convert_wai.parse_args(["--dataset", "blendedmvs", "--raw-root", str(raw), "--out-root", str(wai),
+                                   "--metadata-dir", str(md), "--covisibility", "--aggregate", "--device", "cuda"])
+    result, total_s, peak = timed_stage(lambda: convert_wai.run(args))
+    (scene,) = result["scenes"]
+    covis = np.load(wai / scene / "covisibility" / "v0" / "pairwise_covisibility.npy")
+    if covis.shape != (DATA_FRAMES, DATA_FRAMES) or not np.isfinite(covis).all() or not (0 <= covis).all() \
+            or not (covis <= 1).all() or np.diag(covis).min() < 0.9:
+        raise AssertionError(f"the scene's covisibility is not a covisibility matrix: {covis}")
+    lists = sorted(str(p.relative_to(md)) for p in md.rglob("*.npy"))
+    if not lists:
+        raise AssertionError("the aggregation wrote no scene list")
+    arrays = scene_arrays(wai / scene)
+    line = {"phase": "convert", "phase_id": "38", "frames": DATA_FRAMES, "hw": list(DATA_HW),
+            "write_raw_s": write_s, "stage_s": result["seconds"], "total_s": total_s,
+            "covisibility_peak_gib": peak, "scene_lists": lists,
+            "covisibility_neighbour_mean": float(np.diag(covis, 1).mean()),
+            "cut_check": covisibility_cut_check(arrays["depth"], arrays["intrinsics"], arrays["pose"]),
+            "card": card["name"], "power_limit": card["power_limit"]}
+    emit(line)
+    return line
+
+
+def processing_scene(work: Path) -> Path:
+    """Phase 21's scene_png (24 PNG frames of 1024 x 768, 16-bit millimetre depth, a
+    covisibility) with the camera fields the stages read: the size, a PINHOLE model,
+    shared intrinsics, the frame modalities."""
+    write_wai_scenes(work)
+    root = work / "eth3d"
+    meta_path = root / "scene_png" / "scene_meta.json"
+    meta = json.loads(meta_path.read_text())
+    h, w = DATA_HW
+    meta.update(h=h, w=w, camera_model="PINHOLE", shared_intrinsics=True, scene_name="scene_png",
+                frame_modalities={"image": {"frame_key": "image", "format": "image"},
+                                  "depth": {"frame_key": "depth", "format": "depth"}})
+    meta_path.write_text(json.dumps(meta))
+    return root
+
+
+def scene_copy(root: Path, name: str, frames: int, **camera) -> Path:
+    """The first ``frames`` frames of scene_png as scene ``name``, its camera fields updated."""
+    src, dst = root / "scene_png", root / name
+    meta = json.loads((src / "scene_meta.json").read_text())
+    meta["frames"] = meta["frames"][:frames]
+    for fr in meta["frames"]:
+        for key in ("image", "depth"):
+            (dst / fr[key]).parent.mkdir(parents=True, exist_ok=True)
+            shutil.copyfile(src / fr[key], dst / fr[key])
+    meta.update(scene_name=name, **camera)
+    (dst / "scene_meta.json").write_text(json.dumps(meta))
+    return dst
+
+
+def height_field_mesh(n: int = 256, seed: int = 39):
+    """A (n + 1)^2-vertex height field (2 n^2 triangles) with vertex colours, in front of
+    the scene's cameras (z about 2.5, the depth of phase 21's surface)."""
+    rng = np.random.default_rng(seed)
+    xs, ys = np.meshgrid(np.linspace(-2.0, 2.5, n + 1), np.linspace(-1.6, 1.6, n + 1))
+    zs = 2.5 + 0.3 * np.sin(2.1 * xs) * np.cos(1.7 * ys) + 0.01 * rng.standard_normal(xs.shape)
+    verts = np.stack([xs, ys, zs], -1).reshape(-1, 3).astype(np.float32)
+    idx = np.arange((n + 1) ** 2).reshape(n + 1, n + 1)
+    a, b, c, d = idx[:-1, :-1], idx[:-1, 1:], idx[1:, :-1], idx[1:, 1:]
+    faces = np.concatenate([np.stack([a, b, d], -1).reshape(-1, 3), np.stack([a, d, c], -1).reshape(-1, 3)])
+    return verts, faces.astype(np.int32), rng.random((len(verts), 3)).astype(np.float32)
+
+
+def moge_release_on_card(seed: int = 0):
+    """MoGe-1 at the release's widths (ViT-L/14), built on the meta device and seeded on the card."""
+    import torch
+
+    from mapanything_tpu_torch.models.blocks import init_params
+    from mapanything_tpu_torch.models.external.moge import MoGeConfig, MoGeWrapper
+
+    with torch.device("meta"):
+        model = MoGeWrapper(MoGeConfig(), device="meta")
+    model.to_empty(device="cuda")
+    init_params(model, torch.Generator(device="cuda").manual_seed(seed))
+    return model
+
+
+def moge_cut_check(model, images) -> dict:
+    """The release-width MoGe's raw outputs (points, mask logits) on one cut frame
+    (168 x 224) on the card (TF32 off) against the same weights on the CPU."""
+    import torch
+
+    from mapanything_tpu_torch.models.external.moge import MoGeConfig, MoGeWrapper
+
+    frame = np.ascontiguousarray(images[0, :168, :224])[None]
+    with torch.device("meta"):
+        cpu = MoGeWrapper(MoGeConfig(), device="meta")
+    cpu.to_empty(device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            card_out = [x.float().cpu() for x in model.predict(torch.from_numpy(frame))]
+            cpu_out = [x.float() for x in cpu.predict(torch.from_numpy(frame))]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    out = {"cut": list(frame.shape), "tol_over_magnitude": MOGE_RTOL}
+    for name, a, b in (("points", card_out[0], cpu_out[0]), ("mask_logits", card_out[1], cpu_out[1])):
+        scale = max(1.0, float(b.abs().max()))
+        out[f"{name}_err_over_magnitude"] = float((a - b).abs().max()) / scale
+    if not all(out[f"{n}_err_over_magnitude"] <= MOGE_RTOL for n in ("points", "mask_logits")):
+        raise AssertionError(f"MoGe on the card is off the CPU's: {out}")
+    return out
+
+
+def check_frame_files(scene: Path, key: str, frames: int, lo: float = 0.0, hi: float = np.inf) -> dict:
+    """Every frame has ``key``'s file, finite and within [lo, hi]; its share of nonzero pixels."""
+    from mapanything_tpu_torch.utils.exr import read_depth_exr
+
+    meta = json.loads((scene / "scene_meta.json").read_text())
+    if len(meta["frames"]) != frames:
+        raise AssertionError(f"{scene.name}: {len(meta['frames'])} frames, not {frames}")
+    nonzero = []
+    for fr in meta["frames"]:
+        values = read_depth_exr(scene / fr[key])
+        if not np.isfinite(values).all() or values.min() < lo or values.max() > hi:
+            raise AssertionError(f"{scene.name}/{fr[key]}: values outside [{lo}, {hi}]")
+        nonzero.append(float((values > 0).mean()))
+    return {"frames": len(nonzero), "nonzero_share_min": min(nonzero), "nonzero_share_mean": float(np.mean(nonzero))}
+
+
+def run_process_stage(argv, model=None) -> None:
+    from mapanything_tpu_torch.tools import process_wai
+
+    if process_wai.main(argv, model=model) != 0:
+        raise AssertionError(f"process_wai {argv} failed")
+
+
+def process_phase(card, work: Path) -> dict:
+    """Phase 39: tools/process_wai.py stage by stage on the card over phase 21's scene_png
+    (24 frames of 1024 x 768): confidence, mvs (64 planes, 4 neighbours), moge (MoGe-1 at
+    release width, seeded, batch 4), render (a 131072-triangle height field with vertex
+    colours, on a 4-frame copy) and undistort (4-frame copies with an OPENCV and an
+    OPENCV_FISHEYE camera). Each stage's seconds and peak memory; each held to the CPU's
+    result at a cut; the MoGe stage's attention launches by shape."""
+    import torch
+
+    from mapanything_tpu_torch.data_processing import depth_confidence, pseudo_depth, rendering, undistort
+    from mapanything_tpu_torch.ops.flash_attention import launch_counts, launch_shapes, reset_launch_counts
+
+    t0 = time.perf_counter()
+    root = processing_scene(work)
+    scene = root / "scene_png"
+    setup_s = time.perf_counter() - t0
+    arrays = scene_arrays(scene, ("image", "depth", "intrinsics", "pose"))
+    stages = {}
+
+    def stage(name, argv, check, model=None):
+        _, seconds, peak = timed_stage(lambda: run_process_stage([name, "--root", str(root), *argv], model))
+        stages[name] = {"seconds": seconds, "peak_gib": peak, **check()}
+        emit({"phase": f"process_{name}", "phase_id": "39", **stages[name],
+              "card": card["name"], "power_limit": card["power_limit"]})
+
+    # confidence
+    def conf_check():
+        d, K = cut(arrays["depth"], arrays["intrinsics"])
+        card_conf, cpu_conf = (depth_confidence.compute_depth_consistency_confidence(d, K, arrays["pose"][:PROC_CUT],
+                                                                                     device=device)
+                               for device in ("cuda", "cpu"))
+        agree = float((card_conf == cpu_conf).mean())
+        if agree < CONF_AGREEMENT:
+            raise AssertionError(f"confidence on the card equals the CPU's at {agree} of the pixels")
+        files = check_frame_files(scene, "gt_depth_depth_confidence", DATA_FRAMES, 0.0, 1.0)
+        return {**files, "cut_equal_share": agree, "cut_tol": CONF_AGREEMENT, "cut": list(d.shape)}
+
+    stage("confidence", ["--scenes", "scene_png", "--device", "cuda"], conf_check)
+
+    # mvs
+    def mvs_check():
+        (imgs,) = cut(images=arrays["image"])
+        (K,) = cut(Ks=arrays["intrinsics"])
+        c2w = arrays["pose"].astype(np.float64)
+        w2c = np.linalg.inv(c2w)
+        inputs = (imgs[0], imgs[[1, 2]], K[0], K[[1, 2]], (w2c[[1, 2]] @ c2w[0]).astype(np.float32), 0.25, 12.5)
+        card_d = pseudo_depth.plane_sweep_depth(*inputs, num_planes=64, device="cuda")
+        cpu_d = pseudo_depth.plane_sweep_depth(*inputs, num_planes=64, device="cpu")
+        with torch.inference_mode():
+            on_card = [torch.as_tensor(np.asarray(x), dtype=torch.float32, device="cuda") for x in inputs]
+            scores, inv_d = pseudo_depth.plane_scores(*on_card, num_planes=64)
+        agreement = pseudo_depth.sweep_agreement(card_d[0], cpu_d[0], scores.cpu().numpy(), inv_d.cpu().numpy(),
+                                                 eps=SWEEP_EPS)
+        conf_diff = float(np.abs(card_d[1] - cpu_d[1]).max())
+        if agreement["within_rtol_or_sensitive"] < SWEEP_AGREEMENT or agreement["beyond_one_plane_off_ties"] \
+                or conf_diff > 1e-3:
+            raise AssertionError(f"the plane sweep on the card is off the CPU's: {agreement}, confidence {conf_diff}")
+        files = check_frame_files(scene, "mvs_depth", DATA_FRAMES)
+        return {**files, "cut_agreement": agreement, "cut_confidence_max_abs_diff": conf_diff,
+                "cut_tol": {"rtol": 1e-4, "share": SWEEP_AGREEMENT, "score_eps": SWEEP_EPS, "confidence": 1e-3}}
+
+    stage("mvs", ["--scenes", "scene_png", "--num-planes", "64", "--num-neighbors", "4", "--device", "cuda"], mvs_check)
+
+    # moge
+    model = moge_release_on_card()
+    moge_run = {}
+
+    def moge_check():
+        files = check_frame_files(scene, "moge_depth", DATA_FRAMES)
+        return {**files, **moge_run, "cut_check": moge_cut_check(model, arrays["image"])}
+
+    reset_launch_counts()
+    _, seconds, peak = timed_stage(lambda: run_process_stage(["moge", "--root", str(root), "--scenes", "scene_png",
+                                                              "--batch-size", str(MOGE_BATCH), "--device", "cuda"],
+                                                             model))
+    counts, shapes = launch_counts(), launch_shapes()
+    batches = -(-DATA_FRAMES // MOGE_BATCH)
+    fwd_shapes = shapes["flash_attention_fwd"]
+    if len(fwd_shapes) != 1 or counts["flash_attention_fwd"] != 24 * batches \
+            or counts["flash_attention_split_f32"] != 24 * batches:
+        raise AssertionError(f"the MoGe stage launched {counts}, by (Tk, D) {fwd_shapes}")
+    ((tokens, head_dim),) = fwd_shapes
+    moge_run.update(launches=counts, launches_by_shape={f"{k[0]}x{k[1]}": v for k, v in fwd_shapes.items()},
+                    batches=batches, tokens=tokens)
+    stages["moge"] = {"seconds": seconds, "peak_gib": peak, **moge_check()}
+    emit({"phase": "process_moge", "phase_id": "39", **stages["moge"], "card": card["name"],
+          "power_limit": card["power_limit"]})
+    del model
+    moge_rows = kernel_checks(card, [(f"moge_{DATA_HW[0]}x{DATA_HW[1]}", (MOGE_BATCH, tokens, 16, head_dim), "float32",
+                                      {"moge_stage": 24}, f"{FA}:164")], "39")
+
+    # render: the height field in a 4-frame copy
+    render_scene = scene_copy(root, "scene_render", PROC_STAGE_FRAMES)
+    verts, faces, colors = height_field_mesh()
+    rendering.write_ply_mesh(render_scene / "mesh.ply", verts, faces, colors)
+    meta = json.loads((render_scene / "scene_meta.json").read_text())
+    meta["scene_modalities"] = {"mesh": {"scene_key": "mesh.ply", "format": "mesh"}}
+    (render_scene / "scene_meta.json").write_text(json.dumps(meta))
+
+    def render_check():
+        files = check_frame_files(render_scene, "rendered_depth", PROC_STAGE_FRAMES)
+        if files["nonzero_share_min"] < 0.5:
+            raise AssertionError(f"the mesh covers too little of the frames: {files}")
+        (K,) = cut(Ks=arrays["intrinsics"])
+        c2w = arrays["pose"][0]
+        h, w = DATA_HW[0] // 4, DATA_HW[1] // 4
+        a = rendering.render_mesh(verts, faces, K[0], c2w, h, w, vertex_colors=colors, device="cuda")
+        b = rendering.render_mesh(verts, faces, K[0], c2w, h, w, vertex_colors=colors, device="cpu")
+        hit = (a[0] > 0) & (b[0] > 0)
+        depth_rel = float((np.abs(a[0] - b[0])[hit] / b[0][hit]).max())
+        faces_differ = float((a[1] != b[1]).mean())
+        same = a[1] == b[1]
+        color_diff = float(np.abs(a[2] - b[2])[same].max())
+        out = {**files, "faces": len(faces), "cut": [h, w], "cut_depth_max_rel_diff": depth_rel,
+               "cut_hit_mismatch": int(((a[0] > 0) != (b[0] > 0)).sum()), "cut_faces_differing_share": faces_differ,
+               "cut_color_max_abs_diff": color_diff,
+               "cut_tol": {"depth_rel": RENDER_RTOL, "faces_share": FACE_TIES, "color": 1e-5}}
+        if (depth_rel > RENDER_RTOL or faces_differ > FACE_TIES or color_diff > 1e-5
+                or out["cut_hit_mismatch"] > FACE_TIES * h * w):
+            raise AssertionError(f"rendering on the card is off the CPU's: {out}")
+        return out
+
+    stage("render", ["--scenes", "scene_render", "--device", "cuda", "--modalities", "rendered_depth",
+                     "rendered_mesh_faces", "rendered_image"], render_check)
+
+    # undistort: OPENCV and OPENCV_FISHEYE copies
+    cams = {"scene_opencv": dict(camera_model="OPENCV", k1=-0.12, k2=0.03, p1=0.0007, p2=-0.0005),
+            "scene_fisheye": dict(camera_model="OPENCV_FISHEYE", k1=0.05, k2=-0.01, k3=0.002, k4=-0.0005)}
+    for name, camera in cams.items():
+        copy = scene_copy(root, name, PROC_STAGE_FRAMES, **camera)
+        meta = json.loads((copy / "scene_meta.json").read_text())
+        for fr in meta["frames"]:
+            fr["image_distorted"], fr["depth_distorted"] = fr.pop("image"), fr.pop("depth")
+        (copy / "scene_meta.json").write_text(json.dumps(meta))
+
+    def undistort_check():
+        from mapanything_tpu_torch.data import wai as wai_io
+        from mapanything_tpu_torch.data_processing.conversion.adapters import _image_size
+        from mapanything_tpu_torch.utils.jpeg import read_jpeg
+
+        out = {}
+        for name, camera in cams.items():
+            meta = wai_io.load_scene_meta(root / name)
+            new_w, new_h = meta["w"], meta["h"]
+            sizes = {_image_size(root / name / fr["image"]) for fr in meta["frames"]}
+            first = read_jpeg(root / name / meta["frames"][0]["image"])
+            if sizes != {(new_h, new_w)} or first.shape != (new_h, new_w, 3):
+                raise AssertionError(f"{name}: JPEG sizes {sizes}, not {new_h} x {new_w}")
+            check_frame_files(root / name, "depth", PROC_STAGE_FRAMES)
+            src = dict(fl_x=float(arrays["intrinsics"][0, 0, 0]), fl_y=float(arrays["intrinsics"][0, 1, 1]),
+                       cx=float(arrays["intrinsics"][0, 0, 2]), cy=float(arrays["intrinsics"][0, 1, 2]),
+                       w=DATA_HW[1], h=DATA_HW[0], **camera)
+            _, _, _, maps, roi = undistort.undistort_precompute(src)
+            img = (arrays["image"][0] * 255).round().astype(np.uint8)
+            mask = np.full(DATA_HW, 255, np.uint8)
+            mask[:40, :60] = 0
+            pairs = {kind: (fn(x, maps, roi, device="cuda"), fn(x, maps, roi, device="cpu"))
+                     for kind, fn, x in (("image", undistort.undistort_image, img),
+                                         ("depth", undistort.undistort_depth, arrays["depth"][0]),
+                                         ("mask", undistort.undistort_mask, mask))}
+            res = {"new_hw": [new_h, new_w], "roi": roi,
+                   "image_max_levels": int(np.abs(pairs["image"][0].astype(int) - pairs["image"][1]).max()),
+                   "depth_pixels_differing": int((pairs["depth"][0] != pairs["depth"][1]).sum()),
+                   "mask_pixels_differing": int((pairs["mask"][0] != pairs["mask"][1]).sum())}
+            if res["image_max_levels"] > 1 or res["depth_pixels_differing"] or res["mask_pixels_differing"]:
+                raise AssertionError(f"{name}: undistortion on the card is off the CPU's: {res}")
+            out[name] = res
+        return {"scenes": out, "frames": PROC_STAGE_FRAMES,
+                "cut_tol": {"image_levels": 1, "depth_pixels": 0, "mask_pixels": 0}}
+
+    stage("undistort", ["--scenes", *cams, "--device", "cuda"], undistort_check)
+    line = {"phase": "process", "phase_id": "39", "setup_s": setup_s,
+            "seconds": {k: v["seconds"] for k, v in stages.items()},
+            "peak_gib": {k: v["peak_gib"] for k, v in stages.items()},
+            "card": card["name"], "power_limit": card["power_limit"]}
+    emit(line)
+    return {"line": line, "stages": stages, "moge_rows": moge_rows}
+
+
+def live_demo_phase(card) -> dict:
+    """Phase 40: the port's live server on 127.0.0.1 at an ephemeral port, around the
+    flagship bf16 with seeded weights: 8 fixture JPEGs POSTed, the viewer page checked
+    (its point count is the masked points of the same inference called directly, or the
+    viewer's sample of them),
+    LIVE_REQUESTS requests timed after one warm-up with their K1 and K2 launches, the
+    server shut down."""
+    import base64
+    import threading
+    import urllib.request
+
+    import torch
+
+    from mapanything_tpu_torch.ops.flash_attention import launch_counts, launch_shapes, reset_launch_counts
+    from mapanything_tpu_torch.tools import live_demo
+    from mapanything_tpu_torch.utils.live_server import decode_image, make_model_infer_fn
+    from mapanything_tpu_torch.utils.viewer import export_viewer_html
+
+    fixtures = sorted(JPEG_FIXTURES.glob("*.jpg"))
+    uploads = [fixtures[i % len(fixtures)].read_bytes() for i in range(FILES_VIEWS)]
+    model = flagship_on_card()
+    masked = int(make_model_infer_fn(model)([decode_image(b) for b in uploads])["mask"].sum())
+    expected = min(masked, inspect.signature(export_viewer_html).parameters["max_points"].default)  # its sample
+    srv = live_demo.build_server(live_demo.parse_args(["--port", "0", "--host", "127.0.0.1"]), model=model)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    body = json.dumps({"images": [base64.b64encode(b).decode() for b in uploads]}).encode()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def post() -> str:
+        req = urllib.request.Request(url + "/infer", data=body, headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            if r.status != 200:
+                raise AssertionError(f"the live server answered {r.status}")
+            return r.read().decode()
+
+    try:
+        with urllib.request.urlopen(url + "/", timeout=60) as r:
+            if r.status != 200 or "Reconstruct" not in r.read().decode():
+                raise AssertionError("the live server's upload page is missing")
+        page = post()  # warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        request_ms = []
+        for _ in range(LIVE_REQUESTS):
+            t0 = time.perf_counter()
+            page = post()
+            request_ms.append((time.perf_counter() - t0) * 1e3)
+        counts, shapes = launch_counts(), launch_shapes()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    if thread.is_alive():
+        raise AssertionError("the live server did not stop")
+    if f"const N = {expected};" not in page or f"live reconstruction ({FILES_VIEWS} views)" not in page:
+        raise AssertionError(f"the viewer page lacks the {expected} points of {FILES_VIEWS} views")
+    per_request = {f"{k[0]}x{k[1]}": v / LIVE_REQUESTS for k, v in shapes["flash_attention_fwd"].items()}
+    want = {"1037x64": 24, "1036x64": 12, f"{FILES_VIEWS * 1036 + 1}x64": 12}
+    other = {k: v for k, v in counts.items() if k != "flash_attention_fwd" and v}
+    if per_request != want or other:
+        raise AssertionError(f"a request launched {per_request} (and {other}), not {want}")
+    line = {"phase": "live_demo", "phase_id": "40", "views": FILES_VIEWS, "masked_points": masked,
+            "page_points": expected,
+            "page_bytes": len(page), "request_ms": request_ms, "launches_per_request": per_request,
+            "launches": {f"{k[0]}x{k[1]}": v for k, v in shapes["flash_attention_fwd"].items()},
+            "card": card["name"], "power_limit": card["power_limit"]}
+    emit(line)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def processing_phases(card, files_rows=None) -> dict:
+    """Phases 38-40 in a temporary directory under build/; ``files_rows``: phase 19's kernel
+    rows (the live demo's shapes), checked here when not given."""
+    import torch
+
+    if files_rows is None:
+        files_rows = kernel_checks(card, FILES_SHAPES, "3")
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="processing_", dir=ROOT / "build"))
+    out = {"files_rows": files_rows}
+    seconds = {}
+    try:
+        for key, phase in (("convert", lambda: convert_phase(card, work / "convert")),
+                           ("process", lambda: process_phase(card, work / "process")),
+                           ("live", lambda: live_demo_phase(card))):
+            t0 = time.perf_counter()
+            out[key] = phase()
+            seconds[key] = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "processing_phases_total", "phase_id": "38-40", "seconds": seconds,
+          "card": card["name"], "power_limit": card["power_limit"]})
+    return out
+
+
+def processing_entries(proc) -> list:
+    """Phases 38-40 in the kernels line: the MoGe stage's fp32 lse-free forward and its
+    split pass (phase 39's row at the stage's shape, times per batch, the run's launches),
+    and the live demo's lse-free forward at the upload bucket's shapes (phase 19's rows,
+    times per request, the three requests' launches)."""
+    moge = proc["process"]["stages"]["moge"]
+    rows = proc["process"]["moge_rows"]
+    path = (f"tools/process_wai.py moge, MoGe-1 ViT-L fp32, {DATA_FRAMES} frames of {DATA_HW[1]}x{DATA_HW[0]} "
+            f"in batches of {MOGE_BATCH} (phase 39); times per batch")
+    entries = []
+    for name, source, entry_rows in (("flash_attention_fwd", KERNEL_SOURCE, rows),
+                                     ("flash_attention_split_f32", BWD_KERNEL_SOURCE, split_rows(rows))):
+        entries.append(path_entry(name, f"{FA}:164", entry_rows, {rows[0]["shape"]: 24}, source=source,
+                                  dtype="float32", path=path))
+        entries[-1]["launches"] = moge["launches"][name]
+    live = proc["live"]
+    for replaces in dict.fromkeys(r["replaces"] for r in proc["files_rows"]):
+        group = [r for r in proc["files_rows"] if r["replaces"] == replaces]
+        entries.append(path_entry("flash_attention_fwd", replaces, group, {r["shape"]: r["per_forward"] for r in group},
+                                  path=f"live demo, {FILES_VIEWS} uploads of 1024x768 -> 518x392, {LIVE_REQUESTS} "
+                                       "requests (phase 40); times per request"))
+        keys = {f"{r.get('tk', r['b_t_h_d'][1])}x{r['b_t_h_d'][3]}" for r in group}
+        entries[-1]["launches"] = int(sum(live["launches"][k] for k in keys))
+    return entries
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the PyTorch port on one NVIDIA GPU.")
     parser.add_argument("--train-step-only", action="store_true",
@@ -5006,6 +5557,10 @@ def main() -> int:
     parser.add_argument("--benchmarks-only", action="store_true",
                         help="build the kernels, then run the benchmark slice alone (the kernel rows at its shapes, "
                              "phases 34-37) and stop after their lines and their kernels line")
+    parser.add_argument("--processing-only", action="store_true",
+                        help="build the kernels, then run the data-processing slice alone (phases 38-40: convert, "
+                             "process, the live demo, with their kernel rows) and stop after their lines and their "
+                             "kernels line")
     parser.add_argument("--rgb-only", action="store_true",
                         help="build the kernels, then run the RGB models' phases alone (the D = 32 rows of phases 3 "
                              "and 3b, phases 22-24, and 25 on its one-rank group) and stop after their lines")
@@ -5058,6 +5613,10 @@ def main() -> int:
     if args.benchmarks_only:
         emit(build)
         emit({"kernels": benchmark_entries(benchmark_phases(card))})
+        return 0
+    if args.processing_only:
+        emit(build)
+        emit({"kernels": processing_entries(processing_phases(card))})
         return 0
     if args.rgb_only:
         emit(build)
@@ -5179,6 +5738,9 @@ def main() -> int:
     # one-sample finetune.
     bench = benchmark_phases(card, files[0])
 
+    # 38-40. The WAI data-processing pipeline (convert, process stage by stage) and the live demo.
+    proc = processing_phases(card, files[0])
+
     # 8-10. View parallelism on a process group of this process alone: NCCL at world size 1.
     from mapanything_tpu_torch.parallel.distributed import init_distributed_mode
     from mapanything_tpu_torch.parallel.mesh import make_view_group
@@ -5218,7 +5780,7 @@ def main() -> int:
     summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, inference_launches, train_launches,
                  train_steps, vp_launches, many_view_line, h128,
                  {"rows": fp32_train_rows, "launches": fp32_launches, "steps": fp32_steps}, fp32_forward, files,
-                 trainer, data, rgb, dust3r, baseline, ba, bench)
+                 trainer, data, rgb, dust3r, baseline, ba, bench, proc)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

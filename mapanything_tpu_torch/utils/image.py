@@ -151,16 +151,20 @@ def read_png(path, unchanged: bool = False) -> np.ndarray:
     them: grey as (H, W) uint8 or uint16 (1, 2 and 4-bit grey scaled to 8 bits),
     other colour types as (H, W, C) uint8 or uint16, the channels in the file's
     RGB(A) order (cv2 gives BGR(A)), palette images expanded to RGB."""
-    data = Path(path).read_bytes()
+    return decode_png(Path(path).read_bytes(), unchanged, name=str(path))
+
+
+def decode_png(data: bytes, unchanged: bool = False, name: str = "PNG data") -> np.ndarray:
+    """``read_png`` of the bytes of a PNG file (``name`` labels the errors)."""
     if data[:8] != _PNG_SIGNATURE:
-        raise ValueError(f"{path}: not a PNG file")
+        raise ValueError(f"{name}: not a PNG file")
     pos, idat, palette, header = 8, [], None, None
     while pos < len(data):
         (length,) = struct.unpack(">I", data[pos:pos + 4])
         kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
         (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
         if zlib.crc32(kind + body) != crc:
-            raise ValueError(f"{path}: bad CRC in the {kind!r} chunk")
+            raise ValueError(f"{name}: bad CRC in the {kind!r} chunk")
         pos += 12 + length
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
@@ -171,18 +175,18 @@ def read_png(path, unchanged: bool = False) -> np.ndarray:
         elif kind == b"IEND":
             break
     if header is None:
-        raise ValueError(f"{path}: no IHDR chunk")
+        raise ValueError(f"{name}: no IHDR chunk")
     width, height, depth, color, _, _, interlace = header
     if interlace:
-        raise ValueError(f"{path}: interlaced PNG files are not supported")
+        raise ValueError(f"{name}: interlaced PNG files are not supported")
     if color not in _CHANNELS or depth not in (1, 2, 4, 8, 16):
-        raise ValueError(f"{path}: colour type {color} at bit depth {depth} is not a PNG format")
+        raise ValueError(f"{name}: colour type {color} at bit depth {depth} is not a PNG format")
     channels = _CHANNELS[color]
     bits = channels * depth
     row_bytes = (width * bits + 7) // 8
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size < height * (row_bytes + 1):
-        raise ValueError(f"{path}: truncated image data")
+        raise ValueError(f"{name}: truncated image data")
     raw = raw[:height * (row_bytes + 1)].reshape(height, row_bytes + 1)
     rows = _unfilter(raw[:, 0], raw[:, 1:], max(1, bits // 8))
 
@@ -198,7 +202,7 @@ def read_png(path, unchanged: bool = False) -> np.ndarray:
     samples = samples[:, :width * channels].reshape(height, width, channels)
     if color == 3:
         if palette is None:
-            raise ValueError(f"{path}: palette image without a PLTE chunk")
+            raise ValueError(f"{name}: palette image without a PLTE chunk")
         return palette[samples[..., 0]]
     if color in (0, 4):
         grey = samples[..., 0]

@@ -420,3 +420,289 @@ def _scan(data: bytes, pos: int, header: bytes, comps, width, height, restart, d
 def read_jpeg(path) -> np.ndarray:
     """A JPEG file as uint8 (H, W, 3) RGB, as cv2.imread(IMREAD_COLOR) + BGR2RGB gives it."""
     return decode_jpeg(Path(path).read_bytes())
+
+
+# --------------------------------------------------------------------------
+# Baseline encoder, as cv2.imwrite(".jpg") writes with libjpeg-turbo
+# --------------------------------------------------------------------------
+
+# The JPEG standard's example quantization tables (Annex K.1), natural order.
+_STD_LUMA_Q = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99])
+_STD_CHROMA_Q = np.array([
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99])
+
+# The standard Huffman tables (Annex K.3): code counts by length 1-16, then symbols.
+_STD_DC_LUMA = (bytes([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0]), bytes(range(12)))
+_STD_DC_CHROMA = (bytes([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0]), bytes(range(12)))
+_STD_AC_LUMA = (bytes([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D]), bytes([
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51, 0x61, 0x07,
+    0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xA1, 0x08, 0x23, 0x42, 0xB1, 0xC1, 0x15, 0x52, 0xD1, 0xF0,
+    0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0A, 0x16, 0x17, 0x18, 0x19, 0x1A, 0x25, 0x26, 0x27, 0x28,
+    0x29, 0x2A, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3A, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49,
+    0x4A, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5A, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69,
+    0x6A, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7A, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8A, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9A, 0xA2, 0xA3, 0xA4, 0xA5, 0xA6, 0xA7,
+    0xA8, 0xA9, 0xAA, 0xB2, 0xB3, 0xB4, 0xB5, 0xB6, 0xB7, 0xB8, 0xB9, 0xBA, 0xC2, 0xC3, 0xC4, 0xC5,
+    0xC6, 0xC7, 0xC8, 0xC9, 0xCA, 0xD2, 0xD3, 0xD4, 0xD5, 0xD6, 0xD7, 0xD8, 0xD9, 0xDA, 0xE1, 0xE2,
+    0xE3, 0xE4, 0xE5, 0xE6, 0xE7, 0xE8, 0xE9, 0xEA, 0xF1, 0xF2, 0xF3, 0xF4, 0xF5, 0xF6, 0xF7, 0xF8,
+    0xF9, 0xFA]))
+_STD_AC_CHROMA = (bytes([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77]), bytes([
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61, 0x71,
+    0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xA1, 0xB1, 0xC1, 0x09, 0x23, 0x33, 0x52, 0xF0,
+    0x15, 0x62, 0x72, 0xD1, 0x0A, 0x16, 0x24, 0x34, 0xE1, 0x25, 0xF1, 0x17, 0x18, 0x19, 0x1A, 0x26,
+    0x27, 0x28, 0x29, 0x2A, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3A, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48,
+    0x49, 0x4A, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5A, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68,
+    0x69, 0x6A, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7A, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+    0x88, 0x89, 0x8A, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9A, 0xA2, 0xA3, 0xA4, 0xA5,
+    0xA6, 0xA7, 0xA8, 0xA9, 0xAA, 0xB2, 0xB3, 0xB4, 0xB5, 0xB6, 0xB7, 0xB8, 0xB9, 0xBA, 0xC2, 0xC3,
+    0xC4, 0xC5, 0xC6, 0xC7, 0xC8, 0xC9, 0xCA, 0xD2, 0xD3, 0xD4, 0xD5, 0xD6, 0xD7, 0xD8, 0xD9, 0xDA,
+    0xE2, 0xE3, 0xE4, 0xE5, 0xE6, 0xE7, 0xE8, 0xE9, 0xEA, 0xF2, 0xF3, 0xF4, 0xF5, 0xF6, 0xF7, 0xF8,
+    0xF9, 0xFA]))
+
+
+def quant_tables(quality: int = 95) -> Tuple[np.ndarray, np.ndarray]:
+    """libjpeg's ``jpeg_set_quality`` (force_baseline): the standard tables
+    scaled by 5000 / q below 50, else 200 - 2q percent, clamped to 1..255."""
+    quality = min(max(int(quality), 1), 100)
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    return tuple(np.clip((t * scale + 50) // 100, 1, 255) for t in (_STD_LUMA_Q, _STD_CHROMA_Q))
+
+
+def _huffman_codes(spec) -> Tuple[np.ndarray, np.ndarray]:
+    """A table's (code, length) for each of the 256 symbols (length 0: none)."""
+    counts, symbols = spec
+    code_of, len_of = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    code, k = 0, 0
+    for length in range(1, 17):
+        for _ in range(counts[length - 1]):
+            code_of[symbols[k]], len_of[symbols[k]] = code, length
+            code += 1
+            k += 1
+        code <<= 1
+    return code_of, len_of
+
+
+def _rgb_to_ycc(rgb: np.ndarray) -> np.ndarray:
+    """jccolor.c's 16-bit fixed point (Cb, Cr rounded by 0.5 - epsilon)."""
+    def fix(x):
+        return int(x * 65536 + 0.5)
+
+    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    half, offset = 1 << 15, 128 << 16
+    y = (fix(0.299) * r + fix(0.587) * g + fix(0.114) * b + half) >> 16
+    cb = (-fix(0.16874) * r - fix(0.33126) * g + fix(0.5) * b + offset + half - 1) >> 16
+    cr = (fix(0.5) * r - fix(0.41869) * g - fix(0.08131) * b + offset + half - 1) >> 16
+    return np.stack([y, cb, cr], -1)
+
+
+def _pad_edges(plane: np.ndarray, rows: int, cols: int) -> np.ndarray:
+    """Repeat the last row and column out to (rows, cols), as libjpeg's
+    expand_right_edge and expand_bottom_edge."""
+    return np.pad(plane, ((0, rows - plane.shape[0]), (0, cols - plane.shape[1])), mode="edge")
+
+
+def _fdct_islow(blocks: np.ndarray) -> np.ndarray:
+    """jfdctint.c's integer forward DCT of level-shifted (N, 8, 8) blocks
+    (outputs scaled up by 8)."""
+    c = {"0.298631336": 2446, "0.390180644": 3196, "0.541196100": 4433, "0.765366865": 6270,
+         "0.899976223": 7373, "1.175875602": 9633, "1.501321110": 12299, "1.847759065": 15137,
+         "1.961570560": 16069, "2.053119869": 16819, "2.562915447": 20995, "3.072711026": 25172}
+
+    def descale(x, n):
+        return (x + (1 << (n - 1))) >> n
+
+    def one_pass(d, first: bool):
+        t0, t7 = d[..., 0] + d[..., 7], d[..., 0] - d[..., 7]
+        t1, t6 = d[..., 1] + d[..., 6], d[..., 1] - d[..., 6]
+        t2, t5 = d[..., 2] + d[..., 5], d[..., 2] - d[..., 5]
+        t3, t4 = d[..., 3] + d[..., 4], d[..., 3] - d[..., 4]
+        t10, t13, t11, t12 = t0 + t3, t0 - t3, t1 + t2, t1 - t2
+        out = np.empty_like(d)
+        shift = 13 - 2 if first else 13 + 2
+        if first:
+            out[..., 0], out[..., 4] = (t10 + t11) << 2, (t10 - t11) << 2
+        else:
+            out[..., 0], out[..., 4] = descale(t10 + t11, 2), descale(t10 - t11, 2)
+        z1 = (t12 + t13) * c["0.541196100"]
+        out[..., 2] = descale(z1 + t13 * c["0.765366865"], shift)
+        out[..., 6] = descale(z1 - t12 * c["1.847759065"], shift)
+        z1, z2, z3, z4 = t4 + t7, t5 + t6, t4 + t6, t5 + t7
+        z5 = (z3 + z4) * c["1.175875602"]
+        t4, t5, t6, t7 = (t4 * c["0.298631336"], t5 * c["2.053119869"], t6 * c["3.072711026"],
+                          t7 * c["1.501321110"])
+        z1, z2 = z1 * -c["0.899976223"], z2 * -c["2.562915447"]
+        z3, z4 = z3 * -c["1.961570560"] + z5, z4 * -c["0.390180644"] + z5
+        out[..., 7] = descale(t4 + z1 + z3, shift)
+        out[..., 5] = descale(t5 + z2 + z4, shift)
+        out[..., 3] = descale(t6 + z2 + z3, shift)
+        out[..., 1] = descale(t7 + z1 + z4, shift)
+        return out
+
+    rows = one_pass(blocks.astype(np.int64), True)
+    return one_pass(rows.swapaxes(-1, -2), False).swapaxes(-1, -2)
+
+
+def _quantize(coef: np.ndarray, q: np.ndarray) -> np.ndarray:
+    """Divide by 8 q with rounding, symmetric about 0 (jcdctmgr.c)."""
+    div = (q.reshape(8, 8) * 8).astype(np.int64)
+    mag = (np.abs(coef) + (div >> 1)) // div
+    return np.where(coef < 0, -mag, mag)
+
+
+def _blocks(plane: np.ndarray) -> np.ndarray:
+    """(R, C) -> (R/8, C/8, 8, 8) blocks."""
+    r, c = plane.shape
+    return plane.reshape(r // 8, 8, c // 8, 8).swapaxes(1, 2)
+
+
+def _bit_size(v: np.ndarray) -> np.ndarray:
+    """The number of bits of |v| (the JPEG magnitude category)."""
+    a = np.abs(v)
+    n = np.zeros(a.shape, np.int64)
+    while np.any(a):
+        n += a > 0
+        a = a >> 1
+    return n
+
+
+def _entropy_code(blocks: np.ndarray, table: np.ndarray, dc_codes, ac_codes) -> bytes:
+    """Huffman-code (N, 64) zig-zag blocks in scan order; ``table[i]`` is block
+    i's table (0 luma, 1 chroma); DC predictions by table's component are
+    taken care of by the caller (``blocks[:, 0]`` holds the differences)."""
+    n = blocks.shape[0]
+    # Symbols and their extra bits, block by block: DC, then per nonzero AC the
+    # zero-run-length escapes (ZRL), the (run, size) symbol, then EOB if needed.
+    dc = blocks[:, 0]
+    dc_size = _bit_size(dc)
+    ac = blocks[:, 1:]
+    nz_b, nz_k = np.nonzero(ac)  # row-major: by block, then by position
+    nz_v = ac[nz_b, nz_k]
+    first = np.ones(len(nz_b), bool)
+    first[1:] = nz_b[1:] != nz_b[:-1]
+    prev_k = np.where(first, -1, np.concatenate([[0], nz_k[:-1]]))
+    run = nz_k - prev_k - 1
+    zrl = run >> 4
+    run &= 15
+    size = _bit_size(nz_v)
+    last = np.full(n, -1, np.int64)
+    np.maximum.at(last, nz_b, nz_k)
+    eob = last < 62
+
+    # Order: each block's DC (1 item), its ACs (zrl escapes + 1 each), its EOB.
+    ac_items = zrl + 1
+    per_block = 1 + np.bincount(nz_b, weights=ac_items, minlength=n).astype(np.int64) + eob
+    start = np.concatenate([[0], np.cumsum(per_block)[:-1]])
+    total = int(per_block.sum())
+    codes = np.zeros(total, np.int64)
+    lens = np.zeros(total, np.int64)
+    tab_b = table.astype(np.int64)
+
+    # DC
+    dcc, dcl = dc_codes
+    extra = np.where(dc < 0, dc + (1 << dc_size) - 1, dc)
+    codes[start] = (dcc[tab_b, dc_size] << dc_size) | extra
+    lens[start] = dcl[tab_b, dc_size] + dc_size
+    # AC: position of each nonzero's first item within its block
+    acc_, acl = ac_codes
+    item_before = np.cumsum(ac_items) - ac_items  # over all nonzeros
+    block_first_item = np.zeros(n, np.int64)
+    if len(nz_b):
+        firsts = np.nonzero(first)[0]
+        block_first_item[nz_b[firsts]] = item_before[firsts]
+    pos = start[nz_b] + 1 + (item_before - block_first_item[nz_b])
+    # ZRL escapes
+    if np.any(zrl):
+        zi = np.repeat(np.arange(len(nz_b)), zrl)
+        zoff = np.arange(len(zi)) - np.repeat(np.cumsum(zrl) - zrl, zrl)
+        zpos = pos[zi] + zoff
+        codes[zpos] = acc_[tab_b[nz_b[zi]], 0xF0]
+        lens[zpos] = acl[tab_b[nz_b[zi]], 0xF0]
+    spos = pos + zrl
+    sym = (run << 4) | size
+    extra = np.where(nz_v < 0, nz_v + (1 << size) - 1, nz_v)
+    codes[spos] = (acc_[tab_b[nz_b], sym] << size) | extra
+    lens[spos] = acl[tab_b[nz_b], sym] + size
+    # EOB
+    epos = (start + per_block - 1)[eob]
+    codes[epos] = acc_[tab_b[eob], 0x00]
+    lens[epos] = acl[tab_b[eob], 0x00]
+
+    # Bits, most significant first, padded with ones to a byte; 0xFF stuffed with 0x00.
+    nbits = int(lens.sum())
+    item = np.repeat(np.arange(total), lens)
+    bitpos = np.arange(nbits) - np.repeat(np.cumsum(lens) - lens, lens)
+    bits = ((codes[item] >> (lens[item] - 1 - bitpos)) & 1).astype(np.uint8)
+    bits = np.concatenate([bits, np.ones((-nbits) % 8, np.uint8)])
+    data = np.packbits(bits)
+    ff = np.nonzero(data == 0xFF)[0]
+    return np.insert(data, ff + 1, 0).tobytes()
+
+
+def encode_jpeg(rgb: np.ndarray, quality: int = 95) -> bytes:
+    """Baseline JPEG bytes of a uint8 (H, W, 3) RGB image as ``cv2.imwrite``
+    writes them with libjpeg-turbo's defaults: JFIF 1.01, quality 95, YCbCr
+    4:2:0 (h2v2 downsampling with alternating 1, 2 rounding biases, edges
+    repeated), the islow forward DCT, the standard Huffman tables; the blocks
+    past the image's last block row and column are libjpeg's dummy blocks
+    (zero AC, the previous block's DC)."""
+    rgb = np.asarray(rgb, np.uint8)
+    H, W = rgb.shape[:2]
+    qy, qc = quant_tables(quality)
+    ycc = _rgb_to_ycc(rgb)
+    mcu_rows, mcu_cols = _ceil(H, 16), _ceil(W, 16)
+    yb_rows, yb_cols = _ceil(H, 8), _ceil(W, 8)
+
+    # Luma: edges repeated to whole blocks; blocks outside the image are dummies.
+    luma = _pad_edges(ycc[..., 0], yb_rows * 8, yb_cols * 8) - 128
+    yq = _quantize(_fdct_islow(_blocks(luma)), qy)  # (yb_rows, yb_cols, 8, 8)
+    grid = np.zeros((mcu_rows * 2, mcu_cols * 2, 8, 8), np.int64)
+    grid[:yb_rows, :yb_cols] = yq
+    if yb_cols % 2:  # the right dummy copies the DC on its left
+        grid[:yb_rows, yb_cols, 0, 0] = grid[:yb_rows, yb_cols - 1, 0, 0]
+    if yb_rows % 2:  # the bottom dummies copy the DC of the MCU's top-right block
+        grid[yb_rows, :, 0, 0] = grid[yb_rows - 1].reshape(mcu_cols, 2, 8, 8)[:, 1, 0, 0].repeat(2)
+
+    # Chroma: repeat the edges to whole MCUs (width) and to an even row count,
+    # average 2 x 2 with biases 1, 2, 1, 2 along each row, repeat the last row.
+    chroma = []
+    for k in (1, 2):
+        full = _pad_edges(ycc[..., k], H + H % 2, mcu_cols * 16)
+        s = full[0::2, 0::2] + full[0::2, 1::2] + full[1::2, 0::2] + full[1::2, 1::2]
+        bias = np.where(np.arange(s.shape[1]) % 2 == 0, 1, 2)
+        down = (s + bias) >> 2
+        down = _pad_edges(down, mcu_rows * 8, mcu_cols * 8) - 128
+        chroma.append(_quantize(_fdct_islow(_blocks(down)), qc))
+
+    # Interleave: per MCU, Y00 Y01 Y10 Y11 Cb Cr.
+    ymcu = grid.reshape(mcu_rows, 2, mcu_cols, 2, 8, 8).transpose(0, 2, 1, 3, 4, 5).reshape(mcu_rows, mcu_cols, 4, 8, 8)
+    mcus = np.concatenate([ymcu, chroma[0][:, :, None], chroma[1][:, :, None]], axis=2).reshape(-1, 64)
+    zz = mcus[:, ZIGZAG]
+    comp = np.tile(np.array([0, 0, 0, 0, 1, 2]), mcu_rows * mcu_cols)
+    dc = zz[:, 0].copy()
+    for c in range(3):  # DC prediction per component
+        sel = comp == c
+        d = dc[sel]
+        zz[sel, 0] = d - np.concatenate([[0], d[:-1]])
+    dc_codes = tuple(np.stack(t) for t in zip(_huffman_codes(_STD_DC_LUMA), _huffman_codes(_STD_DC_CHROMA)))
+    ac_codes = tuple(np.stack(t) for t in zip(_huffman_codes(_STD_AC_LUMA), _huffman_codes(_STD_AC_CHROMA)))
+    scan = _entropy_code(zz, np.minimum(comp, 1), dc_codes, ac_codes)
+
+    def segment(marker: int, body: bytes) -> bytes:
+        return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
+
+    out = [b"\xff\xd8", segment(0xE0, b"JFIF\x00" + bytes([1, 1, 0, 0, 1, 0, 1, 0, 0]))]
+    for t, q in enumerate((qy, qc)):
+        out.append(segment(0xDB, bytes([t]) + bytes(int(v) for v in q[ZIGZAG])))
+    out.append(segment(0xC0, struct.pack(">BHHB", 8, H, W, 3) + bytes([1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1])))
+    for cls_id, spec in ((0x00, _STD_DC_LUMA), (0x10, _STD_AC_LUMA), (0x01, _STD_DC_CHROMA), (0x11, _STD_AC_CHROMA)):
+        out.append(segment(0xC4, bytes([cls_id]) + spec[0] + spec[1]))
+    out.append(segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0])))
+    out += [scan, b"\xff\xd9"]
+    return b"".join(out)

@@ -146,10 +146,26 @@ SLICE_MODULES = (
     "mapanything_tpu_torch.tools.one_sample_finetune",
     "mapanything_tpu_torch.tools.viz_dataset",
     "mapanything_tpu_torch.tools.profile_dataloading",
+    # the WAI data-processing pipeline and the live demo
+    "mapanything_tpu_torch.data_processing",
+    "mapanything_tpu_torch.data_processing.conversion",
+    "mapanything_tpu_torch.data_processing.conversion.formats",
+    "mapanything_tpu_torch.data_processing.conversion.core",
+    "mapanything_tpu_torch.data_processing.conversion.adapters",
+    "mapanything_tpu_torch.data_processing.covisibility",
+    "mapanything_tpu_torch.data_processing.aggregate",
+    "mapanything_tpu_torch.data_processing.depth_confidence",
+    "mapanything_tpu_torch.data_processing.pseudo_depth",
+    "mapanything_tpu_torch.data_processing.rendering",
+    "mapanything_tpu_torch.data_processing.undistort",
+    "mapanything_tpu_torch.tools.convert_wai",
+    "mapanything_tpu_torch.tools.process_wai",
+    "mapanything_tpu_torch.utils.live_server",
+    "mapanything_tpu_torch.tools.live_demo",
 )
-# Optional decoders that the port imports only when a file needs them, and what the JAX data path
-# uses that the port must not (PyYAML, SciPy).
-LAZY = ("cv2", "PIL", "pillow_heif", "yaml", "scipy")
+# Optional decoders that the port imports only when a file needs them (h5py: Spring's and
+# MegaDepth's HDF5 depth), and what the JAX data path uses that the port must not (PyYAML, SciPy).
+LAZY = ("cv2", "PIL", "pillow_heif", "yaml", "scipy", "h5py")
 
 
 def test_port_imports_no_jax_in_a_fresh_process():
