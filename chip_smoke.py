@@ -9,7 +9,7 @@
     python3 chip_smoke.py --files-only         # phases 1, 2 and 19 alone
     python3 chip_smoke.py --trainer-only       # phases 1, 2 and 20 alone
     python3 chip_smoke.py --data-only          # phases 1, 2 and 21 alone
-    python3 chip_smoke.py --rgb-only           # phases 1, 2, the D = 32 rows of 3 and 3b, 22-25
+    python3 chip_smoke.py --rgb-only           # phases 1, 2, 3f's narrow cases, the D = 32 rows of 3 and 3b, 22-25
     python3 chip_smoke.py --dust3r-only        # phases 1, 2, the DUSt3R rows of 3, 26 and 27
     python3 chip_smoke.py --baselines-only     # phases 1, 2, the baselines' rows of 3, 28 and 29
     python3 chip_smoke.py --benchmarks-only    # phases 1, 2, the benchmarks' rows of 3, 34-37
@@ -22,7 +22,9 @@ Phases, each printing one JSON line:
      wgmma instances' dynamic shared memory), and cuobjdump -sass of each
      library must show HGMMA (wgmma) and UTMALDG (TMA loads) in every
      forward and backward instance, bf16 and fp32 (fa_fwd_bf16, fa_fwd_f32,
-     fa_bwd_dq_bf16, fa_bwd_dkv_bf16, fa_bwd_dq_f32, fa_bwd_dkv_f32);
+     fa_bwd_dq_bf16, fa_bwd_dkv_bf16, fa_bwd_dq_f32, fa_bwd_dkv_f32), and
+     HGMMA in the narrow fp32 forward's (fa_fwd_f32_narrow, D = 32 and 48,
+     packed and streaming: it reads its rows with 16-byte loads);
   3f. the forward's edges, bf16 and fp32: both forms (lse-free and lse) at
      D = 64 and 128 (and 32 in fp32) against their plain versions under phase 3's rule (fp32
      also under the fp32 rule, below), at
@@ -30,9 +32,12 @@ Phases, each printing one JSON line:
      4000, 5476 against 1), and at 320 and 384 work tiles (every block of
      the persistent grid walks several), on contiguous tensors and on
      views of fused qkv (and kv) tensors with a non-default scale, the lse
-     on every row; then the canary cases (CANARY_CASES): the fp32 forward at
-     D = 32, 64 and 128 writing o and the lse inside buffers whose canary
-     bytes before and after must survive bit for bit;
+     on every row; the narrow fp32 forward (D = 32, both forms, and 48) also
+     at every Tq of 1, 7, 8, 9, 33, 64, 65 against every Tk of 1, 8, 13, 64,
+     65, 512 on 3 x 5 sequences (NARROW_EDGE_CASES); then the canary cases
+     (CANARY_CASES; at D = 32 and 48 also NARROW_CANARY_CASES and the
+     tracker's shapes): the fp32 forward writing o and the lse inside buffers
+     whose canary bytes before and after must survive bit for bit;
   3g. the backward's edges: dq and dk/dv, bf16 and fp32, at D = 64 and 128
      (and 32 in fp32) against their plain versions under phase 3's rule (fp32 also under the
      fp32 rule, below) at phase 3f's shapes and layouts (dO a view of a wider
@@ -46,8 +51,11 @@ Phases, each printing one JSON line:
      torch-SDPA times and the bound; the fp32 rows also under the fp32 rule,
      with the kernel timed alone on one split pass's parts, the split pass
      (held bitwise to its plain version) and the whole call timed apart;
-     and the fp32 D = 32 instance at the RGB models' MAE decoder, 8 x 1369 x 16 x 32
-     (8 launches a 1 x 8 x 518 forward, phase 22's); and the DUSt3R path's shapes in
+     and the narrow fp32 instance (one launch a call, no split pass) at the RGB
+     models' MAE decoder, 8 x 1369 x 16 x 32 (8 launches a 1 x 8 x 518 forward,
+     phase 22's), the tracker's shapes and D = 32 at 4000 keys, each also with
+     its device time (20 calls replayed as a CUDA graph: the call's CUDA-event
+     time there reads the host) and SDPA's; and the DUSt3R path's shapes in
      bf16 and fp32 (phase 27's): the encoder's 2 x 768 x 16 x 64, the decoder's self-
      and cross-attention at 1 x 768 x 12 x 64 (the cross-attention's q, k and v three
      tensors), and a 3-view context (1 x 768 queries against 1536 keys); and the
@@ -69,7 +77,7 @@ Phases, each printing one JSON line:
      passes (the forward's of q, k, v and the backward's of q, k, v, dO) are
      held bitwise to their plain version and timed; and the fp32 D = 32
      instances at the MAE decoder's 4 x 1369 x 16 x 32 (8 each a 1 x 4 x 518
-     step, phase 23's);
+     step, phase 23's; the lse forward the narrow one, without a split pass);
   4. slice check: MapAnythingConfig.small(), 2 views at 56 px in fp32, the same
      seeded weights on cuda and on cpu, every prediction compared;
   5. inference: the flagship MapAnythingConfig(compute_dtype="bfloat16")
@@ -193,11 +201,11 @@ Phases, each printing one JSON line:
   22. the RGB models' flagships (configs/model/mapanything_{mae,moge}_rgb.yaml
      widths: bf16 trunk, fp32 head, raydirs+depth+rgb+pose) through ``infer``
      on 1 x 8 x 518: launches by key length and head dim (the MAE decoder's 8
-     fp32 D = 32 forwards and their split passes beside the 48 bf16 D = 64
+     narrow fp32 D = 32 forwards, with no split pass, beside the 48 bf16 D = 64
      ones), ms, views/s, peak memory, the output invariants, colours in [0, 1];
   23. the MAE flagship's train step on 1 x 4 x 518 with a seeded target_rgb:
-     launches by head dim (8 of each training kernel at D = 32, 16 split
-     passes), finite loss, RGB term, gradient norm and gradients, a nonzero
+     launches by head dim (8 of each training kernel at D = 32, 8 split
+     passes: the backward's), finite loss, RGB term, gradient norm and gradients, a nonzero
      gradient for every parameter, ms per step, views/s, peak memory;
   24. the RGB perception loss (VGG19 on seeded weights, 1 x 2 x 64), the
      disentangled loss and the DUSt3R loss on the card against the CPU, each
@@ -242,16 +250,16 @@ Phases, each printing one JSON line:
      costs, rms px, the BA held to the port's CPU run on the same tracks, sparse/*.bin
      read back; then tools/demo_inference_on_colmap_outputs.py on the written model;
   32. the VGGSfM tracker at its release widths on the same frames, 512 queries x 3 query
-     frames, coarse_iters=6, fine on: 144 launches of fa_fwd_f32<48> and 24 of
-     fa_fwd_f32<32> a query frame (TRACKER_SHAPES), tracks and visibility held to the
-     same call on the plain versions;
+     frames, coarse_iters=6, fine on: 144 launches of fa_fwd_f32_narrow<48> and 24
+     of fa_fwd_f32_narrow<32> a query frame (TRACKER_SHAPES) and no split pass, tracks
+     and visibility held to the same call on the plain versions;
   33. the optimisation baselines at their releases' widths on 4 views of 384 x 512:
      DUSt3R-BA (metric DUSt3R builds the same), Pow3R-BA with its priors, MASt3R-SGA
      (desc_dim 24, subsample 8): launches by (Tk, D), final loss, focals and poses held
      to the plain versions (OPTIM_RTOL; MASt3R-SGA's pair outputs and the share of its
      matches that agree instead, its alignment reported), ms a scene, peak memory. Phase 3 holds the
      kernels at the tracker's and these paths' shapes first (TRACKER_SHAPES, OPTIM_SHAPES),
-     phase 3f the D = 48 forward at the edge shapes and the tracker's canary cases;
+     phase 3f the narrow forward at the edge shapes and the canary cases;
   34. the accuracy benchmarks on phase 21's synthetic scenes (written again, with a
      test-split list), the seeded flagship bf16: dense N-view and RMVD run_benchmark
      over 4 sets of 8 views at 518 x 392 (covisibility_thres 0.25, batch 1),
@@ -285,11 +293,12 @@ the ok line; copied into another checkout's tree, it times that checkout's step
 the same way. With --forward-edges-only, phase
 3f runs after the build and the script stops there, the same way; with
 --backward-edges-only, phase 3g; with --files-only, phase 19; with
---trainer-only, phase 20; with --data-only, phase 21; with --rgb-only, the
-D = 32 rows of phases 3 and 3b, phases 22-24, and 25 on a one-rank group of its own;
+--trainer-only, phase 20; with --data-only, phase 21; with --rgb-only, phase 3f's
+narrow cases, the D = 32 rows of phases 3 and 3b, phases 22-24, and 25 on a one-rank
+group of its own;
 with --dust3r-only, the DUSt3R rows of phase 3, phases 26 and 27, and a kernels line
 of their entries; with --baselines-only, the baselines' rows of phase 3, phases 28 and 29,
-and a kernels line of their entries; with --ba-only, the SASS check, phase 3f's D = 48
+and a kernels line of their entries; with --ba-only, the SASS check, phase 3f's narrow
 cases, the BA slice's rows of phase 3, phases 31-33, and a kernels line of their entries; with
 --benchmarks-only, the benchmark slice's rows of phase 3 (phase 19's and the single
 view's), phases 34-37, and a kernels line of their entries.
@@ -401,6 +410,17 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_time_ms(fn):
+    """``fn``'s device time a call (tools/time_kernels.py ``device_ms``: 20 calls replayed as
+    one CUDA graph), or None where the capture fails (not measured)."""
+    from mapanything_tpu_torch.tools.time_kernels import device_ms
+
+    try:
+        return device_ms(fn)
+    except RuntimeError:
+        return None
+
+
 def shape_counts(shapes: dict) -> dict:
     """``launch_shapes()`` as JSON: {kernel: {"<Tk>x<D>": launches}}."""
     return {name: {f"{tk}x{d}": n for (tk, d), n in by.items()} for name, by in shapes.items()}
@@ -454,12 +474,14 @@ def plain_chunks(b: int, t: int, fp32: bool, tk: int = None) -> list:
 def kernel_checks(card, shapes, phase_id: str):
     """Phases 3 and 3d: the kernel against its plain version under phase 3's rule (fp32
     also under the fp32 rule), with times and the bound; the plain versions over chunks
-    (plain_chunks). The fp32 rows time the kernel alone on one split pass's parts
-    (``ms``), the split pass (``split_ms``, held bitwise to its plain version) and the
-    whole call (``call_ms``). A row of six entries gives the key length last: its q
-    (B, T, H, D) and its k and v (B, Tk, H, D) are three tensors, as a cross-attention's
-    ``projq``, ``projk`` and ``projv`` make them; a row of five is a self-attention over
-    views of one fused qkv tensor."""
+    (plain_chunks). The fp32 rows at D = 64 and 128 time the kernel alone on one split
+    pass's parts (``ms``), the split pass (``split_ms``, held bitwise to its plain version)
+    and the whole call (``call_ms``); the narrow ones (D = 32 and 48, one launch a call)
+    the call (``ms``, host-paced CUDA events) and its device time (``device_ms``, 20 calls
+    replayed as one CUDA graph), SDPA's too (``library_device_ms``). A row of six
+    entries gives the key length last: its q (B, T, H, D) and its k and v (B, Tk, H, D) are
+    three tensors, as a cross-attention's ``projq``, ``projk`` and ``projv`` make them; a
+    row of five is a self-attention over views of one fused qkv tensor."""
     import torch
     import torch.nn.functional as F
 
@@ -496,7 +518,15 @@ def kernel_checks(card, shapes, phase_id: str):
         finite = bool(torch.isfinite(out).all())
         torch.cuda.empty_cache()
 
-        if fp32:  # the kernel alone on one split's parts; the split and the whole call apart
+        narrow = fp32 and d in fa.NARROW_HEAD_DIMS
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale)  # noqa: E731
+        if narrow:  # one launch a call, the split inside: the call, and its device time apart from the host's
+            call = lambda: fa.flash_attention(q, k, v, scale)  # noqa: E731
+            ms = cuda_time_ms(call, iters=20)
+            extra = {"call_ms": ms, "device_ms": device_time_ms(call), "library_device_ms": device_time_ms(sdpa),
+                     "plain_fp32_err": plain_err, "fp32_tol": fp32_tol}
+        elif fp32:  # the kernel alone on one split's parts; the split and the whole call apart
             parts = fa.flash_attention_split_f32(q, k, v)
             split_bitwise = all(torch.equal(got, fa.split_bf16x3_reference(x, fa.part_cols(d)))
                                 for got, x in zip(parts, (q, k, v)))
@@ -514,8 +544,7 @@ def kernel_checks(card, shapes, phase_id: str):
             extra = {"plain_bf16_err": plain_err}
         plain_ms = cuda_time_ms(lambda: [fa.attention_reference(q[cb, cr], k[cb], v[cb], scale) for cb, cr in chunks],
                                 iters=3, warmup=1)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), iters=20)
+        library_ms = cuda_time_ms(sdpa, iters=20)
         row = {
             "phase": "kernel_check",
             "phase_id": phase_id,
@@ -537,7 +566,7 @@ def kernel_checks(card, shapes, phase_id: str):
             "power_limit": card["power_limit"],
         }
         emit(row)
-        if not finite or err > tol or (fp32 and (err > fp32_tol or not split_bitwise)):
+        if not finite or err > tol or (fp32 and (err > fp32_tol or not extra.get("split_bitwise", True))):
             raise AssertionError(f"kernel disagrees with its plain version at {name}: {err} > {tol} "
                                  f"(fp32 rule {fp32_tol}; split bitwise {extra.get('split_bitwise')})")
         rows.append(row)
@@ -622,8 +651,20 @@ def instance_dims(lse: bool = False) -> dict:
 
 
 def fwd_instances() -> dict:
-    return {(dtype, d, lse): f"fa_fwd_{dtype}ILi{d}ELb{int(lse)}E"
-            for lse in (False, True) for dtype, dims in instance_dims(lse).items() for d in dims}
+    """(dtype, D, lse, regime) -> the forward instance's name: regime "streaming" or
+    "packed" for the narrow fp32 instances (fa_fwd_f32_narrow, D = 32 and 48), else None."""
+    from mapanything_tpu_torch.ops import flash_attention as fa
+
+    out = {}
+    for lse in (False, True):
+        for dtype, dims in instance_dims(lse).items():
+            for d in dims:
+                if dtype == "f32" and d in fa.NARROW_HEAD_DIMS:
+                    for packed, regime in enumerate(("streaming", "packed")):
+                        out[(dtype, d, lse, regime)] = f"fa_fwd_f32_narrowILi{d}ELb{int(lse)}ELb{packed}E"
+                else:
+                    out[(dtype, d, lse, None)] = f"fa_fwd_{dtype}ILi{d}ELb{int(lse)}E"
+    return out
 
 
 def bwd_instances() -> dict:
@@ -631,14 +672,15 @@ def bwd_instances() -> dict:
             for kernel in ("dq", "dkv") for dtype, dims in instance_dims(lse=True).items() for d in dims}
 
 
-FWD_SMEM_INDEX = {"bf16": 0, "f32": 1}
+FWD_SMEM_INDEX = {("bf16", None): 0, ("f32", None): 1, ("f32", "streaming"): 2, ("f32", "packed"): 3}
 BWD_SMEM_INDEX = {("dq", "bf16"): 0, ("dkv", "bf16"): 1, ("dq", "f32"): 2, ("dkv", "f32"): 3}
 TENSOR_CORE_SASS = ("HGMMA", "UTMALDG")
 
 
 def sass_check(lib: Path, instances: dict) -> dict:
     """Phase 2: cuobjdump -sass of one kernel library; every instance named in
-    ``instances`` must contain HGMMA and UTMALDG. Returns their counts by instance."""
+    ``instances`` must contain HGMMA and UTMALDG, the narrow fp32 forward's HGMMA (it
+    loads its fp32 rows with 16-byte loads, not TMA). Returns their counts by instance."""
     from mapanything_tpu_torch.ops import _build
 
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
@@ -650,7 +692,7 @@ def sass_check(lib: Path, instances: dict) -> dict:
         if len(bodies) != 1:
             raise AssertionError(f"cuobjdump shows {len(bodies)} functions named like {key}")
         counts[key] = {op: bodies[0].count(op) for op in TENSOR_CORE_SASS}
-    missing = {key: c for key, c in counts.items() if not all(c.values())}
+    missing = {key: c for key, c in counts.items() if not (c["HGMMA"] and (c["UTMALDG"] or "narrow" in key))}
     if missing:
         raise AssertionError(f"instances without wgmma or TMA in their SASS: {missing}")
     return counts
@@ -664,64 +706,93 @@ EDGE_CASES = ([(t, t, 2, 3) for t in (1, 7, 64, 65, 127, 129, 1370)] + [(129, 40
 EDGE_SCALE = 0.3  # the fused-layout cases' scale; the contiguous cases take D ** -0.5
 
 
+# Phase 3f's cases of the narrow fp32 forward (D = 32 and 48) besides EDGE_CASES: every
+# (Tq, Tk) of these lengths (the packed regime up to 64, the streaming one past it), at
+# B x H = 3 x 5 sequences (a multiple of no packed tile's sequences but 1 and 5).
+NARROW_EDGE_TQ = (1, 7, 8, 9, 33, 64, 65)
+NARROW_EDGE_TK = (1, 8, 13, 64, 65, 512)
+NARROW_EDGE_CASES = [(tq, tk, 3, 5) for tq in NARROW_EDGE_TQ for tk in NARROW_EDGE_TK]
+
+
+def edge_case_rows(dtype, d, tq, tk, b, h, layout) -> list:
+    """One phase-3f case: the lse-free forward (and, where D has one, the lse forward) at
+    (Tq, Tk, B, H) on contiguous tensors (scale D ** -0.5) or views of fused qkv (or q and
+    kv) tensors (EDGE_SCALE), against the plain version in fp32 (fp64 for fp32): a row
+    for o (and o_lse and lse) with its error, phase 3's tolerance and in fp32 the fp32 rule."""
+    import torch
+
+    from mapanything_tpu_torch.ops import flash_attention as fa
+
+    dname, fp32 = str(dtype).split(".")[-1], dtype == torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(tq * 7919 + tk + d)
+    if layout == "contiguous":
+        q, k, v = (torch.randn(b, t, h, d, device="cuda", generator=gen).to(dtype) for t in (tq, tk, tk))
+        scale = d**-0.5
+    elif tq == tk:  # views of one fused qkv tensor
+        q, k, v = torch.randn(b, tq, 3, h, d, device="cuda", generator=gen).to(dtype).unbind(2)
+        scale = EDGE_SCALE
+    else:  # q from a fused qkv tensor, k and v from a fused kv tensor
+        q = torch.randn(b, tq, 3, h, d, device="cuda", generator=gen).to(dtype)[:, :, 0]
+        k, v = torch.randn(b, tk, 2, h, d, device="cuda", generator=gen).to(dtype).unbind(2)
+        scale = EDGE_SCALE
+    o_free = fa.flash_attention(q, k, v, scale)
+    with_lse = d in fa.head_dims(dtype, lse=True)
+    if with_lse:
+        o_lse, lse = fa.flash_attention_lse(q, k, v, scale)
+    torch.cuda.synchronize()
+    exact_dtype = torch.float64 if fp32 else torch.float32
+    o_exact, lse_exact = fa.attention_lse_reference(*(x.to(exact_dtype) for x in (q, k, v)), scale)
+    o_plain, lse_plain = fa.attention_lse_reference(q, k, v, scale)
+    forms = [("o", o_free, o_exact, o_plain)]
+    if with_lse:
+        forms += [("o_lse", o_lse, o_exact, o_plain), ("lse", lse, lse_exact, lse_plain)]
+    rows = []
+    for form, out, exact, plain in forms:
+        plain_err = max_err(plain, exact)
+        row = {"dtype": dname, "d": d, "tq": tq, "tk": tk, "b": b, "h": h, "layout": layout,
+               "out": form, "err": max_err(out, exact), "tol": tolerance(plain_err, exact),
+               "finite": bool(torch.isfinite(out).all())}
+        if fp32:
+            row["fp32_tol"] = fp32_tolerance(plain_err, exact)
+        rows.append(row)
+    return rows
+
+
+def edge_report(card, phase: str, cases: list) -> list:
+    """Phase 3f's line over ``cases``; raises if any case failed its rules or its canaries."""
+    bad = [c for c in cases if not (c["finite"] and c["err"] <= c["tol"] and c["err"] <= c.get("fp32_tol", c["tol"])
+                                    and c.get("canaries_intact", True))]
+    worst = {dname: max((c for c in cases if c["dtype"] == dname),
+                        key=lambda c: c["err"] / max(min(c["tol"], c.get("fp32_tol", c["tol"])), 1e-30))
+             for dname in dict.fromkeys(c["dtype"] for c in cases)}
+    emit({"phase": phase, "phase_id": "3f", "cases": len(cases), "worst": worst, "failed": bad,
+          "canary_cases": sum("canaries_intact" in c for c in cases),
+          "narrow_cases": sum(c["dtype"] == "float32" and c["d"] in (32, 48) for c in cases),
+          "card": card["name"], "power_limit": card["power_limit"]})
+    if bad:
+        raise AssertionError(f"the forward disagrees with its plain version at {len(bad)} edge cases: {bad[:4]}")
+    return cases
+
+
 def forward_edge_checks(card) -> list:
     """Phase 3f: the forward, bf16 and fp32, lse-free and lse, at every instantiated head
     dim against its plain version under phase 3's rule (fp32 also under the fp32 rule), at
-    the edge shapes; o and the lse of every row (fp32 D = 48, the VGGSfM tracker's: the
-    lse-free o alone, its only instance), then the canary cases."""
+    the edge shapes in both layouts (edge_case_rows; fp32 D = 48, the VGGSfM tracker's: the
+    lse-free o alone, its only instance), the narrow fp32 forward also at
+    NARROW_EDGE_CASES, then the canary cases."""
     import torch
 
     from mapanything_tpu_torch.ops import flash_attention as fa
 
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
-        dname, fp32 = str(dtype).split(".")[-1], dtype == torch.float32
         for d in fa.head_dims(dtype):
-            for tq, tk, b, h in EDGE_CASES:
+            narrow = dtype == torch.float32 and d in fa.NARROW_HEAD_DIMS
+            for tq, tk, b, h in EDGE_CASES + (NARROW_EDGE_CASES if narrow else []):
                 for layout in ("contiguous", "fused"):
-                    gen = torch.Generator(device="cuda").manual_seed(tq * 7919 + tk + d)
-                    if layout == "contiguous":
-                        q, k, v = (torch.randn(b, t, h, d, device="cuda", generator=gen).to(dtype)
-                                   for t in (tq, tk, tk))
-                        scale = d**-0.5
-                    elif tq == tk:  # views of one fused qkv tensor
-                        q, k, v = torch.randn(b, tq, 3, h, d, device="cuda", generator=gen).to(dtype).unbind(2)
-                        scale = EDGE_SCALE
-                    else:  # q from a fused qkv tensor, k and v from a fused kv tensor
-                        q = torch.randn(b, tq, 3, h, d, device="cuda", generator=gen).to(dtype)[:, :, 0]
-                        k, v = torch.randn(b, tk, 2, h, d, device="cuda", generator=gen).to(dtype).unbind(2)
-                        scale = EDGE_SCALE
-                    o_free = fa.flash_attention(q, k, v, scale)
-                    with_lse = d in fa.head_dims(dtype, lse=True)
-                    if with_lse:
-                        o_lse, lse = fa.flash_attention_lse(q, k, v, scale)
-                    torch.cuda.synchronize()
-                    exact_dtype = torch.float64 if fp32 else torch.float32
-                    o_exact, lse_exact = fa.attention_lse_reference(*(x.to(exact_dtype) for x in (q, k, v)), scale)
-                    o_plain, lse_plain = fa.attention_lse_reference(q, k, v, scale)
-                    forms = [("o", o_free, o_exact, o_plain)]
-                    if with_lse:
-                        forms += [("o_lse", o_lse, o_exact, o_plain), ("lse", lse, lse_exact, lse_plain)]
-                    for form, out, exact, plain in forms:
-                        plain_err = max_err(plain, exact)
-                        row = {"dtype": dname, "d": d, "tq": tq, "tk": tk, "b": b, "h": h, "layout": layout,
-                               "out": form, "err": max_err(out, exact), "tol": tolerance(plain_err, exact),
-                               "finite": bool(torch.isfinite(out).all())}
-                        if fp32:
-                            row["fp32_tol"] = fp32_tolerance(plain_err, exact)
-                        cases.append(row)
+                    cases += edge_case_rows(dtype, d, tq, tk, b, h, layout)
     cases += forward_canary_checks()
-    bad = [c for c in cases if not (c["finite"] and c["err"] <= c["tol"] and c["err"] <= c.get("fp32_tol", c["tol"])
-                                    and c.get("canaries_intact", True))]
-    worst = {dname: max((c for c in cases if c["dtype"] == dname),
-                        key=lambda c: c["err"] / max(min(c["tol"], c.get("fp32_tol", c["tol"])), 1e-30))
-             for dname in ("bfloat16", "float32")}
-    emit({"phase": "forward_edge_check", "phase_id": "3f", "cases": len(cases), "worst": worst, "failed": bad,
-          "canary_cases": sum("canaries_intact" in c for c in cases),
-          "card": card["name"], "power_limit": card["power_limit"]})
-    if bad:
-        raise AssertionError(f"the forward disagrees with its plain version at {len(bad)} edge cases: {bad[:4]}")
-    return cases
+    return edge_report(card, "forward_edge_check", cases)
 
 
 # The canary cases of phases 3f and 3g: the fp32 kernels at every instantiated head dim
@@ -730,6 +801,11 @@ def forward_edge_checks(card) -> list:
 # would overwrite it). (Tq, Tk, B, H): lengths that no tile divides, H >= 3, q, k, v as
 # views of a fused qkv (or q and kv) tensor.
 CANARY_CASES = [(65, 65, 2, 3), (129, 4000, 2, 3), (1370, 1370, 1, 16), (1369, 1369, 3, 5)]
+# The narrow fp32 forward's besides: packed tiles of 1, 16 and 2 sequences, the last work
+# tile partly filled and more work tiles than blocks (577 x 8 and 301 x 3 sequences), a
+# packed tile of 7 queries against 13 keys, 33 queries streaming 512 keys.
+NARROW_CANARY_CASES = [(1, 1, 3, 5), (8, 8, 577, 8), (64, 64, 301, 3), (7, 13, 3, 5), (33, 512, 2, 3),
+                       (65, 64, 3, 5)]
 CANARY = 1234.5678
 CANARY_PAD = 4096  # elements of canary before and after each output
 
@@ -746,16 +822,19 @@ def canary_buffer(shape, dtype=None):
     return inner, lambda: bool((buf[:CANARY_PAD] == CANARY).all() and (buf[CANARY_PAD + n:] == CANARY).all())
 
 
-def forward_canary_checks() -> list:
+def forward_canary_checks(dims=None) -> list:
     """Phase 3f's canary cases: the fp32 forward with lse into canary buffers (D = 48, which
-    has no lse instance: the lse-free forward, also at the VGGSfM tracker's four shapes)."""
+    has no lse instance: the lse-free forward), at every fp32 head dim or at ``dims``; the
+    narrow ones also at NARROW_CANARY_CASES and the VGGSfM tracker's shapes
+    (TRACKER_CANARY_CASES)."""
     import torch
 
     from mapanything_tpu_torch.ops import flash_attention as fa
 
     cases = []
-    for d in fa.F32_HEAD_DIMS:
-        for tq, tk, b, h in CANARY_CASES + (TRACKER_CANARY_CASES if d == 48 else []):
+    for d in dims or fa.F32_HEAD_DIMS:
+        narrow = d in fa.NARROW_HEAD_DIMS
+        for tq, tk, b, h in CANARY_CASES + (NARROW_CANARY_CASES + TRACKER_CANARY_CASES if narrow else []):
             gen = torch.Generator(device="cuda").manual_seed(tq * 31 + tk + d)
             q, k, v, _, scale = backward_edge_inputs(d, tq, tk, b, h, "fused", gen, torch.float32)
             with_lse = d in fa.F32_LSE_HEAD_DIMS
@@ -915,7 +994,9 @@ def train_kernel_checks(card, shapes=TRAIN_SHAPES, replaces=TRAIN_REPLACES, phas
     """Phases 3b and 3e: the lse forward, dq and dk/dv kernels against their plain versions;
     in fp32 also under the fp32 rule (o, lse, dq, dk, dv), each kernel timed alone on one
     split pass's parts, and the split passes (the forward's of q, k and v, the backward's of
-    q, k, v and dO, a layer's two together) bitwise against their plain version."""
+    q, k, v and dO, a layer's two together) bitwise against their plain version. At D = 32
+    the lse forward is the narrow one (no split pass; its device time beside its call's):
+    the split passes are the backward's alone."""
     import torch
     import torch.nn.functional as F
 
@@ -956,10 +1037,13 @@ def train_kernel_checks(card, shapes=TRAIN_SHAPES, replaces=TRAIN_REPLACES, phas
         del exact, plain, xe, o_e, lse_e, o_p, lse_p
         torch.cuda.empty_cache()
         split_bitwise = None
+        narrow = fp32 and d in fa.NARROW_HEAD_DIMS  # the lse forward splits in its kernel
+        split_inputs = (q, k, v, do) if narrow else (q, k, v, do, q, k, v)
         if fp32:  # the split passes against their plain version, bitwise
-            parts, fwd_parts = fa.flash_attention_split_f32(q, k, v, do), fa.flash_attention_split_f32(q, k, v)
+            parts = fa.flash_attention_split_f32(q, k, v, do)
+            fwd_parts = None if narrow else fa.flash_attention_split_f32(q, k, v)
             split_bitwise = all(torch.equal(got, fa.split_bf16x3_reference(x, fa.part_cols(d)))
-                                for got, x in zip(parts + fwd_parts, (q, k, v, do, q, k, v)))
+                                for got, x in zip(parts + (fwd_parts or ()), split_inputs))
 
         plain_delta = fa.attention_bwd_delta(o, do)
         if fp32:  # the fp32 kernels alone, on one split pass's parts (the splits are timed apart)
@@ -988,12 +1072,13 @@ def train_kernel_checks(card, shapes=TRAIN_SHAPES, replaces=TRAIN_REPLACES, phas
             ),
         }
         split_ms = {}
-        if fp32:  # a layer's two split passes: the forward's (q, k, v) and the backward's (q, k, v, dO)
-            split_ms = {"fwd_split_ms": cuda_time_ms(lambda: fa.flash_attention_split_f32(q, k, v), iters=20),
-                        "bwd_split_ms": cuda_time_ms(lambda: fa.flash_attention_split_f32(q, k, v, do), iters=20)}
+        if fp32:  # a layer's split passes: the forward's (q, k, v; none at D = 32) and the backward's (q, k, v, dO)
+            if not narrow:
+                split_ms["fwd_split_ms"] = cuda_time_ms(lambda: fa.flash_attention_split_f32(q, k, v), iters=20)
+            split_ms["bwd_split_ms"] = cuda_time_ms(lambda: fa.flash_attention_split_f32(q, k, v, do), iters=20)
             times["flash_attention_split_f32"] = (
-                split_ms["fwd_split_ms"] + split_ms["bwd_split_ms"],
-                cuda_time_ms(lambda: [fa.split_bf16x3_reference(x, fa.part_cols(d)) for x in (q, k, v, do, q, k, v)],
+                sum(split_ms.values()),
+                cuda_time_ms(lambda: [fa.split_bf16x3_reference(x, fa.part_cols(d)) for x in split_inputs],
                              iters=5,
                              warmup=1),
             )
@@ -1030,8 +1115,10 @@ def train_kernel_checks(card, shapes=TRAIN_SHAPES, replaces=TRAIN_REPLACES, phas
             if kname == "flash_attention_fwd_lse":
                 entry.update(library_ms=library_fwd_ms, **forward_bounds(card, b, t, t, h, d, dtype_name, True),
                              tflops=fa.attention_flops(b, t, t, h, d) / ms / 1e9)
+                if narrow:  # its device time, apart from the host's
+                    entry["device_ms"] = device_time_ms(fwd_call)
             elif kname == "flash_attention_split_f32":  # q, k, v (and dO) read in fp32, three bf16 parts written
-                n_elements = 7 * b * t * h * d
+                n_elements = len(split_inputs) * b * t * h * d
                 entry.update(library_ms=None, bound_ms=split_bound_ms(card, n_elements), bound_by="bytes",
                              gb_per_s=n_elements * 10 / ms / 1e6, **split_ms)
             else:
@@ -2777,7 +2864,7 @@ def rgb_config(head: str, compute_dtype: str = "bfloat16"):
 def rgb_flagship_infer(card) -> dict:
     """Phase 22: the RGB models' flagship, bf16 trunk and fp32 MAE or MoGe head, through
     ``infer`` on 1 x 8 x 518: launches by head dim and key length (the MAE decoder's 8
-    fp32 D = 32 forwards, each after its split pass, beside the 48 bf16 D = 64 ones), ms
+    narrow fp32 D = 32 forwards, no split pass, beside the 48 bf16 D = 64 ones), ms
     per infer, views/s, peak memory, the output invariants and predicted colours in
     [0, 1]. Returns {head: line}."""
     import torch
@@ -2799,13 +2886,11 @@ def rgb_flagship_infer(card) -> dict:
         counts, shapes = launch_counts(), launch_shapes()
         mae = head == "mae"
         want = {"flash_attention_fwd": 56 if mae else 48, "flash_attention_fwd_lse": 0, "flash_attention_bwd_dq": 0,
-                "flash_attention_bwd_dkv": 0, "flash_attention_split_f32": 8 if mae else 0}
+                "flash_attention_bwd_dkv": 0, "flash_attention_split_f32": 0}
         want_shapes = {(1370, 64): 24, (1369, 64): 12, (V * 1369 + 1, 64): 12, **({(1369, 32): 8} if mae else {})}
         if counts != want or shapes["flash_attention_fwd"] != want_shapes:
             raise AssertionError(f"one {head} infer launched {counts} ({shapes['flash_attention_fwd']}), not {want} "
                                  f"({want_shapes})")
-        if mae and shapes["flash_attention_split_f32"] != {(1369, 32): 8}:
-            raise AssertionError(f"the MAE decoder's split passes: {shapes['flash_attention_split_f32']}")
         checks = check_infer_outputs(out, (B, V, H, W))
         rgb = out.img_no_norm
         if not (0.0 <= rgb.min().item() and rgb.max().item() <= 1.0):
@@ -2833,7 +2918,8 @@ def rgb_flagship_train(card) -> dict:
     """Phase 23: the MAE flagship's train step (bf16 trunk, fp32 MAE head) on 1 x 4 x 518
     with bench.py's LossBatch and a seeded target_rgb (the RGB L1 term on): 2 warm-up and
     5 timed steps, launches per step by head dim (the MAE decoder's 8 fp32 D = 32 lse
-    forwards, dq and dk/dv, and 16 split passes, beside 48 bf16 D = 64 ones), finite loss,
+    forwards, dq and dk/dv, and the backward's 8 split passes, beside 48 bf16 D = 64 ones),
+    finite loss,
     gradient norm and gradients, a nonzero gradient reaching every parameter, the RGB
     term in every step's loss, ms per step, views/s and peak memory."""
     import torch
@@ -2860,8 +2946,8 @@ def rgb_flagship_train(card) -> dict:
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     training = ("flash_attention_fwd_lse", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
-    want = {"flash_attention_fwd": 0, **dict.fromkeys(training, 56), "flash_attention_split_f32": 16}
-    want_by_d = {**{k: {64: 48, 32: 8} for k in training}, "flash_attention_split_f32": {32: 16}}
+    want = {"flash_attention_fwd": 0, **dict.fromkeys(training, 56), "flash_attention_split_f32": 8}
+    want_by_d = {**{k: {64: 48, 32: 8} for k in training}, "flash_attention_split_f32": {32: 8}}
     totals_by_d = {k: {} for k in want_by_d}
     names = list(state.params)
     ever_nonzero = torch.zeros(len(names), dtype=torch.bool, device="cuda")
@@ -3681,7 +3767,7 @@ def path_entry(name, replaces, rows, launches, also=(), source=KERNEL_SOURCE, **
 
     shape = lambda r: {k: r[k] for k in ("shape", "b_t_h_d", "tk", "dtype", "replaces", "max_abs_err", "ms",  # noqa: E731
                                          "plain_ms", "bound_ms", "library_ms", "exp_bound_ms", "ffma_bound_ms",
-                                         "split_ms", "call_ms") if k in r}
+                                         "split_ms", "call_ms", "device_ms", "library_device_ms") if k in r}
     return {
         "name": name,
         "route": "cuda",
@@ -3834,18 +3920,15 @@ def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, infe
 
 
 def rgb_entries(rgb) -> list:
-    """Phases 22-23 in the kernels line: the fp32 D = 32 forward and its split pass on the
-    MAE flagship's infer (times per forward), the training kernels on its train step
-    (times per step), each with that run's D = 32 launches."""
+    """Phases 22-23 in the kernels line: the narrow fp32 D = 32 forward on the MAE
+    flagship's infer (times per forward; no split pass), the training kernels and the
+    backward's split pass on its train step (times per step), each with that run's D = 32
+    launches."""
     r_rows = rgb["rows"]
     d32 = rgb["infer"]["mae"]["launches_by_head_dim"]
-    entries = []
-    for name, entry_rows, source in (("flash_attention_fwd", r_rows, KERNEL_SOURCE),
-                                     ("flash_attention_split_f32", split_rows(r_rows), BWD_KERNEL_SOURCE)):
-        entries.append(path_entry(name, f"{FA}:114", entry_rows, {r["shape"]: r["per_forward"] for r in r_rows},
-                                  source=source, dtype="float32", head_dim=32,
-                                  path="MAE flagship infer 1x8x518 (phase 22); times per forward"))
-        entries[-1]["launches"] = d32[name][32]
+    entries = [path_entry("flash_attention_fwd", f"{FA}:114", r_rows, {r["shape"]: r["per_forward"] for r in r_rows},
+                          dtype="float32", head_dim=32, path="MAE flagship infer 1x8x518 (phase 22); times per forward")]
+    entries[-1]["launches"] = d32["flash_attention_fwd"][32]
     train = rgb["train"]
     for name in TRAIN_OUTPUTS:
         entries.append(train_entry(name, rgb["train_rows"], RGB_TRAIN_REPLACES[name]["mae_decoder"],
@@ -3964,8 +4047,8 @@ TRACKER_SHAPES = [
 # Phase 3's fp32 D = 32 row at phase 3f's 129 x 4000 keys, where the JAX dispatch took
 # _fwd_stream_aug (:164): no path runs it (the MAE decoder attends within a view).
 D32_LONG_SHAPES = [("fp32_d32_129x4000", (2, 129, 3, 32), "float32", 0, f"{FA}:164", 4000)]
-# Phase 3f's D = 48 canary cases at the tracker's four shapes, (Tq, Tk, B, H).
-TRACKER_CANARY_CASES = [(8, 8, 576, 8), (64, 512, 8, 8), (64, 64, 8, 8), (512, 64, 8, 8)]
+# Phase 3f's narrow canary cases at the tracker's five shapes, (Tq, Tk, B, H).
+TRACKER_CANARY_CASES = [(8, 8, 576, 8), (64, 512, 8, 8), (64, 64, 8, 8), (512, 64, 8, 8), (8, 8, 512, 8)]
 # The tracker's flow heads scaled by this (both runs): steps of a pixel or so an iteration,
 # as trained weights take; seeded weights take tens of pixels, send tracks out of the frame
 # and turn fp32 rounding into whole-pixel shifts of the fine tracker's patches (its floor).
@@ -4222,7 +4305,8 @@ def ba_colmap_phase(card) -> dict:
 def tracker_phase(card) -> dict:
     """Phase 32: the VGGSfM tracker (the registry's ``vggsfm_tracker``, seeded; flow heads
     scaled by TRACKER_FLOW_SCALE) through ``ba.tracker.predict_tracks_learned`` on the demo's
-    eight frames: launches by (Tk, D) held to TRACKER_SHAPES' (a query frame's, times 3), the
+    eight frames: launches by (Tk, D) held to TRACKER_SHAPES' (a query frame's, times 3; no
+    split pass), the
     tracks and visibility held to the same call under ``plain_attention()`` (TF32 off), the
     CUDA-event time a query frame, peak memory."""
     import torch
@@ -4264,7 +4348,7 @@ def tracker_phase(card) -> dict:
         want[(tk, d)] = want.get((tk, d), 0) + q * per_frame
     n = sum(want.values())
     expect = {"flash_attention_fwd": n, "flash_attention_fwd_lse": 0, "flash_attention_bwd_dq": 0,
-              "flash_attention_bwd_dkv": 0, "flash_attention_split_f32": n}
+              "flash_attention_bwd_dkv": 0, "flash_attention_split_f32": 0}  # the narrow forward splits in-kernel
     if counts != expect or shapes["flash_attention_fwd"] != want:
         raise AssertionError(f"the tracker launched {counts} ({shapes['flash_attention_fwd']}), not {expect} ({want})")
     tracks, vis, scores = kern
@@ -4484,35 +4568,21 @@ def optim_phase(card) -> dict:
     return line
 
 
-def d48_edge_checks(card) -> list:
-    """Phase 3f's D = 48 cases alone (``--ba-only``): the lse-free fp32 forward against its
-    plain version at EDGE_CASES in both layouts, then the canary cases with the tracker's."""
+def narrow_edge_checks(card) -> list:
+    """Phase 3f's narrow fp32 cases alone (``--ba-only``, ``--rgb-only``): the forward at
+    D = 32 (both forms) and 48 (lse-free) against its plain version at EDGE_CASES and
+    NARROW_EDGE_CASES in both layouts, then their canary cases."""
     import torch
 
     from mapanything_tpu_torch.ops import flash_attention as fa
 
     cases = []
-    for tq, tk, b, h in EDGE_CASES:
-        for layout in ("contiguous", "fused"):
-            gen = torch.Generator(device="cuda").manual_seed(tq * 7919 + tk + 48)
-            q, k, v, _, scale = backward_edge_inputs(48, tq, tk, b, h, layout, gen, torch.float32)
-            out = fa.flash_attention(q, k, v, scale)
-            torch.cuda.synchronize()
-            exact = fa.attention_reference(*(x.double() for x in (q, k, v)), scale)
-            plain_err = max_err(fa.attention_reference(q, k, v, scale), exact)
-            cases.append({"dtype": "float32", "d": 48, "tq": tq, "tk": tk, "b": b, "h": h, "layout": layout,
-                          "out": "o", "err": max_err(out, exact), "tol": tolerance(plain_err, exact),
-                          "fp32_tol": fp32_tolerance(plain_err, exact), "finite": bool(torch.isfinite(out).all())})
-    cases += [c for c in forward_canary_checks() if c["d"] == 48]
-    bad = [c for c in cases if not (c["finite"] and c["err"] <= min(c["tol"], c["fp32_tol"])
-                                    and c.get("canaries_intact", True))]
-    worst = max(cases, key=lambda c: c["err"] / max(c["fp32_tol"], 1e-30))
-    emit({"phase": "forward_edge_check_d48", "phase_id": "3f", "cases": len(cases), "worst": worst, "failed": bad,
-          "canary_cases": sum("canaries_intact" in c for c in cases),
-          "card": card["name"], "power_limit": card["power_limit"]})
-    if bad:
-        raise AssertionError(f"the D = 48 forward disagrees with its plain version at {len(bad)} cases: {bad[:4]}")
-    return cases
+    for d in fa.NARROW_HEAD_DIMS:
+        for tq, tk, b, h in EDGE_CASES + NARROW_EDGE_CASES:
+            for layout in ("contiguous", "fused"):
+                cases += edge_case_rows(torch.float32, d, tq, tk, b, h, layout)
+    cases += forward_canary_checks(fa.NARROW_HEAD_DIMS)
+    return edge_report(card, "forward_edge_check_narrow", cases)
 
 
 def ba_phases(card, rows=None) -> dict:
@@ -4539,8 +4609,8 @@ def ba_phases(card, rows=None) -> dict:
 
 def ba_entries(ba) -> list:
     """Phases 31-33 in the kernels line: the bf16 forward on the BA demo's infer (phase 31,
-    both track sources' runs), the fp32 forward at D = 48 and D = 32 and its split pass on
-    the tracker (phase 32; times per scene of 3 query frames), and the fp32 forward and its
+    both track sources' runs), the narrow fp32 forward at D = 48 and D = 32 on the tracker
+    (phase 32; times per scene of 3 query frames; no split pass), and the fp32 forward and its
     split pass on each optimisation path (phase 33; times per scene), each with that run's
     launches."""
     entries = []
@@ -4556,12 +4626,10 @@ def ba_entries(ba) -> list:
     for d in (48, 32):
         group = [r for r in ba["rows"]["tracker"] if r["b_t_h_d"][3] == d]
         launches = {r["shape"]: r["per_forward"] * TRACKER_QUERY_FRAMES for r in group}
-        for name, entry_rows, source in (("flash_attention_fwd", group, KERNEL_SOURCE),
-                                         ("flash_attention_split_f32", split_rows(group), BWD_KERNEL_SOURCE)):
-            entries.append(path_entry(name, DUST3R_REPLACES, entry_rows, launches, source=source, dtype="float32",
-                                      head_dim=d, path=f"VGGSfM tracker 8x518x392, {TRACKER_QUERIES} queries x "
-                                                       f"{TRACKER_QUERY_FRAMES} query frames (phase 32); times per scene"))
-            entries[-1]["launches"] = sum(n for k, n in run.items() if k.endswith(f"x{d}"))
+        entries.append(path_entry("flash_attention_fwd", DUST3R_REPLACES, group, launches, dtype="float32",
+                                  head_dim=d, path=f"VGGSfM tracker 8x518x392, {TRACKER_QUERIES} queries x "
+                                                   f"{TRACKER_QUERY_FRAMES} query frames (phase 32); times per scene"))
+        entries[-1]["launches"] = sum(n for k, n in run.items() if k.endswith(f"x{d}"))
     for path, line in ba["optim"]["paths"].items():
         group = [r for r in ba["rows"]["optim"] if path in r["per_forward"]]
         launches = {r["shape"]: r["per_forward"][path] for r in group}
@@ -5620,6 +5688,7 @@ def main() -> int:
         return 0
     if args.rgb_only:
         emit(build)
+        narrow_edge_checks(card)
         rgb_phases(card)
         one_rank_group(mesh_trainer_phase, card)
         return 0
@@ -5635,7 +5704,7 @@ def main() -> int:
     fwd_smem = _build.load(KERNEL_STEMS[0]).flash_attention_fwd_smem
     bwd_smem = _build.load(KERNEL_STEMS[1]).flash_attention_bwd_smem
     fwd, bwd = fwd_instances(), bwd_instances()
-    dynamic = {key: fwd_smem(FWD_SMEM_INDEX[dtype], d) for (dtype, d, _), key in fwd.items()}
+    dynamic = {key: fwd_smem(FWD_SMEM_INDEX[dtype, regime], d) for (dtype, d, _, regime), key in fwd.items()}
     dynamic.update({key: bwd_smem(BWD_SMEM_INDEX[kernel, dtype], d) for (kernel, dtype, d), key in bwd.items()})
     for key, nbytes in dynamic.items():
         for name, report in instances.items():
@@ -5643,7 +5712,7 @@ def main() -> int:
                 report["dynamic_smem"] = nbytes
     emit({**build, "fwd_sass": sass_check(libs[0], fwd), "bwd_sass": sass_check(libs[1], bwd)})
     if args.ba_only:
-        d48_edge_checks(card)
+        narrow_edge_checks(card)
         emit({"kernels": ba_entries(ba_phases(card))})
         return 0
     if not args.backward_edges_only:

@@ -1296,19 +1296,20 @@ extern "C" int flash_attention_bwd_dkv_f32(const void* q_parts, const void* k_pa
   return by_head_dim<32, 64, 128>(D, B, Tq, Tk, H, [&](auto d) { return bwd_dkv_f32<decltype(d)::value>(a); });
 }
 
-// The split pass of the fp32 forward (dout null: q, k and v) and backward (q, k, v and
-// dout): fp32 (B, T, H, D) (Tq rows for q and dout, Tk for k and v) with their batch,
-// token and head strides in elements (the head-dim stride is 1; rows 16-byte aligned;
-// dout's strides are not read without it), into the contiguous bf16 parts q_parts ..
-// dout_parts, (3, B, T, H, f32_part_cols(D)) each. One launch. Returns
-// cudaErrorInvalidValue for a D other than 32, 48 (the forward's alone), 64 or 128 or empty
-// shapes, else cudaGetLastError() after the launch.
+// The split pass of the fp32 forward at D = 64 and 128 (dout null: q, k and v) and of the
+// fp32 backward (q, k, v and dout): fp32 (B, T, H, D) (Tq rows for q and dout, Tk for k and
+// v) with their batch, token and head strides in elements (the head-dim stride is 1; rows
+// 16-byte aligned; dout's strides are not read without it), into the contiguous bf16 parts
+// q_parts .. dout_parts, (3, B, T, H, f32_part_cols(D)) each. One launch. Returns
+// cudaErrorInvalidValue for a D other than 32, 64 or 128 or empty shapes, else
+// cudaGetLastError() after the launch. (The forward at D = 32 and 48 splits in its own
+// shared memory: fa_fwd_f32_narrow.)
 extern "C" int flash_attention_split_f32(const void* q, const void* k, const void* v, const void* dout, void* q_parts,
                                          void* k_parts, void* v_parts, void* dout_parts, int B, int Tq, int Tk, int H,
                                          int D, long long sqb, long long sqt, long long sqh, long long skb,
                                          long long skt, long long skh, long long svb, long long svt, long long svh,
                                          long long sdb, long long sdt, long long sdh, void* stream) {
-  if (by_head_dim<32, 48, 64, 128>(D, B, Tq, Tk, H, [](auto) { return 0; }))
+  if (by_head_dim<32, 64, 128>(D, B, Tq, Tk, H, [](auto) { return 0; }))
     return static_cast<int>(cudaErrorInvalidValue);
   const int Dp = f32_part_cols(D);
   const SplitArgs a{{static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),

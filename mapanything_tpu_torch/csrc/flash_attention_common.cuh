@@ -108,6 +108,16 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
+// The same in the 32-byte swizzle (the narrow fp32 forward's tiles): rows of 32 bytes (16
+// elements, one k-step of a K-major operand), in atoms of 8 rows (256 bytes, the stride
+// between 8-row groups); the 16-byte chunk c of row r lies at chunk c ^ ((r >> 2) & 1).
+// `lbo` is the byte stride between 16-column panels along M or N, read for MN-major
+// operands only. The tile base must be 256-byte aligned.
+__device__ __forceinline__ uint64_t sw32_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32) | (3ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
 template <int N>
@@ -133,12 +143,13 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[R][C]) {
 // wgmma m64nNk16, bf16 inputs, fp32 accumulators in the warpgroup's fragment layout
 // (thread lane of warp w holds rows 16w + lane/4 and +8, columns 8j + 2(lane%4) and +1 of
 // each 8-column group j: d[4j .. 4j+3]). ss: A and B from shared memory, both K-major
-// (S = Q K^T of the bf16 forward at N = 176, of the fp32 forward at N = 64 and 32; the
-// backward's S and dP at N = 32, 64, 96 and 128). rs: A
+// (S = Q K^T of the bf16 forward at N = 176, of the fp32 forward at N = 32, 64, 96 and
+// 128; the backward's S and dP at N = 32, 64, 96 and 128). rs: A
 // from registers (the same fragment layout as mma.sync's m16n8k16 A, one per warp), B
 // from shared memory MN-major (the transpose bit of 16-bit types; N = D: the forward's
-// O += P V, the backward's dQ += dS K, dV += P^T dO and dK += dS^T Q). `accumulate` = 0
-// overwrites d.
+// O += P V, the backward's dQ += dS K, dV += P^T dO and dK += dS^T Q; the narrow fp32
+// forward's P V over one, two or three parts of V at N = 32, 64, 96 (D = 32) and 48, 96,
+// 144 (D = 48)). `accumulate` = 0 overwrites d.
 template <int N>
 struct Wgmma;
 
@@ -154,6 +165,34 @@ struct Wgmma<32> {
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
         : "l"(a), "l"(b), "r"(accumulate));
+  }
+  // d (64 x 32, fp32) (+)= a (64 x 16, registers) * b (16 x 32, smem, MN-major)
+  __device__ __forceinline__ static void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct Wgmma<48> {
+  // d (64 x 48, fp32) (+)= a (64 x 16, registers) * b (16 x 48, smem, MN-major)
+  __device__ __forceinline__ static void rs(float (&d)[24], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23}, "
+        "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
   }
 };
 
@@ -208,6 +247,23 @@ struct Wgmma<96> {
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
         : "l"(a), "l"(b), "r"(accumulate));
   }
+  // d (64 x 96, fp32) (+)= a (64 x 16, registers) * b (16 x 96, smem, MN-major)
+  __device__ __forceinline__ static void rs(float (&d)[48], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+        "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+  }
 };
 
 template <>
@@ -251,6 +307,32 @@ struct Wgmma<128> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct Wgmma<144> {
+  // d (64 x 144, fp32) (+)= a (64 x 16, registers) * b (16 x 144, smem, MN-major)
+  __device__ __forceinline__ static void rs(float (&d)[72], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %77, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n144k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71}, "
+        "{%72, %73, %74, %75}, %76, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
   }
 };
 
@@ -383,10 +465,11 @@ __device__ __forceinline__ void split_fragments(uint32_t (&pa)[3 * N / 16][4], c
       split3(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1], pa[kk][i], pa[N / 16 + kk][i], pa[2 * N / 16 + kk][i]);
 }
 
-// The columns of an fp32 instance's split parts of head dim D: D = 32 runs the D = 64 tile
+// The columns of the fp32 backward's split parts of head dim D: D = 32 runs the D = 64 tile
 // plans on parts zero-padded to 64 columns (one 128-byte swizzle row of bf16, the width the
-// tensor maps and the wgmma descriptors here are built for); the zero columns add nothing
-// to q.k or to P V, and every store clips at D.
+// tensor maps and the wgmma descriptors there are built for); the zero columns add nothing
+// to the products, and every store clips at D. (The forward at D = 32 and 48 splits in its
+// own shared memory, at the true width: fa_fwd_f32_narrow.)
 __host__ __device__ constexpr int f32_part_cols(int D) { return D < 64 ? 64 : D; }
 
 // Store a consumer's 64 x C fp32 accumulators (the wgmma fragment layout), times `mul`, as

@@ -12,15 +12,18 @@ kernel), each instantiated for head dims 64 and 128 in bf16 (``HEAD_DIMS``) and
 at 48 (``F32_HEAD_DIMS``); any other head dim raises. D = 128
 is K8's regime on the TPU (``d % 128 == 0``: ``_fwd_kernel``,
 ``_fwd_kernel_lse``, ``_dq_kernel``, ``_dkv_kernel``). D = 32 is the RGB
-models' MAE decoder, which runs in fp32 whatever the model's dtype; on the TPU
-its attention took ``_fwd_kernel_single(_lse)``, ``_fwd_stream_aug(_lse)``,
-``_dq_aug_kernel`` and ``_dkv_aug_kernel``. The fp32 instances run it on the
-D = 64 plans: the split pass writes its parts zero-padded to 64 columns
-(``part_cols``), and the kernels store 32 columns a row. D = 48 is the VGGSfM
-tracker's coarse transformer (inference only, fp32), whose point-to-virtual
-attention took ``_fwd_kernel_single`` on the TPU: the lse-free forward on the same
-padded parts, storing 48 columns a row. The plain versions
-below take any head dim: they are the plain version of K8 as they are of K1-K7.
+models' MAE decoder, which runs in fp32 whatever the model's dtype, and the
+VGGSfM tracker's fine transformer; on the TPU its attention took
+``_fwd_kernel_single(_lse)``, ``_fwd_stream_aug(_lse)``, ``_dq_aug_kernel`` and
+``_dkv_aug_kernel``. D = 48 is the tracker's coarse transformer (inference only,
+fp32), whose point-to-virtual attention took ``_fwd_kernel_single`` on the TPU.
+The fp32 forward at those two (``NARROW_HEAD_DIMS``) has its own design
+(``fa_fwd_f32_narrow``): products at the true width, short sequences packed
+several to a tile (``fwd_f32_narrow_plan``), and q, k and v read in place and
+split in the kernel's shared memory. The fp32 backward at D = 32 runs the D = 64
+plans on split parts zero-padded to 64 columns (``part_cols``) and stores 32
+columns a row. The plain versions below take any head dim: they are the plain
+version of K8 as they are of K1-K7.
 
 The bf16 kernels are Hopper's own design (wgmma, TMA, a producer warpgroup and
 two consumer warpgroups on a persistent grid): they read q, k, v (and the
@@ -30,11 +33,13 @@ points encode them with the driver's ``cuTensorMapEncodeTiled``, found through
 the runtime. Their tile plans (``FWD_TILES``, ``BWD_TILES``) are the kernels',
 which refuse maps of another box. The fp32 kernels are the same design on
 split operands: a split pass (``flash_attention_split_f32``, one launch a
-forward for q, k and v, one a backward for q, k, v and dO) writes each as
-three bf16 parts (hi, mid, lo: ``split_bf16x3_reference``), and the forward,
-dq and dk/dv kernels compute every product as six bf16 products of the
-parts, read through tensor maps of the parts (``FWD_F32_TILES``,
-``BWD_F32_TILES``).
+forward for q, k and v at D = 64 and 128, one a backward for q, k, v and dO)
+writes each as three bf16 parts (hi, mid, lo: ``split_bf16x3_reference``), and
+the forward, dq and dk/dv kernels compute every product as six bf16 products of
+the parts, read through tensor maps of the parts (``FWD_F32_TILES``,
+``BWD_F32_TILES``). The narrow forward (D = 32 and 48) takes no split pass and no
+tensor map: it reads fp32 q, k and v by 16-byte loads in the layouts
+``narrow_layout`` gives, and its launcher refuses a plan other than its own.
 
 Routing. ``flash_attention`` runs the lse-free forward when no input needs a
 gradient (inference is unchanged); otherwise an autograd Function runs the
@@ -67,16 +72,23 @@ KERNEL_STEM = "flash_attention_fwd"
 BWD_KERNEL_STEM = "flash_attention_bwd"
 KERNEL_STEMS = (KERNEL_STEM, BWD_KERNEL_STEM)
 HEAD_DIMS = (64, 128)  # head dims the bf16 kernels are instantiated for
-F32_HEAD_DIMS = (32, 48, 64, 128)  # and the fp32 lse-free forward
+F32_HEAD_DIMS = (32, 48, 64, 128)  # and the fp32 lse-free forward (at 32 and 48 the narrow one)
 F32_LSE_HEAD_DIMS = (32, 64, 128)  # the fp32 lse forward, dq and dk/dv (D = 48 runs inference alone)
 # The kernels' instances: bf16 (wgmma) and fp32 (wgmma over split bf16 parts).
 _DTYPES = (torch.bfloat16, torch.float32)
 # The bf16 forward's tile plan by head dim, (query rows, key rows) a block: FwdPlan in
 # csrc/flash_attention_fwd.cu, which refuses maps whose boxes differ.
 FWD_TILES = {64: (128, 176), 128: (128, 176)}
-# The fp32 forward's, the same pair: FwdF32Plan, whose tiles hold three bf16 parts each;
-# keyed by the parts' width, part_cols(D) (D = 32 runs D = 64's plan on padded parts).
+# The fp32 forward's at D = 64 and 128, the same pair: FwdF32Plan, whose tiles hold three
+# bf16 parts each.
 FWD_F32_TILES = {64: (128, 96), 128: (128, 32)}
+# The narrow fp32 forward (fa_fwd_f32_narrow, FwdF32NarrowPlan): 128 query rows a work tile;
+# packed, one key tile of 128 keys; streaming, key tiles of these many keys by head dim.
+NARROW_HEAD_DIMS = (32, 48)
+NARROW_TILE_ROWS = 128
+NARROW_PACKED_KEYS = 128
+NARROW_STREAM_KEYS = {32: 96, 48: 64}
+NARROW_MAX_PACKED = 64  # the longest Tq and Tk that the packed regime takes
 # The bf16 backward's plans by head dim: the dq kernel's (query rows a work tile, keys a
 # K or V tile) and the dk/dv kernel's (keys a work tile, query rows a stage): DqPlan and
 # DkvPlan in csrc/flash_attention_bwd.cu.
@@ -95,9 +107,65 @@ def head_dims(dtype: torch.dtype, lse: bool = False) -> Tuple[int, ...]:
 
 
 def part_cols(d: int) -> int:
-    """The columns of the fp32 split parts of head dim ``d``: at least one 64-column box
+    """The columns of the fp32 split parts of head dim ``d`` (32, 64 or 128: the split
+    pass's dims, the backward's and the forward's at 64 and 128): at least one 64-column box
     (f32_part_cols in csrc/flash_attention_common.cuh), zero past ``d``."""
+    if d not in F32_LSE_HEAD_DIMS:
+        raise ValueError(f"head dim {d} has no split pass (built: {F32_LSE_HEAD_DIMS})")
     return max(d, TMA_BOX_COLS)
+
+
+def fwd_f32_narrow_plan(b: int, tq: int, tk: int, h: int, d: int) -> dict:
+    """The narrow fp32 forward's plan at D = 32 or 48 (narrow_plan in
+    csrc/flash_attention_fwd.cu, which refuses any other): ``regime`` "packed" where Tq
+    and Tk are at most 64, else "streaming"; ``seqs_per_tile``, the (batch, head)
+    sequences a work tile holds; ``rows_per_seq`` and ``keys_per_seq``, the query rows and
+    keys a sequence takes in a tile (packed: Tq and Tk rounded up to powers of two; a
+    streaming tile takes 128 query rows of its sequence against all Tk keys);
+    ``keys_per_tile``; ``work_tiles``. A packed tile holds 128 / max(rows, keys)
+    sequences: row r is token r % rows of sequence r // rows, key c token c % keys of
+    sequence c // keys, and row r attends key c where both sequences agree and the token
+    is < Tk. Sequence s is batch s // H, head s % H; tile w takes sequences
+    w * seqs_per_tile onwards (packed) or query rows 128 (w % ceil(Tq / 128)) onwards of
+    sequence w // ceil(Tq / 128) (streaming)."""
+    if d not in NARROW_HEAD_DIMS:
+        raise ValueError(f"head dim {d} has no narrow fp32 forward (built: {NARROW_HEAD_DIMS})")
+    if tq <= NARROW_MAX_PACKED and tk <= NARROW_MAX_PACKED:
+        rows, keys = 1 << (tq - 1).bit_length(), 1 << (tk - 1).bit_length()
+        g = NARROW_TILE_ROWS // max(rows, keys)
+        return {"regime": "packed", "seqs_per_tile": g, "rows_per_seq": rows, "keys_per_seq": keys,
+                "keys_per_tile": NARROW_PACKED_KEYS, "work_tiles": -(-b * h // g)}
+    return {"regime": "streaming", "seqs_per_tile": 1, "rows_per_seq": NARROW_TILE_ROWS, "keys_per_seq": tk,
+            "keys_per_tile": NARROW_STREAM_KEYS[d], "work_tiles": -(-tq // NARROW_TILE_ROWS) * b * h}
+
+
+def narrow_layout(x: torch.Tensor) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """The layout in which the narrow fp32 forward reads a (B, T, H, D) fp32 tensor in
+    place: dims (D, T, H, B), innermost first, and the byte strides of T, H and B (a view
+    of a fused qkv tensor has T-stride 3·H·D·4 and H-stride D·4). Its 16-byte loads need
+    a unit head-dim stride, a 16-byte-aligned base and strides that are multiples of 16
+    bytes; anything else raises ValueError."""
+    if x.dtype != torch.float32 or x.dim() != 4:
+        raise ValueError(f"the narrow forward reads fp32 (B, T, H, D) tensors, got {x.dtype} {tuple(x.shape)}")
+    b, t, h, d = x.shape
+    sb, st, sh, sd = x.stride()
+    if sd != 1:
+        raise ValueError(f"the head-dim stride must be 1, got {x.stride()}")
+    strides = (st * 4, sh * 4, sb * 4)
+    if x.data_ptr() % 16 or (strides[0] | strides[1] | strides[2]) % 16:
+        raise ValueError(f"base and strides must be 16-byte aligned, got {x.stride()} at {x.data_ptr():#x}")
+    return (d, t, h, b), strides
+
+
+def _narrow_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Tuple[bytes, bytes]:
+    """The narrow forward's packed layouts (7 int64 each: dims[4], byte strides[3]) and
+    plan (6 int32: packed, seqs_per_tile, rows_per_seq, keys_per_seq, keys_per_tile,
+    work_tiles)."""
+    values = [n for x in (q, k, v) for part in narrow_layout(x) for n in part]
+    b, tq, h, d = q.shape
+    plan = fwd_f32_narrow_plan(b, tq, k.shape[1], h, d)
+    return (struct.pack("21q", *values),
+            struct.pack("6i", plan["regime"] == "packed", *(plan[key] for key in list(plan)[1:])))
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -317,16 +385,22 @@ def _raise_on(err: int, name: str) -> None:
 def _launch_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, with_lse: bool, parts=None, out=None
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The forward kernel on CUDA tensors; in fp32 on ``parts``, the split pass's parts of
-    q, k and v (one split pass first when not given). ``out``: (o, lse or None), contiguous
-    tensors to write into (new ones when not given)."""
+    """The forward kernel on CUDA tensors; in fp32 at D = 64 and 128 on ``parts``, the
+    split pass's parts of q, k and v (one split pass first when not given), at D = 32 and
+    48 on q, k and v themselves (the narrow forward; ``parts`` must be None). ``out``:
+    (o, lse or None), contiguous tensors to write into (new ones when not given)."""
     _check(q, k, v, with_lse)
     b, tq, h, d = q.shape
+    narrow = q.dtype == torch.float32 and d in NARROW_HEAD_DIMS
+    if narrow and parts is not None:
+        raise ValueError(f"the fp32 forward at D = {d} splits in the kernel: it takes no parts")
     if q.dtype == torch.bfloat16:
-        name, inputs, maps = "flash_attention_fwd_bf16", (q, k, v), _tensor_maps(q, k, v)
+        name, inputs, maps = "flash_attention_fwd_bf16", (q, k, v), (_tensor_maps(q, k, v),)
+    elif narrow:  # the operands' layouts and the plan
+        name, inputs, maps = "flash_attention_fwd_f32_narrow", (q, k, v), _narrow_args(q, k, v)
     else:
         parts = flash_attention_split_f32(q, k, v) if parts is None else parts
-        name, inputs, maps = "flash_attention_fwd_f32", parts, _fwd_f32_tensor_maps(*parts)
+        name, inputs, maps = "flash_attention_fwd_f32", parts, (_fwd_f32_tensor_maps(*parts),)
     if out is None:
         o = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
         lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device) if with_lse else None
@@ -334,10 +408,10 @@ def _launch_fwd(
         o, lse = out
         if o.shape != q.shape or not o.is_contiguous() or (lse is not None) != with_lse:
             raise ValueError("out must hold a contiguous o of q's shape and an lse exactly when with_lse")
-    ptrs = [x.data_ptr() for x in (*inputs, o)] + [None if lse is None else lse.data_ptr()]
+    ptrs = [x.data_ptr() for x in (*inputs, o)] + [None if lse is None else lse.data_ptr()] + list(maps)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _bind(KERNEL_STEM, name, 6, 5, 0)(*ptrs, maps, b, tq, k.shape[1], h, d, float(scale), stream)
+        err = _bind(KERNEL_STEM, name, len(ptrs), 5, 0)(*ptrs, b, tq, k.shape[1], h, d, float(scale), stream)
     _raise_on(err, name)
     return o, lse
 
@@ -355,11 +429,12 @@ def _check_bwd(q, k, v, do, lse, delta) -> torch.Tensor:
 
 
 def flash_attention_split_f32(q, k, v, do=None) -> Tuple[torch.Tensor, ...]:
-    """The split pass of the fp32 kernels: each of q, k, v and, where given (the
-    backward), dO (fp32 (B, T, H, D)) as its three bf16 parts, a contiguous
-    (3, B, T, H, part_cols(D)) tensor each (hi, mid, lo of ``split_bf16x3_reference``,
-    zero past D). One launch of the split kernel (in the backward's source) for the three
-    or four on CUDA tensors; the plain version on CPU tensors."""
+    """The split pass of the fp32 kernels that read split parts (the forward at D = 64 and
+    128, the backward at 32, 64 and 128): each of q, k, v and, where given (the backward),
+    dO (fp32 (B, T, H, D)) as its three bf16 parts, a contiguous (3, B, T, H, part_cols(D))
+    tensor each (hi, mid, lo of ``split_bf16x3_reference``, zero past D). One launch of the
+    split kernel (in the backward's source) for the three or four on CUDA tensors; the plain
+    version on CPU tensors."""
     xs = (q, k, v) if do is None else (q, k, v, do)
     cols = part_cols(q.shape[-1])
     if _device_of(q) == "cpu":

@@ -24,6 +24,12 @@ also, at each fp32 training shape, the lse forward's o and lse and the
 backward's dq, dk and dv (from the kernel's o and lse): each one's max |error|
 against the same formulas in fp64 on the same inputs, beside the fp32 plain
 version's and 1e-5 of the reference's magnitude (``chip_smoke.py``'s fp32 rule).
+
+With ``--narrow``, only the fp32 forward at the narrow head dims (D = 48 and 32) at
+``NARROW_SHAPES`` (chip_smoke.py phase 3's tracker, MAE decoder and D = 32 long rows),
+each two ways: the device time of a call (``device_ms``: 20 calls replayed as one CUDA
+graph) and the call's host-paced CUDA-event time (``ms``); torch SDPA on the same inputs
+beside them. Rows under ~0.1 ms read the host in ``ms``, not in the device time.
 """
 
 from __future__ import annotations
@@ -47,6 +53,19 @@ LONG_SHAPES = {
     "k3_global_64_views": (1, 87617, 12, 64, False),
     "k7_ring_16_views": (1, 21904, 12, 64, True),
 }
+# name -> (B, Tq, Tk, H, D, with lse, layout): the fp32 forward at the narrow head dims.
+# "three": q, k and v three tensors (the tracker's in-projection); "fused": views of one
+# fused qkv tensor (the MAE decoder's Attention).
+NARROW_SHAPES = {
+    "tracker_time": (576, 8, 8, 8, 48, False, "three"),
+    "tracker_virtual2point": (8, 64, 512, 8, 48, False, "three"),
+    "tracker_virtual": (8, 64, 64, 8, 48, False, "three"),
+    "tracker_point2virtual": (8, 512, 64, 8, 48, False, "three"),
+    "tracker_fine_time": (512, 8, 8, 8, 32, False, "three"),
+    "mae_decoder": (8, 1369, 1369, 16, 32, False, "fused"),
+    "mae_decoder_lse": (4, 1369, 1369, 16, 32, True, "fused"),
+    "fp32_d32_129x4000": (2, 129, 4000, 3, 32, False, "three"),
+}
 TRAIN_SHAPES = {
     64: {"encoder": (4, 1370, 16, 64, "bfloat16"), "frame": (4, 1369, 12, 64, "bfloat16"),
          "global": (1, 5477, 12, 64, "bfloat16"), "fp32_encoder": (4, 1370, 16, 64, "float32"),
@@ -68,6 +87,60 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 2) -> float:
+    """The card's time a call of ``fn`` takes, apart from the host's: ``iters`` calls
+    captured into one CUDA graph, replayed once between CUDA events (no host work between
+    the kernels). A host-paced loop of calls times the host wherever a call's enqueue
+    outlasts its kernels. (Not torch.profiler: after a profiler session the process's
+    later launches took up to 2x the host time.)"""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def narrow_inputs(b, tq, tk, h, d, layout, gen):
+    """q, k and v of a ``NARROW_SHAPES`` row in fp32: three tensors, or views of a fused
+    qkv tensor."""
+    import torch
+
+    if layout == "fused":
+        return torch.randn(b, tq, 3, h, d, device="cuda", generator=gen).unbind(2)
+    return tuple(torch.randn(b, t, h, d, device="cuda", generator=gen) for t in (tq, tk, tk))
+
+
+def narrow_times(fa, gen) -> dict:
+    """``--narrow``: each ``NARROW_SHAPES`` row's device time (``device_ms``) and host-paced
+    call time, and torch SDPA's, at the same inputs."""
+    import torch.nn.functional as F
+
+    rows = {}
+    for name, (b, tq, tk, h, d, with_lse, layout) in NARROW_SHAPES.items():
+        q, k, v = narrow_inputs(b, tq, tk, h, d, layout, gen)
+        scale = d**-0.5
+        call = (lambda: fa.flash_attention_lse(q, k, v, scale)) if with_lse else (
+            lambda: fa.flash_attention(q, k, v, scale))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale)  # noqa: E731
+        rows[name] = {"b_tq_tk_h_d": [b, tq, tk, h, d], "lse": with_lse, "device_ms": device_ms(call),
+                      "ms": cuda_time_ms(call, 30), "host_us": host_us(call),
+                      "sdpa_device_ms": device_ms(sdpa), "sdpa_ms": cuda_time_ms(sdpa, 30)}
+    return rows
 
 
 def host_us(fn, iters: int = 30) -> float:
@@ -142,6 +215,8 @@ def main() -> int:
                         help="the checkout whose mapanything_tpu_torch is timed")
     parser.add_argument("--head-dims", type=int, nargs="+", default=[64], choices=sorted(FORWARD_SHAPES))
     parser.add_argument("--errors", action="store_true", help="also the fp32 backward's errors against fp64")
+    parser.add_argument("--narrow", action="store_true",
+                        help="time only the fp32 forward at the narrow head dims (NARROW_SHAPES), device and call")
     parser.add_argument("--dtypes", nargs="+", default=["bfloat16", "float32"], choices=["bfloat16", "float32"],
                         help="time the shapes of these dtypes only (the long and ring rows are bf16)")
     args = parser.parse_args()
@@ -156,6 +231,10 @@ def main() -> int:
 
     _build.build(*fa.KERNEL_STEMS)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.narrow:
+        print(json.dumps({"card": torch.cuda.get_device_name(0), "root": str(args.root),
+                          "narrow": narrow_times(fa, gen)}), flush=True)
+        return 0
     times, errors = {}, {}
     for d in args.head_dims:
         for name, (b, t, h, hd, dtype) in FORWARD_SHAPES[d].items():

@@ -46,13 +46,28 @@ CASES = [
 ]
 
 
-def split_forward(q, k, v, scale, passes=SIX_PASSES):
+def merged_product(eq: str, p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """P V as the narrow forward computes it (kMergedPV): P_hi [V_hi V_mid V_lo], P_mid
+    [V_hi V_mid] and P_lo V_hi, each product of bf16 parts exact in fp32, summed into three
+    column blocks, then (hi·lo + (hi·mid + mid·mid)) + (hi·hi + mid·hi + lo·hi)."""
+    pp, pv = port_fa.split_bf16x3_reference(p).float(), port_fa.split_bf16x3_reference(v).float()
+    block = lambda i, j: torch.einsum(eq, pp[i], pv[j])  # noqa: E731
+    c0 = block(0, 0) + block(1, 0) + block(2, 0)
+    c1 = block(0, 1) + block(1, 1)
+    return (block(0, 2) + c1) + c0
+
+
+def split_forward(q, k, v, scale, passes=SIX_PASSES, block_n=None):
     """o (B, Tq, H, D) and lse (B, H, Tq) of the fp32 forward kernel's arithmetic, over
-    key tiles of ``FWD_F32_TILES``' width: S as a split product, the base-2 online
+    key tiles of ``block_n`` keys (by default ``FWD_F32_TILES``' width, at D = 32 and 48
+    the narrow forward's streaming tiles): S as a split product, the base-2 online
     softmax in fp32, P split into its parts, each tile's P V as a split product into a
-    fresh sum, and O rescaled and added to in fp32."""
+    fresh sum (at D = 32 and 48 with six passes, the narrow forward's merged products),
+    and O rescaled and added to in fp32."""
     b, tq, h, d = q.shape
-    block_n = port_fa.FWD_F32_TILES[port_fa.part_cols(d)][1]
+    narrow = d in port_fa.NARROW_HEAD_DIMS
+    if block_n is None:
+        block_n = port_fa.NARROW_STREAM_KEYS[d] if narrow else port_fa.FWD_F32_TILES[d][1]
     scale_log2 = torch.tensor(scale, dtype=torch.float32) * LOG2E
     m = torch.full((b, h, tq), -torch.inf)
     l = torch.zeros(b, h, tq)
@@ -64,7 +79,9 @@ def split_forward(q, k, v, scale, passes=SIX_PASSES):
         alpha = torch.exp2(m - m_new)
         p = torch.exp2(s * scale_log2 - m_new[..., None])
         l = l * alpha + p.sum(-1)
-        o = o * alpha[..., None] + split_product("bhqk,bkhd->bhqd", p, vj, passes)
+        pv = (merged_product("bhqk,bkhd->bhqd", p, vj) if narrow and passes == SIX_PASSES
+              else split_product("bhqk,bkhd->bhqd", p, vj, passes))
+        o = o * alpha[..., None] + pv
         m = m_new
     return (o / l[..., None]).transpose(1, 2), (m + torch.log2(l)) * LN2
 

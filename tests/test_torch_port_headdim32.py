@@ -9,8 +9,10 @@ pass (70 keys) and one that takes the stream (600 keys, two blocks of 512), and
 the port's plain versions (what its fp32 D = 32 Hopper instances are held to on
 the card) are held to them: the forward, the lse and the gradients. The six-pass
 split arithmetic of the fp32 kernels is emulated at D = 32 as the fp32 tests do
-at 64 and 128; the zero columns that pad D = 32's parts to the D = 64 plans add
-nothing to it. Then the padded split, its tensor maps, and the head dims each
+at 64 and 128: the forward's over the narrow forward's streamed key tiles (its
+packed tiles: ``tests/test_torch_port_narrow_f32.py``), the backward's on parts
+that the backward's split pads to the D = 64 plans, whose zero columns add
+nothing. Then the padded split, the backward's tensor maps, and the head dims each
 dtype has. fp32 throughout; inputs from numpy seeds.
 """
 
@@ -142,19 +144,15 @@ def test_split_pads_d32_parts_to_one_box():
     assert port_fa.flash_attention_split_f32(wide, wide, wide)[0].shape == (3, 1, 5, 2, 64)
 
 
-@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
 def test_d32_tensor_maps_read_the_padded_parts_with_the_d64_plans(kernel):
+    # The backward's: the forward at D = 32 reads q, k and v in place (narrow_layout).
     b, tq, tk, h = 2, 37, 90, 3
     parts = [torch.zeros(3, b, t, h, 64, dtype=torch.bfloat16) for t in (tq, tk, tk, tq)]
-    if kernel == "fwd":
-        rows = port_fa.FWD_F32_TILES[64]
-        packed = struct.unpack(f"{3 * 11}q", port_fa._fwd_f32_tensor_maps(*parts[:3]))
-        boxes = (rows[0], rows[1], rows[1])
-    else:
-        own, streamed = port_fa.BWD_F32_TILES[64][kernel]
-        rows_q, rows_kv = (own, streamed) if kernel == "dq" else (streamed, own)
-        packed = struct.unpack(f"{4 * 11}q", port_fa._bwd_f32_tensor_maps(kernel, *parts))
-        boxes = (rows_q, rows_kv, rows_kv, rows_q)
+    own, streamed = port_fa.BWD_F32_TILES[64][kernel]
+    rows_q, rows_kv = (own, streamed) if kernel == "dq" else (streamed, own)
+    packed = struct.unpack(f"{4 * 11}q", port_fa._bwd_f32_tensor_maps(kernel, *parts))
+    boxes = (rows_q, rows_kv, rows_kv, rows_q)
     for i, (t, rows) in enumerate(zip((tq, tk, tk, tq), boxes)):
         assert packed[11 * i:11 * (i + 1)] == (64, t, h, 3 * b, h * 64 * 2, 64 * 2, t * h * 64 * 2, 64, rows, 1, 1)
 

@@ -9,12 +9,12 @@ converted for the JAX model by ``convert_vggsfm_tracker``; all four outputs held
 and 0 pixels wide: the one-pixel level and the empty one are both sampled. The parts:
 ``bilinear_sample`` on one-pixel and empty maps, the correlation window's order,
 ``get_2d_embedding``. The D = 48 attention: the port's plain version (what the card's
-``fa_fwd_f32<48>`` is held to) and the fp32 kernel's six-pass split arithmetic, emulated
-on parts padded to 64 columns, against the JAX ``flash_attention`` in interpret mode at
-1 x 1100 queries x 64 keys x 2 heads, where it takes ``_fwd_kernel_single``.
+``fa_fwd_f32_narrow<48>`` is held to) against the JAX ``flash_attention`` in interpret
+mode at 1 x 1100 queries x 64 keys x 2 heads, where it takes ``_fwd_kernel_single``
+(the kernel's own arithmetic at the tracker's shapes: ``tests/test_torch_port_narrow_f32.py``).
 
 Tolerance: each output within 1e-4 of max(1, its magnitude) (tracks in pixels: 1e-3 px at
-64 px); the attention within 2e-5 (the split arithmetic 2e-4, as at D = 32).
+64 px); the attention within 2e-5.
 """
 
 import jax
@@ -34,7 +34,6 @@ from mapanything_tpu_torch.utils import threads
 from mapanything_tpu_torch.utils.jax_params import jax_params_to_state_dict
 from test_torch_port_baselines import release_state
 from test_torch_port_headdim128 import pallas_kernels
-from test_torch_port_fp32_forward import split_forward
 
 lean_module = pytest.fixture(scope="module", autouse=True)(threads.lean_module)
 
@@ -181,18 +180,6 @@ def test_d48_plain_attention_matches_the_jax_single_pass_kernel(d48, record_prop
     assert d48["ran"] == ["_fwd_kernel_single"]
     got = port_fa.flash_attention(*d48["inputs"], d48["scale"])  # CPU tensors: the plain version
     np.testing.assert_allclose(got.numpy(), d48["o"], atol=2e-5, rtol=0)
-    record_property("max_abs_err", float(np.abs(got.numpy() - d48["o"]).max()))
-
-
-def test_d48_six_pass_split_forward_on_padded_parts(d48, record_property):
-    """The fp32 kernel's arithmetic at D = 48: the parts padded to 64 columns (two 64-wide
-    boxes of the D = 64 plan would read past a 48-wide row), whose zero columns add
-    nothing; the kernel stores 48 columns a row."""
-    q, k, v = d48["inputs"]
-    parts = port_fa.flash_attention_split_f32(q, k, v)
-    assert port_fa.part_cols(48) == 64 and all(p.shape[-1] == 64 and not p[..., 48:].any() for p in parts)
-    got, _ = split_forward(q, k, v, d48["scale"])
-    np.testing.assert_allclose(got.numpy(), d48["o"], atol=2e-4, rtol=0)
     record_property("max_abs_err", float(np.abs(got.numpy() - d48["o"]).max()))
 
 
