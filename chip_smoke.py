@@ -22,7 +22,8 @@ Phases, each printing one JSON line:
      wgmma instances' dynamic shared memory), and cuobjdump -sass of each
      library must show HGMMA (wgmma) and UTMALDG (TMA loads) in every
      forward and backward instance, bf16 and fp32 (fa_fwd_bf16, fa_fwd_f32,
-     fa_bwd_dq_bf16, fa_bwd_dkv_bf16, fa_bwd_dq_f32, fa_bwd_dkv_f32), and
+     fa_bwd_dq_bf16, fa_bwd_dkv_bf16, fa_bwd_dq_f32, fa_bwd_dkv_f32, and at
+     D = 32 the true-width fa_bwd_dq_f32_narrow and fa_bwd_dkv_f32_narrow), and
      HGMMA in the narrow fp32 forward's (fa_fwd_f32_narrow, D = 32 and 48,
      packed and streaming: it reads its rows with 16-byte loads);
   3f. the forward's edges, bf16 and fp32: both forms (lse-free and lse) at
@@ -39,7 +40,7 @@ Phases, each printing one JSON line:
      tracker's shapes): the fp32 forward writing o and the lse inside buffers
      whose canary bytes before and after must survive bit for bit;
   3g. the backward's edges: dq and dk/dv, bf16 and fp32, at D = 64 and 128
-     (and 32 in fp32) against their plain versions under phase 3's rule (fp32 also under the
+     (and 32 in fp32, the true-width instances) against their plain versions under phase 3's rule (fp32 also under the
      fp32 rule, below) at phase 3f's shapes and layouts (dO a view of a wider
      tensor in the fused layout), fed the statistics of the plain forward (of
      a merged softmax where there is one key, and in one more case, as the
@@ -668,8 +669,17 @@ def fwd_instances() -> dict:
 
 
 def bwd_instances() -> dict:
-    return {(kernel, dtype, d): f"fa_bwd_{kernel}_{dtype}ILi{d}E"
-            for kernel in ("dq", "dkv") for dtype, dims in instance_dims(lse=True).items() for d in dims}
+    """(kernel, dtype, D) -> the backward instance's name: the fp32 D = 32 instances are the
+    true-width ones (fa_bwd_dq_f32_narrow, fa_bwd_dkv_f32_narrow)."""
+    from mapanything_tpu_torch.ops import flash_attention as fa
+
+    out = {}
+    for kernel in ("dq", "dkv"):
+        for dtype, dims in instance_dims(lse=True).items():
+            for d in dims:
+                narrow = "_narrow" if dtype == "f32" and d in fa.NARROW_HEAD_DIMS else ""
+                out[(kernel, dtype, d)] = f"fa_bwd_{kernel}_{dtype}{narrow}ILi{d}E"
+    return out
 
 
 FWD_SMEM_INDEX = {("bf16", None): 0, ("f32", None): 1, ("f32", "streaming"): 2, ("f32", "packed"): 3}
@@ -680,7 +690,8 @@ TENSOR_CORE_SASS = ("HGMMA", "UTMALDG")
 def sass_check(lib: Path, instances: dict) -> dict:
     """Phase 2: cuobjdump -sass of one kernel library; every instance named in
     ``instances`` must contain HGMMA and UTMALDG, the narrow fp32 forward's HGMMA (it
-    loads its fp32 rows with 16-byte loads, not TMA). Returns their counts by instance."""
+    loads its fp32 rows with 16-byte loads, not TMA; the true-width D = 32 backward loads
+    through TMA). Returns their counts by instance."""
     from mapanything_tpu_torch.ops import _build
 
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
@@ -692,7 +703,7 @@ def sass_check(lib: Path, instances: dict) -> dict:
         if len(bodies) != 1:
             raise AssertionError(f"cuobjdump shows {len(bodies)} functions named like {key}")
         counts[key] = {op: bodies[0].count(op) for op in TENSOR_CORE_SASS}
-    missing = {key: c for key, c in counts.items() if not (c["HGMMA"] and (c["UTMALDG"] or "narrow" in key))}
+    missing = {key: c for key, c in counts.items() if not (c["HGMMA"] and (c["UTMALDG"] or "fwd_f32_narrow" in key))}
     if missing:
         raise AssertionError(f"instances without wgmma or TMA in their SASS: {missing}")
     return counts
@@ -873,10 +884,11 @@ def backward_edge_inputs(d, tq, tk, b, h, layout, gen, dtype):
 
 
 def backward_edge_checks(card) -> list:
-    """Phase 3g: the dq and dk/dv kernels, bf16 and fp32, at D = 64 and 128 against their
-    plain versions under phase 3's rule (fp32 also under the fp32 rule), at phase 3f's edge
-    shapes, on contiguous and fused layouts, and once fed a merged lse as the ring feeds
-    them; each kernel called twice, its outputs bitwise equal. Cases with one key take
+    """Phase 3g: the dq and dk/dv kernels, bf16 at D = 64 and 128 and fp32 at D = 32, 64
+    and 128, against their plain versions under phase 3's rule (fp32 also under the fp32
+    rule), at phase 3f's edge shapes, on contiguous and fused layouts, and once fed a merged
+    lse as the ring feeds them; each kernel called twice, its outputs bitwise equal; then the
+    fp32 canary cases at every fp32 head dim. Cases with one key take
     merged statistics too: against their own, P = 1 and dS = dP - delta = 0 exactly, so dq
     and dk are rounding noise that no rule relative to their magnitude can hold."""
     import torch

@@ -108,7 +108,8 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
-// The same in the 32-byte swizzle (the narrow fp32 forward's tiles): rows of 32 bytes (16
+// The same in the 32-byte swizzle (the fp32 tiles at D = 32 and 48, written by
+// fa_fwd_f32_narrow's producer or by TMA under CU_TENSOR_MAP_SWIZZLE_32B): rows of 32 bytes (16
 // elements, one k-step of a K-major operand), in atoms of 8 rows (256 bytes, the stride
 // between 8-row groups); the 16-byte chunk c of row r lies at chunk c ^ ((r >> 2) & 1).
 // `lbo` is the byte stride between 16-column panels along M or N, read for MN-major
@@ -148,8 +149,9 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[R][C]) {
 // from registers (the same fragment layout as mma.sync's m16n8k16 A, one per warp), B
 // from shared memory MN-major (the transpose bit of 16-bit types; N = D: the forward's
 // O += P V, the backward's dQ += dS K, dV += P^T dO and dK += dS^T Q; the narrow fp32
-// forward's P V over one, two or three parts of V at N = 32, 64, 96 (D = 32) and 48, 96,
-// 144 (D = 48)). `accumulate` = 0 overwrites d.
+// forward's P V and the fp32 D = 32 backward's dS K, P^T dO and dS^T Q over one, two or
+// three parts at N = 32, 64, 96 (D = 32) and 48, 96, 144 (D = 48)). `accumulate` = 0
+// overwrites d.
 template <int N>
 struct Wgmma;
 
@@ -465,21 +467,13 @@ __device__ __forceinline__ void split_fragments(uint32_t (&pa)[3 * N / 16][4], c
       split3(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1], pa[kk][i], pa[N / 16 + kk][i], pa[2 * N / 16 + kk][i]);
 }
 
-// The columns of the fp32 backward's split parts of head dim D: D = 32 runs the D = 64 tile
-// plans on parts zero-padded to 64 columns (one 128-byte swizzle row of bf16, the width the
-// tensor maps and the wgmma descriptors there are built for); the zero columns add nothing
-// to the products, and every store clips at D. (The forward at D = 32 and 48 splits in its
-// own shared memory, at the true width: fa_fwd_f32_narrow.)
-__host__ __device__ constexpr int f32_part_cols(int D) { return D < 64 ? 64 : D; }
-
-// Store a consumer's 64 x C fp32 accumulators (the wgmma fragment layout), times `mul`, as
-// rows row0 and row0 + 8 of a contiguous fp32 (B, T, H, D), D <= C: the first D columns
-// of each row (a row of the output is D wide, and the next head's begins right after it);
+// Store a consumer's 64 x D fp32 accumulators (the wgmma fragment layout; acc(i) reads
+// element i), times `mul`, as rows row0 and row0 + 8 of a contiguous fp32 (B, T, H, D);
 // rows at or past T are skipped.
-template <int C, int D, class Acc>
+template <int D, class Acc>
 __device__ __forceinline__ void store_rows_f32(float* out, const Acc& acc, float mul, int b, int h, int row0, int T,
                                                int H, int t) {
-  static_assert(D % 8 == 0 && D <= C, "a row stores whole 8-column fragment groups of the accumulator");
+  static_assert(D % 8 == 0, "a row stores whole 8-column fragment groups of the accumulator");
   const int row1 = row0 + 8;
   float* o0 = out + ((static_cast<long long>(b) * T + row0) * H + h) * D;
   float* o1 = out + ((static_cast<long long>(b) * T + row1) * H + h) * D;
@@ -516,10 +510,14 @@ EncodeTiled encode_tiled() {
 }
 
 // One tensor's map: m holds the global dims (D, T, H, B), the byte strides of T, H and
-// B, and the box (64, rows, 1, 1), as ops/flash_attention.py's tensor_map computes them.
-// Refuses (cudaErrorInvalidValue) a map whose dims or box do not fit the launch.
-int encode_map(CUtensorMap* map, const void* ptr, const long long* m, int D, int T, int H, int B, int rows) {
-  if (m[0] != D || m[1] != T || m[2] != H || m[3] != B || m[7] != 64 || m[8] != rows || m[9] != 1 || m[10] != 1)
+// B, and the box (cols, rows, 1, 1), as ops/flash_attention.py's tensor_map computes them:
+// cols 64, one row of the 128-byte swizzle (sw128_desc), or 16, one row of the 32-byte
+// swizzle (sw32_desc: the fp32 D = 32 backward's 16-column panels). Refuses
+// (cudaErrorInvalidValue) a map whose dims or box do not fit the launch.
+int encode_map(CUtensorMap* map, const void* ptr, const long long* m, int D, int T, int H, int B, int rows,
+               int cols = 64) {
+  if (m[0] != D || m[1] != T || m[2] != H || m[3] != B || m[7] != cols || m[8] != rows || m[9] != 1 ||
+      m[10] != 1 || (cols != 64 && cols != 16))
     return static_cast<int>(cudaErrorInvalidValue);
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
@@ -527,11 +525,11 @@ int encode_map(CUtensorMap* map, const void* ptr, const long long* m, int D, int
                               static_cast<cuuint64_t>(m[2]), static_cast<cuuint64_t>(m[3])};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(m[4]), static_cast<cuuint64_t>(m[5]),
                                  static_cast<cuuint64_t>(m[6])};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 

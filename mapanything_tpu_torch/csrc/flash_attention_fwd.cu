@@ -405,13 +405,12 @@ __global__ void __launch_bounds__(FwdPlan<D>::kThreads, 1)
 template <int D>
 struct FwdF32Plan {
   static_assert(D == 64 || D == 128, "the fp32 forward's plans: D = 64 and 128");
-  static constexpr int kCols = f32_part_cols(D);          // columns of the staged parts
-  static constexpr int kBlockM = 128;                     // query rows a work tile, 64 a consumer
-  static constexpr int kBlockN = kCols == 64 ? 96 : 32;  // keys a K or V tile
+  static constexpr int kBlockM = 128;                 // query rows a work tile, 64 a consumer
+  static constexpr int kBlockN = D == 64 ? 96 : 32;  // keys a K or V tile
   static constexpr int kStages = 2;
   static constexpr int kConsumers = kBlockM / 64;
   static constexpr int kThreads = 128 * (kConsumers + 1);
-  static constexpr int kPanels = kCols / 64;
+  static constexpr int kPanels = D / 64;
   static constexpr int kPanelQ = kBlockM * 128;   // bytes of one panel of one part of the Q tile
   static constexpr int kPanelKV = kBlockN * 128;  // of a K or V tile
   static constexpr int kQPart = kPanels * kPanelQ;
@@ -436,7 +435,6 @@ __global__ void __launch_bounds__(FwdF32Plan<D>::kThreads, 1)
                const __grid_constant__ CUtensorMap tm_v, float* __restrict__ o, float* __restrict__ lse, int B,
                int Tq, int Tk, int H, int n_work, float scale_log2) {
   using P = FwdF32Plan<D>;
-  constexpr int kC = P::kCols;  // the products' width; o's rows are D wide
   constexpr int kBlockN = P::kBlockN, kStages = P::kStages, kF = kBlockN / 16;
   extern __shared__ __align__(1024) unsigned char fwd_smem[];
   const uint32_t base = (smem_u32(fwd_smem) + 1023) & ~1023u;
@@ -503,15 +501,15 @@ __global__ void __launch_bounds__(FwdF32Plan<D>::kThreads, 1)
     const int g = lane >> 2, t = lane & 3;
     const uint32_t q_rows = sQ + c * 64 * 128;
 
-    float acc[kC / 2];         // O, 64 x kC
-    float tile[kC / 2];        // one key tile's P V
+    float acc[D / 2];          // O, 64 x D
+    float tile[D / 2];         // one key tile's P V
     float s[kBlockN / 2];      // S, then P, 64 x kBlockN
     uint32_t pa[3 * kF][4];    // P split: hi, mid and lo A fragments of P V
     float m_run[2], l_run[2], alpha[2];
 #pragma unroll
     for (int i = 0; i < kBlockN / 2; ++i) s[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < kC / 2; ++i) tile[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) tile[i] = 0.f;
 
     auto issue_qk = [&](int stage) {  // S = Q K^T, six passes
       const uint64_t qd = sw128_desc(q_rows, 16), kd = sw128_desc(sK + stage * P::kTileBytes, 16);
@@ -520,7 +518,7 @@ __global__ void __launch_bounds__(FwdF32Plan<D>::kThreads, 1)
 #pragma unroll
       for (int pass = 0; pass < kPasses; ++pass)
 #pragma unroll
-        for (int kk = 0; kk < kC / 16; ++kk) {
+        for (int kk = 0; kk < D / 16; ++kk) {
           const uint32_t a = pass_a(pass) * P::kQPart + (kk / 4) * P::kPanelQ + (kk % 4) * 32;
           const uint32_t bo = pass_b(pass) * P::kKVPart + (kk / 4) * P::kPanelKV + (kk % 4) * 32;
           Wgmma<kBlockN>::ss(s, desc_at(qd, a), desc_at(kd, bo), pass > 0 || kk > 0);
@@ -536,17 +534,17 @@ __global__ void __launch_bounds__(FwdF32Plan<D>::kThreads, 1)
       for (int pass = 0; pass < kPasses; ++pass)
 #pragma unroll
         for (int kk = 0; kk < kF; ++kk)
-          Wgmma<kC>::rs(tile, pa[pass_a(pass) * kF + kk], desc_at(vd, pass_b(pass) * P::kKVPart + kk * 2048),
+          Wgmma<D>::rs(tile, pa[pass_a(pass) * kF + kk], desc_at(vd, pass_b(pass) * P::kKVPart + kk * 2048),
                        pass > 0 || kk > 0);
       wgmma_commit();
     };
     auto rescale = [&]() {  // O *= alpha, row by row
 #pragma unroll
-      for (int i = 0; i < kC / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
     };
     auto add_tile = [&]() {
 #pragma unroll
-      for (int i = 0; i < kC / 2; ++i) acc[i] += tile[i];
+      for (int i = 0; i < D / 2; ++i) acc[i] += tile[i];
     };
     auto release = [&](uint32_t empty) {
       if (lane == 0) mbar_arrive(empty);
@@ -556,7 +554,7 @@ __global__ void __launch_bounds__(FwdF32Plan<D>::kThreads, 1)
     for (int w = blockIdx.x, round = 0; w < n_work; w += gridDim.x, ++round, it += n_tiles) {
       const int m0 = (w % m_blocks) * P::kBlockM, h = (w / m_blocks) % H, b = w / (m_blocks * H);
 #pragma unroll
-      for (int i = 0; i < kC / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
       m_run[0] = m_run[1] = -INFINITY;
       l_run[0] = l_run[1] = 0.f;
       mbar_wait(full_q, round & 1);
@@ -617,7 +615,7 @@ __global__ void __launch_bounds__(FwdF32Plan<D>::kThreads, 1)
             lse[(static_cast<long long>(b) * H + h) * Tq + row] = (m_run[r] + log2f(l)) * kLn2;
         }
       }
-      store_rows_f32<kC, D>(o, [&](int i) { return acc[i] * inv[(i >> 1) & 1]; }, 1.f, b, h, row0, Tq, H, t);
+      store_rows_f32<D>(o, [&](int i) { return acc[i] * inv[(i >> 1) & 1]; }, 1.f, b, h, row0, Tq, H, t);
     }
   }
 }
@@ -1054,11 +1052,10 @@ int fwd(const void* q, const void* k, const void* v, void* o, float* lse, const 
   using P = std::conditional_t<kF32, FwdF32Plan<D>, FwdPlan<D>>;
   static_assert(P::kSmem > kStaticSmemLimit, "launch() sizes dynamic shared memory above 48 KB only");
   const int batches = kF32 ? 3 * B : B;
-  const int cols = kF32 ? f32_part_cols(D) : D;  // the maps' width: in fp32 the parts'
   CUtensorMap tq, tk, tv;
-  int err = encode_map(&tq, q, maps, cols, Tq, H, batches, P::kBlockM);
-  if (!err) err = encode_map(&tk, k, maps + kMapLongs, cols, Tk, H, batches, P::kBlockN);
-  if (!err) err = encode_map(&tv, v, maps + 2 * kMapLongs, cols, Tk, H, batches, P::kBlockN);
+  int err = encode_map(&tq, q, maps, D, Tq, H, batches, P::kBlockM);
+  if (!err) err = encode_map(&tk, k, maps + kMapLongs, D, Tk, H, batches, P::kBlockN);
+  if (!err) err = encode_map(&tv, v, maps + 2 * kMapLongs, D, Tk, H, batches, P::kBlockN);
   if (err) return err;
   static SmemOptIn opt_in;
   int n_work = 0, blocks = 0;

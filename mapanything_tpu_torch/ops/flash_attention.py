@@ -20,10 +20,12 @@ fp32), whose point-to-virtual attention took ``_fwd_kernel_single`` on the TPU.
 The fp32 forward at those two (``NARROW_HEAD_DIMS``) has its own design
 (``fa_fwd_f32_narrow``): products at the true width, short sequences packed
 several to a tile (``fwd_f32_narrow_plan``), and q, k and v read in place and
-split in the kernel's shared memory. The fp32 backward at D = 32 runs the D = 64
-plans on split parts zero-padded to 64 columns (``part_cols``) and stores 32
-columns a row. The plain versions below take any head dim: they are the plain
-version of K8 as they are of K1-K7.
+split in the kernel's shared memory. The fp32 backward at D = 32 has one too
+(``fa_bwd_dq_f32_narrow``, ``fa_bwd_dkv_f32_narrow``): the split pass writes the
+parts 32 columns wide (``part_cols``), and the kernels read them through tensor
+maps of 16-column boxes (``NARROW_BOX_COLS``) and run every product at the true
+width. The plain versions below take any head dim: they are the plain version of
+K8 as they are of K1-K7.
 
 The bf16 kernels are Hopper's own design (wgmma, TMA, a producer warpgroup and
 two consumer warpgroups on a persistent grid): they read q, k, v (and the
@@ -37,9 +39,10 @@ forward for q, k and v at D = 64 and 128, one a backward for q, k, v and dO)
 writes each as three bf16 parts (hi, mid, lo: ``split_bf16x3_reference``), and
 the forward, dq and dk/dv kernels compute every product as six bf16 products of
 the parts, read through tensor maps of the parts (``FWD_F32_TILES``,
-``BWD_F32_TILES``). The narrow forward (D = 32 and 48) takes no split pass and no
-tensor map: it reads fp32 q, k and v by 16-byte loads in the layouts
-``narrow_layout`` gives, and its launcher refuses a plan other than its own.
+``BWD_F32_TILES``; 64-column boxes, at D = 32 16-column ones). The narrow
+forward (D = 32 and 48) takes no split pass and no tensor map: it reads fp32 q,
+k and v by 16-byte loads in the layouts ``narrow_layout`` gives, and its
+launcher refuses a plan other than its own.
 
 Routing. ``flash_attention`` runs the lse-free forward when no input needs a
 gradient (inference is unchanged); otherwise an autograd Function runs the
@@ -93,9 +96,12 @@ NARROW_MAX_PACKED = 64  # the longest Tq and Tk that the packed regime takes
 # K or V tile) and the dk/dv kernel's (keys a work tile, query rows a stage): DqPlan and
 # DkvPlan in csrc/flash_attention_bwd.cu.
 BWD_TILES = {64: {"dq": (128, 128), "dkv": (128, 96)}, 128: {"dq": (128, 64), "dkv": (128, 32)}}
-# The fp32 backward's plans, the same pairs, by the parts' width: DqF32Plan and DkvF32Plan.
-BWD_F32_TILES = {64: {"dq": (128, 64), "dkv": (128, 64)}, 128: {"dq": (64, 32), "dkv": (64, 32)}}
+# The fp32 backward's plans, the same pairs, by head dim: DqF32Plan and DkvF32Plan at 64 and
+# 128, DqF32NarrowPlan and DkvF32NarrowPlan at 32.
+BWD_F32_TILES = {32: {"dq": (128, 64), "dkv": (128, 64)}, 64: {"dq": (128, 64), "dkv": (128, 64)},
+                 128: {"dq": (64, 32), "dkv": (64, 32)}}
 TMA_BOX_COLS = 64  # a box is one 128-byte swizzle row of bf16 wide
+NARROW_BOX_COLS = 16  # the fp32 D = 32 backward's boxes: one 32-byte swizzle row, a 16-column panel
 
 
 def head_dims(dtype: torch.dtype, lse: bool = False) -> Tuple[int, ...]:
@@ -108,11 +114,11 @@ def head_dims(dtype: torch.dtype, lse: bool = False) -> Tuple[int, ...]:
 
 def part_cols(d: int) -> int:
     """The columns of the fp32 split parts of head dim ``d`` (32, 64 or 128: the split
-    pass's dims, the backward's and the forward's at 64 and 128): at least one 64-column box
-    (f32_part_cols in csrc/flash_attention_common.cuh), zero past ``d``."""
+    pass's dims, the backward's and the forward's at 64 and 128): ``d`` itself, no column
+    padded. Raises for a head dim without a split pass."""
     if d not in F32_LSE_HEAD_DIMS:
         raise ValueError(f"head dim {d} has no split pass (built: {F32_LSE_HEAD_DIMS})")
-    return max(d, TMA_BOX_COLS)
+    return d
 
 
 def fwd_f32_narrow_plan(b: int, tq: int, tk: int, h: int, d: int) -> dict:
@@ -280,33 +286,37 @@ def _bind(stem: str, name: str, n_ptrs: int, n_ints: int, n_strides: int, scale:
     return fn
 
 
-def tensor_map(x: torch.Tensor, box_rows: int) -> Tuple[Tuple[int, ...], Tuple[int, ...], Tuple[int, ...]]:
+def tensor_map(
+    x: torch.Tensor, box_rows: int, box_cols: int = TMA_BOX_COLS
+) -> Tuple[Tuple[int, ...], Tuple[int, ...], Tuple[int, ...]]:
     """The layout of the 4-D TMA tensor map through which a bf16 kernel reads a
     (B, T, H, D) tensor in place: (dims, byte strides, box).
 
     dims are (D, T, H, B), innermost first; the strides are those of T, H and B in
     bytes (they need not grow: a view of a fused qkv tensor has T-stride 3·H·D and
-    H-stride D); the box is (64, ``box_rows``, 1, 1), one 128-byte swizzle row wide, so
-    a row of D = 128 is two boxes. TMA demands a 16-byte-aligned base, strides that are
-    multiples of 16 bytes and a unit head-dim stride; anything else raises ValueError.
+    H-stride D); the box is (``box_cols``, ``box_rows``, 1, 1): 64 columns, one
+    128-byte swizzle row, so a row of D = 128 is two boxes; or 16 (``NARROW_BOX_COLS``),
+    one 32-byte swizzle row, two boxes a row of the D = 32 parts. TMA demands a
+    16-byte-aligned base, strides that are multiples of 16 bytes and a unit head-dim
+    stride; anything else raises ValueError.
     """
     b, t, h, d = x.shape
     sb, st, sh, sd = x.stride()
     if sd != 1:
         raise ValueError(f"the head-dim stride must be 1, got {x.stride()}")
-    if d % TMA_BOX_COLS:
-        raise ValueError(f"head dim {d} is not a multiple of the {TMA_BOX_COLS}-column box")
+    if d % box_cols:
+        raise ValueError(f"head dim {d} is not a multiple of the {box_cols}-column box")
     item = x.element_size()
     strides = (st * item, sh * item, sb * item)
     if x.data_ptr() % 16 or (strides[0] | strides[1] | strides[2]) % 16:
         raise ValueError(f"base and strides must be 16-byte aligned, got {x.stride()} at {x.data_ptr():#x}")
-    return (d, t, h, b), strides, (TMA_BOX_COLS, box_rows, 1, 1)
+    return (d, t, h, b), strides, (box_cols, box_rows, 1, 1)
 
 
-def _pack_maps(*maps: Tuple[torch.Tensor, int]) -> bytes:
-    """The tensor maps of (tensor, box rows) pairs, packed for a C entry point (11
-    int64 each: dims[4], strides[3], box[4])."""
-    values = [n for x, rows in maps for part in tensor_map(x, rows) for n in part]
+def _pack_maps(*maps: Tuple[torch.Tensor, int], box_cols: int = TMA_BOX_COLS) -> bytes:
+    """The tensor maps of (tensor, box rows) pairs, boxes ``box_cols`` wide, packed for
+    a C entry point (11 int64 each: dims[4], strides[3], box[4])."""
+    values = [n for x, rows in maps for part in tensor_map(x, rows, box_cols) for n in part]
     return struct.pack(f"{len(values)}q", *values)
 
 
@@ -317,25 +327,26 @@ def _tensor_maps(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tiles: dict 
 
 
 def _fwd_f32_tensor_maps(*parts: torch.Tensor) -> bytes:
-    """The tensor maps of the fp32 forward: each (3, B, T, H, part_cols(D)) part tensor of
-    q, k and v as one (3B, T, H, part_cols(D)) map (part p of batch b at p·B + b), boxed
-    by ``FWD_F32_TILES``."""
+    """The tensor maps of the fp32 forward at D = 64 and 128: each (3, B, T, H, D) part
+    tensor of q, k and v as one (3B, T, H, D) map (part p of batch b at p·B + b), boxed by
+    ``FWD_F32_TILES``."""
     return _tensor_maps(*(x.flatten(0, 1) for x in parts), tiles=FWD_F32_TILES)
 
 
-def _bwd_tensor_maps(kernel: str, q, k, v, do, tiles: dict = BWD_TILES) -> bytes:
+def _bwd_tensor_maps(kernel: str, q, k, v, do, tiles: dict = BWD_TILES, box_cols: int = TMA_BOX_COLS) -> bytes:
     """q's, k's, v's and dO's tensor maps for the dq (``kernel`` "dq") or dk/dv ("dkv")
     kernel of the plan ``tiles``: q and dO in boxes of query rows, k and v in boxes of keys."""
     own, streamed = tiles[q.shape[3]][kernel]
     rows_q, rows_kv = (own, streamed) if kernel == "dq" else (streamed, own)
-    return _pack_maps((q, rows_q), (k, rows_kv), (v, rows_kv), (do, rows_q))
+    return _pack_maps((q, rows_q), (k, rows_kv), (v, rows_kv), (do, rows_q), box_cols=box_cols)
 
 
 def _bwd_f32_tensor_maps(kernel: str, *parts: torch.Tensor) -> bytes:
-    """The tensor maps of the fp32 dq or dk/dv kernel: each (3, B, T, H, part_cols(D)) part
-    tensor of q, k, v and dO as one (3B, T, H, part_cols(D)) map (part p of batch b at
-    p·B + b), boxed by ``BWD_F32_TILES``."""
-    return _bwd_tensor_maps(kernel, *(x.flatten(0, 1) for x in parts), tiles=BWD_F32_TILES)
+    """The tensor maps of the fp32 dq or dk/dv kernel: each (3, B, T, H, D) part tensor of
+    q, k, v and dO as one (3B, T, H, D) map (part p of batch b at p·B + b), boxed by
+    ``BWD_F32_TILES``: 64 columns wide, at D = 32 ``NARROW_BOX_COLS``."""
+    box_cols = NARROW_BOX_COLS if parts[0].shape[-1] in NARROW_HEAD_DIMS else TMA_BOX_COLS
+    return _bwd_tensor_maps(kernel, *(x.flatten(0, 1) for x in parts), tiles=BWD_F32_TILES, box_cols=box_cols)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse: bool = False) -> None:
@@ -431,9 +442,9 @@ def _check_bwd(q, k, v, do, lse, delta) -> torch.Tensor:
 def flash_attention_split_f32(q, k, v, do=None) -> Tuple[torch.Tensor, ...]:
     """The split pass of the fp32 kernels that read split parts (the forward at D = 64 and
     128, the backward at 32, 64 and 128): each of q, k, v and, where given (the backward),
-    dO (fp32 (B, T, H, D)) as its three bf16 parts, a contiguous (3, B, T, H, part_cols(D))
-    tensor each (hi, mid, lo of ``split_bf16x3_reference``, zero past D). One launch of the
-    split kernel (in the backward's source) for the three or four on CUDA tensors; the plain
+    dO (fp32 (B, T, H, D)) as its three bf16 parts, a contiguous (3, B, T, H, D) tensor each
+    (hi, mid, lo of ``split_bf16x3_reference``; no column padded). One launch of the split
+    kernel (in the backward's source) for the three or four on CUDA tensors; the plain
     version on CPU tensors."""
     xs = (q, k, v) if do is None else (q, k, v, do)
     cols = part_cols(q.shape[-1])

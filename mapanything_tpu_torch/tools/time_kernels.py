@@ -30,6 +30,12 @@ With ``--narrow``, only the fp32 forward at the narrow head dims (D = 48 and 32)
 each two ways: the device time of a call (``device_ms``: 20 calls replayed as one CUDA
 graph) and the call's host-paced CUDA-event time (``ms``); torch SDPA on the same inputs
 beside them. Rows under ~0.1 ms read the host in ``ms``, not in the device time.
+
+With ``--narrow-bwd``, only the fp32 backward at D = 32 at ``NARROW_BWD_SHAPES`` (the MAE
+decoder's train step, chip_smoke.py phases 3b and 23): the dq and dk/dv kernels alone on
+one split pass's parts, the split pass, the whole ``flash_attention_bwd_lse`` (delta, the
+split pass, dq and dk/dv) and torch SDPA's backward, each as ``device_ms`` and host-paced
+``ms``; with ``--errors`` also each output's error against fp64, as above.
 """
 
 from __future__ import annotations
@@ -66,6 +72,8 @@ NARROW_SHAPES = {
     "mae_decoder_lse": (4, 1369, 1369, 16, 32, True, "fused"),
     "fp32_d32_129x4000": (2, 129, 4000, 3, 32, False, "three"),
 }
+# name -> (B, T, H, D): the fp32 backward at D = 32, on views of one fused qkv tensor.
+NARROW_BWD_SHAPES = {"mae_decoder": (4, 1369, 16, 32)}
 TRAIN_SHAPES = {
     64: {"encoder": (4, 1370, 16, 64, "bfloat16"), "frame": (4, 1369, 12, 64, "bfloat16"),
          "global": (1, 5477, 12, 64, "bfloat16"), "fp32_encoder": (4, 1370, 16, 64, "float32"),
@@ -143,6 +151,45 @@ def narrow_times(fa, gen) -> dict:
     return rows
 
 
+def narrow_bwd_times(fa, gen, errors: bool) -> dict:
+    """``--narrow-bwd``: each ``NARROW_BWD_SHAPES`` row's dq, dk/dv (alone on one split
+    pass's parts), split pass, whole backward and SDPA backward, device and host-paced."""
+    import torch
+
+    rows = {}
+    for name, (b, t, h, d) in NARROW_BWD_SHAPES.items():
+        q, k, v = torch.randn(b, t, 3, h, d, device="cuda", generator=gen).unbind(2)
+        do = torch.randn(b, t, h, d, device="cuda", generator=gen)
+        scale = d**-0.5
+        o, lse = fa.flash_attention_lse(q, k, v, scale)
+        delta = fa.attention_bwd_delta(o, do).contiguous()
+        parts = fa.flash_attention_split_f32(q, k, v, do)
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        sdpa_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+        calls = {
+            "dq": lambda: fa._launch_bwd("dq", q, k, v, do, lse, delta, scale, (dq,), parts),
+            "dkv": lambda: fa._launch_bwd("dkv", q, k, v, do, lse, delta, scale, (dk, dv), parts),
+            "split": lambda: fa.flash_attention_split_f32(q, k, v, do),
+            "bwd": lambda: fa.flash_attention_bwd_lse(q, k, v, o, lse, do, scale),
+            "sdpa_bwd": lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True),
+        }
+        row = {"b_t_h_d": [b, t, h, d]}
+        for key, call in calls.items():
+            try:
+                row[f"{key}_device_ms"] = device_ms(call)
+            except RuntimeError:  # a capture the graph refuses: not measured
+                row[f"{key}_device_ms"] = None
+            row[f"{key}_ms"] = cuda_time_ms(call, 30)
+        row["bwd_host_us"] = host_us(calls["bwd"])
+        if errors:
+            row["fp32_errors"] = fp32_errors(fa, q, k, v, o, lse, do, scale)
+        rows[name] = row
+        del sdpa_out, parts
+        torch.cuda.empty_cache()
+    return rows
+
+
 def host_us(fn, iters: int = 30) -> float:
     """Host microseconds a call takes to enqueue its work (no synchronisation inside the
     loop): where it reaches a kernel's ms, the CUDA-event time reads the host, not the card."""
@@ -217,6 +264,8 @@ def main() -> int:
     parser.add_argument("--errors", action="store_true", help="also the fp32 backward's errors against fp64")
     parser.add_argument("--narrow", action="store_true",
                         help="time only the fp32 forward at the narrow head dims (NARROW_SHAPES), device and call")
+    parser.add_argument("--narrow-bwd", action="store_true",
+                        help="time only the fp32 backward at D = 32 (NARROW_BWD_SHAPES), device and call")
     parser.add_argument("--dtypes", nargs="+", default=["bfloat16", "float32"], choices=["bfloat16", "float32"],
                         help="time the shapes of these dtypes only (the long and ring rows are bf16)")
     args = parser.parse_args()
@@ -234,6 +283,10 @@ def main() -> int:
     if args.narrow:
         print(json.dumps({"card": torch.cuda.get_device_name(0), "root": str(args.root),
                           "narrow": narrow_times(fa, gen)}), flush=True)
+        return 0
+    if args.narrow_bwd:
+        print(json.dumps({"card": torch.cuda.get_device_name(0), "root": str(args.root),
+                          "narrow_bwd": narrow_bwd_times(fa, gen, args.errors)}), flush=True)
         return 0
     times, errors = {}, {}
     for d in args.head_dims:
