@@ -13,6 +13,7 @@
     python3 chip_smoke.py --dust3r-only        # phases 1, 2, the DUSt3R rows of 3, 26 and 27
     python3 chip_smoke.py --baselines-only     # phases 1, 2, the baselines' rows of 3, 28 and 29
     python3 chip_smoke.py --benchmarks-only    # phases 1, 2, the benchmarks' rows of 3, 34-37
+    python3 chip_smoke.py --masked-only        # phases 1, 2, 3h, 41 and 42
 
 Phases, each printing one JSON line:
   1. the card's name and power limit, as nvidia-smi reports them;
@@ -25,7 +26,9 @@ Phases, each printing one JSON line:
      fa_bwd_dq_bf16, fa_bwd_dkv_bf16, fa_bwd_dq_f32, fa_bwd_dkv_f32, and at
      D = 32 the true-width fa_bwd_dq_f32_narrow and fa_bwd_dkv_f32_narrow), and
      HGMMA in the narrow fp32 forward's (fa_fwd_f32_narrow, D = 32 and 48,
-     packed and streaming: it reads its rows with 16-byte loads);
+     packed and streaming: it reads its rows with 16-byte loads); the masked
+     kernels' library (fa_fwd_masked, fa_bwd_dq_masked, fa_bwd_dkv_masked) must
+     hold every instance, HMMA (mma.sync) in each bf16 one;
   3f. the forward's edges, bf16 and fp32: both forms (lse-free and lse) at
      D = 64 and 128 (and 32 in fp32) against their plain versions under phase 3's rule (fp32
      also under the fp32 rule, below), at
@@ -79,6 +82,19 @@ Phases, each printing one JSON line:
      held bitwise to their plain version and timed; and the fp32 D = 32
      instances at the MAE decoder's 4 x 1369 x 16 x 32 (8 each a 1 x 4 x 518
      step, phase 23's; the lse forward the narrow one, without a split pass);
+  3h. the masked kernels (the masked sdpa; XLA's fused attention on the TPU):
+     fa_fwd_masked at 8 x 1369 x 12 x 64 and 1 x 10953 x 12 x 64 in bf16 under a
+     key-padding mask keeping ~80% of the keys (read with stride 0 over heads and
+     queries) and at 4 x 1369 x 16 x 32 in fp32 under a dense (B, H, Tq, Tk) mask,
+     the lse forward, dq and dk/dv at 4 x 1369 x 12 x 64 in bf16 and fp32, each
+     against its plain version under phase 3's rule (fp32 also the fp32 rule),
+     with kernel, plain, SDPA-with-a-boolean-mask (time only) and bound times (the
+     mask's bytes counted); their edge cases (MASKED_EDGE_CASES under key-padding,
+     dense, shared and all-true masks with fully masked rows, every dtype and head
+     dim, D = 48's forward), JAX's semantics (a fully masked row's o the mean of V,
+     its dq zero, a head masked whole zero dk; an all-true mask the unmasked
+     kernel's o); then the masked path, ops.attention.sdpa(mask=) at each shape,
+     its launches counted;
   4. slice check: MapAnythingConfig.small(), 2 views at 56 px in fp32, the same
      seeded weights on cuda and on cpu, every prediction compared;
   5. inference: the flagship MapAnythingConfig(compute_dtype="bfloat16")
@@ -277,14 +293,25 @@ Phases, each printing one JSON line:
   37. tools/one_sample_finetune.py, the flagship fp32 on 2 views of 518, 30 steps at lr
      1e-4: ms a step, peak memory, launches by shape, the JAX test's criterion (the
      last printed loss under 0.9x the first); the fp32 training kernels at its shapes
-     against their plain versions first.
+     against their plain versions first;
+  41. tools/diagnose_lr_nan.py at its defaults: the flagship bf16 train step on
+     1 x 4 x 518 at lr 1e-4 from seeded random weights, 10 steps, each after a
+     forensic forward and backward: its lines, ms a step, 96 launches of each
+     training kernel a step, the first non-finite step and the forensic quantities
+     that grew most;
+  42. the flagship fp32 train step with LossConfig(disentangled=True) through the
+     view-sharded step at world size 1 (the one-rank NCCL group; on the CPU a gloo
+     group of this process), 1 x 2 x 224 (the CPU step's cost), card against CPU
+     with TF32 off: loss, terms and every gradient within 1e-3 of the magnitude, a
+     leaf past it held to the same step in float64 (the card's gap to it at most
+     twice the fp32 CPU run's).
 On a machine with more than one card, phases 9 and 10 then run again over
 NCCL with one rank a card (2 or 4 cards); rank 0 checks the gathered
 outputs against the unsharded forward. A machine with one card skips this.
 Phases 11-13 run after phase 5, before phase 6; phase 3e after 3d; phases
 14-24 after phase 7, before phase 8 (the D = 32 rows with phases 3 and 3b);
-phases 26-29 after phase 24, 31-33 after 29, 34-37 after 33; phase 25 after phase 10, phase 30 after
-phase 9. Then the
+phases 26-29 after phase 24, 31-33 after 29, 34-37 after 33, 38-41 after 37; phase 3h after 3e; phase 25
+after phase 10, phase 42 after 25, phase 30 after phase 9. Then the
 kernels' summary line and,
 last, {"ok": true, "device": {...}}.
 Phases 3f and 3g run right after the build. With --train-step-only, phase 7
@@ -302,7 +329,9 @@ of their entries; with --baselines-only, the baselines' rows of phase 3, phases 
 and a kernels line of their entries; with --ba-only, the SASS check, phase 3f's narrow
 cases, the BA slice's rows of phase 3, phases 31-33, and a kernels line of their entries; with
 --benchmarks-only, the benchmark slice's rows of phase 3 (phase 19's and the single
-view's), phases 34-37, and a kernels line of their entries.
+view's), phases 34-37, and a kernels line of their entries; with --masked-only, the SASS
+check, phases 3h, 41 and 42 (on a one-rank group of its own), and a kernels line of the
+masked kernels' entries.
 Any failed check raises and the script exits non-zero. Without a CUDA device,
 or without the port beside it, it exits non-zero and prints no result.
 """
@@ -310,6 +339,7 @@ or without the port beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import inspect
@@ -425,6 +455,12 @@ def device_time_ms(fn):
 def shape_counts(shapes: dict) -> dict:
     """``launch_shapes()`` as JSON: {kernel: {"<Tk>x<D>": launches}}."""
     return {name: {f"{tk}x{d}": n for (tk, d), n in by.items()} for name, by in shapes.items()}
+
+
+def counts_match(counts: dict, want: dict) -> bool:
+    """``launch_counts()`` against the wanted launches, a kernel that ``want`` leaves out
+    wanted 0 times (an older checkout that this script times may lack a kernel's count)."""
+    return all(n == want.get(k, 0) for k, n in counts.items())
 
 
 def by_head_dim(shapes: dict) -> dict:
@@ -706,6 +742,24 @@ def sass_check(lib: Path, instances: dict) -> dict:
     missing = {key: c for key, c in counts.items() if not (c["HGMMA"] and (c["UTMALDG"] or "fwd_f32_narrow" in key))}
     if missing:
         raise AssertionError(f"instances without wgmma or TMA in their SASS: {missing}")
+    return counts
+
+
+def masked_sass_check(lib: Path) -> dict:
+    """Phase 2 for the masked kernels' library: cuobjdump -sass; every bf16 instance must hold
+    HMMA (mma.sync), the fp32 ones run FFMA. Returns both counts by instance."""
+    from mapanything_tpu_torch.ops import _build
+    from mapanything_tpu_torch.ops import flash_attention as fa
+
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
+    functions = {f.split("\n", 1)[0].strip(): f for f in sass.split("Function : ")[1:]}
+    counts = {name: {op: body.count(op) for op in ("HMMA", "FFMA")} for name, body in functions.items()
+              if "_masked" in name}
+    missing = [name for name, c in counts.items() if "bfloat16" in name and not c["HMMA"]]
+    trained = len(fa.HEAD_DIMS) + len(fa.F32_LSE_HEAD_DIMS)  # the instances with lse forward, dq and dk/dv
+    if len(counts) != len(fa.HEAD_DIMS) + len(fa.F32_HEAD_DIMS) + 3 * trained or missing:
+        raise AssertionError(f"the masked library holds {len(counts)} instances, bf16 ones without HMMA: {missing}")
     return counts
 
 
@@ -1469,7 +1523,7 @@ def flagship(card, trunk_heads: int = 12, compute_dtype: str = "bfloat16", kerne
     # In fp32 a split pass before each forward launch.
     want = {"flash_attention_fwd": 48, "flash_attention_fwd_lse": 0, "flash_attention_bwd_dq": 0,
             "flash_attention_bwd_dkv": 0, "flash_attention_split_f32": 48 if fp32 else 0}
-    if counts != {k: want[k] for k in counts}:
+    if not counts_match(counts, want):
         raise AssertionError(f"one flagship forward launched {counts}, not {want}")
     # The encoder's 24 layers at D = 64; the trunk's 12 frame and 12 global layers at D.
     want_shapes = {(1370, 64): 24, (1369, d): 12, (V * 1369 + 1, d): 12}
@@ -1690,8 +1744,7 @@ def flagship_infer(card, forward_ms: float):
     infer(model, images)
     torch.cuda.synchronize()
     counts = launch_counts()
-    if counts != {"flash_attention_fwd": 48, "flash_attention_fwd_lse": 0, "flash_attention_bwd_dq": 0,
-                  "flash_attention_bwd_dkv": 0, "flash_attention_split_f32": 0}:
+    if not counts_match(counts, {"flash_attention_fwd": 48}):
         raise AssertionError(f"one flagship infer launched {counts}, not the lse-free forward 48 times")
     line = {"phase": "flagship_infer",
             "config": "MapAnythingConfig(compute_dtype='bfloat16'), 1x8x518x518, seeded random weights",
@@ -1921,7 +1974,7 @@ def files_to_scene(card):
             "flash_attention_bwd_dkv": 0, "flash_attention_split_f32": 0}
     t = FILES_VIEWS * 1036 + 1
     want_shapes = {(1037, 64): 24, (1036, 64): 12, (t, 64): 12}
-    if counts != {k: want[k] for k in counts} or shapes["flash_attention_fwd"] != want_shapes:
+    if not counts_match(counts, want) or shapes["flash_attention_fwd"] != want_shapes:
         raise AssertionError(f"the demo launched {counts}, by (Tk, D) {shapes['flash_attention_fwd']}, "
                              f"not {want} and {want_shapes}")
 
@@ -2059,7 +2112,7 @@ def trainer_phase(card):
     want_shapes = {k: {s: n * want[k] // 48 for s, n in lengths.items()} for k in want if want[k]}
 
     def check_counts(counts, shapes, run):
-        if counts != {k: want[k] for k in counts} or any(shapes[k] != v for k, v in want_shapes.items()):
+        if not counts_match(counts, want) or any(shapes[k] != v for k, v in want_shapes.items()):
             raise AssertionError(f"Trainer run {run} launched {counts}, by shape {shape_counts(shapes)}, "
                                  f"not {want}")
 
@@ -2387,7 +2440,7 @@ def data_path_phase(card):
             raise AssertionError("non-finite parameters after the epoch")
         want = {"flash_attention_fwd": 0, "flash_attention_fwd_lse": 48 * micro, "flash_attention_bwd_dq": 48 * micro,
                 "flash_attention_bwd_dkv": 48 * micro, "flash_attention_split_f32": 0}
-        if counts != {k: want[k] for k in counts}:
+        if not counts_match(counts, want):
             raise AssertionError(f"the epoch launched {counts}, not {want}")
         by_length = {name: {f"{t}": n / micro for (t, d), n in sorted(per.items())} for name, per in shapes.items()}
         for r in rows:  # the checked shapes' launches in this run, per micro-batch
@@ -2598,7 +2651,7 @@ def flagship_train(card, group=None, unsharded_loss=None, trunk_heads: int = 12,
         counts, shapes = launch_counts(), launch_shapes()
         ring = sa.counts()
         # (An older checkout that this script is copied into to time its step may lack the split's count.)
-        if counts != {k: want[k] for k in counts} or any(ring[k] != v for k, v in want_ring.items()):
+        if not counts_match(counts, want) or any(ring[k] != v for k, v in want_ring.items()):
             raise AssertionError(f"train step {i} launched {counts} with {ring}, not {want} and {want_ring}")
         for k, by_d in by_head_dim(shapes).items():
             want_d = {dim: n * times_of(k) for dim, n in want_by_d.items()}
@@ -2611,7 +2664,7 @@ def flagship_train(card, group=None, unsharded_loss=None, trunk_heads: int = 12,
                 if k in totals_by_d:
                     totals_by_d[k][dim] = totals_by_d[k].get(dim, 0) + n
         for k in counts:
-            totals[k] += counts[k]
+            totals[k] = totals.get(k, 0) + counts[k]
         m = {k: v.item() for k, v in m.items()}
         if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])):
             raise AssertionError(f"train step {i}: loss {m['loss']}, grad_norm {m['grad_norm']}")
@@ -2793,7 +2846,7 @@ def flagship_view_parallel(card, group, trunk_heads: int = 12):
             counts, ring, by_d = launch_counts(), sa.counts(), by_head_dim(launch_shapes())
             expect = {**want[mode], "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
                       "flash_attention_split_f32": 0}
-            if counts != expect or ring["ring_steps"] != (12 * n if mode == "ring" else 0):
+            if not counts_match(counts, expect) or ring["ring_steps"] != (12 * n if mode == "ring" else 0):
                 raise AssertionError(f"one {mode} forward launched {counts} with {ring}, not {expect}")
             # The trunk's 24 layers at its head dim (12 frame, 12 global or 12 n ring steps),
             # beside the encoder's 24 at D = 64.
@@ -2900,7 +2953,7 @@ def rgb_flagship_infer(card) -> dict:
         want = {"flash_attention_fwd": 56 if mae else 48, "flash_attention_fwd_lse": 0, "flash_attention_bwd_dq": 0,
                 "flash_attention_bwd_dkv": 0, "flash_attention_split_f32": 0}
         want_shapes = {(1370, 64): 24, (1369, 64): 12, (V * 1369 + 1, 64): 12, **({(1369, 32): 8} if mae else {})}
-        if counts != want or shapes["flash_attention_fwd"] != want_shapes:
+        if not counts_match(counts, want) or shapes["flash_attention_fwd"] != want_shapes:
             raise AssertionError(f"one {head} infer launched {counts} ({shapes['flash_attention_fwd']}), not {want} "
                                  f"({want_shapes})")
         checks = check_infer_outputs(out, (B, V, H, W))
@@ -2972,7 +3025,7 @@ def rgb_flagship_train(card) -> dict:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
         counts, by_d = launch_counts(), by_head_dim(launch_shapes())
-        if counts != want or any(by_d[k] != v for k, v in want_by_d.items()):
+        if not counts_match(counts, want) or any(by_d[k] != v for k, v in want_by_d.items()):
             raise AssertionError(f"MAE train step {i} launched {counts} ({by_d}), not {want} ({want_by_d})")
         for k in want_by_d:
             for dim, n in by_d[k].items():
@@ -3301,7 +3354,7 @@ def dust3r_flagship(card, compute_dtype: str, kernel_rows, weights=None) -> dict
     counts, shapes = launch_counts(), launch_shapes()
     want = {"flash_attention_fwd": 72, "flash_attention_fwd_lse": 0, "flash_attention_bwd_dq": 0,
             "flash_attention_bwd_dkv": 0, "flash_attention_split_f32": 72 if fp32 else 0}
-    if counts != want or shapes["flash_attention_fwd"] != {(768, 64): 72}:
+    if not counts_match(counts, want) or shapes["flash_attention_fwd"] != {(768, 64): 72}:
         raise AssertionError(f"one DUSt3R forward launched {counts} ({shapes['flash_attention_fwd']}), not {want}")
     warmup, iters = 2, 5
     with torch.inference_mode():
@@ -3663,7 +3716,7 @@ def baseline_flagship(card, path: str, name: str, compute_dtype: str, shape, wei
     n = sum(want.values())
     expect = {"flash_attention_fwd": n, "flash_attention_fwd_lse": 0, "flash_attention_bwd_dq": 0,
               "flash_attention_bwd_dkv": 0, "flash_attention_split_f32": n if fp32 else 0}
-    if counts != expect or shapes["flash_attention_fwd"] != want:
+    if not counts_match(counts, expect) or shapes["flash_attention_fwd"] != want:
         raise AssertionError(f"one {path} forward launched {counts} ({shapes['flash_attention_fwd']}), not {expect} "
                              f"({want})")
     errs = compare_outputs(kern, plain, held, mean=not fp32)
@@ -3837,7 +3890,7 @@ def split_rows(rows) -> list:
 
 def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, inference_launches, train_launches,
                  train_steps, vp_launches, many_view_line, h128, fp32_train, fp32_forward, files, trainer, data, rgb,
-                 dust3r, baseline, ba, bench, proc):
+                 dust3r, baseline, ba, bench, proc, masked):
     """The kernels line: each kernel, what it replaces, its launches on its path
     (one forward; all train steps, and per step), its max error and its times
     per forward (inference) or per train step. The phase-3c rows are the
@@ -3864,7 +3917,8 @@ def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, infe
     its split pass) on each baseline's forward at its release's widths (phase 29), with that
     run's launches; the BA slice's (``ba``) those of ``ba_entries`` (phases 31-33); the
     benchmark slice's (``bench``) those of ``benchmark_entries`` (phases 34-37); the processing
-    slice's (``proc``) those of ``processing_entries`` (phases 38-40)."""
+    slice's (``proc``) those of ``processing_entries`` (phases 38-40); the masked kernels
+    (``masked``) those of ``masked_entries`` (phase 3h)."""
     main_rows = [r for r in rows if r["per_forward"] and r["dtype"] == "bfloat16"]
     kernels = [path_entry("flash_attention_fwd", "mapanything_tpu/ops/flash_attention.py:395", main_rows,
                           {r["shape"]: r["per_forward"] for r in main_rows},
@@ -3928,6 +3982,7 @@ def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, infe
     kernels += ba_entries(ba)
     kernels += benchmark_entries(bench)
     kernels += processing_entries(proc)
+    kernels += masked_entries(masked)
     emit({"kernels": kernels})
 
 
@@ -4361,7 +4416,7 @@ def tracker_phase(card) -> dict:
     n = sum(want.values())
     expect = {"flash_attention_fwd": n, "flash_attention_fwd_lse": 0, "flash_attention_bwd_dq": 0,
               "flash_attention_bwd_dkv": 0, "flash_attention_split_f32": 0}  # the narrow forward splits in-kernel
-    if counts != expect or shapes["flash_attention_fwd"] != want:
+    if not counts_match(counts, expect) or shapes["flash_attention_fwd"] != want:
         raise AssertionError(f"the tracker launched {counts} ({shapes['flash_attention_fwd']}), not {expect} ({want})")
     tracks, vis, scores = kern
     if not (np.isfinite(tracks).all() and np.isfinite(scores).all()) or tracks.shape[0] != FILES_VIEWS:
@@ -4541,7 +4596,7 @@ def optim_phase(card) -> dict:
             torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
         expect = {"flash_attention_fwd": n, "flash_attention_fwd_lse": 0, "flash_attention_bwd_dq": 0,
                   "flash_attention_bwd_dkv": 0, "flash_attention_split_f32": n}
-        if counts != expect or shapes["flash_attention_fwd"] != want:
+        if not counts_match(counts, expect) or shapes["flash_attention_fwd"] != want:
             raise AssertionError(f"{name} launched {counts} ({shapes['flash_attention_fwd']}), not {expect} ({want})")
         # A second scene, warm, and the pair forwards alone (the rest of a scene is the
         # alignment, its init on the host and its Adam steps at the host's pace).
@@ -4961,7 +5016,7 @@ def finetune_phase(card) -> dict:
     per_step = {(1370, 64): 24 * n, (1369, 64): 12 * n, (2739, 64): 12 * n}
     bad = [k for k in ("flash_attention_fwd_lse", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
            if shapes.get(k) != per_step]
-    if counts != want or bad:
+    if not counts_match(counts, want) or bad:
         raise AssertionError(f"{n} finetune steps launched {counts}, by shape "
                              f"{ {k: shape_key(v) for k, v in shapes.items()} }")
     if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
@@ -5607,6 +5662,529 @@ def processing_entries(proc) -> list:
     return entries
 
 
+# ---------------------------------------------------------------- phases 3h, 41 and 42
+
+MASKED_SOURCE = "mapanything_tpu_torch/csrc/flash_attention_masked.cu"
+# On the TPU every masked sdpa call went to XLA's fused attention (jax.nn.dot_product_attention).
+MASKED_REPLACES = "mapanything_tpu/ops/attention.py:77"
+# Phase 3h's rows: (name, B x T x H x D, dtype, mask): the forward in bf16 at the frame and
+# global layers' shapes with a key-padding mask keeping ~80% of the keys, in fp32 at the MAE
+# decoder's with a dense (B, H, Tq, Tk) mask; the lse forward, dq and dk/dv at the training
+# frame shape in bf16 and fp32.
+MASKED_SHAPES = [
+    ("frame_key_padding", (8, 1369, 12, 64), "bfloat16", "key_padding"),
+    ("global_key_padding", (1, 10953, 12, 64), "bfloat16", "key_padding"),
+    ("fp32_dense", (4, 1369, 16, 32), "float32", "dense"),
+]
+MASKED_TRAIN_SHAPES = [
+    ("train_key_padding", (4, 1369, 12, 64), "bfloat16", "key_padding"),
+    ("fp32_train_key_padding", (4, 1369, 12, 64), "float32", "key_padding"),
+]
+# Phase 3h's edge cases: (Tq, Tk, B, H), lengths on and off the 64-row tiles, Tq != Tk both
+# ways; each under every mask kind, in each dtype at each head dim with an instance.
+MASKED_EDGE_CASES = [(1, 1, 2, 3), (7, 7, 2, 3), (64, 64, 2, 3), (65, 65, 2, 3), (129, 129, 2, 3), (129, 4000, 2, 3),
+                     (1370, 77, 1, 2), (5476, 1, 1, 2)]
+MASK_KINDS = ("key_padding", "dense", "shared", "all")
+MASKED_TRAIN_NAMES = ("flash_attention_masked_fwd_lse", "flash_attention_masked_bwd_dq", "flash_attention_masked_bwd_dkv")
+
+
+def make_mask(kind: str, b: int, h: int, tq: int, tk: int, gen, fully_masked: bool = False):
+    """A boolean mask on the card: "key_padding" (B, 1, 1, Tk) keeping ~80% of the keys,
+    "dense" (B, H, Tq, Tk) keeping ~50%, "shared" (1, 1, Tq, Tk) keeping ~30%, "all" one
+    True broadcast everywhere. With ``fully_masked``, some rows (or, key padding, the last
+    sample's every key) masked whole."""
+    import torch
+
+    shape = {"key_padding": (b, 1, 1, tk), "dense": (b, h, tq, tk), "shared": (1, 1, tq, tk), "all": (1, 1, 1, 1)}[kind]
+    keep = {"key_padding": 0.8, "dense": 0.5, "shared": 0.3, "all": 1.1}[kind]
+    mask = torch.rand(shape, device="cuda", generator=gen) < keep
+    if fully_masked and kind == "key_padding" and b > 1:
+        mask[-1] = False
+    elif fully_masked and kind in ("dense", "shared"):
+        mask[0, 0, : min(3, tq)] = False
+    return mask
+
+
+def masked_bounds(card, kernel: str, b, tq, tk, h, d, dtype_name, mask_bytes: int) -> dict:
+    """A masked kernel's bound: the larger of its bytes (inputs read once, outputs written
+    once, the mask's stored bytes read once) over the memory rate and its flop (forward
+    4·B·H·Tq·Tk·D, dq 4·, dk/dv 6·; in fp32 six times that at the bf16 rate, the split
+    bound, with the FFMA bound beside it) over the tensor cores' rate."""
+    bf16_peak, f32_peak, mem_bw = peaks_for(card["name"])
+    fp32 = dtype_name == "float32"
+    item = 4 if fp32 else 2
+    unit = b * h * tq * tk * d
+    stats = 4 * b * h * tq
+    flop, nbytes = {
+        "fwd": (4 * unit, (2 * tq + 2 * tk) * b * h * d * item),
+        "fwd_lse": (4 * unit, (2 * tq + 2 * tk) * b * h * d * item + stats),
+        "dq": (4 * unit, (3 * tq + 2 * tk) * b * h * d * item + 2 * stats),
+        "dkv": (6 * unit, (2 * tq + 4 * tk) * b * h * d * item + 2 * stats),
+    }[kernel]
+    t_ops = (6 if fp32 else 1) * flop / bf16_peak * 1e3
+    t_bytes = (nbytes + mask_bytes) / mem_bw * 1e3
+    out = {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "flop": flop, "mask_bytes": mask_bytes}
+    if fp32:
+        out["ffma_bound_ms"] = max(flop / f32_peak * 1e3, t_bytes)
+    return out
+
+
+def sdpa_ms(q, k, v, mask, scale, backward_of=None):
+    """The library yardstick: torch SDPA with a boolean attn_mask (True = attend), its forward
+    or, given a cotangent ``backward_of``, its backward alone; None where SDPA refuses the
+    call (not measured). Time only: on a fully masked row SDPA gives NaN or zero, not JAX's
+    mean of V."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(backward_of is not None) for x in (q, k, v))
+    try:
+        if backward_of is None:
+            return cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale), 10)
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale)
+        dot = backward_of.transpose(1, 2)
+        return cuda_time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), 10)
+    except RuntimeError:
+        return None
+
+
+def masked_errors(outs: dict, exact: dict, plain: dict, fp32: bool) -> tuple:
+    """Each output's error against the exact version beside the plain version's, under phase
+    3's rule and in fp32 the fp32 rule; the lse on the rows with a key left (a fully masked
+    row's lse is the masked logit, c + log(Tk) rounded: those rows must agree as such).
+    Returns (errors, plain errors, tolerances, failures)."""
+    import torch
+
+    from mapanything_tpu_torch.ops import flash_attention as fa
+
+    errs, plain_errs, tols, bad = {}, {}, {}, {}
+    for key, got in outs.items():
+        e, p = exact[key], plain[key]
+        if key == "lse":
+            full = fa.fully_masked_rows(e)
+            if not bool((fa.fully_masked_rows(got) == full).all()):
+                bad["lse_fully_masked_rows"] = "the kernel's fully masked rows differ from the exact version's"
+            keep = ~full
+            got, e, p = got[keep], e[keep], p[keep]
+            if not got.numel():
+                continue
+        errs[key], plain_errs[key] = max_err(got, e), max_err(p, e)
+        tols[key] = tolerance(plain_errs[key], e)
+        if fp32:
+            tols[key] = min(tols[key], fp32_tolerance(plain_errs[key], e))
+        if not bool(torch.isfinite(got).all()) or not errs[key] <= tols[key]:
+            bad[key] = (errs[key], tols[key])
+    return errs, plain_errs, tols, bad
+
+
+def masked_run(q, k, v, mask, scale, do=None, rows=None):
+    """The masked kernels on the card and their plain versions: the kernels' outputs (the
+    lse-free forward's o; with ``do`` also the lse forward's o and lse, and dq and dk/dv fed
+    that lse and delta = rowsum(dO·o)), the exact versions' (fp32 for bf16, fp64 for fp32)
+    and the plain versions' in the inputs' dtype, each on query rows ``rows`` (all when
+    None); the backward's versions are fed the kernels' statistics. With one key the
+    backward is fed the statistics of a softmax merged over another block (phase 3g's merged
+    statistics): the lse raised by 0.5 and delta halved. Against its own, P = 1, o = v and
+    dS = dP - delta = 0 exactly, so dq and dk would be rounding noise that no rule relative to
+    their magnitude can hold. A fully masked row's lse stays the masked logit."""
+    import torch
+
+    from mapanything_tpu_torch.ops import flash_attention as fa
+
+    b, tq, h, _ = q.shape
+    tk = k.shape[1]
+    mv = fa.masked_view(mask, b, h, tq, tk)
+    exact_dtype = torch.float64 if q.dtype == torch.float32 else torch.float32
+    sl = slice(None) if rows is None else rows
+    outs = {"o": fa.flash_attention_masked(q, k, v, mask, scale)[:, sl]}
+    xe = [x.to(exact_dtype) for x in (q, k, v)]
+    exact = {"o": fa.attention_masked_reference(xe[0][:, sl], xe[1], xe[2], mv[:, :, sl], scale)}
+    plain = {"o": fa.attention_masked_reference(q[:, sl], k, v, mv[:, :, sl], scale)}
+    if do is not None:  # the training kernels (on every row)
+        o, lse = fa.flash_attention_masked_lse(q, k, v, mv, scale)
+        delta = fa.attention_bwd_delta(o, do).contiguous()
+        fed, delta = (lse + 0.5, 0.5 * delta) if tk == 1 else (lse, delta)
+        dq = fa.flash_attention_masked_bwd_dq(q, k, v, do, mv, fed, delta, scale)
+        dk, dv = fa.flash_attention_masked_bwd_dkv(q, k, v, do, mv, fed, delta, scale)
+        outs.update(o_lse=o, lse=lse, dq=dq, dk=dk, dv=dv)
+        for target, args, acc in ((exact, xe + [do.to(exact_dtype)], exact_dtype), (plain, [q, k, v, do], torch.float32)):
+            o_r, lse_r = fa.attention_masked_lse_reference(*args[:3], mv, scale)
+            stats = (fed.to(acc), delta.to(acc))
+            target.update(o_lse=o_r, lse=lse_r, dq=fa.attention_masked_bwd_dq_reference(*args, mv, *stats, scale))
+            target["dk"], target["dv"] = fa.attention_masked_bwd_dkv_reference(*args, mv, *stats, scale)
+    torch.cuda.synchronize()
+    return outs, exact, plain
+
+
+def masked_inputs(b, tq, tk, h, d, dtype, gen, fused: bool):
+    """q, k, v (fused: strided views of one qkv tensor, else three tensors) and dO."""
+    import torch
+
+    if fused:
+        q, k, v = torch.randn(b, tq, 3, h, d, device="cuda", generator=gen).to(dtype).unbind(2)
+    else:
+        q, k, v = (torch.randn(b, n, h, d, device="cuda", generator=gen).to(dtype) for n in (tq, tk, tk))
+    return q, k, v, torch.randn(b, tq, h, d, device="cuda", generator=gen).to(dtype)
+
+
+def masked_kernel_checks(card) -> dict:
+    """Phase 3h: the masked kernels against their plain versions under phase 3's rule (fp32
+    also under the fp32 rule) at MASKED_SHAPES (forward) and MASKED_TRAIN_SHAPES (lse
+    forward, dq, dk/dv), with kernel, plain, SDPA-with-mask and bound times; the edge cases
+    (masked_edge_checks); then the masked path: ``ops.attention.sdpa(q, k, v, mask=)`` once
+    at each forward shape without gradients and once at each training shape under autograd,
+    its launches counted from 0 by kernel."""
+    import torch
+
+    from mapanything_tpu_torch.ops import attention
+    from mapanything_tpu_torch.ops import flash_attention as fa
+
+    rows, train_rows = [], []
+    for name, (b, t, h, d), dtype_name, kind in MASKED_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        gen = torch.Generator(device="cuda").manual_seed(31)
+        q, k, v, _ = masked_inputs(b, t, t, h, d, dtype, gen, fused=True)
+        mask = make_mask(kind, b, h, t, t, gen)
+        mv = fa.masked_view(mask, b, h, t, t)
+        scale = d**-0.5
+        sl = (torch.cat([torch.arange(ROW_SLICE // 2), torch.arange(t - ROW_SLICE // 2, t)]).cuda()
+              if t > ROW_SLICE else None)
+        outs, exact, plain = masked_run(q, k, v, mask, scale, rows=sl)
+        errs, plain_errs, tols, bad = masked_errors(outs, exact, plain, dtype == torch.float32)
+        del outs, exact, plain
+        torch.cuda.empty_cache()
+        chunk = min(t, PLAIN_SLAB // t)
+        plain_call = lambda: [fa.attention_masked_reference(q[:, i:i + chunk], k, v, mv[:, :, i:i + chunk], scale)  # noqa: E731
+                              for i in range(0, t, chunk)]
+        row = {"phase": "masked_kernel_check", "phase_id": "3h", "shape": name, "b_t_h_d": [b, t, h, d],
+               "dtype": dtype_name, "mask": kind, "mask_shape": list(mask.shape), "replaces": MASKED_REPLACES,
+               "rows_checked": t if sl is None else ROW_SLICE, "max_abs_err": errs["o"], "plain_err": plain_errs["o"],
+               "tol": tols["o"], "ms": cuda_time_ms(lambda: fa.flash_attention_masked(q, k, v, mask, scale), 10),
+               "plain_ms": cuda_time_ms(plain_call, iters=2, warmup=1), "library_ms": sdpa_ms(q, k, v, mv, scale),
+               **masked_bounds(card, "fwd", b, t, t, h, d, dtype_name, mask.numel()),
+               "card": card["name"], "power_limit": card["power_limit"]}
+        row["tflops"] = 4 * b * h * t * t * d / row["ms"] / 1e9
+        emit(row)
+        if bad:
+            raise AssertionError(f"fa_fwd_masked disagrees with its plain version at {name}: {bad}")
+        rows.append(row)
+        del q, k, v, mask, mv
+        torch.cuda.empty_cache()
+    for name, (b, t, h, d), dtype_name, kind in MASKED_TRAIN_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        gen = torch.Generator(device="cuda").manual_seed(32)
+        q, k, v, do = masked_inputs(b, t, t, h, d, dtype, gen, fused=True)
+        mask = make_mask(kind, b, h, t, t, gen)
+        mv = fa.masked_view(mask, b, h, t, t)
+        scale = d**-0.5
+        outs, exact, plain = masked_run(q, k, v, mask, scale, do)
+        errs, plain_errs, tols, bad = masked_errors(outs, exact, plain, dtype == torch.float32)
+        del outs, exact, plain
+        o, lse = fa.flash_attention_masked_lse(q, k, v, mv, scale)
+        delta = fa.attention_bwd_delta(o, do).contiguous()
+        calls = {
+            "flash_attention_masked_fwd_lse": ("fwd_lse", lambda: fa.flash_attention_masked_lse(q, k, v, mv, scale),
+                                               lambda: fa.attention_masked_lse_reference(q, k, v, mv, scale),
+                                               sdpa_ms(q, k, v, mv, scale)),
+            "flash_attention_masked_bwd_dq": (
+                "dq", lambda: fa.flash_attention_masked_bwd_dq(q, k, v, do, mv, lse, delta, scale),
+                lambda: fa.attention_masked_bwd_dq_reference(q, k, v, do, mv, lse, delta, scale),
+                sdpa_ms(q, k, v, mv, scale, backward_of=do)),
+            "flash_attention_masked_bwd_dkv": (
+                "dkv", lambda: fa.flash_attention_masked_bwd_dkv(q, k, v, do, mv, lse, delta, scale),
+                lambda: fa.attention_masked_bwd_dkv_reference(q, k, v, do, mv, lse, delta, scale), None),
+        }
+        kernels = {}
+        sdpa_bwd = calls["flash_attention_masked_bwd_dq"][3]
+        calls["flash_attention_masked_bwd_dkv"] = calls["flash_attention_masked_bwd_dkv"][:3] + (sdpa_bwd,)
+        for kname, (kind_key, call, plain_call, library) in calls.items():
+            kernels[kname] = {"replaces": MASKED_REPLACES, "ms": cuda_time_ms(call, 10),
+                              "plain_ms": cuda_time_ms(plain_call, iters=2, warmup=1), "library_ms": library,
+                              **masked_bounds(card, kind_key, b, t, t, h, d, dtype_name, mask.numel())}
+        # SDPA's backward computes dq, dk and dv together: it stands beside each backward kernel.
+        row = {"phase": "masked_train_kernel_check", "phase_id": "3h", "shape": name, "b_t_h_d": [b, t, h, d],
+               "dtype": dtype_name, "mask": kind, "mask_shape": list(mask.shape), "max_abs_err": errs,
+               "plain_err": plain_errs, "tol": tols, "kernels": kernels,
+               "card": card["name"], "power_limit": card["power_limit"]}
+        emit(row)
+        if bad:
+            raise AssertionError(f"the masked training kernels disagree with their plain versions at {name}: {bad}")
+        train_rows.append(row)
+        del q, k, v, do, o, lse, delta, mask, mv
+        torch.cuda.empty_cache()
+    edges = masked_edge_checks(card)
+
+    # The masked path: sdpa(mask=) at each shape, the counts from 0.
+    fa.reset_launch_counts()
+    for name, (b, t, h, d), dtype_name, kind in MASKED_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(31)
+        q, k, v, _ = masked_inputs(b, t, t, h, d, getattr(torch, dtype_name), gen, fused=True)
+        with torch.no_grad():
+            attention.sdpa(q, k, v, mask=make_mask(kind, b, h, t, t, gen))
+    for name, (b, t, h, d), dtype_name, kind in MASKED_TRAIN_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(32)
+        q, k, v, do = masked_inputs(b, t, t, h, d, getattr(torch, dtype_name), gen, fused=False)
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+        attention.sdpa(q, k, v, mask=make_mask(kind, b, h, t, t, gen)).backward(do)
+    torch.cuda.synchronize()
+    counts = fa.launch_counts()
+    want = {"flash_attention_masked_fwd": len(MASKED_SHAPES),
+            **{k: len(MASKED_TRAIN_SHAPES) for k in MASKED_TRAIN_NAMES}}
+    emit({"phase": "masked_path", "phase_id": "3h", "launches": counts})
+    if not counts_match(counts, want):
+        raise AssertionError(f"the masked path launched {counts}, not {want}")
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return {"rows": rows, "train_rows": train_rows, "edges": edges, "launches": counts}
+
+
+def masked_edge_checks(card) -> dict:
+    """Phase 3h's edge cases. Every (Tq, Tk, B, H) of MASKED_EDGE_CASES under each mask kind
+    (key padding, dense, shared with stride-0 dimensions; all true), fully masked rows in
+    each but the all-true kind, in bf16 at D = 64 and 128 and fp32 at 32, 64 and 128: the
+    lse-free forward, the lse forward, dq and dk/dv against their plain versions under phase
+    3's rule (fp32 also under the fp32 rule), q, k and v views of a fused qkv tensor where
+    Tq = Tk; the fp32 D = 48 forward likewise (lse-free). Then JAX's semantics on the card:
+    a fully masked row's o is the mean of V and its dq row zero, a head masked whole gets
+    zero dk and dv = sum(dO) / Tk; an all-true mask gives the unmasked kernel's o."""
+    import torch
+
+    from mapanything_tpu_torch.ops import flash_attention as fa
+
+    cases, failures = 0, []
+    worst = 0.0
+    combos = [(torch.bfloat16, d) for d in fa.HEAD_DIMS] + [(torch.float32, d) for d in fa.F32_HEAD_DIMS]
+    for dtype, d in combos:
+        lse_served = d in fa.head_dims(dtype, lse=True)
+        for tq, tk, b, h in MASKED_EDGE_CASES:
+            for kind in MASK_KINDS:
+                gen = torch.Generator(device="cuda").manual_seed(cases)
+                q, k, v, do = masked_inputs(b, tq, tk, h, d, dtype, gen, fused=tq == tk)
+                mask = make_mask(kind, b, h, tq, tk, gen, fully_masked=True)
+                outs, exact, plain = masked_run(q, k, v, mask, EDGE_SCALE, do if lse_served else None)
+                errs, _, tols, bad = masked_errors(outs, exact, plain, dtype == torch.float32)
+                cases += 1
+                worst = max([worst] + [errs[key] / tols[key] for key in errs if tols[key] > 0])
+                if bad:
+                    failures.append({"dtype": str(dtype), "d": d, "tq_tk_b_h": [tq, tk, b, h], "mask": kind,
+                                     "bad": str(bad)})
+    semantics = {}
+    for dtype, d in [(torch.bfloat16, 64), (torch.float32, 64), (torch.float32, 32)]:
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        b, t, h = 2, 200, 3
+        q, k, v, do = masked_inputs(b, t, t, h, d, dtype, gen, fused=False)
+        mask = torch.rand(b, h, t, t, device="cuda", generator=gen) < 0.5
+        mask[0, 0] = False  # batch 0, head 0: masked whole
+        mask[1, 2, 5:9] = False  # four fully masked rows
+        qs, ks, vs = (x.clone().requires_grad_() for x in (q, k, v))
+        o = fa.flash_attention_masked(qs, ks, vs, mask, 0.2)
+        dq, dk, dv = torch.autograd.grad(o, (qs, ks, vs), do)
+        mean_v = v[0, :, 0].float().mean(0)
+        tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+        checks = {
+            "o_is_mean_of_v": (o[0, :, 0].float() - mean_v).abs().max().item() <= tol * mean_v.abs().max().item(),
+            "o_rows_are_mean_of_v": (o[1, 5:9, 2].float() - v[1, :, 2].float().mean(0)).abs().max().item()
+                                    <= tol * v[1, :, 2].float().abs().max().item(),
+            "dq_zero_on_fully_masked_rows": not dq[0, :, 0].any().item() and not dq[1, 5:9, 2].any().item(),
+            "dk_zero_on_a_head_masked_whole": not dk[0, :, 0].any().item(),
+            "dv_is_sum_of_do_over_tk": (dv[0, :, 0].float() - do[0, :, 0].float().sum(0) / t).abs().max().item()
+                                       <= tol * (do[0, :, 0].float().sum(0) / t).abs().max().item() + 1e-6,
+        }
+        ones = torch.ones(1, 1, 1, 1, dtype=torch.bool, device="cuda")
+        with torch.no_grad():
+            masked_o = fa.flash_attention_masked(q, k, v, ones, 0.2)
+            plain_o = fa.flash_attention(q, k, v, 0.2)
+            exact_o = fa.attention_reference(*(x.double() for x in (q, k, v)), 0.2)
+        rule = tolerance(max_err(fa.attention_reference(q, k, v, 0.2), exact_o), exact_o)
+        checks["all_true_is_unmasked"] = max_err(masked_o, plain_o) <= 2 * rule
+        semantics[f"{str(dtype).split('.')[-1]}_d{d}"] = checks
+        failures += [{"dtype": str(dtype), "d": d, "semantics": key} for key, ok in checks.items() if not ok]
+    line = {"phase": "masked_edges", "phase_id": "3h", "cases": cases, "worst_err_over_tol": worst,
+            "semantics": semantics, "failures": failures[:20], "card": card["name"],
+            "power_limit": card["power_limit"]}
+    emit(line)
+    if failures:
+        raise AssertionError(f"{len(failures)} masked edge cases failed: {failures[:5]}")
+    return line
+
+
+def masked_entries(masked) -> list:
+    """Phase 3h in the kernels line: the four masked kernels on the masked path (sdpa(mask=)
+    once at each of phase 3h's shapes: without gradients at MASKED_SHAPES, under autograd at
+    MASKED_TRAIN_SHAPES), each with that run's launches; times are the sums of each shape's
+    per-call times."""
+    launches = masked["launches"]
+    path = "ops.attention.sdpa(q, k, v, mask=) once at each of phase 3h's shapes; times summed over them"
+    rows = masked["rows"]
+    entries = [path_entry("flash_attention_masked_fwd", MASKED_REPLACES, rows, {r["shape"]: 1 for r in rows},
+                          source=MASKED_SOURCE, path=path)]
+    entries[-1]["launches"] = launches["flash_attention_masked_fwd"]
+    outputs = {"flash_attention_masked_fwd_lse": ("o_lse", "lse"), "flash_attention_masked_bwd_dq": ("dq",),
+               "flash_attention_masked_bwd_dkv": ("dk", "dv")}
+    for name in MASKED_TRAIN_NAMES:
+        rows = [{"shape": r["shape"], "b_t_h_d": r["b_t_h_d"], "dtype": r["dtype"],
+                 "max_abs_err": max(r["max_abs_err"][o] for o in outputs[name]), **r["kernels"][name]}
+                for r in masked["train_rows"]]
+        entries.append(path_entry(name, MASKED_REPLACES, rows, {r["shape"]: 1 for r in rows}, source=MASKED_SOURCE,
+                                  path=path))
+        entries[-1]["launches"] = launches[name]
+    return entries
+
+
+def diagnose_phase(card) -> dict:
+    """Phase 41: tools/diagnose_lr_nan.py at its defaults on the card: the flagship bf16 train
+    step on 1 x 4 x 518 at lr 1e-4 from seeded random weights, 10 steps (fewer if the loss
+    goes non-finite), each after a forensic forward and backward; its lines, ms a step, the
+    launches a step (each kernel 96: 48 in the forensic pass, 48 in the step), the first
+    non-finite step and, at the last step, the forensic quantities that grew most."""
+    import contextlib
+    import io
+
+    import torch
+
+    from mapanything_tpu_torch.ops.flash_attention import launch_counts, reset_launch_counts
+    from mapanything_tpu_torch.tools import diagnose_lr_nan
+
+    printed = io.StringIO()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        records = diagnose_lr_nan.run(diagnose_lr_nan.parse_args([]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    n = len(records)
+    want = {k: 96 * n for k in TRAIN_KERNELS}
+    first_bad = next((r["step"] for r in records if not math.isfinite(r["metrics"]["loss"])), None)
+    f0, fl = records[0]["forensic"], records[-1]["forensic"]
+    growth = {k: fl[k] / f0[k] for k in f0 if k in fl and f0[k] and math.isfinite(fl[k])}
+    line = {"phase": "diagnose_lr_nan", "phase_id": "41", "steps_run": n, "first_nonfinite_step": first_bad,
+            "nonfinite_forensic_at_last_step": sorted(k for k, x in fl.items() if not math.isfinite(x)),
+            "largest_growth_step0_to_last": dict(sorted(growth.items(), key=lambda kv: -kv[1])[:8]),
+            "loss_by_step": [r["metrics"]["loss"] for r in records],
+            "grad_norm_by_step": [r["metrics"]["grad_norm"] for r in records],
+            "ms_by_step": [r["ms"] for r in records], "launches_per_step": {k: v / n for k, v in counts.items() if v},
+            "seconds": seconds, "lines": printed.getvalue().splitlines(),
+            "card": card["name"], "power_limit": card["power_limit"]}
+    emit(line)
+    if not counts_match(counts, want):
+        raise AssertionError(f"{n} diagnose steps launched {counts}, not {want}")
+    return line
+
+
+def disentangled_flagship_phase(card, group) -> dict:
+    """Phase 42: the flagship fp32 train step (MapAnythingConfig(), the geometric encoders)
+    with LossConfig(disentangled=True) through the view-sharded step (``make_train_step(...,
+    view_group=)``, the ring) at world size 1 on the card (NCCL, ``group``), against the same
+    step's loss and gradients on the CPU in fp32 (``make_loss_fn`` over a gloo group of this
+    process), 1 x 2 views of 224 x 224 (the CPU step's cost), TF32 off: the loss, its terms,
+    the gradient norm and every gradient within 1e-3 of their magnitude, phase 6's gate. A
+    gradient leaf past it is arbitrated by the same step on the CPU in float64
+    (``step_gradient_probe.float64_mode``): it passes if the card's gap to float64 is at most
+    twice the fp32 CPU's own (phase 3's rule, the fp32 CPU run as the plain version): an fp32
+    run puts a few ReLU inputs on the other side of zero, on either device (PERF.md)."""
+    import torch
+    import torch.distributed as dist
+
+    from mapanything_tpu_torch.models.mapanything import (
+        GeometricInputConfig, MapAnything, MapAnythingConfig, sample_modality_masks,
+    )
+    from mapanything_tpu_torch.ops.flash_attention import launch_counts, reset_launch_counts
+    from mapanything_tpu_torch.parallel.mesh import make_view_group, shard_views_pytree
+    from mapanything_tpu_torch.tools.step_gradient_probe import float64_mode
+    from mapanything_tpu_torch.train.losses import LossConfig, synthetic_loss_batch
+    from mapanything_tpu_torch.train.optim import OptimConfig, build_optimizer
+    from mapanything_tpu_torch.train.step import init_train_state, make_loss_fn, make_train_step
+
+    rtol = 1e-3
+    B, V, HW = 1, 2, 224
+    cfg = MapAnythingConfig()
+    img = torch.from_numpy(np.random.RandomState(42).randn(B, V, HW, HW, 3).astype(np.float32))
+    batch = synthetic_loss_batch(B, V, HW, HW, seed=42)
+    geo = GeometricInputConfig(ray_dirs_prob=1.0, depth_prob=1.0, cam_prob=1.0)
+    masks = sample_modality_masks(torch.Generator().manual_seed(42), B, V, (HW, HW), geo)
+    loss_cfg = LossConfig(disentangled=True)
+    t0 = time.perf_counter()
+    cuda_model = MapAnything(cfg, device="cuda", seed=0, geometric_inputs=True)
+    with torch.device("meta"):
+        cpu_model = MapAnything(cfg, device="meta", geometric_inputs=True)
+    cpu_model.to_empty(device="cpu")
+    cpu_model.load_state_dict(cuda_model.state_dict())
+    setup_s = time.perf_counter() - t0
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        opt = build_optimizer(OptimConfig(lr=1e-4, min_lr=1e-6), cuda_model)
+        step = make_train_step(cuda_model, opt, loss_cfg, geo, view_group=group)
+        reset_launch_counts()
+        t = time.perf_counter()
+        state, metrics = step(init_train_state(cuda_model, opt), img.cuda(), batch.to("cuda"),
+                              torch.Generator().manual_seed(0), masks=masks)
+        torch.cuda.synchronize()
+        cuda_s, counts = time.perf_counter() - t, launch_counts()
+        gpu = {k: v.detach().cpu() for k, v in metrics.items()}
+        gpu_grads = {n: p.grad.detach().cpu() for n, p in state.params.items()}
+        del opt, step, state, cuda_model
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+    gloo = dist.new_group([0], backend="gloo")
+    vg = make_view_group(gloo)
+
+    def cpu_step(float64: bool):
+        """The step's loss, terms, gradient norm and gradients on the CPU, and its seconds."""
+        t = time.perf_counter()
+        for p in cpu_model.parameters():
+            p.grad = None
+        with float64_mode() if float64 else contextlib.nullcontext():
+            if float64:
+                cpu_model.double()
+            cast = (lambda x: x.double()) if float64 else (lambda x: x)  # noqa: E731
+            b = type(batch)(**{k: cast(v) if isinstance(v, torch.Tensor) and v.is_floating_point() else v
+                               for k, v in vars(batch).items()})
+            loss, details = make_loss_fn(cpu_model, loss_cfg, view_group=vg)(b, cast(img), shard_views_pytree(masks, vg))
+            loss.backward()
+        out = {k: v.detach() for k, v in details.items()}
+        out["loss"] = loss.detach()
+        grads = {n: p.grad.detach() for n, p in cpu_model.named_parameters()}
+        out["grad_norm"] = torch.sqrt(sum(g.double().square().sum() for g in grads.values()))
+        return out, grads, time.perf_counter() - t
+
+    try:
+        ref, ref_grads, cpu_s = cpu_step(float64=False)
+        errs = {k: rel_err(gpu[k], v) for k, v in ref.items()}
+        grad_errs = {n: rel_err(gpu_grads[n], g) for n, g in ref_grads.items()}
+        past = [n for n, e in grad_errs.items() if not e <= rtol]
+        arbitrated, f64_s = {}, None
+        if past:
+            _, f64_grads, f64_s = cpu_step(float64=True)
+            arbitrated = {n: {"card_to_float64": rel_err(gpu_grads[n], f64_grads[n]),
+                              "cpu_fp32_to_float64": rel_err(ref_grads[n], f64_grads[n]),
+                              "card_to_cpu_fp32": grad_errs[n]} for n in past}
+    finally:
+        dist.destroy_process_group(gloo)
+    held = {n: e for n, e in grad_errs.items() if n not in arbitrated}
+    worst = max(held.items(), key=lambda kv: kv[1])
+    line = {"phase": "disentangled_flagship_step", "phase_id": "42",
+            "config": f"MapAnythingConfig() fp32, geometric inputs, {B}x{V}x{HW}x{HW}, LossConfig(disentangled=True), "
+                      "make_train_step(view_group=) at world size 1",
+            "rtol": rtol, "loss": float(ref["loss"]), "errors": errs, "worst_grad": worst,
+            "arbitrated_by_float64": arbitrated, "terms": {k: float(v) for k, v in gpu.items()},
+            "cuda_launches": counts, "cuda_step_s": cuda_s, "cpu_step_s": cpu_s, "cpu_float64_s": f64_s,
+            "setup_s": setup_s, "card": card["name"], "power_limit": card["power_limit"]}
+    emit(line)
+    if any(counts[k] == 0 for k in TRAIN_KERNELS + ("flash_attention_split_f32",)):
+        raise AssertionError(f"the card's step did not run the fp32 training kernels: {counts}")
+    bad = {k: v for d in (errs, held) for k, v in d.items() if not v <= rtol}
+    bad.update({n: a for n, a in arbitrated.items() if not a["card_to_float64"] <= 2 * a["cpu_fp32_to_float64"]})
+    if bad:
+        raise AssertionError(f"the disentangled step on the card and on the CPU disagree beyond {rtol}: {bad}")
+    del cpu_model
+    return line
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the PyTorch port on one NVIDIA GPU.")
     parser.add_argument("--train-step-only", action="store_true",
@@ -5641,6 +6219,10 @@ def main() -> int:
                         help="build the kernels, then run the data-processing slice alone (phases 38-40: convert, "
                              "process, the live demo, with their kernel rows) and stop after their lines and their "
                              "kernels line")
+    parser.add_argument("--masked-only", action="store_true",
+                        help="build the kernels, check their SASS, then run phase 3h (the masked kernels), 41 (the "
+                             "diagnose tool) and 42 (the disentangled flagship step, on its one-rank group) and stop "
+                             "after their lines and their kernels line")
     parser.add_argument("--rgb-only", action="store_true",
                         help="build the kernels, then run the RGB models' phases alone (the D = 32 rows of phases 3 "
                              "and 3b, phases 22-24, and 25 on its one-rank group) and stop after their lines")
@@ -5718,14 +6300,32 @@ def main() -> int:
     fwd, bwd = fwd_instances(), bwd_instances()
     dynamic = {key: fwd_smem(FWD_SMEM_INDEX[dtype, regime], d) for (dtype, d, _, regime), key in fwd.items()}
     dynamic.update({key: bwd_smem(BWD_SMEM_INDEX[kernel, dtype], d) for (kernel, dtype, d), key in bwd.items()})
+    masked_smem = _build.load(KERNEL_STEMS[2]).flash_attention_masked_smem
+    for index, kernel in enumerate(("fwd", "bwd_dq", "bwd_dkv")):
+        for fp32, dtype in ((0, "13__nv_bfloat16"), (1, "f")):
+            for d in (32, 48, 64, 128):
+                dynamic[f"fa_{kernel}_maskedI{dtype}Li{d}E"] = masked_smem(index, fp32, d)
     for key, nbytes in dynamic.items():
         for name, report in instances.items():
             if key in name:
                 report["dynamic_smem"] = nbytes
-    emit({**build, "fwd_sass": sass_check(libs[0], fwd), "bwd_sass": sass_check(libs[1], bwd)})
+    emit({**build, "fwd_sass": sass_check(libs[0], fwd), "bwd_sass": sass_check(libs[1], bwd),
+          "masked_sass": masked_sass_check(libs[2])})
     if args.ba_only:
         narrow_edge_checks(card)
         emit({"kernels": ba_entries(ba_phases(card))})
+        return 0
+    if args.masked_only:
+        masked = masked_kernel_checks(card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        diagnose_phase(card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        from mapanything_tpu_torch.parallel.mesh import make_view_group
+
+        one_rank_group(lambda c: disentangled_flagship_phase(c, make_view_group()), card)
+        emit({"kernels": masked_entries(masked)})
         return 0
     if not args.backward_edges_only:
         forward_edge_checks(card)
@@ -5747,6 +6347,9 @@ def main() -> int:
     many_view_rows = kernel_checks(card, MANY_VIEW_SHAPES, "3d")
     h128 = {"rows": kernel_checks(card, H128_SHAPES, "3e"),
             "train_rows": train_kernel_checks(card, H128_TRAIN_SHAPES, H128_TRAIN_REPLACES, "3e")}
+    masked = masked_kernel_checks(card)  # 3h
+    gc.collect()
+    torch.cuda.empty_cache()
     slice_check()
     inference_launches, forward_ms, _, _ = flagship(card)
     torch.cuda.empty_cache()
@@ -5822,6 +6425,11 @@ def main() -> int:
     # 38-40. The WAI data-processing pipeline (convert, process stage by stage) and the live demo.
     proc = processing_phases(card, files[0])
 
+    # 41. tools/diagnose_lr_nan.py: the flagship bf16 step at lr 1e-4 from random init, 10 steps.
+    diagnose_phase(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # 8-10. View parallelism on a process group of this process alone: NCCL at world size 1.
     from mapanything_tpu_torch.parallel.distributed import init_distributed_mode
     from mapanything_tpu_torch.parallel.mesh import make_view_group
@@ -5844,6 +6452,9 @@ def main() -> int:
             gc.collect()
             torch.cuda.empty_cache()
             mesh_trainer_phase(card)  # 25
+            gc.collect()
+            torch.cuda.empty_cache()
+            disentangled_flagship_phase(card, group)  # 42
         finally:
             torch.distributed.destroy_process_group()
         gc.collect()
@@ -5861,7 +6472,7 @@ def main() -> int:
     summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, inference_launches, train_launches,
                  train_steps, vp_launches, many_view_line, h128,
                  {"rows": fp32_train_rows, "launches": fp32_launches, "steps": fp32_steps}, fp32_forward, files,
-                 trainer, data, rgb, dust3r, baseline, ba, bench, proc)
+                 trainer, data, rgb, dust3r, baseline, ba, bench, proc, masked)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1,8 +1,8 @@
 """Normal maps and edge masks from pointmaps and depths, for the port.
 
 Counterparts of ``mapanything_tpu/geometry/normals.py``: ``_max_pool_2d``
-(:16), ``depth_edge`` (:28), ``points_to_normals`` (:61) and ``normals_edge``
-(:124). They run on the tensors' device, so the inference postprocess stays
+(:16), ``depth_edge`` (:28), ``points_to_normals`` (:61), ``normals_edge``
+(:124) and ``angle_diff_vec3`` (:169). They run on the tensors' device, so the inference postprocess stays
 there.
 """
 
@@ -118,3 +118,9 @@ def normals_edge(
                 angle = torch.where(mask_pad[..., di:di + h, dj:dj + w], angle, torch.zeros_like(angle))
             max_angle = torch.maximum(max_angle, angle)
     return _max_pool_2d(max_angle, kernel_size) > math.radians(tol_deg)
+
+
+def angle_diff_vec3(v1: torch.Tensor, v2: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """The angle between 3-vectors (..., 3): atan2(|v1 x v2|, v1 · v2 + eps)."""
+    cross = torch.linalg.norm(torch.linalg.cross(v1, v2, dim=-1), dim=-1)
+    return torch.atan2(cross, torch.sum(v1 * v2, dim=-1) + eps)

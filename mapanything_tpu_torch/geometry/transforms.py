@@ -50,3 +50,7 @@ def extri_to_homo(extris: torch.Tensor) -> torch.Tensor:
 
 def _homogeneous_row(like: torch.Tensor) -> torch.Tensor:
     return like.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(like.shape[:-2] + (1, 4))
+
+
+# The reference's name ``inv`` (geometry.py:1040), as the JAX package aliases it.
+inv_pose = closed_form_pose_inverse

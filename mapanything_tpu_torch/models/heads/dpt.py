@@ -3,7 +3,8 @@
 Counterpart of ``mapanything_tpu/models/heads/dpt.py``:
 ``_resize_bilinear_align_corners`` (:39), ``StridedConvTranspose`` (:77),
 ``ResidualConvUnit`` (:109), ``FeatureFusionBlock`` (:124), ``DPTFeature``
-(:149) and ``DPTRegressionProcessor`` (:212). The public functions take and
+(:149), ``DPTRegressionProcessor`` (:212) and ``DPTSegmentationProcessor``
+(:243). The public functions take and
 return channel-last (B, H, W, C) tensors; the convolutions run on NCHW
 views of them. Parameter names follow the reference's torch DPT
 (``input_process.i.*``, ``scratch.refinenetK.*``, ``conv1``, ``conv2.*``).
@@ -165,3 +166,28 @@ class DPTRegressionProcessor(nn.Module):
         x = self.conv1(features.permute(0, 3, 1, 2))
         x = _resize_bilinear_align_corners(x, output_shape_hw)
         return self.conv2(x).permute(0, 2, 3, 1)
+
+
+class DPTSegmentationProcessor(nn.Module):
+    """Decode the 8x feature map to ``output_dim`` channels at the target size.
+
+    conv1 (3x3, no bias) -> ReLU -> conv2 (1x1) -> bilinear (align_corners=True)
+    to ``output_shape_hw``, all in ``dtype``. Parameter names are the JAX
+    module's (``conv1``, ``conv2``).
+    """
+
+    def __init__(
+        self,
+        input_feature_dim: int,
+        output_dim: int,
+        hidden_dim: Optional[int] = None,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        hidden = hidden_dim or input_feature_dim
+        self.conv1 = Conv2d(input_feature_dim, hidden, 3, padding=1, bias=False, dtype=dtype)
+        self.conv2 = Conv2d(hidden, output_dim, 1, dtype=dtype)
+
+    def forward(self, features: torch.Tensor, output_shape_hw) -> torch.Tensor:
+        x = self.conv2(F.relu(self.conv1(features.permute(0, 3, 1, 2))))
+        return _resize_bilinear_align_corners(x, output_shape_hw).permute(0, 2, 3, 1)

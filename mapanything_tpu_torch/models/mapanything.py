@@ -406,8 +406,9 @@ class MapAnything(nn.Module):
         self.geometric_inputs = geometric_inputs
         if geometric_inputs:
             P = cfg.patch_size
-            self.ray_dirs_encoder = DenseRepresentationEncoder(3, embed_dim, P)
-            self.depth_encoder = DenseRepresentationEncoder(1, embed_dim, P)
+            # apply_pe=False: configs/model/task/default.yaml
+            self.ray_dirs_encoder = DenseRepresentationEncoder(3, embed_dim, P, apply_pe=False)
+            self.depth_encoder = DenseRepresentationEncoder(1, embed_dim, P, apply_pe=False)
             self.depth_scale_encoder = GlobalRepresentationEncoder(1, embed_dim)
             self.cam_rot_encoder = GlobalRepresentationEncoder(4, embed_dim)
             self.cam_trans_encoder = GlobalRepresentationEncoder(3, embed_dim)

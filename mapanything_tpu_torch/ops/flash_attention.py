@@ -44,6 +44,17 @@ forward (D = 32 and 48) takes no split pass and no tensor map: it reads fp32 q,
 k and v by 16-byte loads in the layouts ``narrow_layout`` gives, and its
 launcher refuses a plan other than its own.
 
+The masked form (``flash_attention_masked``: a boolean mask (B, 1|H, Tq, Tk), True =
+attend, any dimension of size 1 broadcast) has a third source,
+``csrc/flash_attention_masked.cu``: ``fa_fwd_masked`` (with or without lse),
+``fa_bwd_dq_masked`` and ``fa_bwd_dkv_masked``, at the unmasked kernels' dtypes and head
+dims. On the TPU XLA served it (``mapanything_tpu/ops/attention.py:77``). Its semantics
+are JAX's: a masked logit is replaced by ``MASKED_LOGIT``, so a fully masked row takes the
+mean of V over every key, its lse rounds to ``MASKED_LOGIT`` (the backward reads such a
+row from its lse, ``fully_masked_rows``, and gives it P = 1/Tk), and no gradient reaches a
+masked logit. Its plain versions are ``attention_masked_reference``,
+``attention_masked_lse_reference`` and ``attention_masked_bwd_{dq,dkv}_reference``.
+
 Routing. ``flash_attention`` runs the lse-free forward when no input needs a
 gradient (inference is unchanged); otherwise an autograd Function runs the
 forward with lse, saves q, k, v, o and lse, and its backward launches the dq
@@ -73,7 +84,8 @@ from mapanything_tpu_torch.ops import _build
 
 KERNEL_STEM = "flash_attention_fwd"
 BWD_KERNEL_STEM = "flash_attention_bwd"
-KERNEL_STEMS = (KERNEL_STEM, BWD_KERNEL_STEM)
+MASKED_KERNEL_STEM = "flash_attention_masked"
+KERNEL_STEMS = (KERNEL_STEM, BWD_KERNEL_STEM, MASKED_KERNEL_STEM)
 HEAD_DIMS = (64, 128)  # head dims the bf16 kernels are instantiated for
 F32_HEAD_DIMS = (32, 48, 64, 128)  # and the fp32 lse-free forward (at 32 and 48 the narrow one)
 F32_LSE_HEAD_DIMS = (32, 64, 128)  # the fp32 lse forward, dq and dk/dv (D = 48 runs inference alone)
@@ -100,6 +112,12 @@ BWD_TILES = {64: {"dq": (128, 128), "dkv": (128, 96)}, 128: {"dq": (128, 64), "d
 # 128, DqF32NarrowPlan and DkvF32NarrowPlan at 32.
 BWD_F32_TILES = {32: {"dq": (128, 64), "dkv": (128, 64)}, 64: {"dq": (128, 64), "dkv": (128, 64)},
                  128: {"dq": (64, 32), "dkv": (64, 32)}}
+# The masked kernels' tiles (csrc/flash_attention_masked.cu kQT, kKT): query rows a block of
+# the forward and dq kernels, keys a block of the dk/dv kernel.
+MASKED_TILES = (64, 64)
+# The logit a False mask entry puts in place of q.k * scale: -0.7 * FLT_MAX in fp32, as
+# jax.nn.dot_product_attention's _get_large_negative (bits 0xff333332).
+MASKED_LOGIT = -0.7 * float(torch.finfo(torch.float32).max)
 TMA_BOX_COLS = 64  # a box is one 128-byte swizzle row of bf16 wide
 NARROW_BOX_COLS = 16  # the fp32 D = 32 backward's boxes: one 32-byte swizzle row, a 16-column panel
 
@@ -609,12 +627,214 @@ def flash_attention(
     return o
 
 
+# ---------------------------------------------------------------- the masked form
+
+
+def masked_view(mask: torch.Tensor, b: int, h: int, tq: int, tk: int) -> torch.Tensor:
+    """The boolean ``mask`` (B|1, H|1, Tq|1, Tk|1) as a (B, H, Tq, Tk) view: each dimension
+    of size 1 broadcast with stride 0, nothing copied. Raises for another dtype or a shape
+    that does not broadcast."""
+    if mask.dtype != torch.bool:
+        raise TypeError(f"the mask must be boolean (True = attend), got {mask.dtype}")
+    if mask.dim() != 4:
+        raise ValueError(f"the mask must be (B, 1|H, Tq, Tk), got {tuple(mask.shape)}")
+    try:
+        return mask.expand(b, h, tq, tk)
+    except RuntimeError as err:
+        raise ValueError(f"the mask {tuple(mask.shape)} does not broadcast to {(b, h, tq, tk)}") from err
+
+
+def _masked_logits(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor, scale: float) -> torch.Tensor:
+    """(B, H, Tq, Tk) logits q.k * scale in fp32 (fp64 for fp64), ``MASKED_LOGIT`` where the
+    mask is False."""
+    acc = _acc_dtype(q.dtype)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) * scale
+    return torch.where(mask, logits, torch.full((), MASKED_LOGIT, dtype=acc, device=logits.device))
+
+
+def _softmax_v(logits: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """softmax(logits) v, the probabilities rounded to v's dtype before the product."""
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype).to(w.dtype), v.to(w.dtype)).to(v.dtype)
+
+
+def attention_masked_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor, scale: Optional[float] = None
+) -> torch.Tensor:
+    """Plain ``jax.nn.dot_product_attention(q, k, v, scale=scale, mask=mask)``: the masked
+    logits in fp32, their softmax in fp32, the probabilities rounded to the inputs' dtype
+    before P.V. Differentiable by autograd."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return _softmax_v(_masked_logits(q, k, mask, scale), v)
+
+
+def attention_masked_lse_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor, scale: Optional[float] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain (o, lse): o as ``attention_masked_reference``, lse (B, H, Tq) the natural log of
+    the softmax normaliser of the masked logits (``MASKED_LOGIT`` on a fully masked row)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    logits = _masked_logits(q, k, mask, scale)
+    return _softmax_v(logits, v), torch.logsumexp(logits, dim=-1)
+
+
+def fully_masked_rows(lse: torch.Tensor) -> torch.Tensor:
+    """The rows whose every key is masked, read from their lse: it rounds to
+    ``MASKED_LOGIT``, and a row with a key left has an lse of at least its largest logit."""
+    return lse <= 0.5 * MASKED_LOGIT
+
+
+def _masked_p_ds(q, k, v, do, mask, lse, delta, scale):
+    acc = _acc_dtype(q.dtype)
+    logits = _masked_logits(q, k, mask, scale)
+    lse = lse.to(acc)[..., None]
+    full = fully_masked_rows(lse)
+    p = torch.where(full, torch.full((), 1.0 / k.shape[1], dtype=acc, device=q.device), torch.exp(logits - lse))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.to(acc), v.to(acc))
+    ds = torch.where(mask & ~full, p * (dp - delta.to(acc)[..., None]), torch.zeros((), dtype=acc, device=q.device))
+    return p, ds
+
+
+def attention_masked_bwd_dq_reference(q, k, v, do, mask, lse, delta, scale):
+    """Plain version of the masked dq kernel: dQ = dS K scale, dS zero at every masked
+    position and on every fully masked row."""
+    _, ds = _masked_p_ds(q, k, v, do, mask, lse, delta, scale)
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, k.to(ds.dtype)) * scale).to(q.dtype)
+
+
+def attention_masked_bwd_dkv_reference(q, k, v, do, mask, lse, delta, scale):
+    """Plain version of the masked dk/dv kernel: dK = dSᵀ Q scale, dV = Pᵀ dO with P rounded
+    to the inputs' dtype and 1/Tk on a fully masked row."""
+    p, ds = _masked_p_ds(q, k, v, do, mask, lse, delta, scale)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.to(ds.dtype)) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(q.dtype).to(p.dtype), do.to(p.dtype))
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _masked_strides(q, k, v, do, mask) -> ctypes.Array:
+    """The 16 int64 strides of a masked kernel: q's, k's, v's and dO's (batch, token, head)
+    in elements (zeros without dO), then the (B, H, Tq, Tk) mask view's in bytes."""
+    rows = [x.stride()[:3] if x is not None else (0, 0, 0) for x in (q, k, v, do)]
+    return (ctypes.c_longlong * 16)(*[n for row in rows for n in row], *mask.stride())
+
+
+def _launch_masked(kernel: str, q, k, v, mask, scale, do=None, lse=None, delta=None, with_lse=False):
+    """One masked kernel on CUDA tensors: "fwd" returns (o, lse or None), "dq" dq, "dkv"
+    (dk, dv). ``mask`` is the (B, H, Tq, Tk) view of ``masked_view``."""
+    _check(q, k, v, lse=with_lse or kernel != "fwd")
+    if mask.device != q.device:
+        raise ValueError("the mask must be on q's device")
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    new = lambda shape, dtype=q.dtype: torch.empty(shape, dtype=dtype, device=q.device)  # noqa: E731
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    if kernel == "fwd":
+        outs = (new((b, tq, h, d)), new((b, h, tq), torch.float32) if with_lse else None)
+        args = [ptr(x) for x in (q, k, v, mask, *outs)]
+    else:
+        do = _check_bwd(q, k, v, do, lse, delta)
+        outs = (new((b, tq, h, d)),) if kernel == "dq" else (new((b, tk, h, d)), new((b, tk, h, d)))
+        args = [ptr(x) for x in (q, k, v, do, mask, lse, delta, *outs)]
+    name = f"flash_attention_masked_{'fwd' if kernel == 'fwd' else 'bwd_' + kernel}"
+    fn = getattr(_build.load(MASKED_KERNEL_STEM), name)
+    if fn.argtypes is None:
+        fn.argtypes = [_PTR] * len(args) + [_I32] * 6 + [_PTR, ctypes.c_float, _PTR]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*args, int(q.dtype == torch.float32), b, tq, tk, h, d, _masked_strides(q, k, v, do, mask),
+                 float(scale), stream)
+    _raise_on(err, name)
+    return outs
+
+
+def flash_attention_masked_lse(q, k, v, mask, scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse) of the masked form, ``mask`` a (B, H, Tq, Tk) view (``masked_view``): the
+    lse forward ``fa_fwd_masked`` on CUDA tensors, its plain version on CPU tensors. Not
+    differentiable: ``_FlashAttentionMasked`` owns the backward."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if _device_of(q) == "cpu":
+        return attention_masked_lse_reference(q, k, v, mask, scale)
+    out = _launch_masked("fwd", q, k, v, mask, scale, with_lse=True)
+    _count(flash_attention_masked_lse, k)
+    return out
+
+
+def flash_attention_masked_bwd_dq(q, k, v, do, mask, lse, delta, scale):
+    """dq of the masked backward from lse and delta: ``fa_bwd_dq_masked`` on CUDA tensors,
+    its plain version on CPU tensors."""
+    if _device_of(q) == "cpu":
+        return attention_masked_bwd_dq_reference(q, k, v, do, mask, lse, delta, scale)
+    (dq,) = _launch_masked("dq", q, k, v, mask, scale, do, lse, delta)
+    _count(flash_attention_masked_bwd_dq, k)
+    return dq
+
+
+def flash_attention_masked_bwd_dkv(q, k, v, do, mask, lse, delta, scale):
+    """(dk, dv) of the masked backward: ``fa_bwd_dkv_masked`` on CUDA tensors, its plain
+    version on CPU tensors."""
+    if _device_of(q) == "cpu":
+        return attention_masked_bwd_dkv_reference(q, k, v, do, mask, lse, delta, scale)
+    out = _launch_masked("dkv", q, k, v, mask, scale, do, lse, delta)
+    _count(flash_attention_masked_bwd_dkv, k)
+    return out
+
+
+class _FlashAttentionMasked(torch.autograd.Function):
+    """The masked form's vjp: forward with lse, backward through the masked dq and dk/dv
+    kernels (delta = rowsum(dO·O) outside them, as in the unmasked backward)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, scale):
+        o, lse = flash_attention_masked_lse(q, k, v, mask, scale)
+        ctx.save_for_backward(q, k, v, o, lse, mask)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, mask = ctx.saved_tensors
+        delta = attention_bwd_delta(o, do).contiguous()
+        lse = lse.float().contiguous()
+        dq = flash_attention_masked_bwd_dq(q, k, v, do, mask, lse, delta, ctx.scale)
+        dk, dv = flash_attention_masked_bwd_dkv(q, k, v, do, mask, lse, delta, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_masked(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor, scale: Optional[float] = None
+) -> torch.Tensor:
+    """softmax(where(mask, q kᵀ scale, MASKED_LOGIT)) v over q (B, Tq, H, D) and k, v (B, Tk,
+    H, D), ``mask`` boolean (B, 1|H, Tq, Tk), True = attend (read in place, broadcast
+    dimensions with stride 0). CUDA tensors run ``fa_fwd_masked`` (with an input that
+    requires grad, the lse form and the masked backward kernels) at the unmasked kernels'
+    dtypes and head dims; CPU tensors run the plain versions."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    device = _device_of(q)
+    mask = masked_view(mask, q.shape[0], q.shape[2], q.shape[1], k.shape[1])
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttentionMasked.apply(q, k, v, mask, float(scale))
+    if device == "cpu":
+        return attention_masked_reference(q, k, v, mask, scale)
+    o, _ = _launch_masked("fwd", q, k, v, mask, scale)
+    _count(flash_attention_masked, k)
+    return o
+
+
 _KERNELS = {
     "flash_attention_fwd": flash_attention,
     "flash_attention_fwd_lse": flash_attention_lse,
     "flash_attention_bwd_dq": flash_attention_bwd_dq,
     "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
     "flash_attention_split_f32": flash_attention_split_f32,
+    "flash_attention_masked_fwd": flash_attention_masked,
+    "flash_attention_masked_fwd_lse": flash_attention_masked_lse,
+    "flash_attention_masked_bwd_dq": flash_attention_masked_bwd_dq,
+    "flash_attention_masked_bwd_dkv": flash_attention_masked_bwd_dkv,
 }
 
 

@@ -14,18 +14,19 @@ their own results where the test compares the ranks).
 from __future__ import annotations
 
 import sys
-from dataclasses import fields
+from dataclasses import fields, replace
 
 import numpy as np
 import torch
 
-from mapanything_tpu_torch.models.mapanything import MapAnything, MapAnythingConfig, ModalityMasks, Views
+from mapanything_tpu_torch.models.mapanything import MapAnything, MapAnythingConfig, ModalityMasks, Predictions, Views
 from mapanything_tpu_torch.parallel import sharded_attention as sa
 from mapanything_tpu_torch.parallel.context import gather_predictions, infer_view_sharded
 from mapanything_tpu_torch.parallel.mesh import (
-    all_gather, all_reduce, make_view_group, shard_views_pytree, view_slice,
+    all_gather, all_reduce, make_mesh, make_view_group, sample_slice, shard_batch_pytree, shard_views_pytree,
+    view_slice,
 )
-from mapanything_tpu_torch.train.losses import LossBatch
+from mapanything_tpu_torch.train.losses import LossBatch, LossConfig, factored_geometry_scale_loss
 from mapanything_tpu_torch.train.optim import OptimConfig, build_optimizer
 from mapanything_tpu_torch.train.step import init_train_state, make_train_step
 from mapanything_tpu_torch.utils.jax_params import load_jax_params
@@ -125,6 +126,32 @@ def cp_train_step(rank: int, world_size: int, config_kw: dict, params, img, batc
         "grads": {n: p.grad.numpy() for n, p in state.params.items()},
         "params": {n: p.detach().numpy() for n, p in state.params.items()},
         "counts": sa.counts(),
+    }
+
+
+def loss_parts(rank: int, world_size: int, view_parallelism: int, data_axis: bool, cfg_kw: dict, batch: dict,
+               preds: dict) -> dict:
+    """The training loss (``LossConfig(**cfg_kw)``) on this rank's (data, view) block of
+    ``batch`` and ``preds`` (numpy arrays of the global batch) over ``make_mesh(
+    view_parallelism)``: the view group always, the data group where ``data_axis``. Returns,
+    on every rank, its part of the loss and of each detail, the gradients of its part with
+    respect to its block of the predictions, and the block's sample and view slices."""
+    del rank, world_size
+    mesh = make_mesh(view_parallelism)
+    lb = shard_batch_pytree(LossBatch(**{k: torch.from_numpy(np.array(v)) for k, v in batch.items()}), mesh)
+    pr = shard_batch_pytree(Predictions(**{k: torch.from_numpy(v) for k, v in preds.items()}), mesh)
+    leaves = {k: getattr(pr, k).clone().requires_grad_() for k in preds}
+    total, details = factored_geometry_scale_loss(lb, replace(pr, **leaves), LossConfig(**cfg_kw), mesh.view,
+                                                  mesh.data if data_axis else None)
+    grads = torch.autograd.grad(total, list(leaves.values()), allow_unused=True)
+    samples = sample_slice(mesh.data, next(iter(preds.values())).shape[0])
+    views = view_slice(mesh.view, batch["valid_mask"].shape[1])
+    return {
+        "loss": total.item(),
+        "details": {k: v.item() for k, v in details.items()},
+        "grads": {k: np.zeros(x.shape, np.float32) if g is None else g.numpy() for (k, x), g in zip(leaves.items(), grads)},
+        "samples": (samples.start, samples.stop),
+        "views": (views.start, views.stop),
     }
 
 

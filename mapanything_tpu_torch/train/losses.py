@@ -32,7 +32,10 @@ wrongly.
 
 Each rank then returns its part of the loss and of each detail: their sum
 over the ranks of the (data, view) group is the unsharded value on the
-global batch. The disentangled loss is the unsharded one only.
+global batch. The disentangled loss splits the same way: its four point-map
+terms are per-view masked means summed over views, its scale term is the
+production loss's, and its GT frame and normaliser come from the same
+broadcast and all-reduced sums.
 """
 
 from __future__ import annotations
@@ -270,9 +273,7 @@ def factored_geometry_scale_loss(
     and/or a ``data_group``: this rank's part of each (see the module's
     docstring). ``cfg.disentangled`` takes the disentangled loss instead."""
     if cfg.disentangled:
-        if group is not None or data_group is not None:
-            raise NotImplementedError("the disentangled loss is computed unsharded only")
-        return disentangled_factored_geometry_scale_loss(batch, preds, cfg)
+        return disentangled_factored_geometry_scale_loss(batch, preds, cfg, group, data_group)
     B, V, H, W, _ = batch.pts3d.shape
     P = H * W
     crit = _criterion(cfg)
@@ -412,6 +413,7 @@ def _mask_loss(batch: LossBatch, preds: Predictions, cfg: LossConfig, details: d
 
 def disentangled_factored_geometry_scale_loss(
     batch: LossBatch, preds: Predictions, cfg: LossConfig = LossConfig(),
+    group: Optional[ViewGroup] = None, data_group: Optional[ViewGroup] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The disentangled ablation of the production loss: (scalar, details).
 
@@ -419,21 +421,26 @@ def disentangled_factored_geometry_scale_loss(
     factor predicted and the others from the ground truth (depth, ray directions,
     pose quaternions, pose translations); the scale term and the mask BCE are the
     production loss's. The same criterion, normalisation and log-space switches.
+    With a view ``group`` and/or a ``data_group``: this rank's part of each, as the
+    production loss splits its terms (see the module's docstring).
     """
     B = batch.pts3d.shape[0]
     crit = _criterion(cfg)
+    dg = data_group
     valid = batch.valid_mask
     quats, trans = batch.camera_pose_quats, batch.camera_pose_trans
-    gt_quats, gt_trans = relative_pose_quats_trans(quats[:, :1].expand_as(quats), trans[:, :1].expand_as(trans),
-                                                   quats, trans)
+    q0, t0 = quats[:, :1], trans[:, :1]
+    if group is not None:  # view 0 lives on the first rank
+        q0, t0 = broadcast_first(q0, group), broadcast_first(t0, group)
+    gt_quats, gt_trans = relative_pose_quats_trans(q0.expand_as(quats), t0.expand_as(trans), quats, trans)
     sc = preds.metric_scaling_factor
     s5 = sc[:, None, None, None, None]
     pr_depth = preds.depth_along_ray / s5
     pr_trans = preds.cam_trans / sc[:, None, None]
 
-    inv_q0 = quat_inverse(quats[:, 0])
-    gt_pts_v0 = quat_rotate(inv_q0[:, None, None, None, :], batch.pts3d - trans[:, 0][:, None, None, None, :])
-    gt_pts_n, gt_nf = normalize_pointcloud(gt_pts_v0, valid, cfg.norm_mode, True)
+    inv_q0 = quat_inverse(q0[:, 0])
+    gt_pts_v0 = quat_rotate(inv_q0[:, None, None, None, :], batch.pts3d - t0[:, 0][:, None, None, None, :])
+    gt_pts_n, gt_nf = normalize_pointcloud(gt_pts_v0, valid, cfg.norm_mode, True, group)
     gt_nf_s = gt_nf.reshape(B)
     gt_trans_n = gt_trans / gt_nf_s[:, None, None]
     gt_depth_n = batch.depth_along_ray / gt_nf
@@ -442,7 +449,7 @@ def disentangled_factored_geometry_scale_loss(
 
     def pointmap_term(rays, depth_n, trans_n, quats_):
         pts = pointmap_from_rays_depth_pose(rays, depth_n, trans_n, quats_)
-        return masked_mean(crit(log(pts), log(gt_pts_n)), valid, dim=(0, 2, 3)).sum()
+        return masked_mean(crit(log(pts), log(gt_pts_n)), valid, dim=(0, 2, 3), data_group=dg).sum()
 
     details: Dict[str, torch.Tensor] = {
         "depth_loss": pointmap_term(gt_rays, pr_depth / gt_nf, gt_trans_n, gt_quats) * cfg.depth_weight,
@@ -456,15 +463,17 @@ def disentangled_factored_geometry_scale_loss(
 
     # The scale term, as the production loss's set 6.
     pr_pts = preds.pts3d / s5
-    _, pr_metric_nf = normalize_pointcloud(pr_pts.detach() * s5, valid, cfg.norm_mode, True)
+    _, pr_metric_nf = normalize_pointcloud(pr_pts.detach() * s5, valid, cfg.norm_mode, True, group)
     pr_metric_nf_s = pr_metric_nf.reshape(B)
     metric_sample = batch.is_metric_scale & (gt_nf_s > 1e-8)
     if cfg.loss_in_log:
         gt_sc, pr_sc = torch.log1p(gt_nf_s)[:, None], torch.log1p(pr_metric_nf_s)[:, None]
     else:
         gt_sc, pr_sc = gt_nf_s[:, None], pr_metric_nf_s[:, None]
-    details["scale_loss"] = masked_mean(crit(pr_sc, gt_sc) * cfg.scale_weight, metric_sample)
-    total = total + details["scale_loss"] + _mask_loss(batch, preds, cfg, details)
+    details["scale_loss"] = masked_mean(crit(pr_sc, gt_sc) * cfg.scale_weight, metric_sample, data_group=dg)
+    if group is not None and group.rank != 0:
+        details["scale_loss"] = details["scale_loss"] * 0.0  # replicated: counted on the first rank
+    total = total + details["scale_loss"] + _mask_loss(batch, preds, cfg, details, dg)
     details["total_loss"] = total
     return total, details
 

@@ -93,6 +93,7 @@ from mapanything_tpu_torch.models.external import (
 from mapanything_tpu_torch.models.heads.dpt import (
     DPTFeature,
     DPTRegressionProcessor,
+    DPTSegmentationProcessor,
     StridedConvTranspose,
 )
 from mapanything_tpu_torch.models.heads.mae import MAEGeneralDecoder
@@ -303,6 +304,11 @@ def _dpt_regressor(M, jp, tp):
     _conv(M, j("conv2_1"), tp + "conv2.2.")
 
 
+def _dpt_segmentation(M, jp, tp):
+    _conv(M, _join(jp, "conv1"), tp + "conv1.")
+    _conv(M, _join(jp, "conv2"), tp + "conv2.")
+
+
 def _pose_head(M, jp, tp):
     j = lambda n: _join(jp, n)  # noqa: E731
     _conv(M, j("proj"), tp + "proj.")
@@ -339,6 +345,8 @@ def _dense_rep(M, jp, tp):
         i += 1
     _conv(M, j("proj"), tp + f"encoder.{i}.")
     _norm(M, j("norm"), tp + "norm_layer.")
+    if M.has(tp + "post_pe_norm.weight"):
+        _norm(M, j("post_pe_norm"), tp + "post_pe_norm.")
 
 
 def _global_rep(M, jp, tp):
@@ -700,6 +708,7 @@ _CONVERTERS: Dict[type, Callable] = {
     MLPFeature: _mlp_feature,
     DPTFeature: _dpt_feature,
     DPTRegressionProcessor: _dpt_regressor,
+    DPTSegmentationProcessor: _dpt_segmentation,
     MAEGeneralDecoder: _mae,
     MoGeConvFeature: _moge,
     VGG19Features: _vgg19,

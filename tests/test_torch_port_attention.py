@@ -361,6 +361,8 @@ def test_routing_inference_and_training_and_counts():
     assert launch_counts() == {
         "flash_attention_fwd": 0, "flash_attention_fwd_lse": 0,
         "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0, "flash_attention_split_f32": 0,
+        "flash_attention_masked_fwd": 0, "flash_attention_masked_fwd_lse": 0,
+        "flash_attention_masked_bwd_dq": 0, "flash_attention_masked_bwd_dkv": 0,
     }
 
 

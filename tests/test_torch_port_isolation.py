@@ -234,14 +234,11 @@ def test_entry_point_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_unported_options_raise():
-    # Every dense head, scene representation, baseline and registry slot is ported; the
-    # disentangled loss under a view group is not.
+    # Every dense head, scene representation, baseline, registry slot and loss option is
+    # ported (the disentangled loss under a view or data group is held to JAX in
+    # tests/test_torch_port_last_modules.py); an option that names nothing raises.
     with pytest.raises(ValueError, match="invalid scene_rep_type"):
         port_ma.MapAnything(port_ma.MapAnythingConfig.small(scene_rep_type="not_a_rep"), device="cpu")
-    from mapanything_tpu_torch.train import losses as port_losses
-
-    with pytest.raises(NotImplementedError, match="disentangled"):
-        port_losses.factored_geometry_scale_loss(None, None, port_losses.LossConfig(disentangled=True), group=object())
 
 
 def test_attention_on_a_device_it_does_not_serve_raises():

@@ -26,6 +26,8 @@ from mapanything_tpu.train import losses as jax_losses
 from mapanything_tpu.utils import torch_convert
 from mapanything_tpu_torch.models import mapanything as port_ma
 from mapanything_tpu_torch.models import perceptual as port_perceptual
+from mapanything_tpu_torch.parallel.distributed import run_ranks
+from mapanything_tpu_torch.tools import view_parallel_ranks
 from mapanything_tpu_torch.train import losses as port_losses
 from mapanything_tpu_torch.utils import threads
 from mapanything_tpu_torch.utils.jax_params import load_jax_params
@@ -76,13 +78,20 @@ def test_disentangled_loss_and_its_gradients_match_jax(cfg_kw, record_property):
     record_property("grad_err_over_magnitude", assert_grads(grads, ref_grads, PRED_FIELDS))
 
 
-def test_disentangled_loss_refuses_a_view_group():
+def test_disentangled_loss_refuses_a_view_group(tmp_path):
+    """Under a view group the disentangled loss is no longer refused: on a group of one gloo
+    rank it is the unsharded loss, term by term (tests/test_torch_port_last_modules.py holds it
+    to JAX on 2 and 2 x 2 ranks)."""
     B, V, H, W = 1, 2, 4, 4
-    batch, preds = port_batch(loss_batch_np(B, V, H, W, 1, [True], [True])), preds_np(B, V, H, W, 2)
-    preds = port_ma.Predictions(**{k: torch.from_numpy(v) for k, v in preds.items()})
-    with pytest.raises(NotImplementedError, match="unsharded"):
-        port_losses.factored_geometry_scale_loss(batch, preds, port_losses.LossConfig(disentangled=True),
-                                                 group=object())
+    batch, preds = loss_batch_np(B, V, H, W, 1, [True], [True]), preds_np(B, V, H, W, 2)
+    (got,) = run_ranks(view_parallel_ranks.loss_parts, 1, "cpu", tmp_path / "rendezvous", 1, False,
+                       {"disentangled": True}, batch, preds)
+    _, want = port_losses.factored_geometry_scale_loss(
+        port_batch(batch), port_ma.Predictions(**{k: torch.from_numpy(v) for k, v in preds.items()}),
+        port_losses.LossConfig(disentangled=True))
+    assert sorted(got["details"]) == sorted(want)
+    for name, value in want.items():
+        np.testing.assert_allclose(got["details"][name], value.item(), rtol=1e-6, err_msg=name)
 
 
 @pytest.mark.parametrize("loss_in_log", [False, True])

@@ -106,7 +106,7 @@ def test_dense_representation_encoder(in_chans):
     x = randn(10 + in_chans, 2, 28, 42, in_chans)
     kw = dict(in_chans=in_chans, enc_embed_dim=32, patch_size=14, intermediate_dims=(24, 32, 40))
     params, ref = jax_init_apply(jax_dense_rep.DenseRepresentationEncoder(apply_pe=False, **kw), x, seed=in_chans)
-    port = load_jax_params(port_dense_rep.DenseRepresentationEncoder(**kw), params)
+    port = load_jax_params(port_dense_rep.DenseRepresentationEncoder(apply_pe=False, **kw), params)
     out = port(torch.from_numpy(x))
     assert out.shape == (2, 2, 3, 32)
     close(out, ref, 1e-5)
