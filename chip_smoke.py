@@ -14,6 +14,7 @@
     python3 chip_smoke.py --baselines-only     # phases 1, 2, the baselines' rows of 3, 28 and 29
     python3 chip_smoke.py --benchmarks-only    # phases 1, 2, the benchmarks' rows of 3, 34-37
     python3 chip_smoke.py --masked-only        # phases 1, 2, 3h, 41 and 42
+    python3 chip_smoke.py --remat-only         # phases 1, 2, 3i, 43 and 44
 
 Phases, each printing one JSON line:
   1. the card's name and power limit, as nvidia-smi reports them;
@@ -295,22 +296,39 @@ Phases, each printing one JSON line:
      last printed loss under 0.9x the first); the fp32 training kernels at its shapes
      against their plain versions first;
   41. tools/diagnose_lr_nan.py at its defaults: the flagship bf16 train step on
-     1 x 4 x 518 at lr 1e-4 from seeded random weights, 10 steps, each after a
-     forensic forward and backward: its lines, ms a step, 96 launches of each
-     training kernel a step, the first non-finite step and the forensic quantities
-     that grew most;
+     1 x 4 x 518 at lr 1e-4 from seeded random weights, rematerialised under
+     save_attn_mlp_pre as the JAX script's, 10 steps, each after a forensic forward
+     and backward: its lines, ms a step, 96 launches of dq and of dk/dv a step (192
+     of the lse forward, its recompute included), the first non-finite step and the
+     forensic quantities that grew most;
   42. the flagship fp32 train step with LossConfig(disentangled=True) through the
      view-sharded step at world size 1 (the one-rank NCCL group; on the CPU a gloo
      group of this process), 1 x 2 x 224 (the CPU step's cost), card against CPU
      with TF32 off: loss, terms and every gradient within 1e-3 of the magnitude, a
      leaf past it held to the same step in float64 (the card's gap to it at most
-     twice the fp32 CPU run's).
+     twice the fp32 CPU run's);
+  3i. the lse forward, dq and dk/dv at the shapes of phase 44's 24-view step against
+     their plain versions under phase 3's rule: 24 x 1370 x 16 x 64 (encoder) and
+     24 x 1369 x 12 x 64 (frame) as in phase 3b, and 1 x 32857 x 12 x 64 (the
+     global layers: K7's forward and K5's backward on the TPU) with every row held,
+     the plain versions a head at a time; kernel, plain, SDPA and bound times;
+  43. the remat policy sweep: phase 7's flagship bf16 forward, loss and backward on
+     1 x 4 x 518 without remat, under full remat and under each policy of
+     models/blocks.py, then without remat again, on the same weights, batch and
+     masks: ms a step, peak GiB, launches by (Tk, D) (the lse forward twice under
+     remat), each policy's worst gradient leaf against the first step without
+     remat (REMAT_GRAD_GAP_LIMIT); full remat must peak below the step without;
+  44. the stage-2 recipe's step: the flagship bf16 train step on 1 x 24 x 518 with
+     remat=True (full recompute), one warm and three timed steps: ms a step,
+     views/s, peak GiB, launches by (Tk, D) (48 / 24 / 24 lse forwards at 1370,
+     1369 and 32857 keys, 24 / 12 / 12 of dq and of dk/dv), finite losses.
 On a machine with more than one card, phases 9 and 10 then run again over
 NCCL with one rank a card (2 or 4 cards); rank 0 checks the gathered
 outputs against the unsharded forward. A machine with one card skips this.
 Phases 11-13 run after phase 5, before phase 6; phase 3e after 3d; phases
 14-24 after phase 7, before phase 8 (the D = 32 rows with phases 3 and 3b);
-phases 26-29 after phase 24, 31-33 after 29, 34-37 after 33, 38-41 after 37; phase 3h after 3e; phase 25
+phases 26-29 after phase 24, 31-33 after 29, 34-37 after 33, 38-41 after 37, 3i, 43 and 44 after 41;
+phase 3h after 3e; phase 25
 after phase 10, phase 42 after 25, phase 30 after phase 9. Then the
 kernels' summary line and,
 last, {"ok": true, "device": {...}}.
@@ -331,7 +349,8 @@ cases, the BA slice's rows of phase 3, phases 31-33, and a kernels line of their
 --benchmarks-only, the benchmark slice's rows of phase 3 (phase 19's and the single
 view's), phases 34-37, and a kernels line of their entries; with --masked-only, the SASS
 check, phases 3h, 41 and 42 (on a one-rank group of its own), and a kernels line of the
-masked kernels' entries.
+masked kernels' entries; with --remat-only, phases 3i, 43 and 44 and a kernels line of
+their entries.
 Any failed check raises and the script exits non-zero. Without a CUDA device,
 or without the port beside it, it exits non-zero and prints no result.
 """
@@ -416,7 +435,14 @@ MEAN_DIFF_LIMITS = {
 LOSS_GAP_LIMIT = 4e-3
 
 
+_STARTED = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print ``obj`` as a line of JSON; a phase's line also gets ``t_s``, the seconds since
+    this script was imported, so that a run's lines read as a timeline."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _STARTED}
     print(json.dumps(obj), flush=True)
 
 
@@ -3890,7 +3916,7 @@ def split_rows(rows) -> list:
 
 def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, inference_launches, train_launches,
                  train_steps, vp_launches, many_view_line, h128, fp32_train, fp32_forward, files, trainer, data, rgb,
-                 dust3r, baseline, ba, bench, proc, masked):
+                 dust3r, baseline, ba, bench, proc, masked, remat):
     """The kernels line: each kernel, what it replaces, its launches on its path
     (one forward; all train steps, and per step), its max error and its times
     per forward (inference) or per train step. The phase-3c rows are the
@@ -3918,7 +3944,8 @@ def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, infe
     run's launches; the BA slice's (``ba``) those of ``ba_entries`` (phases 31-33); the
     benchmark slice's (``bench``) those of ``benchmark_entries`` (phases 34-37); the processing
     slice's (``proc``) those of ``processing_entries`` (phases 38-40); the masked kernels
-    (``masked``) those of ``masked_entries`` (phase 3h)."""
+    (``masked``) those of ``masked_entries`` (phase 3h); the 24-view remat step's (``remat``)
+    those of ``remat_entries`` (phases 3i and 44)."""
     main_rows = [r for r in rows if r["per_forward"] and r["dtype"] == "bfloat16"]
     kernels = [path_entry("flash_attention_fwd", "mapanything_tpu/ops/flash_attention.py:395", main_rows,
                           {r["shape"]: r["per_forward"] for r in main_rows},
@@ -3983,6 +4010,7 @@ def summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, infe
     kernels += benchmark_entries(bench)
     kernels += processing_entries(proc)
     kernels += masked_entries(masked)
+    kernels += remat_entries(remat)
     emit({"kernels": kernels})
 
 
@@ -4124,14 +4152,18 @@ TRACKER_PX_ATOL = 0.05  # tracks, kernels against plain versions
 TRACKER_VIS_ATOL = 1e-2  # visibility scores (sigmoids: 9.7e-4 read on an H100 in the first run)
 # Phase 33: the optimisation baselines on 4 views of 384 x 512 (12 ordered pairs) at their
 # releases' widths, fp32, seeded on the card; each against the same run on the plain
-# versions (TF32 off), the tolerance beside each held quantity (300 Adam steps of a global
+# versions (TF32 off), the tolerance beside each held quantity (the Adam steps of a global
 # alignment amplify the kernels' rounding of the pair pointmaps). MASt3R-SGA's alignment
 # follows its reciprocal matches, which argmax near-ties flip: its pairs and matches are
-# held (mast3r_pairs_against_plain), its loss, focals and poses reported.
+# held (mast3r_pairs_against_plain), its loss, focals and poses reported. The alignments
+# run a third of their releases' Adam steps (300, and 300 + 300 for MASt3R-SGA's two
+# stages): the steps are host-paced, and the whole script has to stay well inside its
+# time limit.
 OPTIM_VIEWS, OPTIM_HW = 4, (384, 512)
 OPTIM_RTOL = {"loss": 1e-2, "focals": 1e-2, "cam2world": 1e-2}
-OPTIM_PATHS = [("dust3r_ba", {"global_optim_niter": 300}), ("pow3r_ba", {"global_optim_niter": 300}),
-               ("mast3r_sga", {"desc_dim": 24, "matching_subsample": 8})]
+OPTIM_PATHS = [("dust3r_ba", {"global_optim_niter": 100}), ("pow3r_ba", {"global_optim_niter": 100}),
+               ("mast3r_sga", {"desc_dim": 24, "matching_subsample": 8, "sparse_ga_niter1": 100,
+                               "sparse_ga_niter2": 100})]
 # Phase 3's rows of the optimisation paths: (name, B x Tq x H x D, dtype, {path: launches a
 # scene}, replaced[, Tk]). DUSt3R-BA and Pow3R-BA run the 12 pairs as one batch (24 views in
 # the encoder), MASt3R-SGA a pair a forward.
@@ -4505,7 +4537,7 @@ def mast3r_pairs_against_plain(model, images) -> dict:
     the share of reciprocal matches (pixel pairs and validity) that both runs find, at least
     MAST3R_AGREE_MIN. An argmax over 196608 similarities flips where two are within the
     descriptors' rounding, and a flipped match moves the sparse alignment, whose result
-    (300 + 300 Adam steps on seeded weights) phase 33 reports beside it."""
+    (OPTIM_PATHS' Adam steps on seeded weights) phase 33 reports beside it."""
     import torch
 
     from mapanything_tpu_torch.models.external.mast3r import reciprocal_matches
@@ -6036,8 +6068,9 @@ def diagnose_phase(card) -> dict:
     """Phase 41: tools/diagnose_lr_nan.py at its defaults on the card: the flagship bf16 train
     step on 1 x 4 x 518 at lr 1e-4 from seeded random weights, 10 steps (fewer if the loss
     goes non-finite), each after a forensic forward and backward; its lines, ms a step, the
-    launches a step (each kernel 96: 48 in the forensic pass, 48 in the step), the first
-    non-finite step and, at the last step, the forensic quantities that grew most."""
+    launches a step (dq and dk/dv 96 each: 48 in the forensic pass, 48 in the step; the lse
+    forward 192, the tool's model being rematerialised as the JAX script's, save_attn_mlp_pre),
+    the first non-finite step and, at the last step, the forensic quantities that grew most."""
     import contextlib
     import io
 
@@ -6055,7 +6088,7 @@ def diagnose_phase(card) -> dict:
     seconds = time.perf_counter() - t0
     counts = launch_counts()
     n = len(records)
-    want = {k: 96 * n for k in TRAIN_KERNELS}
+    want = {k: (192 if k == "flash_attention_fwd_lse" else 96) * n for k in TRAIN_KERNELS}
     first_bad = next((r["step"] for r in records if not math.isfinite(r["metrics"]["loss"])), None)
     f0, fl = records[0]["forensic"], records[-1]["forensic"]
     growth = {k: fl[k] / f0[k] for k in f0 if k in fl and f0[k] and math.isfinite(fl[k])}
@@ -6185,6 +6218,362 @@ def disentangled_flagship_phase(card, group) -> dict:
     return line
 
 
+# ---------------------------------------------------------------- phases 3i, 43 and 44
+
+# Phase 43's gates: each gradient leaf of a step against the same leaf of the first step
+# without remat on the same weights, batch and masks, max |difference| over the leaf's max
+# |value|; the worst leaf and the median leaf. The card's backward is not bitwise repeatable
+# in bf16 (two steps without remat differ in 720 of 721 leaves, by one or two bf16 ulps of
+# a leaf's magnitude): about 3.5x the largest readings of sound runs on an H100 (PERF.md),
+# worst 0.0105 and median 0.0029, steps without remat and under every policy alike.
+REMAT_GRAD_GAP_LIMIT = 0.04
+REMAT_GRAD_MEDIAN_LIMIT = 0.01
+# Phases 3i and 44: the stage-2 recipe's sets of 24 views (configs/dataset/
+# megatrain_13d_518_many_ar_24v_48ipg_64g.yaml) at 518 x 518; the global layers attend over
+# 24·1369 + 1 = 32857 tokens. Launches per step with every block rematerialised: the lse
+# forward twice (the forward and its recompute in the backward), dq and dk/dv once.
+STAGE2_VIEWS = 24
+STAGE2_SHAPES = [
+    ("encoder_24_views", (24, 1370, 16, 64), "bfloat16", 24),
+    ("frame_24_views", (24, 1369, 12, 64), "bfloat16", 12),
+]
+STAGE2_GLOBAL = ("global_24_views", (1, 24 * 1369 + 1, 12, 64), "bfloat16", 12)
+STAGE2_REPLACES = {  # K4/K5 at the encoder and frame layers, K7/K5 (the long regime) at the global layers
+    "flash_attention_fwd_lse": {"encoder_24_views": f"{FA}:118", "frame_24_views": f"{FA}:118",
+                                "global_24_views": f"{FA}:168"},
+    "flash_attention_bwd_dq": dict.fromkeys(("encoder_24_views", "frame_24_views", "global_24_views"), f"{FA}:227"),
+    "flash_attention_bwd_dkv": dict.fromkeys(("encoder_24_views", "frame_24_views", "global_24_views"),
+                                             f"{FA}:262"),
+}
+
+
+def remat_launches(t_global: int, recomputed: bool) -> dict:
+    """Launches of each training kernel a flagship step by (Tk, D): the encoder's 24 layers at
+    1370 keys, the frame layers' 12 at 1369 and the global layers' 12 at ``t_global``; with
+    ``recomputed`` the lse forward twice."""
+    per = {(1370, 64): 24, (1369, 64): 12, (t_global, 64): 12}
+    fwd = {s: 2 * n for s, n in per.items()} if recomputed else per
+    return {"flash_attention_fwd_lse": fwd, "flash_attention_bwd_dq": per, "flash_attention_bwd_dkv": per}
+
+
+def check_remat_launches(label: str, want: dict) -> None:
+    from mapanything_tpu_torch.ops.flash_attention import launch_counts, launch_shapes
+
+    counts, shapes = launch_counts(), launch_shapes()
+    totals = {k: sum(v.values()) for k, v in want.items()}
+    if not counts_match(counts, totals) or any(shapes.get(k) != v for k, v in want.items()):
+        raise AssertionError(f"{label} launched {shape_counts(shapes)}, not {shape_counts(want)}")
+
+
+def stage2_global_check(card) -> dict:
+    """Phase 3i at the global layers: the lse forward, dq and dk/dv at 1 x 32857 x 12 x 64
+    against their plain versions under phase 3's rule, every row held, the plain versions
+    one head at a time (P alone is 32857² x 4 B = 4.3 GB a head); kernel, plain (by heads),
+    SDPA and bound times."""
+    import torch
+    import torch.nn.functional as F
+
+    from mapanything_tpu_torch.ops import flash_attention as fa
+
+    name, (b, t, h, d), dtype_name, per_step = STAGE2_GLOBAL
+    bf16_peak, _, mem_bw = peaks_for(card["name"])
+    scale = d**-0.5
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    qkv = torch.randn(b, t, 3, h, d, device="cuda", generator=gen).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    do = torch.randn(b, t, h, d, device="cuda", generator=gen).to(torch.bfloat16)
+    o, lse = fa.flash_attention_lse(q, k, v, scale)
+    delta = fa.attention_bwd_delta(o, do).contiguous()
+    got = {"o": o, "lse": lse, "dq": fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)}
+    got["dk"], got["dv"] = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)
+    torch.cuda.synchronize()
+
+    def head(x, i):
+        return x[:, :, i:i + 1] if x.dim() == 4 else x[:, i:i + 1]
+
+    def reference(xs):  # the plain forward and backward of one head
+        o_r, lse_r = fa.attention_lse_reference(*xs[:3], scale)
+        grads = fa.attention_bwd_reference(*xs[:3], o_r, lse_r, xs[3], scale)
+        return dict(zip(("o", "lse", "dq", "dk", "dv"), (o_r, lse_r) + tuple(grads)))
+
+    errs = dict.fromkeys(got, 0.0)
+    plain_errs, scales = dict(errs), dict(errs)
+    for i in range(h):  # exact: fp32 inputs; plain: the kernels' bf16 inputs
+        xs = [head(x, i) for x in (q, k, v, do)]
+        exact = reference([x.float() for x in xs])
+        plain = reference(xs)
+        for key in got:
+            errs[key] = max(errs[key], max_err(head(got[key], i), exact[key]))
+            plain_errs[key] = max(plain_errs[key], max_err(plain[key], exact[key]))
+            scales[key] = max(scales[key], exact[key].abs().max().item())
+        del exact, plain
+        torch.cuda.empty_cache()
+    tols = {key: tolerance(plain_errs[key], torch.tensor(scales[key])) for key in got}
+    finite = all(bool(torch.isfinite(x).all()) for x in got.values())
+    plain_delta = fa.attention_bwd_delta(o, do)
+
+    def by_heads(fn, *xs):
+        return [fn(*(head(x, i) for x in xs), scale) for i in range(h)]
+
+    times = {
+        "flash_attention_fwd_lse": (cuda_time_ms(lambda: fa.flash_attention_lse(q, k, v, scale), iters=10),
+                                    cuda_time_ms(lambda: by_heads(fa.attention_lse_reference, q, k, v), iters=2,
+                                                 warmup=1)),
+        "flash_attention_bwd_dq": (
+            cuda_time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale), iters=10),
+            cuda_time_ms(lambda: by_heads(fa.attention_bwd_dq_reference, q, k, v, do, lse, plain_delta), iters=2,
+                         warmup=1)),
+        "flash_attention_bwd_dkv": (
+            cuda_time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale), iters=10),
+            cuda_time_ms(lambda: by_heads(fa.attention_bwd_dkv_reference, q, k, v, do, lse, plain_delta), iters=2,
+                         warmup=1)),
+    }
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    library_fwd_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), iters=10)
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+    library_bwd_ms = cuda_time_ms(
+        lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), iters=10)
+    del sdpa_out, qt, kt, vt
+    io_stats = 2 * 4 * b * h * t
+    work = {"flash_attention_bwd_dq": (4 * b * h * t * t * d, 5 * b * t * h * d * 2 + io_stats),
+            "flash_attention_bwd_dkv": (6 * b * h * t * t * d, 6 * b * t * h * d * 2 + io_stats)}
+    kernels = {}
+    for kname, (ms, plain_ms) in times.items():
+        entry = {"replaces": STAGE2_REPLACES[kname][name], "ms": ms, "plain_ms": plain_ms}
+        if kname == "flash_attention_fwd_lse":
+            entry.update(library_ms=library_fwd_ms, **forward_bounds(card, b, t, t, h, d, dtype_name, True),
+                         tflops=fa.attention_flops(b, t, t, h, d) / ms / 1e9)
+        else:
+            flop, nbytes = work[kname]
+            t_ops, t_bytes = flop / bf16_peak * 1e3, nbytes / mem_bw * 1e3
+            entry.update(library_ms=library_bwd_ms, bound_ms=max(t_ops, t_bytes),
+                         bound_by="operations" if t_ops >= t_bytes else "bytes", tflops=flop / ms / 1e9)
+        kernels[kname] = entry
+    row = {"phase": "train_kernel_check", "phase_id": "3i", "shape": name, "b_t_h_d": [b, t, h, d],
+           "dtype": dtype_name, "max_abs_err": errs, "plain_err": plain_errs, "tol": tols, "kernels": kernels,
+           "plain_by": "head", "library_bwd_ms": library_bwd_ms, "per_step": per_step,
+           "card": card["name"], "power_limit": card["power_limit"]}
+    emit(row)
+    bad = {key: (errs[key], tols[key]) for key in got if not errs[key] <= tols[key]}
+    if not finite or bad:
+        raise AssertionError(f"training kernels disagree with their plain versions at {name}: {bad}")
+    del qkv, q, k, v, do, o, lse, delta, got
+    torch.cuda.empty_cache()
+    return row
+
+
+def remat_sweep_runs() -> list:
+    """Phase 43's remat runs: (label, True, policy name) for each distinct policy of
+    models/blocks.py's REMAT_POLICIES (the JAX resolve_remat_policy's names), run once under
+    the first of the names that resolve to it; the label joins them all with "=" (None and
+    "nothing" are one full recompute, "dots" and "dots_saveable" one policy)."""
+    from mapanything_tpu_torch.models.blocks import REMAT_POLICIES
+
+    names = {}
+    for name, policy in REMAT_POLICIES.items():
+        names.setdefault((policy.saved, policy.offloaded), []).append(name)
+    return [("remat_" + "=".join(map(str, group)), True, group[0]) for group in names.values()]
+
+
+def remat_sweep(card) -> dict:
+    """Phase 43: the flagship bf16 step (phase 7's model, batch and masks; forward, loss and
+    backward, no update) on 1 x 4 x 518 without remat, under full remat and under each
+    distinct policy (remat_sweep_runs), on the same weights, batch and masks, then without remat again: ms a step (two
+    after a warm one), peak GiB, launches by (Tk, D), and each gradient leaf's gap to the
+    first step without remat (the worst leaves, the median; REMAT_GRAD_GAP_LIMIT). The
+    second step without remat reads the card's own spread, held to the same limits. Full
+    remat must peak below the step without."""
+    import torch
+
+    from mapanything_tpu_torch.models.mapanything import GeometricInputConfig, MapAnything
+    from mapanything_tpu_torch.ops.flash_attention import launch_shapes, reset_launch_counts
+    from mapanything_tpu_torch.train.losses import LossConfig, synthetic_loss_batch
+    from mapanything_tpu_torch.train.step import draw_step_inputs, make_loss_fn
+
+    B, V, H, W = 1, 4, 518, 518
+    model = MapAnything(flagship_config(12), device="cuda", seed=0, geometric_inputs=True)
+    batch = synthetic_loss_batch(B, V, H, W, seed=0).to("cuda")
+    img = torch.from_numpy(np.random.RandomState(0).randn(B, V, H, W, 3).astype(np.float32)).cuda()
+    masks, pe = draw_step_inputs(model, GeometricInputConfig(), torch.Generator().manual_seed(0), (B, V, H, W))
+    loss_fn = make_loss_fn(model, LossConfig())
+    names, params = zip(*model.named_parameters())
+
+    def step():
+        for p in params:
+            p.grad = None
+        loss, _ = loss_fn(batch, img, masks, pe)
+        loss.backward()
+        return loss
+
+    runs = [("no_remat", False, None)] + remat_sweep_runs() + [("no_remat_again", False, None)]
+    base, lines = None, {}
+    for label, remat, policy in runs:
+        model.configure_remat(remat=remat, remat_policy=policy)
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(2):
+            reset_launch_counts()
+            t = time.perf_counter()
+            loss = step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check_remat_launches(f"phase 43 ({label})", remat_launches(4 * 1369 + 1, remat))
+        shapes = launch_shapes()
+        grads = [p.grad.float() for p in params]
+        if not all(bool(torch.isfinite(g).all()) for g in grads) or not np.isfinite(loss.item()):
+            raise AssertionError(f"phase 43 ({label}): a non-finite loss or gradient")
+        if base is None:
+            base = [g.cpu() for g in grads]
+            gaps = [0.0] * len(grads)
+        else:
+            ref = [g.to("cuda", non_blocking=True) for g in base]
+            diff = torch.stack(torch._foreach_norm(torch._foreach_sub(grads, ref), float("inf")))
+            size = torch.stack(torch._foreach_norm(ref, float("inf"))).clamp_min(1e-30)
+            gaps = (diff / size).tolist()
+            del ref, diff
+        top = np.argsort(gaps)[::-1][:3]
+        lines[label] = {"ms_per_step": 1e3 * sum(times) / len(times), "ms_each": [1e3 * t for t in times],
+                        "peak_mem_gib": peak, "loss": loss.item(),
+                        "launches_per_step_by_shape": {k: v for k, v in shape_counts(shapes).items() if v},
+                        "worst_grad_gap": gaps[top[0]], "median_grad_gap": float(np.median(gaps)),
+                        "worst_grad_leaves": {names[i]: gaps[i] for i in top},
+                        "leaves_differing": sum(g > 0 for g in gaps)}
+        del grads
+    model.configure_remat(remat=False)
+    line = {"phase": "remat_sweep", "phase_id": "43",
+            "config": "MapAnythingConfig(compute_dtype='bfloat16'), geometric inputs, 1x4x518x518 forward, loss and "
+                      "backward (no update), seeded random weights, bench.py LossBatch, GeometricInputConfig() masks "
+                      "(seed 0)",
+            "runs": lines, "grad_gap_limit": REMAT_GRAD_GAP_LIMIT, "grad_median_limit": REMAT_GRAD_MEDIAN_LIMIT,
+            "card": card["name"], "power_limit": card["power_limit"]}
+    emit(line)
+    plain_peak, full_peak = lines["no_remat"]["peak_mem_gib"], lines["remat_None=nothing"]["peak_mem_gib"]
+    if not full_peak < plain_peak:
+        raise AssertionError(f"phase 43: full remat peaks at {full_peak:.2f} GiB, not below {plain_peak:.2f} GiB")
+    over = {k: (v["worst_grad_gap"], v["median_grad_gap"]) for k, v in lines.items()
+            if not (v["worst_grad_gap"] <= REMAT_GRAD_GAP_LIMIT and v["median_grad_gap"] <= REMAT_GRAD_MEDIAN_LIMIT)}
+    if over:
+        raise AssertionError(f"phase 43: gradients (worst, median leaf) of {over} over the limits "
+                             f"{REMAT_GRAD_GAP_LIMIT}, {REMAT_GRAD_MEDIAN_LIMIT}")
+    del model, base
+    return line
+
+
+def stage2_remat_step(card) -> dict:
+    """Phase 44: the stage-2 recipe's step, the flagship bf16 train step on 1 x 24 x 518 with
+    every encoder and trunk block rematerialised (full recompute: the JAX ``--override
+    model.remat=true``), phase 7's batch recipe, masks and lr: one warm step, then three
+    timed. ms a step, views a second, peak GiB, launches by (Tk, D) (the forward's include
+    the recompute's), finite losses and gradients."""
+    import torch
+
+    from mapanything_tpu_torch.models.mapanything import GeometricInputConfig, MapAnything
+    from mapanything_tpu_torch.ops.flash_attention import launch_shapes, reset_launch_counts
+    from mapanything_tpu_torch.train.losses import LossConfig, synthetic_loss_batch
+    from mapanything_tpu_torch.train.optim import OptimConfig, build_optimizer
+    from mapanything_tpu_torch.train.step import init_train_state, make_train_step
+
+    B, V, H, W = 1, STAGE2_VIEWS, 518, 518
+    warmup, iters = 1, 3
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(flagship_config(12), remat=True)
+    model = MapAnything(cfg, device="cuda", seed=0, geometric_inputs=True)
+    opt = build_optimizer(OptimConfig(lr=1e-7, min_lr=1e-8, epoch_len=100, total_epochs=1.0), model)
+    state = init_train_state(model, opt)
+    step = make_train_step(model, opt, LossConfig(), GeometricInputConfig())
+    batch = synthetic_loss_batch(B, V, H, W, seed=0).to("cuda")
+    img = torch.from_numpy(np.random.RandomState(0).randn(B, V, H, W, 3).astype(np.float32)).cuda()
+    gen = torch.Generator().manual_seed(0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    want = remat_launches(STAGE2_GLOBAL[1][1], True)
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics = [], []
+    for i in range(warmup + iters):
+        reset_launch_counts()
+        t = time.perf_counter()
+        state, m = step(state, img, batch, gen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        check_remat_launches(f"phase 44 step {i}", want)
+        m = {k: v.item() for k, v in m.items()}
+        grads_finite = all(bool(torch.isfinite(p.grad).all()) for p in state.params.values() if p.grad is not None)
+        if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) and grads_finite):
+            raise AssertionError(f"phase 44 step {i}: loss {m['loss']}, grad_norm {m['grad_norm']}")
+        metrics.append(m)
+        if i >= warmup:
+            times.append(dt)
+    ms = 1e3 * sum(times) / iters
+    line = {"phase": "stage2_remat_train", "phase_id": "44",
+            "config": f"MapAnythingConfig(compute_dtype='bfloat16', remat=True), 1x{V}x518x518 train step, seeded "
+                      "random weights, bench.py LossBatch, GeometricInputConfig() masks, lr 1e-7",
+            "setup_s": setup_s, "warmup": warmup, "iters": iters, "ms_per_step": ms,
+            "ms_each": [1e3 * t for t in times],
+            "views_per_s": B * V / (ms / 1e3), "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches_per_step_by_shape": shape_counts(launch_shapes()),
+            "launches_total": {k: sum(v.values()) * (warmup + iters) for k, v in want.items()},
+            "steps": warmup + iters,
+            "loss": [m["loss"] for m in metrics], "grad_norm": [m["grad_norm"] for m in metrics],
+            "card": card["name"], "power_limit": card["power_limit"]}
+    emit(line)
+    del state, step, model, opt
+    return line
+
+
+def remat_phases(card) -> dict:
+    """Phases 3i, 43 and 44: the training kernels at the 24-view step's shapes, the policy
+    sweep at 1 x 4 x 518, the 24-view step under remat."""
+    import torch
+
+    rows = train_kernel_checks(card, STAGE2_SHAPES, STAGE2_REPLACES, "3i") + [stage2_global_check(card)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    sweep = remat_sweep(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = stage2_remat_step(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"rows": rows, "sweep": sweep, "step": step}
+
+
+def remat_entries(remat) -> list:
+    """Phases 3i and 44 in the kernels line: each training kernel on the 24-view remat step,
+    one entry per TPU kernel replaced (the lse forward: K4 at the encoder and frame layers,
+    K7 at the global layers), that run's launches, and times per step at phase 3i's shapes
+    (each shape's per-call time by its launches a step, the recompute's included)."""
+    step, rows = remat["step"], remat["rows"]
+    per_step = remat_launches(STAGE2_GLOBAL[1][1], True)
+    t_of = {r["shape"]: r["b_t_h_d"][1] for r in rows}
+    entries = []
+    for name in TRAIN_KERNELS:
+        outs = TRAIN_OUTPUTS[name]
+        for replaces in dict.fromkeys(STAGE2_REPLACES[name].values()):
+            group = [r for r in rows if STAGE2_REPLACES[name][r["shape"]] == replaces]
+            n_of = {r["shape"]: per_step[name][(t_of[r["shape"]], 64)] for r in group}
+            total = lambda key: sum(r["kernels"][name][key] * n_of[r["shape"]] for r in group)  # noqa: E731
+            entries.append({
+                "name": name, "route": "cuda",
+                "source": KERNEL_SOURCE if name.endswith("lse") else BWD_KERNEL_SOURCE,
+                "replaces": replaces,
+                "launches": sum(n_of.values()) * step["steps"],
+                "launches_per_step": sum(n_of.values()),
+                "max_abs_err": max(r["max_abs_err"][o] for r in group for o in outs),
+                "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+                "bound_by": "operations" if all(r["kernels"][name]["bound_by"] == "operations" for r in group)
+                            else "bytes",
+                "library_ms": total("library_ms"),
+                "per_shape": [dict(shape=r["shape"], b_t_h_d=r["b_t_h_d"], dtype=r["dtype"], per_step=n_of[r["shape"]],
+                                   max_abs_err={o: r["max_abs_err"][o] for o in outs}, **r["kernels"][name])
+                              for r in group],
+                "path": "flagship bf16 train step 1x24x518, remat=True (phase 44); times per step",
+            })
+    return entries
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the PyTorch port on one NVIDIA GPU.")
     parser.add_argument("--train-step-only", action="store_true",
@@ -6222,6 +6611,10 @@ def main() -> int:
     parser.add_argument("--masked-only", action="store_true",
                         help="build the kernels, check their SASS, then run phase 3h (the masked kernels), 41 (the "
                              "diagnose tool) and 42 (the disentangled flagship step, on its one-rank group) and stop "
+                             "after their lines and their kernels line")
+    parser.add_argument("--remat-only", action="store_true",
+                        help="build the kernels, then run phases 3i (the training kernels at the 24-view step's "
+                             "shapes), 43 (the remat policy sweep) and 44 (the 24-view remat step) alone and stop "
                              "after their lines and their kernels line")
     parser.add_argument("--rgb-only", action="store_true",
                         help="build the kernels, then run the RGB models' phases alone (the D = 32 rows of phases 3 "
@@ -6279,6 +6672,10 @@ def main() -> int:
     if args.processing_only:
         emit(build)
         emit({"kernels": processing_entries(processing_phases(card))})
+        return 0
+    if args.remat_only:
+        emit(build)
+        emit({"kernels": remat_entries(remat_phases(card))})
         return 0
     if args.rgb_only:
         emit(build)
@@ -6430,6 +6827,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 3i, 43-44. Activation rematerialisation: the training kernels at the 24-view step's shapes,
+    # the policy sweep at 1 x 4 x 518, the stage-2 recipe's 24-view step.
+    remat = remat_phases(card)
+
     # 8-10. View parallelism on a process group of this process alone: NCCL at world size 1.
     from mapanything_tpu_torch.parallel.distributed import init_distributed_mode
     from mapanything_tpu_torch.parallel.mesh import make_view_group
@@ -6472,7 +6873,7 @@ def main() -> int:
     summary_line(rows, train_rows, long_rows, many_view_rows, ring_bwd_row, inference_launches, train_launches,
                  train_steps, vp_launches, many_view_line, h128,
                  {"rows": fp32_train_rows, "launches": fp32_launches, "steps": fp32_steps}, fp32_forward, files,
-                 trainer, data, rgb, dust3r, baseline, ba, bench, proc, masked)
+                 trainer, data, rgb, dust3r, baseline, ba, bench, proc, masked, remat)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -5,7 +5,13 @@ Counterpart of ``mapanything_tpu/models/blocks.py``: ``gelu_matched`` (:43),
 with its qk-norm (:192-194), rope hook (:196-199) and context-parallel routing
 (:159-165, :215-237), ``CrossAttention`` (:248), ``SelfAttentionBlock`` (:313),
 ``CrossAttentionBlock`` (:400), ``RMSNorm`` (:498), ``DiffAttention`` (:513) and
-``DiffCrossAttention`` (:582).
+``DiffCrossAttention`` (:582), and the activation rematerialisation of the
+blocks: ``resolve_remat_policy`` (:656-713), the checkpoint tags of ``Mlp``
+(:65-94) and ``Attention`` (:166-238) as the stage boundaries of
+``SelfAttentionBlock``, and ``set_remat`` for the modules that wrap their blocks
+in ``nn.remat``. Every tag is a stage boundary whatever the policy, so the JAX
+``_EXTRA_TAG_SETS`` (:716-727), which says which tags a policy needs emitted,
+has no counterpart.
 Parameter names are the reference's torch names (DINOv2 / UniCeption), so
 ``mapanything_tpu.utils.torch_convert`` reads a port state dict unchanged.
 
@@ -19,12 +25,16 @@ LayerNorm does; ``GroupNorm`` the same, over NCHW, with Flax's epsilon.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
-from typing import Callable, Optional
+from dataclasses import dataclass
+from typing import Callable, FrozenSet, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mapanything_tpu_torch.ops.attention import (
     apply_entropy_scaling,
@@ -204,15 +214,26 @@ class Attention(nn.Module):
 
     def forward(self, x, xpos: Optional[torch.Tensor] = None, cp_extra_tokens: int = 0):
         B, N, C = x.shape
-        head_dim = C // self.num_heads
-        q, k, v = self.qkv(x).reshape(B, N, 3, self.num_heads, head_dim).unbind(2)
+        return self.proj(self.attend(self.qkv(x), xpos, cp_extra_tokens, self.cp_context()).reshape(B, N, C))
+
+    def cp_context(self):
+        """The active ``parallel.cp`` context where this attention routes through it, else None."""
+        return current_cp() if self.cp_global else None
+
+    def attend(self, qkv: torch.Tensor, xpos: Optional[torch.Tensor], cp_extra_tokens: int, cp):
+        """The attention output (B, N, H, D) of the fused projection ``qkv`` (B, N, 3C):
+        the heads, their norms, rope and scalings, then ``sdpa``, or the route of ``cp``
+        (``cp_context()`` read at the forward: a rematerialised block recomputes this in
+        the backward, after the context has closed)."""
+        B, N, C3 = qkv.shape
+        head_dim = C3 // (3 * self.num_heads)
+        q, k, v = qkv.reshape(B, N, 3, self.num_heads, head_dim).unbind(2)
         if hasattr(self, "q_norm"):
             q, k = self.q_norm(q), self.k_norm(k)
         if self.rope is not None:
             if xpos is None:
                 raise ValueError("an attention with a rope hook needs the token positions xpos")
             q, k = self.rope(q, xpos), self.rope(k, xpos)
-        cp = current_cp() if self.cp_global else None
         E = cp_extra_tokens
         n_tokens = N if cp is None else (N - E) * cp.group.size + E
         q = _scale_queries(self, q, n_tokens)
@@ -226,7 +247,7 @@ class Attention(nn.Module):
                 cp.group, head_dim**-0.5, cp.schedule,
             )
             out = torch.cat([og, oe.to(og.dtype)], dim=1) if E else og
-        return self.proj(out.reshape(B, N, C))
+        return out
 
 
 def _scale_queries(attn: nn.Module, q: torch.Tensor, n_tokens: int) -> torch.Tensor:
@@ -344,14 +365,179 @@ class SelfAttentionBlock(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype=dtype)
         self.ls2 = LayerScale(dim, init_values) if init_values is not None else nn.Identity()
         self.drop_path = DropPath(drop_path)
+        self.remat: Optional[RematPolicy] = None  # set_remat; None: autograd keeps what it saves
+
+    def _stages(self, xpos, cp_extra_tokens):
+        """The block as (tag, fn) stages in forward order, each fn(x, cur) -> cur: the tag
+        names the stage's output. The stage tagged "mlp_in" returns (norm2(x1), x1), x1 the
+        residual stream after the attention; the last stage (tag None) returns the MLP
+        branch, which the caller adds to x1."""
+        attn, mlp = self.attn, self.mlp
+        cp = attn.cp_context()
+
+        def residual(x, p):
+            x1 = x + self.drop_path(self.ls1(p))
+            return self.norm2(x1), x1
+
+        return (
+            ("qkv_out", lambda x, h: attn.qkv(self.norm1(h))),
+            ("attn_out", lambda x, qkv: attn.attend(qkv, xpos, cp_extra_tokens, cp)),
+            ("proj_out", lambda x, o: attn.proj(o.flatten(2))),
+            ("mlp_in", residual),
+            ("mlp_pre", lambda x, m: mlp.fc1(m)),
+            ("mlp_hidden", lambda x, pre: gelu_matched(pre)),
+            ("mlp_out", lambda x, hid: mlp.fc2(hid)),
+            (None, lambda x, y: self.drop_path(self.ls2(y))),
+        )
 
     def forward(self, x, xpos: Optional[torch.Tensor] = None, cp_extra_tokens: int = 0):
         if isinstance(self.attn, DiffAttention):
-            y = self.attn(self.norm1(x), xpos)
-        else:
-            y = self.attn(self.norm1(x), xpos, cp_extra_tokens)
-        x = x + self.drop_path(self.ls1(y))
-        return x + self.drop_path(self.ls2(self.mlp(self.norm2(x))))
+            x = x + self.drop_path(self.ls1(self.attn(self.norm1(x), xpos)))
+            return x + self.drop_path(self.ls2(self.mlp(self.norm2(x))))
+        stages = self._stages(xpos, cp_extra_tokens)
+        if self.remat is None or not torch.is_grad_enabled():
+            y, x1 = _run_segment(stages, x, x)
+            return x1 + y
+        return _remat_segments(stages, self.remat, x)
+
+
+# ---------------------------------------------------------------- rematerialisation
+
+
+@dataclass(frozen=True)
+class RematPolicy:
+    """What a rematerialised ``SelfAttentionBlock`` keeps across the backward besides its
+    input: the tensors of the stages in ``saved`` on the device, those in ``offloaded`` in
+    host memory; everything else the backward recomputes from them. The tags are the JAX
+    package's ``checkpoint_name`` tags (``qkv_out``, ``attn_out``, ``mlp_in``, ``mlp_pre``,
+    ``mlp_hidden``) and the outputs of the two Dense layers that carry no tag there
+    (``proj_out``, ``mlp_out``), which only the dot policies keep."""
+
+    name: Optional[str]
+    saved: FrozenSet[str] = frozenset()
+    offloaded: FrozenSet[str] = frozenset()
+
+
+def _policy(name, saved=(), offloaded=()):
+    return RematPolicy(name, frozenset(saved), frozenset(offloaded))
+
+
+# The JAX ``resolve_remat_policy`` (blocks.py:656-713), name by name. The attention is one
+# kernel here, as the Pallas kernel is on the TPU: no product of it is a dot of XLA's, so
+# "dots" (dots_with_no_batch_dims_saveable) and "dots_saveable" keep the same four Dense
+# outputs.
+_DOTS = ("qkv_out", "proj_out", "mlp_pre", "mlp_out")
+REMAT_POLICIES = {
+    None: _policy(None),
+    "nothing": _policy("nothing"),
+    "dots": _policy("dots", _DOTS),
+    "dots_saveable": _policy("dots_saveable", _DOTS),
+    "save_attn": _policy("save_attn", ("attn_out",)),
+    "save_attn_mlp": _policy("save_attn_mlp", ("attn_out", "mlp_hidden")),
+    "save_attn_mlp_pre": _policy("save_attn_mlp_pre", ("attn_out", "mlp_pre")),
+    "save_qkv_attn_mlp": _policy("save_qkv_attn_mlp", ("qkv_out", "attn_out", "mlp_in", "mlp_pre")),
+    "save_attn_mlp_pre_offload_qkv": _policy("save_attn_mlp_pre_offload_qkv", ("attn_out", "mlp_pre"), ("qkv_out",)),
+    "save_qkv_attn_mlp_offload": _policy("save_qkv_attn_mlp_offload", ("qkv_out", "attn_out", "mlp_in"),
+                                         ("mlp_pre",)),
+}
+
+
+def resolve_remat_policy(name: Optional[str]) -> RematPolicy:
+    """The policy of a config string: None or "nothing" recompute everything. An unknown
+    name raises ``KeyError``, as the JAX dict lookup does."""
+    return REMAT_POLICIES[name]
+
+
+def set_remat(blocks, remat: bool, policy: Optional[str] = None) -> None:
+    """Rematerialise each ``SelfAttentionBlock`` of ``blocks`` under ``policy`` (JAX's
+    ``nn.remat(SelfAttentionBlock, policy=resolve_remat_policy(policy))``), or, with
+    ``remat`` False, let autograd keep what it saves; the policy is then not read, as in
+    the JAX package. A block with ``DiffAttention`` has no stages and raises."""
+    resolved = resolve_remat_policy(policy) if remat else None
+    for block in blocks:
+        if remat and isinstance(block.attn, DiffAttention):
+            raise ValueError("a differential-attention block is not rematerialised")
+        block.remat = resolved
+
+
+def _run_segment(stages, cur, x=None):
+    """``stages`` run from ``cur``: their output, and x1 where they pass "mlp_in"."""
+    x1 = None
+    for tag, fn in stages:
+        cur = fn(x, cur)
+        if tag == "mlp_in":
+            cur, x1 = cur
+    return cur if x1 is None else (cur, x1)
+
+
+def _remat_segments(stages, policy: RematPolicy, x: torch.Tensor) -> torch.Tensor:
+    """A block's forward as checkpointed segments that end at the tensors ``policy`` keeps.
+
+    Each segment runs under non-reentrant ``torch.utils.checkpoint``, whose only saved
+    tensors are its inputs: the block input ``x`` and the kept tensor the segment starts
+    from. Autograd's own saved tensors inside a segment are recomputed from those when
+    the backward first needs one, and the recompute stops once the last of them is back,
+    so a kept tensor's producing product does not run again. Every segment restores the
+    RNG state it started with before recomputing (``DropPath``). The residual adds run
+    outside the segments: an add saves nothing, so the stream after the attention is
+    kept by no segment and recomputed where ``norm2`` needs it. A tensor in
+    ``policy.offloaded`` is the next segment's input, saved through ``_HostOffload``."""
+    kept = policy.saved | policy.offloaded
+    segments, current = [], []
+    for tag, fn in stages:
+        current.append((tag, fn))
+        if tag is None or tag in kept:
+            segments.append((tag, tuple(current)))
+            current = []
+    cur, x1, to_host = x, None, False
+    for end, segment in segments:
+        args = (cur, x) if any(tag == "mlp_in" for tag, _ in segment) else (cur,)
+        with _HostOffload(cur) if to_host else contextlib.nullcontext():
+            out = checkpoint(functools.partial(_run_segment, segment), *args, use_reentrant=False)
+        cur, x1 = out if isinstance(out, tuple) else (out, x1)
+        to_host = end in policy.offloaded
+    return x1 + cur
+
+
+class _HostCopy:
+    """A tensor's copy in host memory, made on a side stream from a CUDA tensor (pinned);
+    ``back()`` returns it to the tensor's device once the copy is done. A CPU tensor's copy
+    is a clone."""
+
+    def __init__(self, t: torch.Tensor):
+        self.device, self.done = t.device, None
+        if t.device.type != "cuda":
+            self.host = t.clone()
+            return
+        self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        stream = torch.cuda.Stream(t.device)
+        stream.wait_stream(torch.cuda.current_stream(t.device))
+        with torch.cuda.stream(stream):
+            self.host.copy_(t, non_blocking=True)
+        t.record_stream(stream)  # its memory is not reused before the copy has read it
+        self.done = stream.record_event()
+
+    def back(self) -> torch.Tensor:
+        if self.done is None:
+            return self.host
+        torch.cuda.current_stream(self.device).wait_event(self.done)
+        return self.host.to(self.device, non_blocking=True)
+
+
+class _HostOffload(torch.autograd.graph.saved_tensors_hooks):
+    """Saved-tensor hooks that keep ``target`` in host memory across the backward (JAX's
+    ``save_and_offload_only_these_names`` to pinned_host); other saved tensors pass."""
+
+    def __init__(self, target: torch.Tensor):
+        key = (target.data_ptr(), target.shape, target.stride())
+
+        def pack(t):
+            return _HostCopy(t) if (t.data_ptr(), t.shape, t.stride()) == key else t
+
+        def unpack(saved):
+            return saved.back() if isinstance(saved, _HostCopy) else saved
+
+        super().__init__(pack, unpack)
 
 
 class CrossAttentionBlock(nn.Module):

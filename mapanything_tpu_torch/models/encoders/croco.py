@@ -1,11 +1,13 @@
 """CroCo ViT encoder with RoPE2D, and the plain patch embedder, of the port.
 
 Counterpart of ``mapanything_tpu/models/encoders/croco.py``: ``CroCoEncoder``
-(:24-77) and ``PatchEmbedder`` (:80-99). CroCo (the DUSt3R and MASt3R encoder)
-has no learned position embedding: every block rotates q and k with RoPE2D
-(``ops.rope``) at the patch grid's (y, x) positions. Parameter names are the
-DUSt3R release's, the ones ``convert_croco_encoder`` reads: ``patch_embed.proj``,
-``enc_blocks.N.*`` and ``enc_norm``.
+(:24-77) and ``PatchEmbedder`` (:80-99). The JAX ``remat`` field (:35, :58-59:
+every block rematerialised, full recompute) is ``blocks.set_remat(enc_blocks,
+True)`` here. CroCo (the DUSt3R and MASt3R encoder) has no learned position
+embedding: every block rotates q and k with RoPE2D (``ops.rope``) at the patch
+grid's (y, x) positions. Parameter names are the DUSt3R release's, the ones
+``convert_croco_encoder`` reads: ``patch_embed.proj``, ``enc_blocks.N.*`` and
+``enc_norm``.
 """
 
 from __future__ import annotations

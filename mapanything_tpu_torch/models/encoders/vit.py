@@ -2,8 +2,11 @@
 
 Counterpart of ``mapanything_tpu/models/encoders/vit.py``: ``VIT_SIZES``,
 ``interpolate_pos_embed`` (:110) and ``ViTEncoder`` (:142), with its register
-tokens (:154-156, :206-216) and ``return_layers`` (the intermediate-feature
-variant, :218-283). Parameter names are those of the DINOv2 torch-hub model
+tokens (:154-156, :206-216), ``return_layers`` (the intermediate-feature
+variant, :218-283). The blocks' rematerialisation (``remat``, ``remat_policy``:
+:157-158, :255-262) is ``blocks.set_remat(blocks, ...)``, which
+``MapAnything.configure_remat`` calls; the ``scan_blocks`` branch is not ported.
+Parameter names are those of the DINOv2 torch-hub model
 (``patch_embed.proj``, ``cls_token``, ``register_tokens``, ``pos_embed``,
 ``blocks.N.*``, ``norm``).
 """

@@ -2,7 +2,10 @@
 
 Counterpart of ``AlternatingAttentionTransformer`` in
 ``mapanything_tpu/models/info_sharing/alternating.py`` (:115, unrolled
-branch :255-303). Even layers attend over all views' tokens plus the
+branch :255-303). Its blocks' rematerialisation (``remat``, ``remat_policy``:
+:140-141, :206-210, :256-262) is ``blocks.set_remat(self_attention_blocks, ...)``,
+which ``MapAnything.configure_remat`` calls; the ``scan_pairs`` branch is not
+ported. Even layers attend over all views' tokens plus the
 additional tokens (the scale token); odd layers attend within each view,
 and the additional tokens skip them. Parameter names follow the reference
 (``proj_embed``, ``self_attention_blocks.N.*``, ``norm``).

@@ -1,7 +1,9 @@
 """Multi-view global-attention transformer (the VGGT-style ablation trunk) of the port.
 
 Counterpart of ``mapanything_tpu/models/info_sharing/global_attention.py``
-(``GlobalAttentionTransformer``, :20-94). Every layer attends over all views'
+(``GlobalAttentionTransformer``, :20-94); its ``remat`` (:33, :74-75: every
+block rematerialised, full recompute) is ``blocks.set_remat(self_attention_blocks,
+True)`` here. Every layer attends over all views'
 tokens and the additional tokens; each view's tokens first get a row of a
 ``max_num_views_for_pe``-row sinusoid table (row 0 for view 0, the rows
 ``non_ref_view_pe_indices`` or 1..V-1 for the others). Parameter names follow

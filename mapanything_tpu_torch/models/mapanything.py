@@ -21,6 +21,10 @@ features in front of the four levels.
 ``MapAnythingConfig.head_chunk_size`` runs the dense head over consecutive
 chunks of the B·V views (JAX :653-668), which bounds the head's activations
 when many views are reconstructed at once.
+The remat fields (JAX :312-329, :402-406, :562-566) rematerialise the encoder's
+and the trunk's blocks (``blocks.set_remat``): the backward recomputes what a
+policy does not keep, which bounds a train step's activations at many views;
+``configure_remat`` switches them on a built model.
 
 View parallelism (JAX :291, :560): inside a ``parallel.cp`` context the
 views given are this rank's block of the group's views. The JAX package runs the whole batch as one SPMD
@@ -44,7 +48,7 @@ no converter reads, take the JAX modules' names.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field, fields
+from dataclasses import dataclass, field, fields, replace
 from typing import Optional, Tuple, Union
 
 import torch
@@ -58,7 +62,7 @@ from mapanything_tpu_torch.geometry.normalization import (
     safe_norm,
 )
 from mapanything_tpu_torch.geometry.quaternion import relative_pose_quats_trans
-from mapanything_tpu_torch.models.blocks import LayerNorm, init_params
+from mapanything_tpu_torch.models.blocks import LayerNorm, init_params, set_remat
 from mapanything_tpu_torch.models.encoders.dense_rep import (
     DenseRepresentationEncoder,
     GlobalRepresentationEncoder,
@@ -234,6 +238,7 @@ class Predictions:
 SCENE_REPS = ("pointmap", "raymap+depth", "raydirs+depth+pose", "raydirs+depth+rgb+pose", "campointmap+pose",
               "pointmap+raydirs+depth+pose")
 DENSE_HEADS = ("dpt", "linear", "mae", "moge")
+REMAT_FIELDS = ("remat", "encoder_remat", "trunk_remat", "remat_policy", "encoder_remat_policy", "trunk_remat_policy")
 LIST_HEADS = ("mae", "moge")  # the heads that take the raw encoder features too
 
 
@@ -281,6 +286,22 @@ class MapAnythingConfig:
     # processor, or the MAE or MoGe head) over the B·V views; None, 0 or >= B·V
     # runs them at once.
     head_chunk_size: Optional[int] = None
+    # Activation rematerialisation of the encoder's and the trunk's blocks (JAX
+    # :312-329): ``remat`` for both, ``encoder_remat``/``trunk_remat`` per part (None
+    # follows ``remat``); the policy (``blocks.resolve_remat_policy``: None recomputes
+    # everything) likewise, per part.
+    remat: bool = False
+    encoder_remat: Optional[bool] = None
+    trunk_remat: Optional[bool] = None
+    remat_policy: Optional[str] = None
+    encoder_remat_policy: Optional[str] = None
+    trunk_remat_policy: Optional[str] = None
+
+    def part_remat(self, part: str) -> Tuple[bool, Optional[str]]:
+        """(remat, policy) of ``part``, "encoder" or "trunk": its own fields, else the
+        model's (JAX :402-406, :562-566)."""
+        remat, policy = getattr(self, f"{part}_remat"), getattr(self, f"{part}_remat_policy")
+        return (self.remat if remat is None else remat), (self.remat_policy if policy is None else policy)
 
     @property
     def dense_components(self) -> Tuple[str, ...]:
@@ -413,8 +434,20 @@ class MapAnything(nn.Module):
             self.cam_rot_encoder = GlobalRepresentationEncoder(4, embed_dim)
             self.cam_trans_encoder = GlobalRepresentationEncoder(3, embed_dim)
             self.cam_trans_scale_encoder = GlobalRepresentationEncoder(1, embed_dim)
+        self.configure_remat()
         init_params(self, torch.Generator().manual_seed(seed))
         self.to(device)
+
+    def configure_remat(self, **fields) -> None:
+        """Replace the config's remat fields (``remat``, ``encoder_remat``, ...) by
+        ``fields`` and rematerialise the encoder's and the trunk's blocks as the config
+        then says; the weights stay."""
+        unknown = set(fields) - set(REMAT_FIELDS)
+        if unknown:
+            raise ValueError(f"not a remat field: {sorted(unknown)}")
+        self.config = replace(self.config, **fields)
+        set_remat(self.encoder.model.blocks, *self.config.part_remat("encoder"))
+        set_remat(self.info_sharing.self_attention_blocks, *self.config.part_remat("trunk"))
 
     def init_tokens(self, generator: torch.Generator) -> None:
         nn.init.trunc_normal_(self.scale_token, 0.0, 0.02, -0.04, 0.04, generator=generator)

@@ -16,8 +16,8 @@ step. Before each update a forensic pass runs the same forward with the same mod
 gradient norm of each top-level submodule, and the predictions' largest magnitudes. Then
 the step, and a line of every loss term, the loss, the gradient norm, the parameters' norm
 and largest magnitude and the step's milliseconds. Stops at the first non-finite loss. The
-JAX script's remat flags are not ported (the port keeps no remat policy). Runs on the card
-unless ``--device`` names another.
+model is rematerialised as the JAX script's (:60-66): full recompute with ``--small``, else
+``remat_policy="save_attn_mlp_pre"``. Runs on the card unless ``--device`` names another.
 """
 
 from __future__ import annotations
@@ -91,9 +91,9 @@ def make_inputs(B: int, V: int, H: int, W: int) -> Dict[str, np.ndarray]:
 def build(args: argparse.Namespace) -> tuple:
     """(model config, (B, V, H, W), optimizer config) of the run."""
     if args.small:
-        return MapAnythingConfig.small(), (1, 2, 56, 56), OptimConfig(
+        return MapAnythingConfig.small(remat=True), (1, 2, 56, 56), OptimConfig(
             lr=args.lr, min_lr=args.lr * 0.1, warmup_epochs=args.warmup / 100.0, epoch_len=100, total_epochs=1.0)
-    cfg = MapAnythingConfig(compute_dtype="bfloat16")
+    cfg = MapAnythingConfig(compute_dtype="bfloat16", remat=True, remat_policy="save_attn_mlp_pre")
     return cfg, (1, args.views, args.res, args.res), OptimConfig(
         lr=args.lr, min_lr=args.lr * 0.1, warmup_epochs=args.warmup / 100.0, epoch_len=100, total_epochs=1.0,
         mu_dtype="bfloat16")

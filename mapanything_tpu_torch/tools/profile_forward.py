@@ -1,6 +1,6 @@
 """Where the time of the flagship forward, or train step, goes on the card, by kernel family.
 
-    python3 -m mapanything_tpu_torch.tools.profile_forward [--train] [--ring] [--out DIR]
+    python3 -m mapanything_tpu_torch.tools.profile_forward [--train [--views V] [--remat POLICY]] [--ring] [--out DIR]
     python3 -m mapanything_tpu_torch.tools.profile_forward --dust3r {float32,bfloat16} [--out DIR]
 
 Builds MapAnythingConfig(compute_dtype="bfloat16") with seeded random
@@ -8,12 +8,17 @@ weights. Without ``--train``: the images-only forward on 1 x 8 views at
 518 px, under ``torch.inference_mode()``. With ``--train``: the train step
 (forward, backward and optimizer) on 1 x 4 views at 518 px, with the
 bench.py LossBatch and GeometricInputConfig() masks, as ``chip_smoke.py``
-phase 7 runs it. With ``--ring``: the same, view-parallel under the ring
-schedule on a process group of this process alone (NCCL at world size 1),
-as ``chip_smoke.py`` phases 9 and 10 run it. With ``--dust3r DTYPE``: the
-ModularDUSt3R forward at its published widths on one 512 x 384 pair in DTYPE,
-under ``torch.inference_mode()``, as ``chip_smoke.py`` phase 27 runs it.
-Warms up, then traces three iterations with torch.profiler
+phase 7 runs it; ``--views`` sets the views (24: phase 44's stage-2 step),
+``--remat POLICY`` rematerialises the encoder's and trunk's blocks under a
+``models/blocks.py`` policy ("nothing": full recompute). With ``--ring``: the
+same, view-parallel under the ring schedule on a process group of this
+process alone (NCCL at world size 1), as ``chip_smoke.py`` phases 9 and 10 run
+it. With ``--dust3r DTYPE``: the ModularDUSt3R forward at its published widths
+on one 512 x 384 pair in DTYPE, under ``torch.inference_mode()``, as
+``chip_smoke.py`` phase 27 runs it.
+Warms up three iterations, printing a line for each as it ends (its ms and the
+peak GiB allocated so far: a step that runs out of memory later leaves the
+readings before it), then traces three iterations with torch.profiler
 (CPU and CUDA activities). The Chrome trace is parsed directly: every
 "kernel" event is summed by name and by family (the port's attention
 kernels, GEMMs, convolutions, casts and copies, normalisation, resizes,
@@ -22,8 +27,9 @@ summary line: device busy time per iteration, the host wall time per
 iteration traced and, timed just before the trace in the same process,
 untraced, the device's idle share over the traced window, an estimate of
 the idle share without the profiler (one minus busy time over untraced
-wall time), and the families in order. The per-kernel table goes to ``<out>/profile_forward.json``
-(``profile_train.json`` with ``--train``; ``_ring`` added with ``--ring``;
+wall time), the peak GiB allocated, and the families in order. The per-kernel
+table goes to ``<out>/profile_forward.json`` (``profile_train.json`` with
+``--train``; ``_ring`` added with ``--ring``;
 ``profile_dust3r_<DTYPE>.json`` with ``--dust3r``).
 """
 
@@ -103,16 +109,18 @@ def forward_runner(group=None):
     return run, "MapAnythingConfig(compute_dtype='bfloat16'), 1x8x518x518 forward" + (", ring" if group else "")
 
 
-def train_runner(group=None):
-    """The train step on 1 x 4 x 518, as chip_smoke.py phase 7 runs it; with a
-    view group, as phase 10 does (the ring)."""
+def train_runner(group=None, views: int = 4, remat=None):
+    """The train step on 1 x ``views`` x 518, as chip_smoke.py phase 7 runs it at 4 views
+    (phase 44 at 24 under remat); with a view group, as phase 10 does (the ring); with
+    ``remat`` a policy name, the encoder's and trunk's blocks rematerialised under it."""
     from mapanything_tpu_torch.models.mapanything import GeometricInputConfig, MapAnything, MapAnythingConfig
     from mapanything_tpu_torch.train.losses import LossConfig, synthetic_loss_batch
     from mapanything_tpu_torch.train.optim import OptimConfig, build_optimizer
     from mapanything_tpu_torch.train.step import init_train_state, make_train_step
 
-    B, V = 1, 4
-    model = MapAnything(MapAnythingConfig(compute_dtype="bfloat16"), device="cuda", seed=0, geometric_inputs=True)
+    B, V = 1, views
+    cfg = MapAnythingConfig(compute_dtype="bfloat16", remat=remat is not None, remat_policy=remat)
+    model = MapAnything(cfg, device="cuda", seed=0, geometric_inputs=True)
     opt = build_optimizer(OptimConfig(lr=1e-7, min_lr=1e-8, epoch_len=100, total_epochs=1.0), model)
     step = make_train_step(model, opt, LossConfig(), GeometricInputConfig(), view_group=group)
     batch = synthetic_loss_batch(B, V, PX, PX, seed=0).to("cuda")  # bench.py:128-153
@@ -123,8 +131,9 @@ def train_runner(group=None):
     def run():
         box[0], _ = step(box[0], img, batch, gen)
 
-    return run, ("MapAnythingConfig(compute_dtype='bfloat16'), 1x4x518x518 train step (forward, backward, AdamW)"
-                 + (", ring" if group else ""))
+    rematted = "" if remat is None else f", remat=True, remat_policy={remat!r}"
+    return run, (f"MapAnythingConfig(compute_dtype='bfloat16'{rematted}), 1x{V}x518x518 train step (forward, "
+                 "backward, AdamW)" + (", ring" if group else ""))
 
 
 def dust3r_runner(compute_dtype: str):
@@ -145,6 +154,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/profile")
     ap.add_argument("--train", action="store_true", help="profile the train step instead of the forward")
+    ap.add_argument("--views", type=int, default=4, help="with --train: the views of the step")
+    ap.add_argument("--remat", metavar="POLICY",
+                    help="with --train: rematerialise the encoder's and trunk's blocks under POLICY (nothing: all)")
     ap.add_argument("--ring", action="store_true", help="view-parallel under the ring, on a group of one rank")
     ap.add_argument("--dust3r", choices=("float32", "bfloat16"),
                     help="profile the ModularDUSt3R forward in this dtype instead")
@@ -168,10 +180,13 @@ def main() -> None:
     if args.dust3r:
         run, config = dust3r_runner(args.dust3r)
     else:
-        run, config = train_runner(group) if args.train else forward_runner(group)
-    for _ in range(3):
+        run, config = train_runner(group, args.views, args.remat) if args.train else forward_runner(group)
+    for i in range(3):
+        t0 = time.perf_counter()
         run()
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        print(json.dumps({"warm_iteration": i, "ms": 1e3 * (time.perf_counter() - t0),
+                          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}), flush=True)
     t0 = time.perf_counter()
     for _ in range(ITERS):
         run()
@@ -222,6 +237,7 @@ def main() -> None:
         "idle_share_of_kernel_span": 1.0 - busy / span_us,
         "idle_share_untraced_estimate": 1.0 - busy / 1e6 / untraced_s,
         "kernel_launches_per_iteration": len(kernels) / n,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "families_ms_per_iteration": dict(sorted(
             ((k, v / n / 1e3) for k, v in by_family.items()), key=lambda kv: -kv[1])),
         "top_kernels": table[:12],

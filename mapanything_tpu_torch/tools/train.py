@@ -30,8 +30,12 @@ The tool joins the group (``init_distributed_mode``), builds the data x view
 ``Mesh`` over every rank (view fastest; ``data_parallelism`` -1 takes the ranks
 that are left) and gives it to the ``Trainer``; every rank's loader yields the
 same global batches, of which each rank takes its block. Activation
-rematerialisation (``remat``) raises: it is on ROADMAP.md's list of what is not
-ported, by design.
+rematerialisation is read as the JAX script reads it (:75-84): ``model.remat``
+(else ``train_params.grad_checkpointing``), ``model.remat_policy`` (else
+``train_params.remat_policy``) and the per-part ``model.encoder_remat``,
+``model.trunk_remat``, ``model.encoder_remat_policy`` and
+``model.trunk_remat_policy``, e.g. ``--override model.remat=true
+model.remat_policy=save_attn_mlp_pre``.
 """
 
 from __future__ import annotations
@@ -50,7 +54,6 @@ from mapanything_tpu_torch.train.loop import Trainer, TrainLoopConfig
 from mapanything_tpu_torch.train.losses import LossConfig
 from mapanything_tpu_torch.utils.config import load_config
 
-REMAT_KEYS = ("remat", "encoder_remat", "trunk_remat")
 
 
 def build_dataset(expr: str):
@@ -63,12 +66,6 @@ def build_dataset(expr: str):
 def model_config(cfg: dict) -> MapAnythingConfig:
     """The model config of the composed ``cfg``, field by field as the JAX script reads it."""
     mcfg, tp = cfg["model"], cfg["train_params"]
-    remat = {k: mcfg.get(k) for k in REMAT_KEYS if mcfg.get(k)}
-    if tp.get("grad_checkpointing") and "remat" not in mcfg:
-        remat["train_params.grad_checkpointing"] = True
-    if remat:
-        raise NotImplementedError(f"activation rematerialisation ({remat}) is not ported, by design "
-                                  "(ROADMAP.md §1, 'These are not ported, by design')")
     return MapAnythingConfig(
         encoder_size=mcfg["encoder"]["size"],
         patch_size=mcfg["encoder"]["patch_size"],
@@ -82,6 +79,12 @@ def model_config(cfg: dict) -> MapAnythingConfig:
         dpt_layer_dims=tuple(mcfg["pred_head"]["dpt_layer_dims"]),
         scene_rep_type=mcfg["pred_head"]["scene_rep_type"],
         compute_dtype=mcfg.get("compute_dtype", "bfloat16"),
+        remat=bool(mcfg.get("remat", tp.get("grad_checkpointing", False))),
+        remat_policy=mcfg.get("remat_policy", tp.get("remat_policy")),
+        encoder_remat=mcfg.get("encoder_remat"),
+        trunk_remat=mcfg.get("trunk_remat"),
+        encoder_remat_policy=mcfg.get("encoder_remat_policy"),
+        trunk_remat_policy=mcfg.get("trunk_remat_policy"),
     )
 
 

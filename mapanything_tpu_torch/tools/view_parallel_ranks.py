@@ -78,8 +78,11 @@ def attention_cases(rank: int, world_size: int, cases: list) -> list:
 
 
 def _small_model(config_kw: dict, params, geometric_inputs: bool) -> MapAnything:
+    """The small model holding ``params``, built on the meta device (no seeded init)."""
     cfg = MapAnythingConfig.small(**config_kw)
-    return load_jax_params(MapAnything(cfg, device="cpu", geometric_inputs=geometric_inputs), params)
+    with torch.device("meta"):
+        model = MapAnything(cfg, device="meta", geometric_inputs=geometric_inputs)
+    return load_jax_params(model.to_empty(device="cpu"), params)
 
 
 def _predictions_np(preds) -> dict:
@@ -127,6 +130,44 @@ def cp_train_step(rank: int, world_size: int, config_kw: dict, params, img, batc
         "params": {n: p.detach().numpy() for n, p in state.params.items()},
         "counts": sa.counts(),
     }
+
+
+def cp_remat_steps(rank: int, world_size: int, config_kw: dict, params, img, batch: dict, masks: dict,
+                   opt_kw: dict) -> dict:
+    """The view-parallel step (ring) of the small model with every geometric input from the
+    same weights, once with the trunk rematerialised (``trunk_remat=True``: the ring's
+    collectives are replayed inside the backward) and once without; on the first rank also
+    the unsharded step with the trunk rematerialised. Returns, on every rank, the names of
+    the leaves whose gradients differ between the two ring steps (summed over the group),
+    each leaf's largest gradient gap of the remat ring step to the unsharded one over the
+    leaf's largest magnitude (first rank only), the losses, and each step's ring counts."""
+    group = make_view_group()
+    model = _small_model(config_kw, params, True)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    sl = view_slice(group, img.shape[1])
+    full = LossBatch(**{k: torch.from_numpy(np.array(v)) for k, v in batch.items()})
+    mk = ModalityMasks(**{k: None if v is None else torch.from_numpy(v) for k, v in masks.items()})
+    opt = build_optimizer(OptimConfig(**opt_kw), model)
+    runs = [("ring_remat", True, group), ("ring", False, group)] + ([("unsharded_remat", True, None)] if rank == 0
+                                                                      else [])
+    grads, losses, counts = {}, {}, {}
+    for name, remat, g in runs:
+        model.load_state_dict(start)
+        model.configure_remat(trunk_remat=remat)
+        state = init_train_state(model, opt)
+        step = make_train_step(model, opt, view_group=g)
+        lb, im = (full, img) if g is None else (shard_views_pytree(full, g), img[:, sl])
+        sa.reset_counts()
+        state, metrics = step(state, torch.from_numpy(im), lb, torch.Generator().manual_seed(0), masks=mk)
+        grads[name] = {n: p.grad.clone() for n, p in state.params.items()}
+        losses[name], counts[name] = metrics["loss"].item(), sa.counts()
+    out = {"differ": [n for n, g in grads["ring_remat"].items() if not torch.equal(g, grads["ring"][n])],
+           "losses": losses, "counts": counts}
+    if rank == 0:
+        out["gap_to_unsharded"] = {
+            n: float((g - grads["unsharded_remat"][n]).abs().max() / (grads["unsharded_remat"][n].abs().max() + 1e-12))
+            for n, g in grads["ring_remat"].items()}
+    return out
 
 
 def loss_parts(rank: int, world_size: int, view_parallelism: int, data_axis: bool, cfg_kw: dict, batch: dict,

@@ -7,9 +7,11 @@ the JAX package wrote builds the same
 ``MapAnythingConfig`` here. The weights are a torch state dict under the
 reference's names in ``model.pt``, in place of orbax's directory.
 
-The port's config is a subset of the JAX one. Of the JAX fields it lacks, those
-that only say how JAX executes (remat, scan, the context-parallel switch) are
-ignored; the others must hold the JAX default, since the port builds only that.
+The port's config is a subset of the JAX one. It reads and writes the six remat
+fields (``remat``, ``encoder_remat``, ``trunk_remat`` and their policies). Of the JAX
+fields it lacks, those that only say how JAX executes (``scan_layers``, the
+context-parallel switch) are ignored; the others must hold the JAX default, since the
+port builds only that.
 """
 
 from __future__ import annotations
@@ -35,8 +37,7 @@ from mapanything_tpu_torch.utils.checkpoint import model_from_reference
 
 WEIGHTS_NAME = "model.pt"
 # JAX fields with no effect on what the model computes.
-_EXECUTION_ONLY = ("context_parallel_trunk", "scan_layers", "remat", "encoder_remat", "trunk_remat",
-                   "remat_policy", "encoder_remat_policy", "trunk_remat_policy")
+_EXECUTION_ONLY = ("context_parallel_trunk", "scan_layers")
 # JAX fields the port does not have, with the only value it builds.
 _FIXED = {"with_confidence": True, "with_mask": True}
 

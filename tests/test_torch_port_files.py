@@ -380,12 +380,14 @@ def test_reference_checkpoint_load_is_strict(multimodal):
 
 def test_jax_config_json_builds_the_same_config(tmp_path):
     """A config.json that the JAX save_pretrained writes builds, in the port, the
-    config made from the same arguments; execution-only JAX fields are ignored,
-    and an unported value raises."""
-    kw = dict(compute_dtype="bfloat16", head_chunk_size=2, info_sharing_depth=2, use_scalable_softmax=True)
+    config made from the same arguments, its remat fields included, and the port's
+    save_pretrained writes them back; execution-only JAX fields are ignored, and an
+    unported value raises."""
+    kw = dict(compute_dtype="bfloat16", head_chunk_size=2, info_sharing_depth=2, use_scalable_softmax=True,
+              remat=True, trunk_remat=False, encoder_remat_policy="save_attn_mlp_pre", trunk_remat_policy="dots")
     dense = dict(components=("ray_directions", "depth"), with_confidence=True, with_mask=True)
     jcfg = jax_ma.MapAnythingConfig.small(
-        **kw, remat=True, scan_layers=True,
+        **kw, scan_layers=True,
         dense_adaptor=dataclasses.replace(jax_ma.MapAnythingConfig().dense_adaptor, **dense,
                                           confidence=type(jax_ma.MapAnythingConfig().dense_adaptor.confidence)(
                                               "sigmoid", 0.5, 4.0)))
@@ -394,6 +396,11 @@ def test_jax_config_json_builds_the_same_config(tmp_path):
     want = port_ma.MapAnythingConfig.small(**kw, dense_adaptor=port_adaptors.DenseAdaptorConfig(
         **dense, confidence=port_adaptors.ConfidenceConfig("sigmoid", 0.5, 4.0)))
     assert got == want
+    port_model = port_ma.MapAnything(got, device="cpu")
+    assert {b.remat.name for b in port_model.encoder.model.blocks} == {"save_attn_mlp_pre"}
+    assert {b.remat for b in port_model.info_sharing.self_attention_blocks} == {None}
+    port_hub.save_pretrained(port_model, tmp_path / "port")
+    assert port_hub.read_config(tmp_path / "port") == want
     raw = json.loads((tmp_path / "jax" / "config.json").read_text())["config"]
     assert raw["dense_adaptor"]["depth"]["vmax"] == float("inf")
     with pytest.raises(NotImplementedError, match="with_mask"):

@@ -261,8 +261,24 @@ def test_train_tool_refuses_what_the_port_lacks(wai, tmp_path, monkeypatch):
     argv = tool_args(base, root, meta, tmp_path) + ["--device", "cpu"]
     with pytest.raises(RuntimeError, match="torchrun"):  # a mesh needs its ranks' process group
         port_train.main(argv + ["--override", "distributed.mesh.view_parallelism=2"])
-    with pytest.raises(NotImplementedError, match="not ported, by design"):
-        port_train.main(argv + ["--override", "model.remat=true"])
+    # Rematerialisation, read as the JAX script reads it (:75-84), and a step under it.
+    remat = ["model.remat=true", "model.trunk_remat_policy=save_attn"]
+    trainer = port_train.main(argv + sum((["--override", o] for o in remat), []))
+    assert trainer.state.step == 2 and trainer.state.opt_state.count == 2
+    log = [json.loads(x) for x in (tmp_path / "train" / "log.txt").read_text().splitlines()]
+    assert np.isfinite(log[0]["train_loss"])
+    shutil.rmtree(tmp_path / "train")  # the small multimodal model's checkpoint: 0.8 GB
+    model = trainer.model
+    assert {b.remat.name for b in model.encoder.model.blocks} == {None}
+    assert {b.remat.name for b in model.info_sharing.self_attention_blocks} == {"save_attn"}
+    remat_fields = ("remat", "encoder_remat", "trunk_remat", "remat_policy", "encoder_remat_policy",
+                    "trunk_remat_policy")
+    for extra in (remat, ["train_params.grad_checkpointing=true", "train_params.remat_policy=save_attn_mlp_pre"]):
+        extra_argv = argv[:-2] + sum((["--override", o] for o in extra), [])
+        args = port_train.parse_args(extra_argv)
+        got = port_train.model_config(port_train.load_config(args.config, overrides=args.override))
+        want = jax_script_builds(monkeypatch, extra_argv)["model_cfg"]
+        assert got.remat and fields(got, remat_fields) == fields(want, remat_fields), extra
     with pytest.raises(ValueError, match="no dataset"):
         port_train.build(port_train.parse_args(["--config", str(ROOT / "configs" / "train.yaml"), "--override",
                                                 "dataset.train_dataset=???"]))
